@@ -1,0 +1,78 @@
+"""Additive ordinal embedder (AOE).
+
+Counterpart of `psd_tpu/conditioning/ordinal.py::AdditiveOrdinalEmbedder`
+(inference path):
+  * class table E[k] = base + cumsum(deltas)[:k];
+  * continuous labels interpolate linearly between rows, clamped to [0, K−1];
+  * projector MLP D → 2D → GELU → D·T, reshaped to T tokens;
+  * `negative`: the smooth negative embedding at clamp(1−y, 0, 1);
+  * `ordinal_delta`: proj(E[target]) − proj(E[source]), exactly zero when
+    the labels are equal.
+The train-time regularization noise and BOE wait for training.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.geglu import gelu_exact
+
+
+def interp_table(table: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Linear interpolation of rows of a (K, D) table at float labels (B,)."""
+    K = table.shape[0]
+    y = labels.to(table.dtype).clamp(0.0, float(K - 1))
+    lower = torch.floor(y)
+    upper = torch.clamp(lower + 1, max=K - 1).long()
+    alpha = (y - lower)[:, None]
+    return table[lower.long()] * (1.0 - alpha) + table[upper] * alpha
+
+
+class AdditiveOrdinalEmbedder(nn.Module):
+    def __init__(self, num_classes: int = 4, embedding_dim: int = 768,
+                 init_std: float = 0.02, delta_scale: float = 0.1, num_tokens: int = 16):
+        super().__init__()
+        if num_classes < 2:
+            raise ValueError("num_classes must be >= 2 for ordinal modeling.")
+        D, K = embedding_dim, num_classes
+        self.num_classes, self.embedding_dim, self.num_tokens = K, D, num_tokens
+        self.init_std, self.delta_scale = init_std, delta_scale
+        self.base = nn.Parameter(torch.zeros(D))
+        self.deltas = nn.Parameter(torch.zeros(K - 1, D))
+        self.null_embedding = nn.Parameter(torch.zeros(1, D))
+        self.projector_0 = nn.Linear(D, 2 * D)
+        self.projector_2 = nn.Linear(2 * D, D * num_tokens)
+
+    @torch.no_grad()
+    def reset_flax_(self, generator: torch.Generator):
+        """The flax init: base ~ N(0, init_std); deltas row i ~
+        (delta_scale + N(0, init_std))·(1 + 0.1·i) (monotonic); null zero."""
+        g = generator
+        self.base.normal_(0.0, self.init_std, generator=g)
+        noise = torch.empty_like(self.deltas).normal_(0.0, self.init_std, generator=g)
+        i = torch.arange(self.num_classes - 1, dtype=self.deltas.dtype,
+                         device=self.deltas.device)[:, None]
+        self.deltas.copy_((self.delta_scale + noise) * (1.0 + 0.1 * i))
+        self.null_embedding.zero_()
+
+    def class_table(self) -> torch.Tensor:
+        offsets = torch.cat([torch.zeros_like(self.deltas[:1]),
+                             torch.cumsum(self.deltas, dim=0)])
+        return self.base[None, :] + offsets
+
+    def _project(self, emb):
+        h = gelu_exact(self.projector_0(emb))
+        return self.projector_2(h).reshape(-1, self.num_tokens, self.embedding_dim)
+
+    def forward(self, labels: torch.Tensor) -> torch.Tensor:
+        """labels (B,) float in [0, K−1] → (B, T, D) fp32."""
+        return self._project(interp_table(self.class_table(), labels))
+
+    def negative(self, labels: torch.Tensor) -> torch.Tensor:
+        return self(torch.clamp(1.0 - labels, 0.0, 1.0))
+
+    def ordinal_delta(self, source_labels, target_labels):
+        table = self.class_table()
+        return (self._project(interp_table(table, target_labels))
+                - self._project(interp_table(table, source_labels)))

@@ -1,0 +1,235 @@
+"""DADD model assembly: conditioning, the DDIM loop over the UNet, VAE decode.
+
+Counterpart of `psd_tpu/diffusion/dadd.py` (inference):
+  * `DADDCore` — one module over the UNet, the ordinal embedder, the image
+    projection and the purifier (the JAX package's single trainable tree).
+  * `DADD` — owns the core, the VAE decoder and the schedule;
+    `prepare_inference_cond` and `generate` are the serving path.
+
+Conditioning layouts:
+  routing gates ON : [source AOE (N) | purified image (N) | delta (N)]
+  routing gates OFF: [target AOE (N) | image (N)]
+
+In PyTorch's idiom the weights live in the modules, so the methods take no
+parameter trees: `DADD(...)` initialises them from a seed (flax-style) and
+`load_flax(core_tree, vae_tree)` replaces them with bridged JAX parameters.
+The UNet's and decoder's matmul/conv weights are stored in the compute dtype
+(`models.layers.store_weights_in_`); everything else stays fp32.
+CLIP, LEACE, the turbo levers and training wait for later slices.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..conditioning import AdditiveOrdinalEmbedder, FeaturePurifier, ImageProjectionPlus
+from ..convert.from_jax import load_flax_, vae_decode_tree
+from ..core.config import Config
+from ..models.init import flax_init_
+from ..models.layers import store_weights_in_
+from ..models.unet import UNet2DCondition, UNetConfig
+from ..models.vae import VAEConfig, VAEDecode
+from .sampler import SamplerConfig, cfg_eps_fn, ddim_sample
+from .schedule import NoiseSchedule
+
+
+@dataclass(frozen=True)
+class DADDCoreConfig:
+    unet: UNetConfig
+    embedding_dim: int = 768
+    conditioning_dim: int = 768
+    num_classes: int = 4
+    num_aoe_tokens: int = 16
+    num_image_tokens: int = 16
+    aoe_delta_scale: float = 0.05
+    embedder_type: str = "aoe"
+    use_image_projection_plus: bool = True
+    use_feature_purifier: bool = True
+    use_routing_gates: bool = True
+    purifier_num_heads: int = 8
+    purifier_ff_mult: int = 2
+    clip_hidden_dim: int = 1024
+    use_image_conditioning: bool = True
+
+
+class DADDCore(nn.Module):
+    def __init__(self, cfg: DADDCoreConfig):
+        super().__init__()
+        if cfg.embedder_type != "aoe":
+            raise NotImplementedError("only the AOE ordinal embedder is ported")
+        if cfg.use_image_conditioning and not cfg.use_image_projection_plus:
+            raise NotImplementedError("only the IP-Plus image projection is ported")
+        self.cfg = cfg
+        self.unet = UNet2DCondition(cfg.unet)
+        self.ordinal_embedder = AdditiveOrdinalEmbedder(
+            cfg.num_classes, cfg.embedding_dim, delta_scale=cfg.aoe_delta_scale,
+            num_tokens=cfg.num_aoe_tokens)
+        if cfg.use_image_conditioning:
+            self.image_projection = ImageProjectionPlus(
+                cfg.clip_hidden_dim, cfg.conditioning_dim, cfg.num_image_tokens)
+            if cfg.use_feature_purifier:
+                self.feature_purifier = FeaturePurifier(
+                    cfg.conditioning_dim, cfg.purifier_num_heads, cfg.purifier_ff_mult)
+
+    def prepare_conditioning(self, labels, clip_feats, source_labels=None,
+                             zero_aoe: bool = False, image_scale: float = 1.0,
+                             drop_image_mask: Optional[torch.Tensor] = None):
+        c = self.cfg
+        emb = self.ordinal_embedder
+        src = labels if source_labels is None else source_labels
+        target_aoe = emb.negative(labels) if zero_aoe else emb(labels)
+        if not c.use_image_conditioning or clip_feats is None:
+            return target_aoe
+        source_aoe = emb(src)
+        image_embeds = self.image_projection(clip_feats)
+        if c.use_feature_purifier:
+            image_embeds = self.feature_purifier(image_embeds, source_aoe)
+        image_embeds = image_embeds * image_scale
+        if drop_image_mask is not None:
+            image_embeds = torch.where(drop_image_mask[:, None, None],
+                                       torch.zeros_like(image_embeds), image_embeds)
+        if c.use_routing_gates:
+            delta = emb.ordinal_delta(src, labels)
+            return torch.cat([source_aoe, image_embeds, delta], dim=1)
+        return torch.cat([target_aoe, image_embeds], dim=1)
+
+    def eps(self, latents, t, cond, delta_scale: float = 0.0):
+        return self.unet(latents, t, cond, delta_scale)
+
+
+def core_config_from(cfg: Config, dtype=torch.bfloat16) -> DADDCoreConfig:
+    """DADDCoreConfig from a reference-format Config (routing gates → split3)."""
+    m = cfg.model
+    if not m.use_routing_gates:
+        raise NotImplementedError("split2 routing (use_routing_gates=false) is not ported")
+    unet = UNetConfig(
+        in_channels=m.latent_channels,
+        out_channels=m.latent_channels,
+        block_out_channels=tuple(m.block_out_channels),
+        layers_per_block=2,
+        num_heads=m.attention_heads,
+        cross_attention_dim=m.conditioning_dim,
+        attn_mode="split3",
+        num_aoe_tokens=m.num_aoe_tokens,
+        num_image_tokens=m.num_image_tokens,
+        num_delta_tokens=m.num_aoe_tokens,
+        use_frequency_strategy=m.use_frequency_strategy,
+        gate_init_anatomy=m.gate_init_anatomy,
+        gate_init_disease=m.gate_init_disease,
+        dtype=dtype,
+    )
+    return DADDCoreConfig(
+        unet=unet,
+        embedding_dim=m.embedding_dim,
+        conditioning_dim=m.conditioning_dim,
+        num_classes=m.ordinal_embedder.num_classes,
+        num_aoe_tokens=m.num_aoe_tokens,
+        num_image_tokens=m.num_image_tokens,
+        aoe_delta_scale=m.ordinal_embedder.delta_scale,
+        embedder_type=m.ordinal_embedder.type,
+        use_image_projection_plus=m.use_image_projection_plus,
+        use_feature_purifier=m.use_feature_purifier,
+        use_routing_gates=m.use_routing_gates,
+        purifier_num_heads=m.purifier_num_heads,
+        purifier_ff_mult=m.purifier_ff_mult,
+    )
+
+
+class DADD:
+    """Orchestrator: core + VAE decoder + schedule on one device."""
+
+    def __init__(self, cfg: Config, core_cfg: Optional[DADDCoreConfig] = None,
+                 vae_cfg: Optional[VAEConfig] = None, dtype=torch.bfloat16,
+                 device="cpu", seed: Optional[int] = 0):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.core_cfg = core_cfg or core_config_from(cfg, dtype=dtype)
+        self.vae_cfg = vae_cfg or VAEConfig(dtype=dtype)
+        with self.device:
+            self.core = DADDCore(self.core_cfg).eval()
+            self.vae = VAEDecode(self.vae_cfg).eval()
+        if seed is not None and self.device.type != "meta":
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            flax_init_(self.core, gen)
+            flax_init_(self.vae, gen)
+        store_weights_in_(self.core.unet, self.core_cfg.unet.dtype)
+        store_weights_in_(self.vae.decoder, self.vae_cfg.dtype)
+        self.schedule = NoiseSchedule(
+            num_train_timesteps=cfg.diffusion.num_train_timesteps,
+            beta_start=cfg.diffusion.beta_start,
+            beta_end=cfg.diffusion.beta_end,
+            kind=cfg.diffusion.noise_schedule,
+        )
+        self.latent_scale = cfg.diffusion.latent_scale
+        self.spatial_factor = 2 ** (len(self.vae_cfg.block_out_channels) - 1)
+
+    def load_flax(self, core_tree, vae_tree) -> "DADD":
+        """Replace the weights with `psd_tpu` parameter trees (numpy leaves)."""
+        load_flax_(self.core, core_tree)
+        load_flax_(self.vae, vae_decode_tree(vae_tree))
+        return self
+
+    def _t(self, a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype).to(self.device)
+
+    @torch.inference_mode()
+    def prepare_inference_cond(self, target_labels, source_labels, clip_feats,
+                               image_scale: float = 1.0, zero_aoe: bool = False,
+                               zero_image: bool = False) -> torch.Tensor:
+        """(B,) target and source labels, CLIP features → (B, 3N, D) fp32."""
+        tgt = self._t(target_labels)
+        mask = torch.ones(tgt.shape[0], dtype=torch.bool, device=self.device) if zero_image else None
+        return self.core.prepare_conditioning(
+            tgt, self._t(clip_feats), self._t(source_labels), zero_aoe=zero_aoe,
+            image_scale=image_scale, drop_image_mask=mask)
+
+    def initial_noise(self, batch: int, image_size: int, generator: torch.Generator,
+                      shared_noise: bool = True) -> torch.Tensor:
+        lat = image_size // self.spatial_factor
+        C = self.core_cfg.unet.in_channels
+        shape = (1 if shared_noise else batch, lat, lat, C)
+        x0 = torch.randn(shape, generator=generator, dtype=torch.float32,
+                         device=self.device)
+        return x0.expand(batch, -1, -1, -1).contiguous() if shared_noise else x0
+
+    @torch.inference_mode()
+    def sample(self, cond, x0: torch.Tensor, sampling_steps: Optional[int] = None,
+               steer_scale: float = 0.0, guidance_scale: float = 1.0,
+               cond_uncond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """DDIM from the initial latents x0 (B, h, w, 4) → scaled latents, fp32."""
+        steps = sampling_steps or self.cfg.diffusion.sampling_steps
+
+        def raw_eps(x, t, i, embeds):
+            return self.core.eps(x, t, embeds, float(steer_scale))
+
+        eps_fn = cfg_eps_fn(raw_eps, cond, cond_uncond, guidance_scale)
+        return ddim_sample(eps_fn, x0, self.schedule, SamplerConfig(sampling_steps=steps))
+
+    @torch.inference_mode()
+    def decode_latents(self, latents) -> torch.Tensor:
+        """Scaled latents → images in [0, 1], fp32."""
+        imgs = self.vae(latents / self.latent_scale)
+        return torch.clamp(imgs.float() / 2.0 + 0.5, 0.0, 1.0)
+
+    @torch.inference_mode()
+    def generate(self, cond, x0: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None, image_size: int = 256,
+                 sampling_steps: Optional[int] = None, steer_scale: float = 0.0, guidance_scale: float = 1.0,
+                 cond_uncond: Optional[torch.Tensor] = None,
+                 shared_noise: bool = True) -> torch.Tensor:
+        """Sample + VAE decode → (B, H, W, 3) images in [0, 1].
+
+        The initial latents are `x0` when given (tests pass the noise JAX
+        drew), else drawn from `generator` (one latent shared across the
+        batch when `shared_noise`)."""
+        if x0 is None:
+            if generator is None:
+                raise ValueError("generate needs x0 or a torch.Generator")
+            x0 = self.initial_noise(cond.shape[0], image_size, generator, shared_noise)
+        lat = self.sample(cond, x0.to(self.device), sampling_steps, steer_scale,
+                          guidance_scale, cond_uncond)
+        return self.decode_latents(lat)

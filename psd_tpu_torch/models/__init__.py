@@ -1,0 +1,16 @@
+from .layers import CrossAttnMode, timestep_embedding
+from .unet import UNet2DCondition, UNetConfig, sd14_unet_config, tiny_unet_config
+from .vae import VAEConfig, VAEDecode, sd_vae_config, tiny_vae_config
+
+__all__ = [
+    "CrossAttnMode",
+    "timestep_embedding",
+    "UNet2DCondition",
+    "UNetConfig",
+    "sd14_unet_config",
+    "tiny_unet_config",
+    "VAEConfig",
+    "VAEDecode",
+    "sd_vae_config",
+    "tiny_vae_config",
+]

@@ -1,0 +1,334 @@
+"""UNet and VAE building blocks, NHWC, as PyTorch modules.
+
+Counterpart of `psd_tpu/models/layers.py` (the non-quantized, ToMe-free
+inference path). Module attribute names are the flax tree names
+(`time_emb_proj`, `attn2.to_k_dis`, `ff.net_0_proj`, ...), so the bridge from
+JAX parameters (`convert/from_jax.py`) is a mechanical walk. Each module
+computes in its `dtype`, casting parameters at use, as flax's (dtype,
+param_dtype) pair does (`store_weights_in_` makes that cast a no-op for the
+weights that are only ever used in `dtype`).
+
+The four kernel sites, routed by shape as `psd_tpu` routes them:
+  * self-attention with S ≥ 512 → `ops.attention` (attention_fwd);
+  * split3 cross-attention with S ≥ 256, S % 128 == 0 → `ops.split3`;
+  * norm1/norm2 + q/k/v projections with B·S % 512 == 0, C % 64 == 0 →
+    `ops.geglu.ln_proj_fwd`;
+  * norm3 + GEGLU projection, same gate → `ops.geglu.ln_geglu_fwd`.
+Each wrapper runs its plain version for a CPU tensor. Transformer2D's
+GroupNorm→proj_in stays plain: its kernel (gn_proj) is not ported yet
+(`core.mode.NOT_PORTED`).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.mode import use_kernel
+from ..ops.attention import dot_product_attention
+from ..ops.geglu import gelu_exact, ln_geglu_fwd, ln_proj_fwd, ln_reference
+from ..ops.norms import group_norm
+from ..ops.split3 import split3_fwd
+from ..ops.upconv import conv2d_nhwc, upsample2x_conv3x3
+
+
+@torch.no_grad()
+def store_weights_in_(module: nn.Module, dtype) -> nn.Module:
+    """Keep every Linear/Conv2d weight under `module` in `dtype`.
+
+    The UNet's and the VAE decoder's matmul and conv weights are only ever
+    consumed cast to the compute dtype, so storing them cast is the same
+    math with one cast at load instead of one per use (≈780 cast kernels per
+    SD-scale UNet eval). Biases and norm parameters stay fp32: the GroupNorm
+    fold, LayerNorm, the GEGLU bias and the final conv bias use them in fp32."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            m.weight.data = m.weight.data.to(dtype)
+    return module
+
+
+def linear(x, layer: nn.Linear, dtype):
+    """flax nn.Dense with (dtype, fp32 params): operands and bias in dtype."""
+    b = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), b)
+
+
+def conv(x, layer: nn.Conv2d, dtype, stride: int = 1):
+    """NHWC conv with the layer's OIHW weight, SAME padding, in dtype."""
+    pad = layer.kernel_size[0] // 2
+    return conv2d_nhwc(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
+                       stride=stride, padding=pad)
+
+
+def conv1x1(x, layer: nn.Conv2d, dtype):
+    """1×1 conv as a matmul over the last axis (Transformer2D proj_in/out)."""
+    w = layer.weight.reshape(layer.out_channels, layer.in_channels)
+    return F.linear(x.to(dtype), w.to(dtype), layer.bias.to(dtype))
+
+
+def gn(x, layer: nn.GroupNorm, shift=None):
+    return group_norm(x, layer.weight, layer.bias, layer.num_groups, layer.eps,
+                      shift=shift)
+
+
+def timestep_embedding(timesteps, dim: int, max_period: float = 10000.0,
+                       flip_sin_to_cos: bool = True,
+                       downscale_freq_shift: float = 0.0):
+    """Sinusoidal timestep embedding, cos first (SD convention), fp32."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(half, dtype=torch.float32,
+                                                    device=timesteps.device)
+    freqs = torch.exp(exponent / (half - downscale_freq_shift))
+    args = timesteps.float()[:, None] * freqs[None, :]
+    sin, cos = torch.sin(args), torch.cos(args)
+    emb = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class TimestepEmbedding(nn.Module):
+    """linear_1 → SiLU → linear_2."""
+
+    def __init__(self, in_dim: int, time_embed_dim: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.linear_1 = nn.Linear(in_dim, time_embed_dim)
+        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+
+    def forward(self, t_emb):
+        h = F.silu(linear(t_emb, self.linear_1, self.dtype))
+        return linear(h, self.linear_2, self.dtype)
+
+
+def final_conv(x, layer: nn.Conv2d, dtype):
+    """3×3 conv in dtype, result upcast to fp32 before the fp32 bias
+    (psd_tpu FinalConv: the UNet/VAE output convs)."""
+    out = conv2d_nhwc(x.to(dtype), layer.weight.to(dtype), None, padding=1)
+    return out.float() + layer.bias.float()
+
+
+class ResnetBlock2D(nn.Module):
+    """GN→SiLU→conv → (+temb folded into GN) → GN→SiLU→conv → +shortcut.
+
+    The up path's skip join is a real channel concat here; `psd_tpu` splits
+    the conv weights to avoid materializing it, which is the same math."""
+
+    def __init__(self, in_channels: int, out_channels: int, temb_dim: Optional[int] = None,
+                 eps: float = 1e-5, groups: int = 32, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        if temb_dim is not None:
+            self.time_emb_proj = nn.Linear(temb_dim, out_channels)
+        self.norm2 = nn.GroupNorm(groups, out_channels, eps=eps)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        if in_channels != out_channels:
+            self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
+
+    def forward(self, x, temb=None, skip=None):
+        dt = self.dtype
+        emb = None
+        if hasattr(self, "time_emb_proj"):
+            emb = linear(F.silu(temb), self.time_emb_proj, dt)
+        if skip is not None:
+            x = torch.cat([x, skip], dim=-1)
+        h = conv(F.silu(gn(x, self.norm1)), self.conv1, dt)
+        # h + temb folds into norm2's statistics and affine (ops/norms.py)
+        h = conv(F.silu(gn(h, self.norm2, shift=emb)), self.conv2, dt)
+        if hasattr(self, "conv_shortcut"):
+            x = conv(x, self.conv_shortcut, dt)
+        return x + h
+
+
+class Downsample2D(nn.Module):
+    def __init__(self, channels: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return conv(x, self.conv, self.dtype, stride=2)
+
+
+class Upsample2D(nn.Module):
+    def __init__(self, channels: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x):
+        return upsample2x_conv3x3(x.to(self.dtype), self.conv.weight, self.conv.bias,
+                                  dtype=self.dtype)
+
+
+@dataclass(frozen=True)
+class CrossAttnMode:
+    """Static routing of one cross-attention site (psd_tpu CrossAttnMode).
+
+    "plain": K/V over the whole conditioning sequence. "split3": anat K/V
+    from to_k/to_v over tokens [N_aoe : N_aoe+N_img]; dis and delta K/V from
+    to_k_dis/to_v_dis over [:N_aoe] and [-N_delta:]; combined
+    anat_gate·z_anat + dis_gate·z_dis + δ·z_delta. ("split2" waits.)
+    """
+
+    kind: str = "plain"
+    num_aoe_tokens: int = 16
+    num_image_tokens: int = 16
+    num_delta_tokens: int = 16
+    anat_gate: float = 0.5
+    dis_gate: float = 0.5
+
+
+def ln_fused_ok(x) -> bool:
+    """Shape gate of the fused LayerNorm kernels (layers.py:591-613)."""
+    return (x.shape[0] * x.shape[1]) % 512 == 0 and x.shape[-1] % 64 == 0
+
+
+class Attention(nn.Module):
+    """Multi-head attention; self-attention when `context` is None.
+
+    The block's pre-attention LayerNorm is passed in (ln_scale/ln_bias) and
+    fused with the projections: three (q, k, v) for self-attention, one (q)
+    for cross-attention."""
+
+    def __init__(self, dim: int, num_heads: int, context_dim: Optional[int] = None,
+                 mode: CrossAttnMode = CrossAttnMode(), dtype=torch.bfloat16):
+        super().__init__()
+        if mode.kind not in ("plain", "split3"):
+            raise NotImplementedError(f"attention mode {mode.kind!r} is not ported")
+        self.dtype = dtype
+        self.num_heads = num_heads
+        self.is_cross = context_dim is not None
+        self.mode = mode if self.is_cross else CrossAttnMode("plain")
+        ctx = context_dim if self.is_cross else dim
+        self.to_q = nn.Linear(dim, dim, bias=False)
+        self.to_k = nn.Linear(ctx, dim, bias=False)
+        self.to_v = nn.Linear(ctx, dim, bias=False)
+        if self.mode.kind == "split3":
+            self.to_k_dis = nn.Linear(ctx, dim, bias=False)
+            self.to_v_dis = nn.Linear(ctx, dim, bias=False)
+        self.to_out_0 = nn.Linear(dim, dim)
+
+    def forward(self, x, context=None, delta_scale: Optional[float] = None,
+                ln_scale=None, ln_bias=None):
+        dt = self.dtype
+        B, S, C = x.shape
+        hd = C // self.num_heads
+
+        def heads(t):
+            return t.reshape(B, -1, self.num_heads, hd)
+
+        ws = (self.to_q.weight,) if self.is_cross else (
+            self.to_q.weight, self.to_k.weight, self.to_v.weight)
+        if ln_scale is None:
+            outs = [F.linear(x.to(dt), w.to(dt)) for w in ws]
+        elif ln_fused_ok(x) and use_kernel("ln_proj"):
+            outs = ln_proj_fwd(x.reshape(B * S, C).to(dt), ln_scale, ln_bias,
+                               tuple(w.to(dt) for w in ws))
+            outs = [o.reshape(B, S, C) for o in outs]
+        else:
+            hn = ln_reference(x.to(dt), ln_scale, ln_bias)
+            outs = [F.linear(hn, w.to(dt)) for w in ws]
+        q = heads(outs[0])
+
+        if not self.is_cross:
+            z = dot_product_attention(q, heads(outs[1]), heads(outs[2]))
+        elif self.mode.kind == "split3":
+            m = self.mode
+            ctx = context.to(dt)
+            dis_tok = ctx[:, :m.num_aoe_tokens]
+            anat_tok = ctx[:, m.num_aoe_tokens:m.num_aoe_tokens + m.num_image_tokens]
+            delta_tok = ctx[:, ctx.shape[1] - m.num_delta_tokens:]
+            banks = tuple(heads(linear(t, lyr, dt)) for t, lyr in (
+                (anat_tok, self.to_k), (anat_tok, self.to_v),
+                (dis_tok, self.to_k_dis), (dis_tok, self.to_v_dis),
+                (delta_tok, self.to_k_dis), (delta_tok, self.to_v_dis)))
+            ds = 0.0 if delta_scale is None else float(delta_scale)
+            if S >= 256 and S % 128 == 0 and use_kernel("split3"):
+                z = split3_fwd(q.contiguous(), *banks, ds, m.anat_gate, m.dis_gate)
+            else:
+                z_anat = dot_product_attention(q, banks[0], banks[1])
+                z_dis = dot_product_attention(q, banks[2], banks[3])
+                z_delta = dot_product_attention(q, banks[4], banks[5])
+                z = m.anat_gate * z_anat + m.dis_gate * z_dis + ds * z_delta
+        else:
+            ctx = context.to(dt)
+            z = dot_product_attention(q, heads(linear(ctx, self.to_k, dt)),
+                                      heads(linear(ctx, self.to_v, dt)))
+        return linear(z.reshape(B, S, C), self.to_out_0, dt)
+
+
+class GEGLUFeedForward(nn.Module):
+    """LN (passed in) → GEGLU projection dim→8·dim, split, h·gelu(g) →
+    net_2 (4·dim→dim)."""
+
+    def __init__(self, dim: int, mult: int = 4, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.net_0_proj = nn.Linear(dim, dim * mult * 2)
+        self.net_2 = nn.Linear(dim * mult, dim)
+
+    def forward(self, x, ln_scale, ln_bias):
+        dt = self.dtype
+        B, S, C = x.shape
+        w0, b0 = self.net_0_proj.weight, self.net_0_proj.bias
+        if ln_fused_ok(x) and use_kernel("ln_geglu"):
+            h = ln_geglu_fwd(x.reshape(B * S, C).to(dt), ln_scale, ln_bias,
+                             w0.to(dt), b0).reshape(B, S, -1)
+        else:
+            proj = F.linear(ln_reference(x.to(dt), ln_scale, ln_bias), w0.to(dt))
+            hh, g = (proj.float() + b0.float()).chunk(2, dim=-1)
+            h = (hh * gelu_exact(g)).to(dt)
+        return linear(h, self.net_2, dt)
+
+
+class BasicTransformerBlock(nn.Module):
+    """x + attn1(LN1 x) → x + attn2(LN2 x, ctx) → x + FF(LN3 x)."""
+
+    def __init__(self, dim: int, num_heads: int, context_dim: int,
+                 mode: CrossAttnMode = CrossAttnMode(), dtype=torch.bfloat16):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim)
+        self.attn1 = Attention(dim, num_heads, dtype=dtype)
+        self.norm2 = nn.LayerNorm(dim)
+        self.attn2 = Attention(dim, num_heads, context_dim, mode, dtype=dtype)
+        self.norm3 = nn.LayerNorm(dim)
+        self.ff = GEGLUFeedForward(dim, dtype=dtype)
+
+    def forward(self, x, context, delta_scale=None):
+        x = x + self.attn1(x, ln_scale=self.norm1.weight, ln_bias=self.norm1.bias)
+        x = x + self.attn2(x, context, delta_scale, ln_scale=self.norm2.weight,
+                           ln_bias=self.norm2.bias)
+        return x + self.ff(x, self.norm3.weight, self.norm3.bias)
+
+
+class Transformer2D(nn.Module):
+    """GN → proj_in (1×1) → transformer block(s) → proj_out (1×1) → +x."""
+
+    def __init__(self, channels: int, num_heads: int, context_dim: int, depth: int = 1,
+                 mode: CrossAttnMode = CrossAttnMode(), dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.depth = depth
+        self.norm = nn.GroupNorm(32, channels, eps=1e-6)
+        self.proj_in = nn.Conv2d(channels, channels, 1)
+        for d in range(depth):
+            self.add_module(f"transformer_blocks_{d}", BasicTransformerBlock(
+                channels, num_heads, context_dim, mode, dtype=dtype))
+        self.proj_out = nn.Conv2d(channels, channels, 1)
+
+    def forward(self, x, context, delta_scale=None):
+        B, H, W, C = x.shape
+        # gn_proj is not ported: plain GroupNorm, then the proj_in matmul
+        h = conv1x1(gn(x, self.norm), self.proj_in, self.dtype).reshape(B, H * W, C)
+        for d in range(self.depth):
+            h = getattr(self, f"transformer_blocks_{d}")(h, context, delta_scale)
+        h = conv1x1(h.reshape(B, H, W, C), self.proj_out, self.dtype)
+        return h + x

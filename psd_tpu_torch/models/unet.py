@@ -1,0 +1,196 @@
+"""SD-v1.4-class conditional UNet (NHWC), `phase="full"` only.
+
+Counterpart of `psd_tpu/models/unet.py`. Block roles follow the reference's
+frequency strategy: low-resolution blocks (down index ≥ n−2, mid, up index
+≤ 1) carry the "disease" gates, high-resolution blocks the "anatomy" gates.
+The encoder/decoder and DeepCache phases wait for the turbo slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import (
+    CrossAttnMode,
+    Downsample2D,
+    ResnetBlock2D,
+    TimestepEmbedding,
+    Transformer2D,
+    Upsample2D,
+    conv,
+    final_conv,
+    gn,
+    timestep_embedding,
+)
+
+
+@dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    num_heads: int = 8
+    cross_attention_dim: int = 768
+    transformer_depth: int = 1
+    attn_mode: str = "plain"  # "plain" | "split3"
+    num_aoe_tokens: int = 16
+    num_image_tokens: int = 16
+    num_delta_tokens: int = 16
+    use_frequency_strategy: bool = True
+    gate_init_anatomy: Tuple[float, float] = (0.5, 0.5)
+    gate_init_disease: Tuple[float, float] = (0.5, 0.5)
+    gate_init_both: Tuple[float, float] = (0.5, 0.5)
+    dtype: torch.dtype = torch.bfloat16
+
+    def block_role(self, where: str, idx: int = 0) -> str:
+        if not self.use_frequency_strategy:
+            return "both"
+        n = len(self.block_out_channels)
+        if where == "mid":
+            return "disease"
+        if where == "down":
+            return "disease" if idx >= n - 2 else "anatomy"
+        if where == "up":
+            return "disease" if idx <= 1 else "anatomy"
+        return "both"
+
+    def attn_mode_for(self, where: str, idx: int = 0) -> CrossAttnMode:
+        gates = {
+            "anatomy": self.gate_init_anatomy,
+            "disease": self.gate_init_disease,
+            "both": self.gate_init_both,
+        }[self.block_role(where, idx)]
+        if self.attn_mode == "split3":
+            return CrossAttnMode(
+                kind="split3",
+                num_aoe_tokens=self.num_aoe_tokens,
+                num_image_tokens=self.num_image_tokens,
+                num_delta_tokens=self.num_delta_tokens,
+                anat_gate=gates[0],
+                dis_gate=gates[1],
+            )
+        if self.attn_mode != "plain":
+            raise NotImplementedError(f"attn_mode {self.attn_mode!r} is not ported")
+        return CrossAttnMode(kind="plain")
+
+    @property
+    def has_cross_attn(self) -> Tuple[bool, ...]:
+        n = len(self.block_out_channels)
+        return tuple(i < n - 1 for i in range(n))
+
+
+class UNet2DCondition(nn.Module):
+    def __init__(self, config: UNetConfig):
+        super().__init__()
+        cfg = self.config = config
+        dt = cfg.dtype
+        ch0 = cfg.block_out_channels[0]
+        temb_dim = ch0 * 4
+        n = len(cfg.block_out_channels)
+
+        def attn(ch, mode):
+            return Transformer2D(ch, cfg.num_heads, cfg.cross_attention_dim,
+                                 cfg.transformer_depth, mode, dtype=dt)
+
+        self.time_embedding = TimestepEmbedding(ch0, temb_dim, dtype=dt)
+        self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
+
+        skip_ch = [ch0]
+        h_ch = ch0
+        for i, out_ch in enumerate(cfg.block_out_channels):
+            for j in range(cfg.layers_per_block):
+                self.add_module(f"down_blocks_{i}_resnets_{j}",
+                                ResnetBlock2D(h_ch, out_ch, temb_dim, dtype=dt))
+                h_ch = out_ch
+                if cfg.has_cross_attn[i]:
+                    self.add_module(f"down_blocks_{i}_attentions_{j}",
+                                    attn(out_ch, cfg.attn_mode_for("down", i)))
+                skip_ch.append(out_ch)
+            if i < n - 1:
+                self.add_module(f"down_blocks_{i}_downsamplers_0",
+                                Downsample2D(out_ch, dtype=dt))
+                skip_ch.append(out_ch)
+
+        mid = cfg.block_out_channels[-1]
+        self.mid_block_resnets_0 = ResnetBlock2D(mid, mid, temb_dim, dtype=dt)
+        self.mid_block_attentions_0 = attn(mid, cfg.attn_mode_for("mid"))
+        self.mid_block_resnets_1 = ResnetBlock2D(mid, mid, temb_dim, dtype=dt)
+
+        rev = tuple(reversed(cfg.block_out_channels))
+        rev_attn = tuple(reversed(cfg.has_cross_attn))
+        for i, out_ch in enumerate(rev):
+            for j in range(cfg.layers_per_block + 1):
+                self.add_module(f"up_blocks_{i}_resnets_{j}",
+                                ResnetBlock2D(h_ch + skip_ch.pop(), out_ch, temb_dim, dtype=dt))
+                h_ch = out_ch
+                if rev_attn[i]:
+                    self.add_module(f"up_blocks_{i}_attentions_{j}",
+                                    attn(out_ch, cfg.attn_mode_for("up", i)))
+            if i < n - 1:
+                self.add_module(f"up_blocks_{i}_upsamplers_0", Upsample2D(out_ch, dtype=dt))
+
+        self.conv_norm_out = nn.GroupNorm(32, ch0, eps=1e-5)
+        self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
+
+    def forward(self, sample, timesteps, encoder_hidden_states,
+                delta_scale: Optional[float] = None):
+        """(B, H, W, C_in) latents, (B,) timesteps, (B, N, ctx) → fp32 eps."""
+        cfg = self.config
+        dt = cfg.dtype
+        n = len(cfg.block_out_channels)
+        m = self._modules
+        temb = self.time_embedding(
+            timestep_embedding(timesteps, cfg.block_out_channels[0]).to(dt))
+        ctx = encoder_hidden_states.to(dt)
+
+        h = conv(sample, self.conv_in, dt)
+        skips = [h]
+        for i in range(n):
+            for j in range(cfg.layers_per_block):
+                h = m[f"down_blocks_{i}_resnets_{j}"](h, temb)
+                if cfg.has_cross_attn[i]:
+                    h = m[f"down_blocks_{i}_attentions_{j}"](h, ctx, delta_scale)
+                skips.append(h)
+            if i < n - 1:
+                h = m[f"down_blocks_{i}_downsamplers_0"](h)
+                skips.append(h)
+
+        h = self.mid_block_resnets_0(h, temb)
+        h = self.mid_block_attentions_0(h, ctx, delta_scale)
+        h = self.mid_block_resnets_1(h, temb)
+
+        rev_attn = tuple(reversed(cfg.has_cross_attn))
+        for i in range(n):
+            for j in range(cfg.layers_per_block + 1):
+                h = m[f"up_blocks_{i}_resnets_{j}"](h, temb, skips.pop())
+                if rev_attn[i]:
+                    h = m[f"up_blocks_{i}_attentions_{j}"](h, ctx, delta_scale)
+            if i < n - 1:
+                h = m[f"up_blocks_{i}_upsamplers_0"](h)
+
+        h = F.silu(gn(h, self.conv_norm_out))
+        return final_conv(h, self.conv_out, dt)
+
+
+def sd14_unet_config(**overrides) -> UNetConfig:
+    """The SD v1.4 UNet (859,520,964 parameters in plain mode)."""
+    return UNetConfig(**overrides)
+
+
+def tiny_unet_config(**overrides) -> UNetConfig:
+    """Small config for CPU tests (psd_tpu tiny_unet_config, fp32)."""
+    base = dict(
+        block_out_channels=(32, 64),
+        layers_per_block=1,
+        num_heads=2,
+        cross_attention_dim=32,
+        dtype=torch.float32,
+    )
+    base.update(overrides)
+    return UNetConfig(**base)

@@ -1,0 +1,123 @@
+"""Port kernels vs the Pallas kernels they replace, on the CPU.
+
+The hand-written CUDA kernels run only on the GPU (chip_smoke.py checks them
+there against these same plain versions). Here each wrapper takes its CPU
+path, the plain PyTorch version, and is held against the JAX function run as
+psd_tpu's own tests run it: the Pallas kernel in interpret mode, or the XLA
+path where the Pallas kernel has no CPU mode (the stock flash kernel).
+
+Inputs come from numpy's default_rng, in fp32. Tolerance: rtol 1e-5,
+atol 1e-5 unless stated — both sides compute the same fp32 math and differ
+only in summation order and in the kernels' exp2/log2e folding.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from psd_tpu.ops.attention import dot_product_attention as jax_attention
+from psd_tpu.ops.geglu import ln_geglu as jax_ln_geglu
+from psd_tpu.ops.geglu import ln_proj as jax_ln_proj
+from psd_tpu.ops.spattn import spatial_attention
+from psd_tpu.ops.split3 import split3_attention
+from psd_tpu_torch.ops import attention, geglu, split3
+
+RTOL = ATOL = 1e-5
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.mark.parametrize("S,D", [(256, 40), (512, 40), (256, 80), (512, 80)])
+def test_attention_matches_spattn_interpret(S, D):
+    rng = _rng(S + D)
+    q, k, v = (rng.standard_normal((2, S, 2, D)).astype(np.float32) for _ in range(3))
+    ref = np.asarray(spatial_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                       interpret=True))
+    out = attention.attention_fwd(_t(q), _t(k), _t(v)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_attention_matches_flash_role_d512():
+    """The VAE mid-block shape class (one head, D=512). On the CPU
+    psd_tpu's flash wrapper returns None and dot_product_attention runs its
+    XLA path, which is the function the flash kernel computes."""
+    rng = _rng(512)
+    q, k, v = (rng.standard_normal((1, 512, 1, 512)).astype(np.float32) * 0.2
+               for _ in range(3))
+    ref = np.asarray(jax_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    out = attention.attention_fwd(_t(q), _t(k), _t(v)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape,route", [
+    ((8, 4096, 8, 40), "spattn"),
+    ((8, 1024, 8, 80), "spattn"),
+    ((8, 4096, 1, 512), "flash"),
+    ((8, 256, 8, 160), None),
+    ((8, 64, 8, 160), None),
+])
+def test_attention_routing_follows_psd_tpu(shape, route):
+    q = torch.empty(shape, device="meta")
+    assert attention.kernel_route(q, q) == route
+
+
+@pytest.mark.parametrize("delta", [0.0, 1.3])
+def test_split3_matches_pallas_interpret(delta):
+    rng = _rng(int(delta * 10))
+    B, S, H, D, K = 2, 256, 2, 40, 16
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    banks = [rng.standard_normal((B, K, H, D)).astype(np.float32) for _ in range(6)]
+    ref = np.asarray(split3_attention(jnp.asarray(q), *map(jnp.asarray, banks),
+                                      jnp.float32(delta), 0.9, 0.2, None, 128, True))
+    out = split3.split3_fwd(_t(q), *map(_t, banks), delta, 0.9, 0.2).numpy()
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
+
+
+def _ln_inputs(seed, M=512, C=64):
+    rng = _rng(seed)
+    x = (rng.standard_normal((M, C)) * 2.0 + 0.5).astype(np.float32)
+    s = (1.0 + 0.1 * rng.standard_normal(C)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(C)).astype(np.float32)
+    return x, s, b
+
+
+@pytest.mark.parametrize("n_out", [1, 3])
+def test_ln_proj_matches_pallas_interpret(n_out):
+    x, s, b = _ln_inputs(n_out)
+    rng = _rng(10 + n_out)
+    ws = [(rng.standard_normal((64, 64)) / 8.0).astype(np.float32) for _ in range(n_out)]
+    ref = jax_ln_proj(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b),
+                      tuple(jnp.asarray(w) for w in ws), 1e-5, 256, True)
+    # the port takes weights in Linear layout (out, in)
+    outs = geglu.ln_proj_fwd(_t(x), _t(s), _t(b), tuple(_t(w.T.copy()) for w in ws))
+    assert len(outs) == n_out
+    for o, r in zip(outs, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=RTOL, atol=ATOL)
+
+
+def test_ln_geglu_matches_pallas_interpret():
+    """Tolerance atol 2e-5: the Pallas kernel's A&S erf polynomial differs
+    from exact erf by up to 1.5e-7, times |h| of order 10."""
+    x, s, b = _ln_inputs(7)
+    rng = _rng(17)
+    w0 = (rng.standard_normal((64, 512)) / 8.0).astype(np.float32)
+    b0 = (0.1 * rng.standard_normal(512)).astype(np.float32)
+    ref = np.asarray(jax_ln_geglu(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b),
+                                  jnp.asarray(w0), jnp.asarray(b0), 1e-5, 256, True))
+    out = geglu.ln_geglu_fwd(_t(x), _t(s), _t(b), _t(w0.T.copy()), _t(b0)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=2e-5)
+
+
+def test_ln_reference_is_flax_fast_variance():
+    """A row of large mean and tiny spread: E[x²]−μ² goes slightly negative
+    in fp32 and must clamp at 0 rather than give NaN."""
+    x = torch.full((1, 64), 1000.0) + torch.linspace(0, 1e-3, 64)[None]
+    y = geglu.ln_reference(x, torch.ones(64), torch.zeros(64))
+    assert torch.isfinite(y).all()
