@@ -5,27 +5,43 @@
 
 Phases, in order; any failure exits non-zero:
   1. device  — require CUDA; print the card's name and power limit.
-  2. build   — compile psd_tpu_torch/csrc/*.cu with nvcc (sm_90a).
-  3. kernels — each hand-written kernel against its plain PyTorch version at
+  2. build   — compile psd_tpu_torch/csrc/*.cu with nvcc (sm_90a), one nvcc
+               per source, all at once.
+  3. kernels — each serving kernel against its plain PyTorch version at
                every shape the 512², batch-8 serving path gives it (bf16,
-               seeded inputs): max abs/rel error against a stated band, and
-               kernel vs plain time (CUDA events, median of 10 after warm-up).
+               seeded inputs): max abs/rel error against a stated band;
+               kernel, plain and (where one PyTorch call computes the same
+               function) library time (CUDA events, median of 10 after
+               warm-up); and the bound, the least time the card could take
+               (bytes over 3.35 TB/s or FLOPs over 989 TFLOP/s bf16,
+               whichever is larger).
   4. unet    — one SD-scale UNet eps (split3, seeded flax-style init, bf16,
                latents (8, 64, 64, 4), 48 tokens, δ=1) on the kernels and
                with the plain versions forced: relative error.
   5. serve   — a GenerationServer over the SD-scale DADD at 512², 50 DDIM
                steps, max_batch 8, steer 1.0 answers 8 requests; images are
-               checked and every kernel's launch count must be > 0.
+               checked and every serving kernel's launch count must be > 0.
+  6. train   — the attention backward kernel against autograd through the
+               plain version, and split3's autograd.Function against the
+               plain version, at the training shapes; then the SD-scale
+               train step of configs/train_ip.yaml (256², batch 64, fp32
+               masters, bf16 compute, gradient checkpointing, AdamW in two
+               LR groups, EMA from step 0) takes 3 steps on seeded random
+               pre-encoded batches; loss and gradients on the kernels are
+               held against the plain versions with the same draws.
 The line before the last is a JSON object with one entry per kernel:
-`launches` counts the serve phase's launches, `max_abs_err` is the largest
-over the kernel's shapes, `ms`/`plain_ms` sum one call at each of its
-main-path shapes. The last line is the device JSON. Imports nothing of JAX.
+`launches` counts the launches of the main-path runs (phases 5 and 6, each
+with the counts set to 0 just before it; `launches_by_path` splits them),
+`max_abs_err` is the largest over the kernel's shapes, `ms`, `plain_ms`,
+`library_ms` and `bound_ms` sum one call at each of its main-path shapes.
+The last line is the device JSON. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -46,22 +62,48 @@ ATOL, RTOL = 1e-2, 1e-2
 # UNet eps on the kernels vs with the plain versions forced: ~150 bf16
 # layers, each rounding differently; relative L2 error.
 UNET_REL_BAND = 5e-2
+# one train_loss + backward on the kernels vs the plain versions with the
+# same draws and weights: the loss differs by the eps error above carried
+# into a mean of squares (relative); the flattened gradient goes back
+# through the same ~150 bf16 layers once more plus the recomputed forward,
+# and small gradient entries carry bf16 rounding at their own scale
+# (relative L2).
+TRAIN_LOSS_BAND, TRAIN_GRAD_BAND = 2e-2, 1e-1
 
 # kernel → (TPU kernel it replaces as file:line, CUDA source)
 KERNELS = {
     "attention": ("psd_tpu/ops/spattn.py:36", "psd_tpu_torch/csrc/attention.cu"),
+    "attention_bwd": ("psd_tpu/ops/flash.py:121", "psd_tpu_torch/csrc/attention_bwd.cu"),
     "split3": ("psd_tpu/ops/split3.py:29", "psd_tpu_torch/csrc/split3.cu"),
     "ln_proj": ("psd_tpu/ops/geglu.py:178", "psd_tpu_torch/csrc/ln_proj.cu"),
     "ln_geglu": ("psd_tpu/ops/geglu.py:73", "psd_tpu_torch/csrc/ln_geglu.cu"),
+    "gn_proj": ("psd_tpu/ops/gnproj.py:44", "psd_tpu_torch/csrc/gn_proj.cu"),
 }
-# the attention kernel also takes the stock Pallas flash kernel's forward
+SERVE_KERNELS = ("attention", "split3", "ln_proj", "ln_geglu", "gn_proj")
+# the attention kernel also takes the stock Pallas flash kernel's forward;
+# attention_bwd is that kernel's dq/dkv backward
 ALSO_REPLACES = {"attention": "psd_tpu/ops/flash.py:121 (jax.experimental.pallas.ops."
-                              "tpu.flash_attention, forward)"}
+                              "tpu.flash_attention, forward)",
+                 "attention_bwd": "jax.experimental.pallas.ops.tpu.flash_attention "
+                                  "(dq and dkv backward kernels, configured at "
+                                  "psd_tpu/ops/flash.py:104-121)"}
 
 # shapes on the 512², batch-8 main path (SD-v1.4 UNet, 8 heads; VAE mid)
 ATTN_SHAPES = [(8, 4096, 8, 40), (8, 1024, 8, 80), (8, 4096, 1, 512)]
 SPLIT3_SHAPES = [(8, 4096, 8, 40), (8, 1024, 8, 80), (8, 256, 8, 160)]
 LN_SHAPES = [(32768, 320), (8192, 640), (2048, 1280), (512, 1280)]
+GN_SHAPES = [(8, 4096, 320), (8, 1024, 640), (8, 256, 1280), (8, 64, 1280)]
+# a generate call of batch 1 or 3 at 512²: B·S % 128 == 64 at the mid block,
+# the kernel's half-full last row tile (checked, not timed)
+GN_EDGE_SHAPES = [(1, 64, 1280), (3, 64, 1280), (3, 192, 640)]
+# training: 256², batch 64 (configs/train_ip.yaml); the 512² routes too
+ATTN_BWD_SHAPES = [(64, 1024, 8, 40), (8, 4096, 8, 40), (8, 1024, 8, 80)]
+SPLIT3_TRAIN_SHAPES = [(64, 1024, 8, 40), (64, 256, 8, 80)]
+TRAIN_STEPS, TRAIN_BATCH = 3, 64
+
+# published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores and
+# HBM3 bandwidth
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -109,7 +151,15 @@ def time_ms(fn, n: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _compare(name, shape, fn_kernel, fn_plain, results):
+def bound(flops: float, nbytes: float):
+    """(least ms, "bytes" | "operations") for work of `flops` bf16 FLOPs
+    moving `nbytes` bytes (each input read once, each output written once)."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _compare(name, shape, fn_kernel, fn_plain, results, work, fn_library=None):
+    """`work` = (FLOPs, bytes) of the function at this shape."""
     out_k = fn_kernel()
     out_p = fn_plain()
     torch.cuda.synchronize()
@@ -123,24 +173,49 @@ def _compare(name, shape, fn_kernel, fn_plain, results):
         abs_err = max(abs_err, d)
         rel_err = max(rel_err, d / max(ref, 1e-12))
         ok = ok and bool(torch.isfinite(a).all()) and d <= ATOL + RTOL * ref
+    del out_k, out_p, outs_k, outs_p
     ms_k = time_ms(fn_kernel)
     ms_p = time_ms(fn_plain)
-    log(f"[kernel] {name:9s} {str(shape):28s} max_abs {abs_err:.3e} max_rel {rel_err:.3e} "
+    ms_l = time_ms(fn_library) if fn_library is not None else None
+    b_ms, b_by = bound(*work)
+    log(f"[kernel] {name:13s} {str(shape):28s} max_abs {abs_err:.3e} max_rel {rel_err:.3e} "
         f"band {ATOL:g}+{RTOL:g}*max|ref| {'ok' if ok else 'FAIL'}  "
-        f"kernel {ms_k:.4f} ms  plain {ms_p:.4f} ms")
+        f"kernel {ms_k:.4f} ms  plain {ms_p:.4f} ms  library "
+        f"{'none' if ms_l is None else f'{ms_l:.4f} ms'}  bound {b_ms:.4f} ms ({b_by})")
     r = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                  "shapes": []})
+                                  "library_ms": None, "bound_ms": 0.0, "shapes": []})
     r["max_abs_err"] = max(r["max_abs_err"], abs_err)
     r["ms"] += ms_k
     r["plain_ms"] += ms_p
+    if ms_l is not None:
+        r["library_ms"] = (r["library_ms"] or 0.0) + ms_l
+    r["bound_ms"] += b_ms
     r["shapes"].append({"shape": list(shape), "max_abs_err": abs_err,
-                        "max_rel_err": rel_err, "ms": ms_k, "plain_ms": ms_p})
+                        "max_rel_err": rel_err, "ms": ms_k, "plain_ms": ms_p,
+                        "library_ms": ms_l, "bound_ms": b_ms, "bound_by": b_by,
+                        "flops": work[0], "bytes": work[1]})
     if not ok:
         raise SystemExit(f"chip_smoke.py: {name} {shape} disagrees with its plain version")
 
 
+def _bound_by(r) -> str:
+    """The limit that gives the larger part of an entry's summed bound."""
+    by = {"bytes": 0.0, "operations": 0.0}
+    for sh in r["shapes"]:
+        by[sh["bound_by"]] += sh["bound_ms"]
+    return max(by, key=by.get)
+
+
+def _sdpa(q, k, v):
+    """torch's one-call attention on (B, S, H, D) operands (yardstick only)."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2)).transpose(1, 2)
+
+
 def phase_kernels() -> dict:
-    from psd_tpu_torch.ops import attention, geglu, split3
+    from psd_tpu_torch.ops import attention, geglu, gnproj, split3
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -151,17 +226,21 @@ def phase_kernels() -> dict:
 
     results: dict = {}
     for shape in ATTN_SHAPES:
+        B, S, H, D = shape
         q, k, v = randn(*shape), randn(*shape), randn(*shape)
         _compare("attention", shape,
                  lambda: attention.attention_fwd(q, k, v),
-                 lambda: attention.attention_reference(q, k, v), results)
+                 lambda: attention.attention_reference(q, k, v), results,
+                 (4.0 * B * H * S * S * D, 4 * B * S * H * D * 2),
+                 fn_library=lambda: _sdpa(q, k, v))
         del q, k, v
     for (B, S, H, D) in SPLIT3_SHAPES:
         q = randn(B, S, H, D)
         banks = [randn(B, 16, H, D) for _ in range(6)]
         _compare("split3", (B, S, H, D),
                  lambda: split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9),
-                 lambda: split3.split3_reference(q, *banks, 1.0, 0.1, 0.9), results)
+                 lambda: split3.split3_reference(q, *banks, 1.0, 0.1, 0.9), results,
+                 (3 * 4.0 * B * H * S * 16 * D, (2 * B * S + 6 * B * 16) * H * D * 2))
     for (M, C) in LN_SHAPES:
         x = randn(M, C)
         lw = 1.0 + randn(C, std=0.1, dtype=torch.float32)
@@ -170,12 +249,41 @@ def phase_kernels() -> dict:
             ws = tuple(randn(C, C, std=C ** -0.5) for _ in range(n_out))
             _compare("ln_proj", (M, C, n_out),
                      lambda: geglu.ln_proj_fwd(x, lw, lb, ws),
-                     lambda: geglu.ln_proj_reference(x, lw, lb, ws), results)
+                     lambda: geglu.ln_proj_reference(x, lw, lb, ws), results,
+                     (2.0 * M * C * C * n_out,
+                      M * C * 2 + 2 * C * 4 + n_out * (C * C * 2 + M * C * 2)))
         w0 = randn(8 * C, C, std=C ** -0.5)
         b0 = randn(8 * C, std=0.02, dtype=torch.float32)
         _compare("ln_geglu", (M, C),
                  lambda: geglu.ln_geglu_fwd(x, lw, lb, w0, b0),
-                 lambda: geglu.ln_geglu_reference(x, lw, lb, w0, b0), results)
+                 lambda: geglu.ln_geglu_reference(x, lw, lb, w0, b0), results,
+                 (2.0 * M * C * 8 * C,
+                  M * C * 2 + 2 * C * 4 + 8 * C * C * 2 + 8 * C * 4 + M * 4 * C * 2))
+    for (B, S, C) in GN_SHAPES:
+        x = randn(B, S, C)
+        gw = 1.0 + randn(B, C, std=0.1, dtype=torch.float32)
+        gb = randn(B, C, std=0.1, dtype=torch.float32)
+        w = randn(C, C, std=C ** -0.5)
+        bias = randn(C, std=0.02, dtype=torch.float32)
+        _compare("gn_proj", (B, S, C),
+                 lambda: gnproj.gn_proj_fwd(x, gw, gb, w, bias),
+                 lambda: gnproj.gn_proj_reference(x, gw, gb, w, bias), results,
+                 (2.0 * B * S * C * C,
+                  B * S * C * 2 * 2 + 2 * B * C * 4 + C * C * 2 + C * 4))
+    for (B, S, C) in GN_EDGE_SHAPES:
+        x = randn(B, S, C)
+        gw = 1.0 + randn(B, C, std=0.1, dtype=torch.float32)
+        gb = randn(B, C, std=0.1, dtype=torch.float32)
+        w = randn(C, C, std=C ** -0.5)
+        bias = randn(C, std=0.02, dtype=torch.float32)
+        out = gnproj.gn_proj_fwd(x, gw, gb, w, bias).float()
+        ref = gnproj.gn_proj_reference(x, gw, gb, w, bias).float()
+        d, m = (out - ref).abs().max().item(), ref.abs().max().item()
+        ok = bool(torch.isfinite(out).all()) and d <= ATOL + RTOL * m
+        log(f"[kernel] gn_proj edge  {str((B, S, C)):28s} max_abs {d:.3e} "
+            f"{'ok' if ok else 'FAIL'} (ragged last row tile; not timed)")
+        if not ok:
+            raise SystemExit(f"chip_smoke.py: gn_proj {(B, S, C)} disagrees with its plain version")
     return results
 
 
@@ -206,7 +314,7 @@ def phase_unet() -> dict:
         kernels.reset_launch_counts()
         out_k = run()
         torch.cuda.synchronize()
-        counts = dict(kernels.launch_counts)
+        counts = {k: kernels.launch_counts[k] for k in SERVE_KERNELS}
         with disable_kernels(*KERNELS):
             out_p = run()
         torch.cuda.synchronize()
@@ -254,6 +362,7 @@ def phase_serve(card: str) -> dict:
     images = [f.result(timeout=900) for f in futures]
     wall = time.perf_counter() - t0
     counts = dict(kernels.launch_counts)
+    serve_counts = {k: counts[k] for k in SERVE_KERNELS}
     d512 = kernels.attention_head_dims[512]
     server.close()
     if server._worker.is_alive():
@@ -264,7 +373,7 @@ def phase_serve(card: str) -> dict:
         "finite": all(np.isfinite(im).all() for im in images),
         "in [0,1]": all(im.min() >= 0.0 and im.max() <= 1.0 for im in images),
         "targets differ": not np.allclose(images[0], images[-1], atol=1e-3),
-        "all four kernels launched": min(counts.values()) > 0,
+        "all five serving kernels launched": min(serve_counts.values()) > 0,
         "attention saw D=512 (VAE)": d512 > 0,
     }
     log(f"[serve] {batch} requests, {size}px, {steps} DDIM steps, steer 1.0, "
@@ -273,23 +382,239 @@ def phase_serve(card: str) -> dict:
     log(f"[serve] checks {checks}")
     if not all(checks.values()):
         raise SystemExit(f"chip_smoke.py: serve checks failed: {checks}")
+    del server, model
+    torch.cuda.empty_cache()
     return {"counts": counts, "wall_s": wall, "img_per_s": batch / wall}
 
 
+# ---- phase 6 ---------------------------------------------------------------
+def _grad_compare(name, shape, tags, got, want):
+    """Max abs error of each output against the bf16 band; raises if out."""
+    errs = []
+    for tag, a, b in zip(tags, got, want):
+        d = (a.float() - b.float()).abs().max().item()
+        ref = b.float().abs().max().item()
+        ok = bool(torch.isfinite(a).all()) and d <= ATOL + RTOL * ref
+        errs.append((tag, d, d / max(ref, 1e-12), ok))
+    log(f"[train] {name} {shape} grads: " + "; ".join(
+        f"{t} max_abs {d:.3e} max_rel {r:.3e} {'ok' if ok else 'FAIL'}" for t, d, r, ok in errs))
+    if not all(e[3] for e in errs):
+        raise SystemExit(f"chip_smoke.py: {name} {shape} gradients disagree with the plain version")
+    return max(e[1] for e in errs)
+
+
+def phase_train_kernels(results: dict) -> None:
+    """The attention backward kernel and split3's autograd.Function at the
+    training shapes, against autograd through their plain versions."""
+    from psd_tpu_torch.ops import attention, split3
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    for shape in ATTN_BWD_SHAPES:
+        B, S, H, D = shape
+        q, k, v, dout = (randn(*shape) for _ in range(4))
+        out, lse = attention.attention_fwd(q, k, v, return_lse=True)
+        got = attention.attention_bwd(q, k, v, out, lse, dout)
+        want = attention.attention_bwd_reference(q, k, v, dout)
+        err = _grad_compare("attention_bwd", shape, ("dq", "dk", "dv"), got, want)
+        del got, want
+
+        def fwd_bwd_kernel():
+            o, l_ = attention.attention_fwd(q, k, v, return_lse=True)
+            return attention.attention_bwd(q, k, v, o, l_, dout)
+
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+        def fwd_bwd_sdpa():
+            return torch.autograd.grad(_sdpa(qg, kg, vg), (qg, kg, vg), dout)
+
+        ms_k = time_ms(lambda: attention.attention_bwd(q, k, v, out, lse, dout), n=5)
+        ms_p = time_ms(lambda: attention.attention_bwd_reference(q, k, v, dout), n=3, warmup=1)
+        ms_fb = time_ms(fwd_bwd_kernel, n=5)
+        ms_l = time_ms(fwd_bwd_sdpa, n=5)
+        flops = 5 * 2.0 * B * H * S * S * D
+        nbytes = 8 * B * S * H * D * 2 + B * H * S * 4
+        b_ms, b_by = bound(flops, nbytes)
+        log(f"[train] attention_bwd {shape}: kernel {ms_k:.4f} ms, plain (autograd through "
+            f"the plain forward) {ms_p:.4f} ms, kernel fwd+bwd {ms_fb:.4f} ms, SDPA fwd+bwd "
+            f"{ms_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {flops / 1e9:.1f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+        r = results.setdefault("attention_bwd", {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                                 "library_ms": 0.0, "bound_ms": 0.0,
+                                                 "fwd_bwd_ms": 0.0, "shapes": []})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        for key, val in (("ms", ms_k), ("plain_ms", ms_p), ("library_ms", ms_l),
+                         ("bound_ms", b_ms), ("fwd_bwd_ms", ms_fb)):
+            r[key] += val
+        r["shapes"].append({"shape": list(shape), "max_abs_err": err, "ms": ms_k,
+                            "plain_ms": ms_p, "library_ms": ms_l, "fwd_bwd_ms": ms_fb,
+                            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+                            "bytes": nbytes})
+        del q, k, v, dout, out, lse, qg, kg, vg
+        torch.cuda.empty_cache()
+
+    for (B, S, H, D) in SPLIT3_TRAIN_SHAPES:
+        ins = [randn(B, S, H, D)] + [randn(B, 16, H, D) for _ in range(6)]
+        dout = randn(B, S, H, D)
+
+        def grads(fn):
+            xs = [t.clone().requires_grad_(True) for t in ins]
+            out = fn(*xs, 1.0, 0.1, 0.9, None)
+            return (out.detach(),) + torch.autograd.grad(out, xs, dout)
+
+        got = grads(split3.Split3Attention.apply)
+        want = grads(split3.split3_reference)
+        _grad_compare("split3 autograd.Function", (B, S, H, D),
+                      ("out", "dq", "dk_anat", "dv_anat", "dk_dis", "dv_dis", "dk_delta",
+                       "dv_delta"), got, want)
+        ms_k = time_ms(lambda: grads(split3.Split3Attention.apply), n=5)
+        ms_p = time_ms(lambda: grads(split3.split3_reference), n=5)
+        log(f"[train] split3 fwd+bwd {(B, S, H, D)}: kernel forward + plain backward "
+            f"{ms_k:.4f} ms, plain {ms_p:.4f} ms")
+
+
+def phase_train(card: str) -> dict:
+    """3 SD-scale train steps, then kernels vs plain on one loss + backward."""
+    from psd_tpu_torch.core.config import load_config
+    from psd_tpu_torch.core.mode import TRAINING_KERNELS, disable_kernels
+    from psd_tpu_torch.diffusion.dadd import DADD
+    from psd_tpu_torch.ops import kernels
+    from psd_tpu_torch.train import create_train_state, make_train_step
+
+    cfg = load_config(ROOT / "configs" / "train_ip.yaml", ["training.update_starting_at_step=0"])
+    size, B = cfg.dataset.image_size, TRAIN_BATCH
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = DADD(cfg, dtype=torch.bfloat16, device="cuda", seed=0, for_training=True)
+    state, tx = create_train_state(model)
+    step = make_train_step(model, tx)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.core.parameters())
+    log(f"[train] SD-scale DADD core for training ({n_params:,} fp32 parameters, remat "
+        f"{model.core_cfg.unet.remat}) and its optimizer built in {time.perf_counter() - t0:.1f} s")
+    assert all(p.dtype == torch.float32 for p in model.core.parameters())
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    lat = size // 8
+    batch = {"latents": torch.randn((B, lat, lat, 4), generator=g, device=dev),
+             "labels": torch.randint(0, 4, (B,), generator=g, device=dev).float(),
+             "clip_feats": torch.randn((B, 257, 1024), generator=g, device=dev)}
+    watch = {n: p.detach().clone() for n, p in model.core.named_parameters()
+             if n in ("unet.conv_in.weight", "unet.down_blocks_0_attentions_0.transformer_blocks_0"
+                      ".attn1.to_q.weight", "image_projection.latents")}
+    assert len(watch) == 3, sorted(watch)
+    ema0 = {n: state.ema.params[n].clone() for n in watch}
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times, losses, norms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    counts = dict(kernels.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    moved = {n: not torch.equal(w, dict(model.core.named_parameters())[n].detach())
+             for n, w in watch.items()}
+    ema_moved = {n: not torch.equal(ema0[n], state.ema.params[n]) for n in watch}
+    tcfg = cfg.training
+    ema_updates = sum(1 for i in range(TRAIN_STEPS) if i >= tcfg.update_starting_at_step and
+                      (i - tcfg.update_starting_at_step) % tcfg.update_every_n_steps == 0)
+    step_s = statistics.median(times[1:]) if len(times) > 1 else times[0]
+    checks = {
+        "loss finite": all(map(math.isfinite, losses)),
+        "grad norm finite": all(map(math.isfinite, norms)),
+        "params changed": all(moved.values()),
+        "EMA updated": all(ema_moved.values()) and state.ema.count == ema_updates,
+        "attention, attention_bwd, split3 launched": min(
+            counts["attention"], counts["attention_bwd"], counts["split3"]) > 0,
+        "ln_proj, ln_geglu, gn_proj not launched": max(
+            counts["ln_proj"], counts["ln_geglu"], counts["gn_proj"]) == 0,
+    }
+    log(f"[train] {TRAIN_STEPS} steps at {size}², batch {B}: losses {losses}, grad norms {norms}; "
+        f"step times {[round(t, 4) for t in times]} s; steady step {step_s:.4f} s = "
+        f"{B / step_s:.2f} img/s on {card}; peak memory {peak_gb:.2f} GiB")
+    log(f"[train] launches over {TRAIN_STEPS} steps {counts}")
+    log(f"[train] checks {checks}")
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke.py: train checks failed: {checks}")
+
+    # kernels vs plain: one train_loss + backward with the same draws
+    draws = model.sample_draws(tuple(batch["latents"].shape),
+                               torch.Generator(device=dev).manual_seed(4))
+    params = list(model.core.parameters())
+
+    def loss_and_grad():
+        for p in params:
+            p.grad = None
+        loss, _ = model.train_loss(batch, draws=draws)
+        loss.backward()
+        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).flatten()
+                          for p in params])
+        for p in params:
+            p.grad = None
+        return loss.detach(), flat
+
+    loss_k, grad_k = loss_and_grad()
+    with disable_kernels(*TRAINING_KERNELS):
+        loss_p, grad_p = loss_and_grad()
+    rel_loss = abs(loss_k - loss_p).item() / abs(loss_p).item()
+    rel_grad = ((grad_k - grad_p).norm() / grad_p.norm()).item()
+    ok = rel_loss <= TRAIN_LOSS_BAND and rel_grad <= TRAIN_GRAD_BAND
+    log(f"[train] one loss + backward, kernels vs plain, same draws: loss {loss_k.item():.6f} vs "
+        f"{loss_p.item():.6f} (rel {rel_loss:.3e}, band {TRAIN_LOSS_BAND:g}); gradient rel L2 "
+        f"{rel_grad:.3e} (band {TRAIN_GRAD_BAND:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke.py: the train step on the kernels disagrees with the plain "
+                         "versions")
+    del grad_k, grad_p, model, state, step
+    torch.cuda.empty_cache()
+    return {"counts": counts, "step_s": step_s, "img_per_s": B / step_s, "peak_gb": peak_gb,
+            "rel_loss": rel_loss, "rel_grad": rel_grad}
+
+
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default="",
+                    help="comma-separated subset of kernels,unet,serve,train_kernels,train "
+                         "(a partial run prints no result lines)")
+    only = {x for x in ap.parse_args(argv).only.split(",") if x}
     card = phase_device()
     phase_build()
+    if only:
+        results: dict = {}
+        for name, fn in (("kernels", lambda: results.update(phase_kernels())),
+                         ("unet", phase_unet), ("serve", lambda: phase_serve(card)),
+                         ("train_kernels", lambda: phase_train_kernels(results)),
+                         ("train", lambda: phase_train(card))):
+            if name in only:
+                fn()
+        log(f"[partial] phases {sorted(only)} passed; no result lines")
+        return 0
     results = phase_kernels()
     phase_unet()
     served = phase_serve(card)
+    phase_train_kernels(results)
+    trained = phase_train(card)
 
     entries = []
     for name, (replaces, source) in KERNELS.items():
         r = results[name]
+        by_path = {"serve": served["counts"][name], "train": trained["counts"][name]}
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": served["counts"][name], "max_abs_err": r["max_abs_err"],
-                 "ms": r["ms"], "plain_ms": r["plain_ms"], "shapes": r["shapes"]}
+                 "launches": sum(by_path.values()), "launches_by_path": by_path,
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": _bound_by(r),
+                 "library_ms": r["library_ms"], "shapes": r["shapes"]}
+        if "fwd_bwd_ms" in r:
+            entry["fwd_bwd_ms"] = r["fwd_bwd_ms"]
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
         entries.append(entry)

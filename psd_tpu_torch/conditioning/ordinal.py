@@ -1,14 +1,19 @@
 """Additive ordinal embedder (AOE).
 
 Counterpart of `psd_tpu/conditioning/ordinal.py::AdditiveOrdinalEmbedder`
-(inference path):
+(inference and training):
   * class table E[k] = base + cumsum(deltas)[:k];
   * continuous labels interpolate linearly between rows, clamped to [0, K−1];
   * projector MLP D → 2D → GELU → D·T, reshaped to T tokens;
   * `negative`: the smooth negative embedding at clamp(1−y, 0, 1);
   * `ordinal_delta`: proj(E[target]) − proj(E[source]), exactly zero when
-    the labels are equal.
-The train-time regularization noise and BOE wait for training.
+    the labels are equal;
+  * in training, Gaussian regularization noise of std `NOISE_STD` = 0.005
+    on the interpolated embedding before the projector
+    (`psd_tpu/conditioning/ordinal.py:106-109`). The caller draws the N(0, 1)
+    values from its torch.Generator and passes them in, so a test can hand
+    the port the values JAX drew.
+BOE waits.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ def interp_table(table: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 class AdditiveOrdinalEmbedder(nn.Module):
+    NOISE_STD = 0.005
+
     def __init__(self, num_classes: int = 4, embedding_dim: int = 768,
                  init_std: float = 0.02, delta_scale: float = 0.1, num_tokens: int = 16):
         super().__init__()
@@ -65,12 +72,16 @@ class AdditiveOrdinalEmbedder(nn.Module):
         h = gelu_exact(self.projector_0(emb))
         return self.projector_2(h).reshape(-1, self.num_tokens, self.embedding_dim)
 
-    def forward(self, labels: torch.Tensor) -> torch.Tensor:
-        """labels (B,) float in [0, K−1] → (B, T, D) fp32."""
-        return self._project(interp_table(self.class_table(), labels))
+    def forward(self, labels: torch.Tensor, noise=None) -> torch.Tensor:
+        """labels (B,) float in [0, K−1] → (B, T, D) fp32. `noise` (B, D)
+        N(0, 1), given in training only, is added at std `NOISE_STD`."""
+        out = interp_table(self.class_table(), labels)
+        if noise is not None:
+            out = out + self.NOISE_STD * noise
+        return self._project(out)
 
-    def negative(self, labels: torch.Tensor) -> torch.Tensor:
-        return self(torch.clamp(1.0 - labels, 0.0, 1.0))
+    def negative(self, labels: torch.Tensor, noise=None) -> torch.Tensor:
+        return self(torch.clamp(1.0 - labels, 0.0, 1.0), noise)
 
     def ordinal_delta(self, source_labels, target_labels):
         table = self.class_table()

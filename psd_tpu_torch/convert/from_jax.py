@@ -12,7 +12,9 @@ names, so the walk is mechanical:
     `latents`) keep their name and shape.
 
 Every leaf must land on a port parameter of the same shape and every port
-parameter must be filled, or the bridge raises. Real checkpoints reach this
+parameter must be filled, or the bridge raises. `to_flax_tree` walks the
+other way, from port tensors into the layout of a given flax tree (the
+train-step tests hold post-step parameters and the EMA against psd_tpu's). Real checkpoints reach this
 through the one name map that exists: diffusers → `psd_tpu/convert/sd.py`
 (`scripts/port_weights.py`) → npz → here.
 """
@@ -90,3 +92,21 @@ def load_flax_(module: nn.Module, tree: Mapping) -> nn.Module:
     sd = state_dict_from_flax(tree, module)
     module.load_state_dict(sd, strict=True)
     return module
+
+
+def to_flax_tree(tensors: Mapping[str, torch.Tensor], like: Mapping) -> Dict:
+    """Port tensors by state_dict name (a state_dict, named_parameters, an
+    EMA) → numpy leaves in the structure and layout of the flax tree `like`."""
+    def walk(tree: Mapping, prefix: Tuple[str, ...]) -> Dict:
+        out = {}
+        for k, v in tree.items():
+            path = prefix + (str(k),)
+            if isinstance(v, Mapping):
+                out[k] = walk(v, path)
+                continue
+            key, perm = torch_key(path, np.ndim(v))
+            arr = tensors[key].detach().float().cpu().numpy()
+            out[k] = np.array(arr if perm is None else arr.transpose(np.argsort(perm)))
+        return out
+
+    return walk(_unwrap(like), ())

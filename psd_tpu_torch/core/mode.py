@@ -4,31 +4,35 @@ Counterpart of `psd_tpu/core/mode.py`. The dispatch sites in `models/`
 consult these flags on every call (PyTorch runs eagerly, so there is no
 trace time to bake them into):
 
-  * `training_mode()` routes every kernel site to its plain PyTorch version.
-    The hand-written kernels are forward-only; training waits for their
-    backward kernels.
+  * `training_mode()` follows `psd_tpu`'s kernel set for the train step.
+    Kernels with a backward stay on: `attention` (in the role of the stock
+    Pallas flash kernel, whose fused backward psd_tpu trains with,
+    `psd_tpu/ops/attention.py:51-57`; here an autograd.Function over the
+    forward kernel and the backward kernel of `csrc/attention_bwd.cu`) and
+    `split3` (forward kernel, backward through the plain version, as
+    `psd_tpu/ops/split3.py:143` back-propagates through XLA math). The fused
+    LayerNorm and GroupNorm GEMMs (`ln_proj`, `ln_geglu`, `gn_proj`) take
+    their plain versions, as at `psd_tpu/models/layers.py:579` and
+    `:595-599`.
   * `disable_kernels(*names)` routes the named sites to their plain versions
     for an A/B run inside one process (`chip_smoke.py` uses it to hold the
-    whole UNet against its plain self). Kernel names: "attention", "split3",
-    "ln_proj", "ln_geglu".
+    whole UNet, and the train step, against their plain selves).
 
-`gnproj` (GroupNorm affine fused into proj_in, `psd_tpu/ops/gnproj.py`) has
-no port yet. It is disabled by configuration, permanently, until its kernel
-lands: `kernel_disabled("gnproj")` is always true, and Transformer2D takes
-plain GroupNorm then the proj_in matmul, exactly as `psd_tpu` does inside
-`disable_kernels("gnproj")`.
+`snapshot()` / `restored(snap)` carry the flags into gradient-checkpoint
+recomputation, which runs inside backward, possibly on the autograd
+engine's own thread where these context variables hold their defaults.
 """
 
 from __future__ import annotations
 
 import contextlib
 from contextvars import ContextVar
+from typing import Tuple
 
-KERNELS = ("attention", "split3", "ln_proj", "ln_geglu")
+KERNELS = ("attention", "split3", "ln_proj", "ln_geglu", "gn_proj")
 
-# Kernels of the TPU package that have no Hopper port yet. Off by
-# configuration, never by a fallback.
-NOT_PORTED = frozenset({"gnproj"})
+# kernels that stay on in training (they have a backward)
+TRAINING_KERNELS = frozenset({"attention", "split3"})
 
 _TRAINING: ContextVar[bool] = ContextVar("psd_tpu_torch_training", default=False)
 _DISABLED: ContextVar[frozenset] = ContextVar(
@@ -52,7 +56,7 @@ def is_training() -> bool:
 @contextlib.contextmanager
 def disable_kernels(*names: str):
     """Route the named kernel sites to their plain PyTorch versions."""
-    unknown = set(names) - set(KERNELS) - NOT_PORTED
+    unknown = set(names) - set(KERNELS)
     if unknown:
         raise ValueError(f"unknown kernel names: {sorted(unknown)}")
     token = _DISABLED.set(_DISABLED.get() | frozenset(names))
@@ -63,9 +67,27 @@ def disable_kernels(*names: str):
 
 
 def kernel_disabled(name: str) -> bool:
-    return name in NOT_PORTED or name in _DISABLED.get()
+    return name in _DISABLED.get()
 
 
 def use_kernel(name: str) -> bool:
     """True when the kernel site `name` should call its kernel wrapper."""
-    return not is_training() and not kernel_disabled(name)
+    if is_training() and name not in TRAINING_KERNELS:
+        return False
+    return not kernel_disabled(name)
+
+
+def snapshot() -> Tuple[bool, frozenset]:
+    return _TRAINING.get(), _DISABLED.get()
+
+
+@contextlib.contextmanager
+def restored(snap: Tuple[bool, frozenset]):
+    """Re-enter the flags of `snapshot()` (checkpoint recomputation)."""
+    t1 = _TRAINING.set(snap[0])
+    t2 = _DISABLED.set(snap[1])
+    try:
+        yield
+    finally:
+        _DISABLED.reset(t2)
+        _TRAINING.reset(t1)

@@ -31,6 +31,9 @@
 // In both, as in spattn, the denominator sums the bf16-rounded probabilities
 // that enter P·V, so the output is a convex combination of v rows; logits
 // are scaled by scale·log2(e) in fp32 and exponentiated with exp2.
+// When `lse` is not null (training asks for it), each query row's
+// log-sum-exp in log2 units, m + log2(l), is written as fp32 (B, H, Sq) for
+// the backward kernel (attention_bwd.cu); serving passes null.
 // Requires D % 8 == 0, Sq % 64 == 0, Sk % 64 == 0 (the wrapper checks).
 #include <cuda_pipeline.h>
 
@@ -71,7 +74,8 @@ __host__ __device__ inline AttnTiling attn_tiling(int D) {
 
 __global__ void wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                   const bf16* __restrict__ v, bf16* __restrict__ out,
-                                  int Sq, int Sk, int H, int D, float scale_log2) {
+                                  float* __restrict__ lse, int Sq, int Sk, int H, int D,
+                                  float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem[];
   const AttnTiling t = attn_tiling(D);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -162,6 +166,8 @@ __global__ void wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   bf16* dst = out + (static_cast<size_t>(b) * Sq + q0 + warp * 16 + r) * row_stride +
               static_cast<size_t>(h) * D;
   for (int c = oc0; c < oc1 && c < D; ++c) dst[c] = __float2bfloat16(orow[c] * inv_l);
+  if (lse != nullptr && half == 0)
+    lse[static_cast<size_t>(bh) * Sq + q0 + warp * 16 + r] = m_i + log2f(l_i);
 }
 
 
@@ -185,8 +191,8 @@ inline size_t flash_smem(int dp) {
 template <int DP>
 __global__ void __launch_bounds__(32 * kFlashWarps)
 flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ out, int Sq, int Sk, int H,
-             int D, float scale_log2) {
+             const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+             int Sq, int Sk, int H, int D, float scale_log2) {
   constexpr int LD = DP + 8, NS = kFlashBK / 8, NO = DP / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -319,16 +325,22 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       *reinterpret_cast<__nv_bfloat162*>(r1 + c) = __floats2bfloat162_rn(o[n][2] * i1, o[n][3] * i1);
     }
   }
+  if (lse != nullptr && tig == 0) {
+    float* lr = lse + static_cast<size_t>(bh) * Sq + q0 + warp * 16 + g;
+    lr[0] = m0 + log2f(l0);
+    lr[8] = m1 + log2f(l1);
+  }
 }
 
 template <int DP>
-cudaError_t launch_flash(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B,
-                         int Sq, int Sk, int H, int D, float scale_log2, cudaStream_t st) {
+cudaError_t launch_flash(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse,
+                         int B, int Sq, int Sk, int H, int D, float scale_log2,
+                         cudaStream_t st) {
   const size_t bytes = flash_smem(DP);
   cudaError_t err = allow_smem(flash_kernel<DP>, bytes);
   if (err != cudaSuccess) return err;
   flash_kernel<DP><<<dim3(Sq / kFlashBQ, B * H), 32 * kFlashWarps, bytes, st>>>(
-      q, k, v, out, Sq, Sk, H, D, scale_log2);
+      q, k, v, out, lse, Sq, Sk, H, D, scale_log2);
   return cudaGetLastError();
 }
 
@@ -336,29 +348,30 @@ cudaError_t launch_flash(const bf16* q, const bf16* k, const bf16* v, bf16* out,
 }  // namespace psd
 
 extern "C" int psd_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                 int B, int Sq, int Sk, int H, int D, float scale,
+                                 void* lse, int B, int Sq, int Sk, int H, int D, float scale,
                                  void* stream) {
   using namespace psd;
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   bf16* op = static_cast<bf16*>(out);
+  float* lp = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float sl2 = scale * kLog2e;
   switch ((D + 15) / 16 * 16) {
-    case 32: return static_cast<int>(launch_flash<32>(qp, kp, vp, op, B, Sq, Sk, H, D, sl2, st));
-    case 48: return static_cast<int>(launch_flash<48>(qp, kp, vp, op, B, Sq, Sk, H, D, sl2, st));
-    case 64: return static_cast<int>(launch_flash<64>(qp, kp, vp, op, B, Sq, Sk, H, D, sl2, st));
-    case 80: return static_cast<int>(launch_flash<80>(qp, kp, vp, op, B, Sq, Sk, H, D, sl2, st));
-    case 96: return static_cast<int>(launch_flash<96>(qp, kp, vp, op, B, Sq, Sk, H, D, sl2, st));
-    case 128: return static_cast<int>(launch_flash<128>(qp, kp, vp, op, B, Sq, Sk, H, D, sl2, st));
-    case 160: return static_cast<int>(launch_flash<160>(qp, kp, vp, op, B, Sq, Sk, H, D, sl2, st));
+    case 32: return static_cast<int>(launch_flash<32>(qp, kp, vp, op, lp, B, Sq, Sk, H, D, sl2, st));
+    case 48: return static_cast<int>(launch_flash<48>(qp, kp, vp, op, lp, B, Sq, Sk, H, D, sl2, st));
+    case 64: return static_cast<int>(launch_flash<64>(qp, kp, vp, op, lp, B, Sq, Sk, H, D, sl2, st));
+    case 80: return static_cast<int>(launch_flash<80>(qp, kp, vp, op, lp, B, Sq, Sk, H, D, sl2, st));
+    case 96: return static_cast<int>(launch_flash<96>(qp, kp, vp, op, lp, B, Sq, Sk, H, D, sl2, st));
+    case 128: return static_cast<int>(launch_flash<128>(qp, kp, vp, op, lp, B, Sq, Sk, H, D, sl2, st));
+    case 160: return static_cast<int>(launch_flash<160>(qp, kp, vp, op, lp, B, Sq, Sk, H, D, sl2, st));
     default: break;
   }
   const AttnTiling t = attn_tiling(D);
   cudaError_t err = allow_smem(wide_kernel, t.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(Sq / (16 * t.nw), B * H);
-  wide_kernel<<<grid, 32 * t.nw, t.bytes, st>>>(qp, kp, vp, op, Sq, Sk, H, D, sl2);
+  wide_kernel<<<grid, 32 * t.nw, t.bytes, st>>>(qp, kp, vp, op, lp, Sq, Sk, H, D, sl2);
   return static_cast<int>(cudaGetLastError());
 }

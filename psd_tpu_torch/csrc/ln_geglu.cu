@@ -37,14 +37,14 @@ ln_geglu_kernel(const bf16* __restrict__ x, const float* __restrict__ lw,
                 const float* __restrict__ bias, bf16* __restrict__ out, int C, int N,
                 float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem s = carve(smem, C);
+  const Smem s = carve(smem);
   const int row0 = blockIdx.x * kBM;
   const int n0 = blockIdx.y * 64;
 
-  ln_stats(x, lw, lb, row0, C, eps, s);
+  const LnNorm norm = ln_stats(x, lw, lb, row0, C, eps, s);
   Acc acc[2][4];
   mainloop(
-      x, w, row0, C, [=](int t) { return t < 64 ? n0 + t : N + n0 + (t - 64); },
+      x, w, row0, gridDim.x * kBM, C, norm, [=](int t) { return t < 64 ? n0 + t : N + n0 + (t - 64); },
       [](int wc, int j) { return j < 2 ? wc * 32 + j * 16 : 64 + wc * 32 + (j - 2) * 16; },
       s, acc);
   const float* st = stage_acc(s, acc);  // cols 0..31: h, 32..63: g

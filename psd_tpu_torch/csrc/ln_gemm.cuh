@@ -1,19 +1,25 @@
-// LayerNorm fused into the A operand of a bf16 GEMM: the main loop shared by
-// ln_proj_fwd (ln_proj.cu) and ln_geglu_fwd (ln_geglu.cu).
+// Normalization fused into the A operand of a bf16 GEMM: the main loop shared
+// by ln_proj_fwd (ln_proj.cu), ln_geglu_fwd (ln_geglu.cu) and gn_proj_fwd
+// (gn_proj.cu).
 //
-//   out tile = LN(x)[rows] · W[tile rows]ᵀ,  x (M, C) bf16, W (·, C) bf16
+//   out tile = norm(x)[rows] · W[tile rows]ᵀ,  x (M, C) bf16, W (·, C) bf16
 //
 // Block: 8 warps over a 128-row × 128-column accumulator tile, K in chunks of
-// 32. Prologue: per-row LayerNorm statistics (fp32, flax's fast variance
-// E[x²]−μ² clamped at 0) for the block's 128 rows, and the LN affine staged
-// in shared memory. Main loop, double-buffered: the W chunk (128 × 32) goes
-// global → shared with cp.async; the x chunk (128 × 32) is read into
-// registers one iteration ahead, normalized in fp32, rounded to bf16 and
-// stored as the A tile, so x̂ never exists in device memory. Products are
-// WMMA bf16 16×16×16 with fp32 accumulation; each warp owns a 32 × 64 strip
-// (8 fragments). The epilogue (in the including file) reads the strip back
+// 32. Prologue (in the including file): the per-row or per-batch parameters
+// of the normalization, staged in shared memory. Main loop, double-buffered:
+// the W chunk (128 × 32) goes global → shared with cp.async; the x chunk
+// (128 × 32) is read into registers one iteration ahead, normalized in fp32
+// by the `Norm` functor, rounded to bf16 and stored as the A tile, so the
+// normalized x never exists in device memory. Products are WMMA bf16
+// 16×16×16 with fp32 accumulation; each warp owns a 32 × 64 strip (8
+// fragments). The epilogue (in the including file) reads the strip back
 // from a per-warp fp32 stage that reuses the operand buffers.
-// Requires M % 128 == 0, C % 32 == 0; W rows past the valid range read as 0.
+//
+// Two norms: LnNorm (LayerNorm: per-row μ, rstd and the per-column affine)
+// and GnNorm (a GroupNorm folded into a per-(batch, column) affine; a
+// 128-row tile may span two batch elements, so each row carries its batch
+// slot). Requires C % 32 == 0; rows at or past M read as 0 and W rows past
+// the valid range read as 0.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -32,43 +38,67 @@ constexpr size_t kOperandBytes = 4 * kTileBytes;                  // A and B, do
 constexpr size_t kStageBytes = static_cast<size_t>(kWarps) * 32 * kLdStage * 4;
 constexpr size_t kUnionBytes = kOperandBytes > kStageBytes ? kOperandBytes : kStageBytes;
 
-inline size_t smem_bytes(int C) {
-  return kUnionBytes + 2 * kBM * sizeof(float) + 2 * static_cast<size_t>(C) * sizeof(float);
+// `n_vec` fp32 vectors of length C follow the two per-row arrays.
+inline size_t smem_bytes(int C, int n_vec = 2) {
+  return kUnionBytes + 2 * kBM * sizeof(float) + static_cast<size_t>(n_vec) * C * sizeof(float);
 }
 
 struct Smem {
   bf16* a[2];
   bf16* b[2];
   float* stage;  // aliases the operand buffers after the main loop
-  float* mu;
-  float* rstd;
-  float* lw;
-  float* lb;
+  float* row0;   // kBM per-row values (LN: μ; GN: batch slot, as int)
+  float* row1;   // kBM per-row values (LN: rstd)
+  float* vec;    // n_vec · C per-column values
 };
 
-__device__ inline Smem carve(unsigned char* base, int C) {
+__device__ inline Smem carve(unsigned char* base) {
   Smem s;
   s.a[0] = reinterpret_cast<bf16*>(base);
   s.a[1] = reinterpret_cast<bf16*>(base + kTileBytes);
   s.b[0] = reinterpret_cast<bf16*>(base + 2 * kTileBytes);
   s.b[1] = reinterpret_cast<bf16*>(base + 3 * kTileBytes);
   s.stage = reinterpret_cast<float*>(base);
-  s.mu = reinterpret_cast<float*>(base + kUnionBytes);
-  s.rstd = s.mu + kBM;
-  s.lw = s.rstd + kBM;
-  s.lb = s.lw + C;
+  s.row0 = reinterpret_cast<float*>(base + kUnionBytes);
+  s.row1 = s.row0 + kBM;
+  s.vec = s.row1 + kBM;
   return s;
 }
 
+// LayerNorm: (x − μ_r)·rstd_r·lw_c + lb_c.
+struct LnNorm {
+  const float* mu;
+  const float* rstd;
+  const float* lw;
+  const float* lb;
+  __device__ float operator()(int r, int c, float x) const {
+    return (x - mu[r]) * rstd[r] * lw[c] + lb[c];
+  }
+};
+
+// Folded GroupNorm: x·w[slot_r, c] + b[slot_r, c], two slots of C columns.
+struct GnNorm {
+  const int* slot;
+  const float* w;  // [2][C]
+  const float* b;  // [2][C]
+  int C;
+  __device__ float operator()(int r, int c, float x) const {
+    const int o = slot[r] * C + c;
+    return x * w[o] + b[o];
+  }
+};
+
 // Per-row LN statistics of rows [row0, row0 + 128) and the LN affine, into
 // shared memory. Ends with __syncthreads().
-__device__ inline void ln_stats(const bf16* __restrict__ x, const float* __restrict__ lw,
-                                const float* __restrict__ lb, int row0, int C, float eps,
-                                const Smem& s) {
+__device__ inline LnNorm ln_stats(const bf16* __restrict__ x, const float* __restrict__ lw,
+                                  const float* __restrict__ lb, int row0, int C, float eps,
+                                  const Smem& s) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* slw = s.vec;
+  float* slb = s.vec + C;
   for (int c = threadIdx.x; c < C; c += kThreads) {
-    s.lw[c] = lw[c];
-    s.lb[c] = lb[c];
+    slw[c] = lw[c];
+    slb[c] = lb[c];
   }
   for (int r = warp; r < kBM; r += kWarps) {
     const bf16* xr = x + static_cast<size_t>(row0 + r) * C;
@@ -87,45 +117,44 @@ __device__ inline void ln_stats(const bf16* __restrict__ x, const float* __restr
     s2 = warp_sum(s2);
     if (lane == 0) {
       const float mu = s1 / C;
-      s.mu[r] = mu;
-      s.rstd[r] = rsqrtf(fmaxf(s2 / C - mu * mu, 0.f) + eps);
+      s.row0[r] = mu;
+      s.row1[r] = rsqrtf(fmaxf(s2 / C - mu * mu, 0.f) + eps);
     }
   }
   __syncthreads();
+  return LnNorm{s.row0, s.row1, slw, slb};
 }
 
 // The block's raw x chunk: 128 rows × 32 columns = 512 16-byte pieces,
-// two per thread.
+// two per thread. Rows at or past M read as zeros.
 struct XRegs {
   uint4 v[2];
 };
 
-__device__ inline XRegs load_x(const bf16* __restrict__ x, int row0, int C, int k0) {
+__device__ inline XRegs load_x(const bf16* __restrict__ x, int row0, int M, int C, int k0) {
   XRegs r;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int p = threadIdx.x + i * kThreads;
     const int row = p / 4, c8 = (p % 4) * 8;
-    r.v[i] = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(row0 + row) * C + k0 + c8);
+    r.v[i] = row0 + row < M
+                 ? *reinterpret_cast<const uint4*>(x + static_cast<size_t>(row0 + row) * C + k0 + c8)
+                 : make_uint4(0, 0, 0, 0);
   }
   return r;
 }
 
-__device__ inline void store_xhat(const XRegs& r, int k0, const Smem& s, bf16* a) {
+template <typename Norm>
+__device__ inline void store_xhat(const XRegs& r, int k0, const Norm& norm, bf16* a) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int p = threadIdx.x + i * kThreads;
     const int row = p / 4, c8 = (p % 4) * 8;
     const bf16* e = reinterpret_cast<const bf16*>(&r.v[i]);
-    const float mu = s.mu[row], rs = s.rstd[row];
     uint4 o;
     bf16* oe = reinterpret_cast<bf16*>(&o);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = k0 + c8 + j;
-      const float y = (__bfloat162float(e[j]) - mu) * rs;
-      oe[j] = __float2bfloat16(y * s.lw[c] + s.lb[c]);
-    }
+    for (int j = 0; j < 8; ++j) oe[j] = __float2bfloat16(norm(row, k0 + c8 + j, __bfloat162float(e[j])));
     *reinterpret_cast<uint4*>(a + row * kLd + c8) = o;
   }
 }
@@ -154,10 +183,10 @@ using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 // Main loop. Warp (wr = warp % 4, wc = warp / 4) accumulates rows
 // wr*32 .. +31 against the four tile columns col_of(wc, j), j = 0..3 (each a
 // 16-wide fragment). acc[i][j]: row fragment i, column fragment j.
-template <typename RowMap, typename ColOf>
+template <typename Norm, typename RowMap, typename ColOf>
 __device__ inline void mainloop(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                                int row0, int C, RowMap wrow, ColOf col_of, const Smem& s,
-                                Acc (&acc)[2][4]) {
+                                int row0, int M, int C, const Norm& norm, RowMap wrow,
+                                ColOf col_of, const Smem& s, Acc (&acc)[2][4]) {
   const int warp = threadIdx.x / 32;
   const int wr = warp % 4, wc = warp / 4;
 #pragma unroll
@@ -167,7 +196,7 @@ __device__ inline void mainloop(const bf16* __restrict__ x, const bf16* __restri
 
   const int kt_n = C / kBK;
   load_w_async(w, C, 0, wrow, s.b[0]);
-  store_xhat(load_x(x, row0, C, 0), 0, s, s.a[0]);
+  store_xhat(load_x(x, row0, M, C, 0), 0, norm, s.a[0]);
   __pipeline_wait_prior(0);
   __syncthreads();
 
@@ -177,7 +206,7 @@ __device__ inline void mainloop(const bf16* __restrict__ x, const bf16* __restri
     XRegs xr;
     if (more) {
       load_w_async(w, C, (kt + 1) * kBK, wrow, s.b[nxt]);
-      xr = load_x(x, row0, C, (kt + 1) * kBK);
+      xr = load_x(x, row0, M, C, (kt + 1) * kBK);
     }
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
@@ -194,7 +223,7 @@ __device__ inline void mainloop(const bf16* __restrict__ x, const bf16* __restri
       }
     }
     if (more) {
-      store_xhat(xr, (kt + 1) * kBK, s, s.a[nxt]);
+      store_xhat(xr, (kt + 1) * kBK, norm, s.a[nxt]);
       __pipeline_wait_prior(0);
     }
     __syncthreads();

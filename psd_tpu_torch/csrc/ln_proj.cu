@@ -31,7 +31,7 @@ ln_proj_kernel(const bf16* __restrict__ x, const float* __restrict__ lw,
                const float* __restrict__ lb, const bf16* w0, const bf16* w1,
                const bf16* w2, bf16* o0, bf16* o1, bf16* o2, int C, int N, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem s = carve(smem, C);
+  const Smem s = carve(smem);
   const int row0 = blockIdx.x * kBM;
   const int tiles_per_out = (N + kBN - 1) / kBN;
   const int which = blockIdx.y / tiles_per_out;
@@ -39,10 +39,10 @@ ln_proj_kernel(const bf16* __restrict__ x, const float* __restrict__ lw,
   const bf16* W = which == 0 ? w0 : (which == 1 ? w1 : w2);
   bf16* O = which == 0 ? o0 : (which == 1 ? o1 : o2);
 
-  ln_stats(x, lw, lb, row0, C, eps, s);
+  const LnNorm norm = ln_stats(x, lw, lb, row0, C, eps, s);
   Acc acc[2][4];
   mainloop(
-      x, W, row0, C, [=](int t) { return n0 + t < N ? n0 + t : -1; },
+      x, W, row0, gridDim.x * kBM, C, norm, [=](int t) { return n0 + t < N ? n0 + t : -1; },
       [](int wc, int j) { return wc * 64 + j * 16; }, s, acc);
   const float* st = stage_acc(s, acc);
 

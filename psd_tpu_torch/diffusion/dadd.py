@@ -1,10 +1,12 @@
-"""DADD model assembly: conditioning, the DDIM loop over the UNet, VAE decode.
+"""DADD model assembly: conditioning, the DDIM loop over the UNet, VAE
+decode, and the training loss.
 
-Counterpart of `psd_tpu/diffusion/dadd.py` (inference):
+Counterpart of `psd_tpu/diffusion/dadd.py`:
   * `DADDCore` — one module over the UNet, the ordinal embedder, the image
     projection and the purifier (the JAX package's single trainable tree).
   * `DADD` — owns the core, the VAE decoder and the schedule;
-    `prepare_inference_cond` and `generate` are the serving path.
+    `prepare_inference_cond` and `generate` are the serving path,
+    `train_loss` the training objective (`DADD(..., for_training=True)`).
 
 Conditioning layouts:
   routing gates ON : [source AOE (N) | purified image (N) | delta (N)]
@@ -13,15 +15,20 @@ Conditioning layouts:
 In PyTorch's idiom the weights live in the modules, so the methods take no
 parameter trees: `DADD(...)` initialises them from a seed (flax-style) and
 `load_flax(core_tree, vae_tree)` replaces them with bridged JAX parameters.
-The UNet's and decoder's matmul/conv weights are stored in the compute dtype
-(`models.layers.store_weights_in_`); everything else stays fp32.
-CLIP, LEACE, the turbo levers and training wait for later slices.
+For serving, the UNet's and decoder's matmul/conv weights are stored in the
+compute dtype (`models.layers.store_weights_in_`); everything else stays
+fp32. For training every parameter stays an fp32 master weight, cast to the
+compute dtype at use (flax's dtype=bf16, param_dtype=fp32), and no VAE
+decoder is built: batches come pre-encoded, as in psd_tpu's train_loss.
+The entry points run on the card (`device="cuda"`) unless the caller asks
+for the CPU; without a card they raise. CLIP, LEACE, the VAE encoder and
+the turbo levers wait for later slices.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -29,6 +36,7 @@ from torch import nn
 from ..conditioning import AdditiveOrdinalEmbedder, FeaturePurifier, ImageProjectionPlus
 from ..convert.from_jax import load_flax_, vae_decode_tree
 from ..core.config import Config
+from ..core.mode import training_mode
 from ..models.init import flax_init_
 from ..models.layers import store_weights_in_
 from ..models.unet import UNet2DCondition, UNetConfig
@@ -77,14 +85,18 @@ class DADDCore(nn.Module):
 
     def prepare_conditioning(self, labels, clip_feats, source_labels=None,
                              zero_aoe: bool = False, image_scale: float = 1.0,
-                             drop_image_mask: Optional[torch.Tensor] = None):
+                             drop_image_mask: Optional[torch.Tensor] = None,
+                             aoe_noise: Optional[torch.Tensor] = None):
+        """`aoe_noise` (2, B, D) N(0, 1): training's embedder noise for the
+        target and the source AOE, in the order psd_tpu draws them."""
         c = self.cfg
         emb = self.ordinal_embedder
         src = labels if source_labels is None else source_labels
-        target_aoe = emb.negative(labels) if zero_aoe else emb(labels)
+        n_tgt, n_src = (None, None) if aoe_noise is None else aoe_noise
+        target_aoe = emb.negative(labels, n_tgt) if zero_aoe else emb(labels, n_tgt)
         if not c.use_image_conditioning or clip_feats is None:
             return target_aoe
-        source_aoe = emb(src)
+        source_aoe = emb(src, n_src)
         image_embeds = self.image_projection(clip_feats)
         if c.use_feature_purifier:
             image_embeds = self.feature_purifier(image_embeds, source_aoe)
@@ -102,7 +114,8 @@ class DADDCore(nn.Module):
 
 
 def core_config_from(cfg: Config, dtype=torch.bfloat16) -> DADDCoreConfig:
-    """DADDCoreConfig from a reference-format Config (routing gates → split3)."""
+    """DADDCoreConfig from a reference-format Config (routing gates → split3;
+    gradient checkpointing from `training.gradient_checkpointing`)."""
     m = cfg.model
     if not m.use_routing_gates:
         raise NotImplementedError("split2 routing (use_routing_gates=false) is not ported")
@@ -120,6 +133,7 @@ def core_config_from(cfg: Config, dtype=torch.bfloat16) -> DADDCoreConfig:
         use_frequency_strategy=m.use_frequency_strategy,
         gate_init_anatomy=m.gate_init_anatomy,
         gate_init_disease=m.gate_init_disease,
+        remat=cfg.training.gradient_checkpointing,
         dtype=dtype,
     )
     return DADDCoreConfig(
@@ -139,25 +153,39 @@ def core_config_from(cfg: Config, dtype=torch.bfloat16) -> DADDCoreConfig:
     )
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on; "cuda" without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' asked for, but torch.cuda.is_available() is "
+                           "false; pass device='cpu' to run on the CPU")
+    return dev
+
+
 class DADD:
-    """Orchestrator: core + VAE decoder + schedule on one device."""
+    """Orchestrator: core + VAE decoder + schedule on one device.
+
+    `for_training=True` keeps fp32 master weights and builds no decoder."""
 
     def __init__(self, cfg: Config, core_cfg: Optional[DADDCoreConfig] = None,
                  vae_cfg: Optional[VAEConfig] = None, dtype=torch.bfloat16,
-                 device="cpu", seed: Optional[int] = 0):
+                 device="cuda", seed: Optional[int] = 0, for_training: bool = False):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
+        self.for_training = for_training
         self.core_cfg = core_cfg or core_config_from(cfg, dtype=dtype)
         self.vae_cfg = vae_cfg or VAEConfig(dtype=dtype)
         with self.device:
-            self.core = DADDCore(self.core_cfg).eval()
-            self.vae = VAEDecode(self.vae_cfg).eval()
+            self.core = DADDCore(self.core_cfg).train(for_training)
+            self.vae = None if for_training else VAEDecode(self.vae_cfg).eval()
         if seed is not None and self.device.type != "meta":
             gen = torch.Generator(device=self.device).manual_seed(seed)
             flax_init_(self.core, gen)
-            flax_init_(self.vae, gen)
-        store_weights_in_(self.core.unet, self.core_cfg.unet.dtype)
-        store_weights_in_(self.vae.decoder, self.vae_cfg.dtype)
+            if self.vae is not None:
+                flax_init_(self.vae, gen)
+        if not for_training:
+            store_weights_in_(self.core.unet, self.core_cfg.unet.dtype)
+            store_weights_in_(self.vae.decoder, self.vae_cfg.dtype)
         self.schedule = NoiseSchedule(
             num_train_timesteps=cfg.diffusion.num_train_timesteps,
             beta_start=cfg.diffusion.beta_start,
@@ -167,14 +195,90 @@ class DADD:
         self.latent_scale = cfg.diffusion.latent_scale
         self.spatial_factor = 2 ** (len(self.vae_cfg.block_out_channels) - 1)
 
-    def load_flax(self, core_tree, vae_tree) -> "DADD":
+    def load_flax(self, core_tree, vae_tree=None) -> "DADD":
         """Replace the weights with `psd_tpu` parameter trees (numpy leaves)."""
         load_flax_(self.core, core_tree)
-        load_flax_(self.vae, vae_decode_tree(vae_tree))
+        if self.vae is not None:
+            load_flax_(self.vae, vae_decode_tree(vae_tree))
         return self
 
     def _t(self, a, dtype=torch.float32):
         return torch.as_tensor(a, dtype=dtype).to(self.device)
+
+    # ---- training loss -----------------------------------------------------
+    def sample_draws(self, latent_shape, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """The random draws of one `train_loss`, from `generator` (on the
+        model's device): noise, t, the image-CFG drop mask, the embedder's
+        (target, source) noise, and the noise-offset and input-perturbation
+        draws when the config turns them on."""
+        tcfg, g, dev = self.cfg.training, generator, self.device
+        B = latent_shape[0]
+        draws = {
+            "noise": torch.randn(latent_shape, generator=g, device=dev),
+            "t": torch.randint(0, self.cfg.diffusion.num_train_timesteps, (B,), generator=g,
+                               device=dev),
+            "drop_mask": torch.rand((B,), generator=g, device=dev) < self.cfg.model.cfg_drop_prob,
+            "aoe_noise": torch.randn((2, B, self.core_cfg.embedding_dim), generator=g,
+                                     device=dev),
+        }
+        if tcfg.noise_offset > 0:
+            draws["offset_noise"] = torch.randn((B, 1, 1, latent_shape[-1]), generator=g,
+                                                device=dev)
+        if tcfg.input_perturbation > 0:
+            draws["perturb_noise"] = torch.randn(latent_shape, generator=g, device=dev)
+        return draws
+
+    def train_loss(self, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[Dict[str, torch.Tensor]] = None):
+        """Min-SNR-weighted eps-MSE with per-sample image-CFG dropout
+        (psd_tpu/diffusion/dadd.py:346-419) → (loss, metrics).
+
+        `batch`: pre-encoded scaled latents (B, h, w, 4), labels (B,) and
+        optionally clip_feats. The random numbers come from `draws` when
+        given (tests hand it JAX's), else from `generator`. Runs in
+        training mode (core/mode.py), so every kernel it reaches has a
+        backward."""
+        if not self.for_training:
+            raise ValueError("train_loss needs fp32 master weights: build the model with "
+                             "DADD(..., for_training=True)")
+        tcfg, dcfg = self.cfg.training, self.cfg.diffusion
+        latents = self._t(batch["latents"])
+        labels = self._t(batch["labels"])
+        clip_feats = batch.get("clip_feats")
+        clip_feats = None if clip_feats is None else self._t(clip_feats)
+        if draws is None:
+            if generator is None:
+                raise ValueError("train_loss needs draws or a torch.Generator")
+            draws = self.sample_draws(tuple(latents.shape), generator)
+        noise = draws["noise"]
+        if tcfg.noise_offset > 0:
+            noise = noise + tcfg.noise_offset * draws["offset_noise"]
+        t = draws["t"]
+        q_noise = noise
+        if tcfg.input_perturbation > 0:
+            q_noise = noise + tcfg.input_perturbation * draws["perturb_noise"]
+        noisy = self.schedule.q_sample(latents, t, q_noise)
+        drop_mask = None if clip_feats is None else draws["drop_mask"]
+
+        with training_mode():
+            cond = self.core.prepare_conditioning(labels, clip_feats, drop_image_mask=drop_mask,
+                                                  aoe_noise=draws["aoe_noise"])
+            eps_pred = self.core.eps(noisy, t, cond, 0.0)
+        per_sample = ((eps_pred.float() - noise) ** 2).mean(dim=(1, 2, 3))
+        if tcfg.use_min_snr_weighting:
+            w = self.schedule.min_snr_weight(t, dcfg.min_snr_gamma)
+        else:
+            w = torch.ones_like(per_sample)
+        loss = (w * per_sample).mean()
+        metrics = {
+            "loss": loss.detach(),
+            "loss_base": per_sample.detach().mean(),
+            "min_snr_weight_mean": w.mean(),
+        }
+        if drop_mask is not None:
+            metrics["cfg_drop_rate"] = drop_mask.float().mean()
+        return loss, metrics
 
     @torch.inference_mode()
     def prepare_inference_cond(self, target_labels, source_labels, clip_feats,

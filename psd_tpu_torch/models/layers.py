@@ -8,15 +8,18 @@ computes in its `dtype`, casting parameters at use, as flax's (dtype,
 param_dtype) pair does (`store_weights_in_` makes that cast a no-op for the
 weights that are only ever used in `dtype`).
 
-The four kernel sites, routed by shape as `psd_tpu` routes them:
-  * self-attention with S ≥ 512 → `ops.attention` (attention_fwd);
-  * split3 cross-attention with S ≥ 256, S % 128 == 0 → `ops.split3`;
+The five kernel sites, routed by shape as `psd_tpu` routes them:
+  * self-attention with S ≥ 512 → `ops.attention` (the forward kernel; in
+    training the FlashAttention autograd.Function with the backward kernel);
+  * split3 cross-attention with S ≥ 256, S % 128 == 0 → `ops.split3`
+    (in training its autograd.Function);
   * norm1/norm2 + q/k/v projections with B·S % 512 == 0, C % 64 == 0 →
-    `ops.geglu.ln_proj_fwd`;
-  * norm3 + GEGLU projection, same gate → `ops.geglu.ln_geglu_fwd`.
-Each wrapper runs its plain version for a CPU tensor. Transformer2D's
-GroupNorm→proj_in stays plain: its kernel (gn_proj) is not ported yet
-(`core.mode.NOT_PORTED`).
+    `ops.geglu.ln_proj_fwd` (inference only);
+  * norm3 + GEGLU projection, same gate → `ops.geglu.ln_geglu_fwd`
+    (inference only);
+  * Transformer2D's GroupNorm → proj_in with S % 64 == 0, C % 64 == 0 →
+    `ops.gnproj.gn_proj_fwd` (inference only).
+Each wrapper runs its plain version for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -32,8 +35,9 @@ from torch import nn
 from ..core.mode import use_kernel
 from ..ops.attention import dot_product_attention
 from ..ops.geglu import gelu_exact, ln_geglu_fwd, ln_proj_fwd, ln_reference
-from ..ops.norms import group_norm
-from ..ops.split3 import split3_fwd
+from ..ops.gnproj import gn_proj_fwd
+from ..ops.norms import group_norm, group_norm_fold
+from ..ops.split3 import split3_attention
 from ..ops.upconv import conv2d_nhwc, upsample2x_conv3x3
 
 
@@ -252,7 +256,7 @@ class Attention(nn.Module):
                 (delta_tok, self.to_k_dis), (delta_tok, self.to_v_dis)))
             ds = 0.0 if delta_scale is None else float(delta_scale)
             if S >= 256 and S % 128 == 0 and use_kernel("split3"):
-                z = split3_fwd(q.contiguous(), *banks, ds, m.anat_gate, m.dis_gate)
+                z = split3_attention(q.contiguous(), *banks, ds, m.anat_gate, m.dis_gate)
             else:
                 z_anat = dot_product_attention(q, banks[0], banks[1])
                 z_dis = dot_product_attention(q, banks[2], banks[3])
@@ -326,8 +330,16 @@ class Transformer2D(nn.Module):
 
     def forward(self, x, context, delta_scale=None):
         B, H, W, C = x.shape
-        # gn_proj is not ported: plain GroupNorm, then the proj_in matmul
-        h = conv1x1(gn(x, self.norm), self.proj_in, self.dtype).reshape(B, H * W, C)
+        S = H * W
+        if S % 64 == 0 and C % 64 == 0 and use_kernel("gn_proj"):
+            # folded GroupNorm affine + proj_in as one kernel (layers.py:835-857)
+            n = self.norm
+            w, b = group_norm_fold(x, n.weight, n.bias, n.num_groups, n.eps)
+            h = gn_proj_fwd(x.reshape(B, S, C).to(self.dtype), w, b,
+                            self.proj_in.weight.reshape(C, C).to(self.dtype),
+                            self.proj_in.bias)
+        else:
+            h = conv1x1(gn(x, self.norm), self.proj_in, self.dtype).reshape(B, S, C)
         for d in range(self.depth):
             h = getattr(self, f"transformer_blocks_{d}")(h, context, delta_scale)
         h = conv1x1(h.reshape(B, H, W, C), self.proj_out, self.dtype)

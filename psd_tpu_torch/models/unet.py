@@ -4,16 +4,25 @@ Counterpart of `psd_tpu/models/unet.py`. Block roles follow the reference's
 frequency strategy: low-resolution blocks (down index ≥ n−2, mid, up index
 ≤ 1) carry the "disease" gates, high-resolution blocks the "anatomy" gates.
 The encoder/decoder and DeepCache phases wait for the turbo slice.
+
+`remat` is gradient checkpointing of every ResnetBlock2D and Transformer2D
+(`psd_tpu/models/unet.py:176-178`, `training.gradient_checkpointing`):
+`torch.utils.checkpoint` without re-entry, the kernel-mode flags of the
+forward carried into the recomputation (`core.mode.snapshot`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+import contextlib
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..core import mode
 
 from .layers import (
     CrossAttnMode,
@@ -46,6 +55,7 @@ class UNetConfig:
     gate_init_anatomy: Tuple[float, float] = (0.5, 0.5)
     gate_init_disease: Tuple[float, float] = (0.5, 0.5)
     gate_init_both: Tuple[float, float] = (0.5, 0.5)
+    remat: bool = False
     dtype: torch.dtype = torch.bfloat16
 
     def block_role(self, where: str, idx: int = 0) -> str:
@@ -144,7 +154,7 @@ class UNet2DCondition(nn.Module):
         cfg = self.config
         dt = cfg.dtype
         n = len(cfg.block_out_channels)
-        m = self._modules
+        m = {k: self._remat(v) for k, v in self._modules.items()}
         temb = self.time_embedding(
             timestep_embedding(timesteps, cfg.block_out_channels[0]).to(dt))
         ctx = encoder_hidden_states.to(dt)
@@ -161,9 +171,9 @@ class UNet2DCondition(nn.Module):
                 h = m[f"down_blocks_{i}_downsamplers_0"](h)
                 skips.append(h)
 
-        h = self.mid_block_resnets_0(h, temb)
-        h = self.mid_block_attentions_0(h, ctx, delta_scale)
-        h = self.mid_block_resnets_1(h, temb)
+        h = m["mid_block_resnets_0"](h, temb)
+        h = m["mid_block_attentions_0"](h, ctx, delta_scale)
+        h = m["mid_block_resnets_1"](h, temb)
 
         rev_attn = tuple(reversed(cfg.has_cross_attn))
         for i in range(n):
@@ -176,6 +186,21 @@ class UNet2DCondition(nn.Module):
 
         h = F.silu(gn(h, self.conv_norm_out))
         return final_conv(h, self.conv_out, dt)
+
+    def _remat(self, module: nn.Module):
+        """`module`, checkpointed when `remat` is set and gradients are on."""
+        if not (self.config.remat and isinstance(module, (ResnetBlock2D, Transformer2D))):
+            return module
+
+        def run(*args):
+            if not torch.is_grad_enabled():
+                return module(*args)
+            snap = mode.snapshot()
+            return checkpoint(module, *args, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(),
+                                                  mode.restored(snap)))
+
+        return run
 
 
 def sd14_unet_config(**overrides) -> UNetConfig:

@@ -1,10 +1,11 @@
 """Build, load and count the hand-written CUDA kernels.
 
-All four kernels (`csrc/*.cu`) compile with `nvcc` for `sm_90a` into one
-shared library with a plain C interface, loaded with `ctypes`. The build runs
-at first use, never at import, into `build/psd_tpu_torch/<hash>/` under the
-checkout (git-ignored); the hash covers the sources and the flags, so an
-edited source rebuilds and an unchanged one loads in milliseconds.
+The kernels (`csrc/*.cu`) compile with `nvcc` for `sm_90a`, one `nvcc`
+process per source, all started together, then link into one shared library
+with a plain C interface, loaded with `ctypes`. The build runs at first use,
+never at import, into `build/psd_tpu_torch/<hash>/` under the checkout
+(git-ignored); the hash covers the sources and the flags, so an edited
+source rebuilds and an unchanged one loads in milliseconds.
 
 Every C entry point returns `cudaGetLastError()` after its launch; `check`
 raises on a non-zero code. A refused launch (too many threads, too much
@@ -36,11 +37,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "psd_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 
-launch_counts: Counter = Counter({"attention": 0, "split3": 0, "ln_proj": 0,
-                                  "ln_geglu": 0})
+launch_counts: Counter = Counter({"attention": 0, "attention_bwd": 0, "split3": 0,
+                                  "ln_proj": 0, "ln_geglu": 0, "gn_proj": 0})
 attention_head_dims: Counter = Counter()
 
 _lib: Optional[ctypes.CDLL] = None
@@ -51,8 +52,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, out, B, Sq, Sk, H, D, scale, stream
-    "psd_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, out, lse (or null), B, Sq, Sk, H, D, scale, stream
+    "psd_attention_fwd": [_P] * 5 + [_I] * 5 + [_F, _P],
+    # q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, D, scale, stream
+    "psd_attention_bwd": [_P] * 10 + [_I] * 5 + [_F, _P],
+    # x, gn_w, gn_b, w, bias, out, B, S, C, N, stream
+    "psd_gn_proj_fwd": [_P] * 6 + [_I] * 4 + [_P],
     # q, ka, va, kd, vd, kl, vl, out, B, S, H, D, Ka, Kd, Kl,
     # g_anat, g_dis, delta, scale, stream
     "psd_split3_fwd": [_P] * 8 + [_I] * 7 + [_F] * 4 + [_P],
@@ -104,15 +109,35 @@ def build() -> Path:
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
+    nvcc = _nvcc()
+    jobs = []  # one nvcc per source, all running at once
+    for src in sorted(CSRC.glob("*.cu")):
+        fd, obj = tempfile.mkstemp(suffix=".o", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out[-4000:])
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
+    if not failed:
+        cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", tmp,
+               *[obj for _, obj, _ in jobs]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.stderr[-4000:])
+    (out_dir / "build.log").write_text("\n".join(log))
+    for _, obj, _ in jobs:
+        os.unlink(obj)
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-8000:]}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
     build_seconds = time.perf_counter() - t0
     return lib_path

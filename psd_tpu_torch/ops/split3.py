@@ -8,6 +8,13 @@ The banks hold 16 tokens each (the AOE, image and delta segments of the
 conditioning). The gates are per-site constants and δ (the steering scale)
 a runtime scalar; both are plain kernel arguments, so changing either never
 rebuilds anything. The kernel is `csrc/split3.cu`.
+
+`split3_attention` is the entry the model calls: with gradients wanted it
+goes through `Split3Attention`, an autograd.Function whose forward is the
+kernel and whose backward recomputes through the plain version with
+autograd, as `psd_tpu/ops/split3.py:143-151` back-propagates through XLA
+math (the banks are 16 tokens, so the recomputation is small). The TPU
+package has no split3 backward kernel, and neither has this one.
 """
 
 from __future__ import annotations
@@ -58,3 +65,34 @@ def split3_fwd(q, k_anat, v_anat, k_dis, v_dis, k_delta, v_delta,
     kernels.check(code, "split3_fwd")
     kernels.launch_counts["split3"] += 1
     return out
+
+
+class Split3Attention(torch.autograd.Function):
+    """split3 with the kernel forward and a plain-version backward."""
+
+    @staticmethod
+    def forward(ctx, q, k_anat, v_anat, k_dis, v_dis, k_delta, v_delta,
+                delta_scale, anat_gate, dis_gate, scale):
+        ctx.save_for_backward(q, k_anat, v_anat, k_dis, v_dis, k_delta, v_delta)
+        ctx.consts = (delta_scale, anat_gate, dis_gate, scale)
+        return split3_fwd(q, k_anat, v_anat, k_dis, v_dis, k_delta, v_delta,
+                          delta_scale, anat_gate, dis_gate, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            out = split3_reference(*ins, *ctx.consts)
+            grads = torch.autograd.grad(out, ins, dout)
+        return (*grads, None, None, None, None)
+
+
+def split3_attention(q, k_anat, v_anat, k_dis, v_dis, k_delta, v_delta,
+                     delta_scale: float, anat_gate: float, dis_gate: float,
+                     scale: Optional[float] = None):
+    """The model's split3 entry: the autograd.Function when gradients are
+    wanted, else the forward wrapper alone."""
+    args = (q, k_anat, v_anat, k_dis, v_dis, k_delta, v_delta)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return Split3Attention.apply(*args, float(delta_scale), anat_gate, dis_gate, scale)
+    return split3_fwd(*args, delta_scale, anat_gate, dis_gate, scale)

@@ -12,7 +12,7 @@ from .models.unet import tiny_unet_config
 from .models.vae import tiny_vae_config
 
 
-def tiny_dadd(device="cpu", seed=0, **unet_overrides) -> DADD:
+def tiny_dadd(device="cpu", seed=0, for_training=False, **unet_overrides) -> DADD:
     cfg = Config()
     cfg.dataset.image_size = 32
     cfg.diffusion.sampling_steps = 4
@@ -36,4 +36,4 @@ def tiny_dadd(device="cpu", seed=0, **unet_overrides) -> DADD:
         clip_hidden_dim=32,
     )
     return DADD(cfg, core_cfg=core_cfg, vae_cfg=tiny_vae_config(), dtype=torch.float32,
-                device=device, seed=seed)
+                device=device, seed=seed, for_training=for_training)

@@ -1,0 +1,27 @@
+from .ema import EMAState, ema_init, ema_update
+from .optim import (
+    Optimizer,
+    OptState,
+    build_optimizer,
+    clip_by_global_norm_,
+    global_norm,
+    group_label,
+    warmup_cosine_epochwise,
+)
+from .trainer import TrainState, create_train_state, make_train_step
+
+__all__ = [
+    "EMAState",
+    "ema_init",
+    "ema_update",
+    "Optimizer",
+    "OptState",
+    "build_optimizer",
+    "clip_by_global_norm_",
+    "global_norm",
+    "group_label",
+    "warmup_cosine_epochwise",
+    "TrainState",
+    "create_train_state",
+    "make_train_step",
+]

@@ -19,9 +19,11 @@ import torch
 from psd_tpu.ops.attention import dot_product_attention as jax_attention
 from psd_tpu.ops.geglu import ln_geglu as jax_ln_geglu
 from psd_tpu.ops.geglu import ln_proj as jax_ln_proj
+from psd_tpu.ops.gnproj import gn_proj as jax_gn_proj
 from psd_tpu.ops.spattn import spatial_attention
 from psd_tpu.ops.split3 import split3_attention
-from psd_tpu_torch.ops import attention, geglu, split3
+from psd_tpu_torch.ops import attention, geglu, gnproj, split3
+from psd_tpu_torch.ops.norms import group_norm_fold
 
 RTOL = ATOL = 1e-5
 
@@ -121,3 +123,22 @@ def test_ln_reference_is_flax_fast_variance():
     x = torch.full((1, 64), 1000.0) + torch.linspace(0, 1e-3, 64)[None]
     y = geglu.ln_reference(x, torch.ones(64), torch.zeros(64))
     assert torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("S,C,N", [(64, 64, 64), (256, 64, 128), (128, 128, 64)])
+def test_gn_proj_matches_pallas_interpret(S, C, N):
+    """B = 2. S = 64 is the mid-block case, where a 128-row tile of the
+    CUDA kernel spans both batch elements."""
+    rng = _rng(S + C + N)
+    B = 2
+    x = (rng.standard_normal((B, S, C)) * 2.0 + 0.3).astype(np.float32)
+    gs = (1.0 + 0.1 * rng.standard_normal(C)).astype(np.float32)
+    gb = (0.1 * rng.standard_normal(C)).astype(np.float32)
+    w_in = (rng.standard_normal((C, N)) / np.sqrt(C)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(N)).astype(np.float32)
+    w, b = group_norm_fold(_t(x), _t(gs), _t(gb), 32, 1e-6)
+    ref = jax_gn_proj(jnp.asarray(x), jnp.asarray(w.numpy()), jnp.asarray(b.numpy()),
+                      (jnp.asarray(w_in),), (jnp.asarray(bias),), interpret=True)[0]
+    out = gnproj.gn_proj_fwd(_t(x), w, b, _t(w_in.T.copy()), _t(bias))
+    assert out.shape == (B, S, N)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
