@@ -341,3 +341,27 @@ def test_ema_counts_optimizer_steps_when_accumulating():
     assert not torch.equal(w0, model.core.unet.conv_in.weight.detach())
     np.testing.assert_array_equal(state.ema.params["unet.conv_in.weight"].numpy(),
                                   model.core.unet.conv_in.weight.detach().numpy())
+
+
+def test_ema_gates_on_the_zero_based_step():
+    """Start 0, every 4 (the SD-scale smoke run's gating): over three steps
+    the EMA updates once, at step 0, as psd_tpu's step gates on its 0-based
+    `state.step`; gated on the optimizer's 1-based count it would update
+    never. The average is then the parameters after step 0."""
+    from psd_tpu_torch.train import create_train_state, make_train_step
+
+    model = tiny_dadd(for_training=True, seed=2)
+    configure(model.cfg)
+    model.cfg.training.update_every_n_steps = 4
+    state, tx = create_train_state(model, steps_per_epoch=10, seed=0)
+    step = make_train_step(model, tx)
+    batch = {"latents": torch.zeros(2, 8, 8, 4), "labels": torch.tensor([0.0, 2.0]),
+             "clip_feats": torch.zeros(2, 17, 32)}
+    w = model.core.unet.conv_in.weight
+    state, _ = step(state, batch)
+    w1 = w.detach().clone()
+    for _ in range(2):
+        state, _ = step(state, batch)
+    assert state.ema.count == 1 and state.opt_state.count == 3
+    assert not torch.equal(w1, w.detach())
+    np.testing.assert_array_equal(state.ema.params["unet.conv_in.weight"].numpy(), w1.numpy())
