@@ -7,14 +7,23 @@ Phases, in order; any failure exits non-zero:
   1. device  — require CUDA; print the card's name and power limit.
   2. build   — compile psd_tpu_torch/csrc/*.cu with nvcc (sm_90a), one nvcc
                per source, all at once.
-  3. kernels — each serving kernel against its plain PyTorch version at
+  3. kernels — each kernel against its plain PyTorch version at
                every shape the 512², batch-8 serving path gives it (bf16,
                seeded inputs): max abs/rel error against a stated band;
                kernel, plain and (where one PyTorch call computes the same
                function) library time (CUDA events, median of 10 after
                warm-up); and the bound, the least time the card could take
                (bytes over 3.35 TB/s or FLOPs over 989 TFLOP/s bf16,
-               whichever is larger).
+               whichever is larger). attention_q8 (int8 spatial
+               attention, both modes) at the UNet self-attention shapes
+               psd_tpu's spatial_attention accepts, against its plain
+               version with exact integer products (relative L2 of the
+               output and of each query row), and a tie probe that tells
+               rounding half to even from half away; int8 products bound at
+               1979 TOPS; beside it the bf16 attention kernel's time.
+  3b. op     — psd_tpu_torch.ops.attention.spatial_attention(quant=...) at
+               those shapes: the op path that reaches attention_q8, as
+               scripts/bench_attn2.py drives psd_tpu's.
   4. unet    — one SD-scale UNet eps (split3, seeded flax-style init, bf16,
                latents (8, 64, 64, 4), 48 tokens, δ=1) on the kernels and
                with the plain versions forced: relative error; then eps time
@@ -23,6 +32,13 @@ Phases, in order; any failure exits non-zero:
   5. serve   — a GenerationServer over the SD-scale DADD at 512², 50 DDIM
                steps, max_batch 8, steer 1.0 answers 8 requests; images are
                checked and every serving kernel's launch count must be > 0.
+  5b. turbo  — the same at the turbo point (TURBO: DPM-Solver++(2M), 25
+               steps, DeepCache stride 5, int8 VAE): images checked, exactly
+               6 full and 19 shallow UNet evaluations, the serving kernels
+               launched; wall time beside phase 5's. Then the int8 against
+               the bf16 VAE decode of the same seeded latents with the same
+               weights (PSNR floor, max abs diff, ms each), and qconv3x3
+               against an exact fp64 conv at one decoder shape.
   6. train   — the attention backward kernel against autograd through the
                plain version, and split3's autograd.Function against the
                plain version, at the training shapes; then the SD-scale
@@ -34,8 +50,9 @@ Phases, in order; any failure exits non-zero:
                flattened gradient and, on their own, the q/k/v weight
                gradients of the self-attention sites the kernel serves.
 The line before the last is a JSON object with one entry per kernel:
-`launches` counts the launches of the main-path runs (phases 5 and 6, each
-with the counts set to 0 just before it; `launches_by_path` splits them),
+`launches` counts the launches of the main-path runs (phases 3b, 5, 5b and
+6, each with the counts set to 0 just before it; `launches_by_path` splits
+them),
 `max_abs_err` is the largest over the kernel's shapes, `ms`, `plain_ms`,
 `library_ms` and `bound_ms` sum one call at each of its main-path shapes.
 The last line is the device JSON. Imports nothing of JAX.
@@ -92,6 +109,7 @@ KERNELS = {
     "ln_proj": ("psd_tpu/ops/geglu.py:178", "psd_tpu_torch/csrc/ln_proj.cu"),
     "ln_geglu": ("psd_tpu/ops/geglu.py:73", "psd_tpu_torch/csrc/ln_geglu.cu"),
     "gn_proj": ("psd_tpu/ops/gnproj.py:44", "psd_tpu_torch/csrc/gn_proj.cu"),
+    "attention_q8": ("psd_tpu/ops/spattn.py:66", "psd_tpu_torch/csrc/attention_q8.cu"),
 }
 SERVE_KERNELS = ("attention", "split3", "ln_proj", "ln_geglu", "gn_proj")
 # the attention kernel also takes the stock Pallas flash kernel's forward;
@@ -114,10 +132,57 @@ GN_EDGE_SHAPES = [(1, 64, 1280), (3, 64, 1280), (3, 192, 640)]
 ATTN_BWD_SHAPES = [(64, 1024, 8, 40), (8, 4096, 8, 40), (8, 1024, 8, 80)]
 SPLIT3_TRAIN_SHAPES = [(64, 1024, 8, 40), (64, 256, 8, 80)]
 TRAIN_STEPS, TRAIN_BATCH = 3, 64
+# int8 spatial attention: the UNet self-attention shapes psd_tpu's
+# spatial_attention accepts at 512², batch 8 (S % 256 == 0, S <= 4096)
+Q8_SHAPES = [(8, 4096, 8, 40), (8, 1024, 8, 80), (8, 256, 8, 160)]
+Q8_MODES = ("qk8", "int8")
+# attention_q8 against its plain version. Both take the same quantized
+# operands and compute the same fp32 values up to the summation order of l
+# and of P·V, then round to bf16: an output that lands on the other side of a
+# rounding boundary moves one bf16 ulp (2^-9..2^-7 relative). In "int8" the
+# order of l also moves pn/ps across a half now and then, which flips one
+# quantized probability by one level and moves its row by ps·|v_j|, about
+# 2e-3..3e-3 of the row's norm at these shapes. Bands: the relative L2 error
+# of the whole output, and of each query row (its D outputs) against one bf16
+# ulp. Not quantizing P in "int8" moves the output ~3 % (relative L2),
+# dropping a key tile more (PERF.md §6).
+Q8_REL_L2_BAND, Q8_ROW_BAND = 2e-3, 2.0 ** -7
+# The tie probe (int8 mode): rows with two live keys, the row max and one
+# key whose pn/ps is k + 1/2 (k even) or near it, where rounding half to even
+# and half away from zero differ by one level, 1/k of the output (k <= 62).
+# l is then a sum of two terms, the same in any order, so the kernel and the
+# plain version compute the same fp32 values and must agree elementwise to
+# one bf16 ulp, 2^-7·|ref|. MIN_TIES exact ties must occur for the probe to
+# count.
+Q8_PROBE_SHAPE, Q8_PROBE_TIES = (2, 4096, 8, 40), tuple(k + 0.5 for k in range(4, 63, 2))
+Q8_PROBE_MIN_TIES = 32
 
-# published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores and
-# HBM3 bandwidth
-PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# the turbo serving point, a copy of bench.py's TURBO (bench.py imports JAX);
+# tests/test_torch_turbo.py holds the two equal. The port has no ToMe: its
+# ratio must stay 0.
+TURBO = dict(tome_ratio=0.0, tome_mode="branch",
+             encoder_stride=5, cache_mode="deep",
+             sampler="dpm", steps=25, vae_quant="int8")
+# DPM steps i with i % stride == 0 or i == steps - 1 run the full UNet
+TURBO_FULL = sum(1 for i in range(TURBO["steps"])
+                 if i % TURBO["encoder_stride"] == 0 or i == TURBO["steps"] - 1)
+TURBO_SHALLOW = TURBO["steps"] - TURBO_FULL
+# int8 vs bf16 VAE decode of the same latents (8, 64, 64, 4), same weights
+# with spread channel gains: PSNR floor in dB, between the sound reading
+# (37.19) and a planted per-tensor weight scale's (36.69; deterministic,
+# PERF.md §6). Activation quantization dominates the int8 error, so the
+# gap is narrow at any spread (0.5-0.7 dB at gains 2^±2..2^±4); the scales
+# are also checked directly.
+VAE_PSNR_FLOOR = 36.95
+# the spread: per-output-channel gains 2^u, u ~ U(-VAE_GAIN_LOG2, VAE_GAIN_LOG2)
+VAE_GAIN_LOG2 = 2.0
+# qconv3x3 on the card (nine int8 GEMMs, int32 sums) against an fp64 conv of
+# the same integer operands, at the decoder's first resblock shape
+QCONV_CHECK_SHAPE, QCONV_REL_BAND = (1, 64, 64, 512), 1e-5
+
+# published H100 SXM peaks (NVIDIA data sheet): dense bf16 and int8 tensor
+# cores and HBM3 bandwidth
+PEAK_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -165,15 +230,20 @@ def time_ms(fn, n: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float):
-    """(least ms, "bytes" | "operations") for work of `flops` bf16 FLOPs
-    moving `nbytes` bytes (each input read once, each output written once)."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, int8_ops: float = 0.0):
+    """(least ms, "bytes" | "operations") for work of `flops` bf16 FLOPs and
+    `int8_ops` int8 operations moving `nbytes` bytes (each input read once,
+    each output written once)."""
+    t_ops = (flops / PEAK_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _compare(name, shape, fn_kernel, fn_plain, results, work, fn_library=None):
-    """`work` = (FLOPs, bytes) of the function at this shape."""
+def _compare(name, shape, fn_kernel, fn_plain, results, work, fn_library=None, extra=None,
+             judge=None):
+    """`work` = (bf16 FLOPs, bytes[, int8 ops]) of the function at this
+    shape; `extra` is added to the shape's entry. `judge(out, ref)` →
+    (ok, text, readings) replaces the bf16 band ATOL + RTOL·max|ref|."""
     out_k = fn_kernel()
     out_p = fn_plain()
     torch.cuda.synchronize()
@@ -181,21 +251,28 @@ def _compare(name, shape, fn_kernel, fn_plain, results, work, fn_library=None):
     outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
     abs_err = rel_err = 0.0
     ok = True
+    band = f"band {ATOL:g}+{RTOL:g}*max|ref|"
     for a, b in zip(outs_k, outs_p):
         d = (a.float() - b.float()).abs().max().item()
         ref = b.float().abs().max().item()
         abs_err = max(abs_err, d)
         rel_err = max(rel_err, d / max(ref, 1e-12))
-        ok = ok and bool(torch.isfinite(a).all()) and d <= ATOL + RTOL * ref
+        if judge is None:
+            ok = ok and bool(torch.isfinite(a).all()) and d <= ATOL + RTOL * ref
+        else:
+            good, band, readings = judge(a, b)
+            ok = ok and bool(torch.isfinite(a).all()) and good
+            extra = {**(extra or {}), **readings}
     del out_k, out_p, outs_k, outs_p
     ms_k = time_ms(fn_kernel)
     ms_p = time_ms(fn_plain)
     ms_l = time_ms(fn_library) if fn_library is not None else None
     b_ms, b_by = bound(*work)
     log(f"[kernel] {name:13s} {str(shape):28s} max_abs {abs_err:.3e} max_rel {rel_err:.3e} "
-        f"band {ATOL:g}+{RTOL:g}*max|ref| {'ok' if ok else 'FAIL'}  "
+        f"{band} {'ok' if ok else 'FAIL'}  "
         f"kernel {ms_k:.4f} ms  plain {ms_p:.4f} ms  library "
-        f"{'none' if ms_l is None else f'{ms_l:.4f} ms'}  bound {b_ms:.4f} ms ({b_by})")
+        f"{'none' if ms_l is None else f'{ms_l:.4f} ms'}  bound {b_ms:.4f} ms ({b_by})"
+        + "".join(f"  {k} {v:.4g}" for k, v in (extra or {}).items()))
     r = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                   "library_ms": None, "bound_ms": 0.0, "shapes": []})
     r["max_abs_err"] = max(r["max_abs_err"], abs_err)
@@ -207,7 +284,8 @@ def _compare(name, shape, fn_kernel, fn_plain, results, work, fn_library=None):
     r["shapes"].append({"shape": list(shape), "max_abs_err": abs_err,
                         "max_rel_err": rel_err, "ms": ms_k, "plain_ms": ms_p,
                         "library_ms": ms_l, "bound_ms": b_ms, "bound_by": b_by,
-                        "flops": work[0], "bytes": work[1]})
+                        "flops": work[0], "bytes": work[1],
+                        **({"int8_ops": work[2]} if len(work) > 2 else {}), **(extra or {})})
     if not ok:
         raise SystemExit(f"chip_smoke.py: {name} {shape} disagrees with its plain version")
 
@@ -299,6 +377,170 @@ def phase_kernels() -> dict:
         if not ok:
             raise SystemExit(f"chip_smoke.py: gn_proj {(B, S, C)} disagrees with its plain version")
     return results
+
+
+def q8_work(shape, mode):
+    """(bf16 FLOPs, bytes, int8 ops) of the int8 attention at `shape`: QKᵀ
+    in int8, P·V in bf16 ("qk8") or int8 ("int8"); its inputs as the kernel
+    takes them (int8 q, k with fp32 row scales; bf16 v, or int8 v with fp32
+    column scales) and its bf16 output."""
+    B, S, H, D = shape
+    prod = 2.0 * B * H * S * S * D
+    nbytes = 2 * B * H * S * D + 2 * B * H * S * 4 + B * S * H * D * 2
+    if mode == "int8":
+        return 0.0, nbytes + B * H * S * D + B * H * D * 4, 2 * prod
+    return prod, nbytes + B * S * H * D * 2, prod
+
+
+def _q8_judge(out, ref):
+    """attention_q8 against its plain version: the relative L2 error of the
+    whole (B, S, H, D) output and the largest over its query rows (the D
+    outputs of one (b, s, h)), against Q8_REL_L2_BAND and Q8_ROW_BAND."""
+    out, ref = out.float(), ref.float()
+    diff = out - ref
+    rel = (diff.norm() / ref.norm()).item()
+    row = (diff.norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)).max().item()
+    text = (f"rel L2 {rel:.3e} (band {Q8_REL_L2_BAND:g}), worst row {row:.3e} "
+            f"(band {Q8_ROW_BAND:.3g})")
+    return rel <= Q8_REL_L2_BAND and row <= Q8_ROW_BAND, text, {"rel_l2": rel,
+                                                               "worst_row_rel": row}
+
+
+def q8_tie_probe(dev):
+    """Quantized operands at Q8_PROBE_SHAPE (int8 mode, scale 1) whose rows
+    each have two live keys: the row max j0 (logit 0) and j1 with logit
+    -(sq·c)·sk1, sq stepped ulp by ulp around each Q8_PROBE_TIES value of
+    pn/ps ≈ 127·exp2(logit); every other key's logit is below -60000, so its
+    p is 0. v is 1 on j1 and 0 elsewhere, so the output is pq(j1)·ps. The
+    keys sit at other positions in each head. Returns (ops, shape, scale,
+    number of rows whose pn/ps is exactly k + 1/2 with k even, computed as
+    the plain version computes it)."""
+    from psd_tpu_torch.ops import attention
+
+    B, S, H, D = Q8_PROBE_SHAPE
+    BH, Dp = B * H, attention._padded_dim(D)
+    c = float(torch.tensor(attention.LOG2E, dtype=torch.float32))  # scale 1
+    bh = torch.arange(BH, device=dev)
+    j0 = (37 * bh + 11) % S
+    j1 = (j0 + 1 + (53 * bh) % (S - 1)) % S
+    qq = torch.zeros((BH, S, Dp), dtype=torch.int8, device=dev)
+    qq[:, :, 0] = 1
+    kq = torch.zeros((BH, S, Dp), dtype=torch.int8, device=dev)
+    kq[:, :, 0] = -127
+    kq[bh, j0, 0] = 0
+    kq[bh, j1, 0] = -1
+    sk = torch.full((BH, S), 1000.0, device=dev)
+    sk1 = 1.0 + bh.float() / 64.0
+    sk[bh, j0] = 1.0
+    sk[bh, j1] = sk1
+    ties = torch.tensor(Q8_PROBE_TIES, dtype=torch.float64, device=dev)
+    r = torch.arange(S, device=dev)
+    tie, step = ties[r % len(ties)], r // len(ties) - (S // len(ties)) // 2
+    sq = (-torch.log2(tie / 127.0)[None, :] / (c * sk1.double()[:, None])).float()
+    sq = (sq.view(torch.int32) + step[None, :].int()).view(torch.float32).contiguous()
+    vq = torch.zeros((BH, Dp, S), dtype=torch.int8, device=dev)
+    vq[bh, :D, j1] = 127
+    sv = torch.ones((BH, Dp), device=dev)
+    sv[:, :D] = 1.0 / 127.0
+    # pn/ps of key j1 as attention_q8_reference computes it
+    x1 = (-1.0 * (sq * c)) * sk1[:, None]
+    p1 = torch.exp2(x1)
+    l_ = 1.0 + p1
+    ratio = (p1 / l_) / ((1.0 / l_) * (1.0 / 127.0))
+    n_ties = int(((ratio - torch.floor(ratio) == 0.5) & (torch.floor(ratio) % 2 == 0)).sum())
+    return (qq, sq, kq, sk, vq, sv), Q8_PROBE_SHAPE, 1.0, n_ties
+
+
+def phase_q8_kernels(results: dict) -> None:
+    """attention_q8 in both modes against its plain version (exact integer
+    products) on the quantized operands of seeded bf16 q, k, v; beside it,
+    for context only, the bf16 attention kernel at the same shape (no one
+    PyTorch call computes int8 attention: library none). Then the tie probe.
+    Every shape and mode is checked before a failure is raised."""
+    from psd_tpu_torch.ops import attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    failed = []
+    for shape in Q8_SHAPES:
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        scale = shape[-1] ** -0.5
+        ms_bf16 = time_ms(lambda: attention.attention_fwd(q, k, v))
+        for mode in Q8_MODES:
+            ops = attention.quantize_qkv(q, k, v, mode == "int8")
+            try:
+                _compare("attention_q8", shape + (mode,),
+                         lambda: attention.attention_q8(*ops, scale, shape),
+                         lambda: attention.attention_q8_reference(*ops, scale, shape,
+                                                                  torch.bfloat16),
+                         results, q8_work(shape, mode), extra={"bf16_attention_ms": ms_bf16},
+                         judge=_q8_judge)
+            except SystemExit as e:
+                failed.append(str(e))
+            del ops
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    ops, shape, scale, n_ties = q8_tie_probe(dev)
+    out = attention.attention_q8(*ops, scale, shape).float()
+    ref = attention.attention_q8_reference(*ops, scale, shape, torch.bfloat16).float()
+    bad = (out - ref).abs() > 2.0 ** -7 * ref.abs()
+    ok = n_ties >= Q8_PROBE_MIN_TIES and bool(torch.isfinite(out).all()) and not bad.any()
+    log(f"[kernel] attention_q8 tie probe {shape} int8: {n_ties} rows at pn/ps = k + 1/2 "
+        f"(k even; at least {Q8_PROBE_MIN_TIES}), {int(bad.any(dim=-1).sum())} rows off "
+        f"by more than 2^-7·|ref|, max abs {(out - ref).abs().max().item():.3e} "
+        f"{'ok' if ok else 'FAIL'} (not timed)")
+    if not ok:
+        failed.append(f"chip_smoke.py: attention_q8 tie probe {shape}: {n_ties} ties, "
+                      f"{int(bad.sum())} outputs off")
+    del ops, out, ref
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit("\n".join(failed))
+
+
+# ---- the op path -------------------------------------------------------------
+def phase_op() -> dict:
+    """psd_tpu_torch.ops.attention.spatial_attention(..., quant=) at the
+    Q8_SHAPES, both modes, as scripts/bench_attn2.py drives psd_tpu's op
+    (the quantization pre-pass, then the int8 kernel); launches counted
+    from 0; outputs held against the plain version on the same pre-pass,
+    with attention_q8's bands."""
+    from psd_tpu_torch.ops import attention, kernels
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    inputs = {shape: tuple(torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                           for _ in range(3)) for shape in Q8_SHAPES}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    outs = {(shape, mode): attention.spatial_attention(*qkv, quant=mode)
+            for shape, qkv in inputs.items() for mode in Q8_MODES}
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)
+    worst, op_ms = 0.0, {}
+    for (shape, mode), out in outs.items():
+        q, k, v = inputs[shape]
+        ref = attention.attention_q8_reference(
+            *attention.quantize_qkv(q, k, v, mode == "int8"), shape[-1] ** -0.5, shape,
+            torch.bfloat16)
+        good, text, readings = _q8_judge(out, ref)
+        if not (bool(torch.isfinite(out).all()) and good):
+            raise SystemExit(f"chip_smoke.py: spatial_attention(quant={mode!r}) {shape} "
+                             f"disagrees with the plain version: {text}")
+        worst = max(worst, readings["rel_l2"])
+        op_ms[f"{shape} {mode}"] = time_ms(lambda: attention.spatial_attention(q, k, v, quant=mode),
+                                           n=5)
+    log(f"[op] spatial_attention(quant=qk8|int8) at {Q8_SHAPES}: launches {counts}; "
+        f"largest rel L2 vs plain {worst:.3e} (band {Q8_REL_L2_BAND:g}; each query row "
+        f"within {Q8_ROW_BAND:.3g}); op ms (pre-pass + kernel) {op_ms}")
+    if counts["attention_q8"] != len(outs):
+        raise SystemExit(f"chip_smoke.py: the op path launched attention_q8 "
+                         f"{counts['attention_q8']} times, not {len(outs)}")
+    del inputs, outs
+    torch.cuda.empty_cache()
+    return {"counts": counts, "op_ms": op_ms}
 
 
 # ---- phase 4 ---------------------------------------------------------------
@@ -444,6 +686,183 @@ def phase_serve(card: str) -> dict:
     del server, model
     torch.cuda.empty_cache()
     return {"counts": counts, "wall_s": wall, "img_per_s": batch / wall}
+
+
+# ---- turbo -------------------------------------------------------------------
+def _count_calls(obj, names):
+    """Wrap obj.<name> for each name with a call counter (instance attrs)."""
+    calls = {n: 0 for n in names}
+    for n in names:
+        fn = getattr(obj, n)
+
+        def counted(*a, _fn=fn, _n=n, **k):
+            calls[_n] += 1
+            return _fn(*a, **k)
+
+        setattr(obj, n, counted)
+    return calls
+
+
+def phase_turbo(card: str, exact: dict) -> dict:
+    """The turbo serving point (TURBO): DPM-Solver++(2M) at 25 steps,
+    DeepCache stride 5, the int8 VAE decoder, at 512², batch 8."""
+    import numpy as np
+
+    from psd_tpu_torch.core.config import load_config
+    from psd_tpu_torch.diffusion.dadd import DADD
+    from psd_tpu_torch.models.vae import VAEConfig
+    from psd_tpu_torch.ops import kernels
+    from psd_tpu_torch.pipelines.serve import GenerationServer
+
+    if TURBO["tome_ratio"] != 0.0:
+        raise SystemExit("chip_smoke.py: TURBO asks for ToMe, which the port does not have")
+    cfg = load_config(ROOT / "configs" / "train_ip.yaml", ["dataset.image_size=512"])
+    size, batch = cfg.dataset.image_size, 8
+    t0 = time.perf_counter()
+    model = DADD(cfg, vae_cfg=VAEConfig(quant=TURBO["vae_quant"]), dtype=torch.bfloat16,
+                 device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"[turbo] SD-scale DADD with the int8 VAE built in {time.perf_counter() - t0:.1f} s")
+    calls = _count_calls(model.core, ("eps_deep", "eps_shallow"))
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((batch, 257, 1024)).astype(np.float32)
+    targets = np.linspace(0.0, 3.0, batch)
+    server = GenerationServer(model, image_size=size, sampling_steps=TURBO["steps"],
+                              steer_scale=1.0, max_batch=batch, max_wait_s=0.5,
+                              encoder_stride=TURBO["encoder_stride"],
+                              cache_mode=TURBO["cache_mode"], sampler=TURBO["sampler"])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    futures = [server.submit(feats[i], targets[i], 1.0, seed=i) for i in range(batch)]
+    images = [f.result(timeout=900) for f in futures]
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launch_counts)
+    server.close()
+    if server._worker.is_alive():
+        raise SystemExit("chip_smoke.py: the turbo server worker did not stop")
+    checks = {
+        "shape (512,512,3)": all(im.shape == (size, size, 3) for im in images),
+        "finite": all(np.isfinite(im).all() for im in images),
+        "in [0,1]": all(im.min() >= 0.0 and im.max() <= 1.0 for im in images),
+        "targets differ": not np.allclose(images[0], images[-1], atol=1e-3),
+        f"{TURBO_FULL} full and {TURBO_SHALLOW} shallow evaluations":
+            calls == {"eps_deep": TURBO_FULL, "eps_shallow": TURBO_SHALLOW},
+        "all five serving kernels launched": min(counts[k] for k in SERVE_KERNELS) > 0,
+    }
+    log(f"[turbo] {batch} requests, {size}px, {TURBO}: wall {wall:.3f} s, "
+        f"{batch / wall:.4f} img/s on {card}; the exact path (50 DDIM steps, bf16 VAE) "
+        f"in this call: wall {exact['wall_s']:.3f} s, {exact['img_per_s']:.4f} img/s")
+    log(f"[turbo] UNet evaluations {calls}; launches {counts}")
+    log(f"[turbo] checks {checks}")
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke.py: turbo checks failed: {checks}")
+    del server
+    vae_ab = phase_vae_ab(model)
+    del model
+    torch.cuda.empty_cache()
+    return {"counts": counts, "wall_s": wall, "img_per_s": batch / wall, "calls": calls,
+            "vae_ab": vae_ab}
+
+
+def _spread_channel_gains_(vae, gen) -> bool:
+    """Scale each output channel of the int8-gated decoder convs by a gain
+    2^u, u ~ U(-VAE_GAIN_LOG2, VAE_GAIN_LOG2), and recompute their int8
+    weights from the result. True when every int8 scale is per output
+    channel.
+    Flax-style init gives every output channel the same weight range, where
+    a per-tensor weight scale costs nothing; spread channels are where the
+    per-Cout scales matter (a per-tensor fault leaves the weakest channel
+    2^-(2·VAE_GAIN_LOG2) of the int8 levels of the strongest)."""
+    from psd_tpu_torch.models.layers import ResnetBlock2D, quantize_int8_weights_
+
+    fp32 = {}
+    with torch.no_grad():
+        for prefix, m in vae.named_modules():
+            if isinstance(m, ResnetBlock2D) and m.quant == "int8":
+                for name in ("conv1", "conv2"):
+                    w = getattr(m, name).weight
+                    u = torch.rand(w.shape[0], generator=gen, device=w.device)
+                    gain = torch.exp2((2.0 * u - 1.0) * VAE_GAIN_LOG2)
+                    w.mul_(gain.to(w.dtype).reshape(-1, 1, 1, 1))
+                    fp32[f"{prefix}.{name}.weight"] = w.float()
+    quantize_int8_weights_(vae, fp32)
+    # each output channel's scale is its own amax / 127
+    return all(torch.equal(getattr(vae.get_submodule(k.rsplit(".", 2)[0]),
+                                   k.rsplit(".", 2)[1] + "_sw"),
+                           w.abs().amax(dim=(1, 2, 3)).clamp_min(1e-8) * (1.0 / 127.0))
+               for k, w in fp32.items())
+
+
+def phase_vae_ab(model) -> dict:
+    """int8 against bf16 VAE decode of the same seeded latents (8, 64, 64, 4)
+    with the same weights (as scripts/check_int8_quality.py --vae does for
+    psd_tpu): PSNR, max abs difference and decode ms of each, with the
+    model's init weights and then with spread channel gains (the PSNR floor
+    holds there); half-to-even rounding of exact ties on the card; and
+    qconv3x3 against an exact fp64 conv of the same integer operands."""
+    from psd_tpu_torch.models.layers import store_weights_in_
+    from psd_tpu_torch.models.vae import VAEConfig, VAEDecode
+    from psd_tpu_torch.ops.quant import qconv3x3, quant_cols, quant_rows
+
+    dev = torch.device("cuda")
+    with dev:
+        bf = VAEDecode(VAEConfig(dtype=torch.bfloat16)).eval()
+    store_weights_in_(bf.decoder, torch.bfloat16)
+    z = torch.randn((8, 64, 64, 4), generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev)
+
+    def decode(vae):  # DADD.decode_latents with the given decoder
+        return torch.clamp(vae(z / model.latent_scale).float() / 2.0 + 0.5, 0.0, 1.0)
+
+    readings, per_cout = {}, None
+    for weights in ("init", "spread"):
+        if weights == "spread":
+            per_cout = _spread_channel_gains_(model.vae,
+                                              torch.Generator(device=dev).manual_seed(7))
+        bf.load_state_dict(model.vae.state_dict())  # the same (bf16-stored) weights
+        with torch.inference_mode():
+            a, b = decode(model.vae).double(), decode(bf).double()
+            mse = ((a - b) ** 2).mean().item()
+            readings[weights] = {"psnr_db": 10.0 * math.log10(1.0 / max(mse, 1e-12)),
+                                 "max_abs_diff": (a - b).abs().max().item()}
+    with torch.inference_mode():
+        ms = {"int8": time_ms(lambda: decode(model.vae), n=5),
+              "bf16": time_ms(lambda: decode(bf), n=5)}
+
+        # exact ties x/scale = n + 0.5 (the row's scale is exactly 1)
+        ties = torch.tensor([[127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5]], device=dev)
+        ties_ok = quant_rows(ties)[0][0, 1:].tolist() == [0, 2, 2, 0, -2, -2, 126]
+
+        gq = torch.Generator(device=dev).manual_seed(4)
+        x = torch.randn(QCONV_CHECK_SHAPE, generator=gq, device=dev).to(torch.bfloat16)
+        C = QCONV_CHECK_SHAPE[-1]
+        w = torch.randn((C, C, 3, 3), generator=gq, device=dev) * (9 * C) ** -0.5
+        wq, sw = quant_cols(w, axis=0)
+        got = qconv3x3(x, wq, sw.reshape(-1), out_dtype=torch.float32)
+        sx = (x.float().abs().amax(dim=(1, 2, 3), keepdim=True).clamp_min(1e-8)
+              * (1.0 / 127.0))
+        xq = torch.round(x.float() / sx).double()
+        acc = torch.nn.functional.conv2d(xq.permute(0, 3, 1, 2), wq.double(),
+                                         padding=1).permute(0, 2, 3, 1)
+        want = acc * (sx.double() * sw.double().reshape(1, 1, 1, -1))
+        qrel = ((got.double() - want).norm() / want.norm()).item()
+    psnr = readings["spread"]["psnr_db"]
+    ok = (math.isfinite(psnr) and psnr >= VAE_PSNR_FLOOR and per_cout and ties_ok
+          and qrel <= QCONV_REL_BAND)
+    log(f"[turbo] VAE decode int8 vs bf16, latents (8, 64, 64, 4), same weights: "
+        + "; ".join(f"{k} weights PSNR {r['psnr_db']:.2f} dB, max abs diff "
+                    f"{r['max_abs_diff']:.4f}" for k, r in readings.items())
+        + f" (floor {VAE_PSNR_FLOOR:g} dB on spread); per-Cout scales {per_cout}; decode {ms['int8']:.2f} ms int8, "
+        f"{ms['bf16']:.2f} ms bf16; ties half to even {ties_ok}; qconv3x3 "
+        f"{QCONV_CHECK_SHAPE} vs exact fp64 conv: rel L2 {qrel:.3e} (band "
+        f"{QCONV_REL_BAND:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke.py: the int8 VAE decode fails its PSNR floor or its "
+                         "per-Cout weight scales, rounds ties away from even, or qconv3x3 "
+                         "disagrees with the exact conv")
+    del bf
+    return {"psnr_db": readings, "int8_ms": ms["int8"], "bf16_ms": ms["bf16"],
+            "qconv_rel": qrel}
 
 
 # ---- phase 6 ---------------------------------------------------------------
@@ -657,18 +1076,31 @@ def phase_train(card: str) -> dict:
 
 
 def main() -> int:
-    card = phase_device()
-    phase_build()
-    results = phase_kernels()
-    phase_unet()
-    served = phase_serve(card)
-    phase_train_kernels(results)
-    trained = phase_train(card)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    card = timed("device", phase_device)
+    timed("build", phase_build)
+    results = timed("kernels", phase_kernels)
+    timed("q8 kernels", phase_q8_kernels, results)
+    op = timed("op", phase_op)
+    timed("unet", phase_unet)
+    served = timed("serve", phase_serve, card)
+    turbo = timed("turbo", phase_turbo, card, served)
+    timed("train kernels", phase_train_kernels, results)
+    trained = timed("train", phase_train, card)
+    log(f"[done] seconds per phase {seconds}, {sum(seconds.values()):.1f} s in all")
 
     entries = []
     for name, (replaces, source) in KERNELS.items():
         r = results[name]
-        by_path = {"serve": served["counts"][name], "train": trained["counts"][name]}
+        by_path = {path: run["counts"][name] for path, run in
+                   (("serve", served), ("turbo", turbo), ("train", trained), ("op", op))}
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": sum(by_path.values()), "launches_by_path": by_path,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -1,5 +1,5 @@
 from .dadd import DADD, DADDCore, DADDCoreConfig, core_config_from
-from .sampler import SamplerConfig, cfg_eps_fn, ddim_sample
+from .sampler import SamplerConfig, cfg_eps_fn, ddim_sample, dpm_sample
 from .schedule import NoiseSchedule, ddim_timesteps
 
 __all__ = [
@@ -10,6 +10,7 @@ __all__ = [
     "SamplerConfig",
     "cfg_eps_fn",
     "ddim_sample",
+    "dpm_sample",
     "NoiseSchedule",
     "ddim_timesteps",
 ]

@@ -21,8 +21,12 @@ fp32. For training every parameter stays an fp32 master weight, cast to the
 compute dtype at use (flax's dtype=bf16, param_dtype=fp32), and no VAE
 decoder is built: batches come pre-encoded, as in psd_tpu's train_loss.
 The entry points run on the card (`device="cuda"`) unless the caller asks
-for the CPU; without a card they raise. CLIP, LEACE, the VAE encoder and
-the turbo levers wait for later slices.
+for the CPU; without a card they raise. The turbo levers are here: the
+DPM-Solver++(2M) sampler, encoder propagation and DeepCache through the
+UNet's phases (`DADDCore.eps_encode/eps_decode/eps_deep/eps_shallow`), and
+the int8 VAE decoder, whose int8 weights are computed once from the fp32
+values (at init and in `load_flax`). CLIP, LEACE, the VAE encoder and ToMe
+wait for later slices.
 """
 
 from __future__ import annotations
@@ -34,15 +38,18 @@ import torch
 from torch import nn
 
 from ..conditioning import AdditiveOrdinalEmbedder, FeaturePurifier, ImageProjectionPlus
-from ..convert.from_jax import load_flax_, vae_decode_tree
+from ..convert.from_jax import load_flax_, state_dict_from_flax, vae_decode_tree
 from ..core.config import Config
 from ..core.mode import training_mode
 from ..models.init import flax_init_
-from ..models.layers import store_weights_in_
+from ..models.layers import quantize_int8_weights_, store_weights_in_
 from ..models.unet import UNet2DCondition, UNetConfig
 from ..models.vae import VAEConfig, VAEDecode
-from .sampler import SamplerConfig, cfg_eps_fn, ddim_sample
+from .sampler import SamplerConfig, cfg_eps_fn, ddim_sample, dpm_sample
 from .schedule import NoiseSchedule
+
+
+SAMPLERS = {"ddim": ddim_sample, "dpm": dpm_sample}
 
 
 @dataclass(frozen=True)
@@ -111,6 +118,23 @@ class DADDCore(nn.Module):
 
     def eps(self, latents, t, cond, delta_scale: float = 0.0):
         return self.unet(latents, t, cond, delta_scale)
+
+    def eps_encode(self, latents, t, cond, delta_scale: float = 0.0):
+        """UNet down + mid only → (h_mid, skips) (encoder propagation)."""
+        return self.unet(latents, t, cond, delta_scale, phase="encode")
+
+    def eps_decode(self, t, cond, cached, delta_scale: float = 0.0):
+        """UNet up + out from cached encoder features, fresh t embedding."""
+        return self.unet(None, t, cond, delta_scale, phase="decode", cached=cached)
+
+    def eps_deep(self, latents, t, cond, delta_scale: float = 0.0):
+        """Full forward that also returns the DeepCache branch feature →
+        (eps, deep)."""
+        return self.unet(latents, t, cond, delta_scale, phase="deep")
+
+    def eps_shallow(self, latents, t, cond, cached, delta_scale: float = 0.0):
+        """Shallow path (conv_in → down block 0 → last up block ← cached) → eps."""
+        return self.unet(latents, t, cond, delta_scale, phase="shallow", cached=cached)
 
 
 def core_config_from(cfg: Config, dtype=torch.bfloat16) -> DADDCoreConfig:
@@ -184,6 +208,8 @@ class DADD:
             if self.vae is not None:
                 flax_init_(self.vae, gen)
         if not for_training:
+            # the int8 decoder weights come from the fp32 values, before the cast
+            quantize_int8_weights_(self.vae)
             store_weights_in_(self.core.unet, self.core_cfg.unet.dtype)
             store_weights_in_(self.vae.decoder, self.vae_cfg.dtype)
         self.schedule = NoiseSchedule(
@@ -199,7 +225,9 @@ class DADD:
         """Replace the weights with `psd_tpu` parameter trees (numpy leaves)."""
         load_flax_(self.core, core_tree)
         if self.vae is not None:
-            load_flax_(self.vae, vae_decode_tree(vae_tree))
+            sd = state_dict_from_flax(vae_decode_tree(vae_tree), self.vae)
+            quantize_int8_weights_(self.vae, sd)  # from the fp32 arrays, as psd_tpu
+            self.vae.load_state_dict(sd, strict=True)
         return self
 
     def _t(self, a, dtype=torch.float32):
@@ -303,15 +331,43 @@ class DADD:
     @torch.inference_mode()
     def sample(self, cond, x0: torch.Tensor, sampling_steps: Optional[int] = None,
                steer_scale: float = 0.0, guidance_scale: float = 1.0,
-               cond_uncond: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """DDIM from the initial latents x0 (B, h, w, 4) → scaled latents, fp32."""
+               cond_uncond: Optional[torch.Tensor] = None, encoder_stride: int = 1,
+               cache_mode: str = "encoder", sampler: str = "ddim") -> torch.Tensor:
+        """DDIM or DPM-Solver++(2M) (`sampler` "ddim" | "dpm") from the
+        initial latents x0 (B, h, w, 4) → scaled latents, fp32.
+        `encoder_stride > 1` propagates cached UNet features across non-key
+        steps (`cache_mode` "encoder" | "deep"); not with CFG."""
         steps = sampling_steps or self.cfg.diffusion.sampling_steps
+        if sampler not in SAMPLERS:
+            raise ValueError(f"sampler must be one of {tuple(SAMPLERS)}, got {sampler!r}")
+        ds = float(steer_scale)
+        core = self.core
 
         def raw_eps(x, t, i, embeds):
-            return self.core.eps(x, t, embeds, float(steer_scale))
+            return core.eps(x, t, embeds, ds)
 
         eps_fn = cfg_eps_fn(raw_eps, cond, cond_uncond, guidance_scale)
-        return ddim_sample(eps_fn, x0, self.schedule, SamplerConfig(sampling_steps=steps))
+        encode_fn = decode_fn = None
+        if encoder_stride > 1:
+            if cond_uncond is not None:
+                raise ValueError("feature propagation is not supported with dual-pass CFG")
+            if cache_mode == "deep":
+                def encode_fn(x, t, i):
+                    return core.eps_deep(x, t, cond, ds)
+
+                def decode_fn(x, t, i, cache):
+                    return core.eps_shallow(x, t, cond, cache, ds)
+            else:
+                def encode_fn(x, t, i):
+                    return core.eps_encode(x, t, cond, ds)
+
+                def decode_fn(t, i, cache):
+                    return core.eps_decode(t, cond, cache, ds)
+        return SAMPLERS[sampler](
+            eps_fn, x0, self.schedule,
+            SamplerConfig(sampling_steps=steps, encoder_stride=encoder_stride,
+                          cache_mode=cache_mode),
+            encode_fn=encode_fn, decode_fn=decode_fn)
 
     @torch.inference_mode()
     def decode_latents(self, latents) -> torch.Tensor:
@@ -324,16 +380,20 @@ class DADD:
                  generator: Optional[torch.Generator] = None, image_size: int = 256,
                  sampling_steps: Optional[int] = None, steer_scale: float = 0.0, guidance_scale: float = 1.0,
                  cond_uncond: Optional[torch.Tensor] = None,
-                 shared_noise: bool = True) -> torch.Tensor:
+                 shared_noise: bool = True, encoder_stride: int = 1,
+                 cache_mode: str = "encoder", sampler: str = "ddim") -> torch.Tensor:
         """Sample + VAE decode → (B, H, W, 3) images in [0, 1].
 
         The initial latents are `x0` when given (tests pass the noise JAX
         drew), else drawn from `generator` (one latent shared across the
-        batch when `shared_noise`)."""
+        batch when `shared_noise`). `sampler`, `encoder_stride` and
+        `cache_mode` as in `sample`; the turbo serving point is
+        sampler="dpm", 25 steps, stride 5, "deep", with an int8 VAE
+        (`VAEConfig(quant="int8")`)."""
         if x0 is None:
             if generator is None:
                 raise ValueError("generate needs x0 or a torch.Generator")
             x0 = self.initial_noise(cond.shape[0], image_size, generator, shared_noise)
         lat = self.sample(cond, x0.to(self.device), sampling_steps, steer_scale,
-                          guidance_scale, cond_uncond)
+                          guidance_scale, cond_uncond, encoder_stride, cache_mode, sampler)
         return self.decode_latents(lat)

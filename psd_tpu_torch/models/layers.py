@@ -1,7 +1,7 @@
 """UNet and VAE building blocks, NHWC, as PyTorch modules.
 
-Counterpart of `psd_tpu/models/layers.py` (the non-quantized, ToMe-free
-inference path). Module attribute names are the flax tree names
+Counterpart of `psd_tpu/models/layers.py` (the ToMe-free path; of the int8
+levers, the resblock's W8A8 convs that the int8 VAE decoder runs). Module attribute names are the flax tree names
 (`time_emb_proj`, `attn2.to_k_dis`, `ff.net_0_proj`, ...), so the bridge from
 JAX parameters (`convert/from_jax.py`) is a mechanical walk. Each module
 computes in its `dtype`, casting parameters at use, as flax's (dtype,
@@ -32,11 +32,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.mode import use_kernel
+from ..core.mode import is_training, use_kernel
 from ..ops.attention import dot_product_attention
 from ..ops.geglu import gelu_exact, ln_geglu_fwd, ln_proj_fwd, ln_reference
 from ..ops.gnproj import gn_proj_fwd
 from ..ops.norms import group_norm, group_norm_fold
+from ..ops.quant import qconv3x3, quant_cols
 from ..ops.split3 import split3_attention
 from ..ops.upconv import conv2d_nhwc, upsample2x_conv3x3
 
@@ -121,12 +122,28 @@ class ResnetBlock2D(nn.Module):
     """GN→SiLU→conv → (+temb folded into GN) → GN→SiLU→conv → +shortcut.
 
     The up path's skip join is a real channel concat here; `psd_tpu` splits
-    the conv weights to avoid materializing it, which is the same math."""
+    the conv weights to avoid materializing it, which is the same math.
+
+    `quant="int8"` (inference only) runs conv1 and conv2 as W8A8 `qconv3x3`
+    where psd_tpu's `quant_gate="vae"` admits the input
+    (psd_tpu/models/layers.py:145-167, :233-247): the SD decoder's win
+    region, Cin ≥ 256 at ≤ 256², or Cin ≥ 128 with Cin == Cout. (The
+    "unet" gate belongs to the UNet's int8 path, which is not ported.) The
+    int8 weights and their per-Cout scales are buffers, set from the fp32
+    weights by `quantize_int8_weights_`; on that branch norm2 runs without
+    the temb fold and the embedding is added explicitly, as in psd_tpu."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_dim: Optional[int] = None,
-                 eps: float = 1e-5, groups: int = 32, dtype=torch.bfloat16):
+                 eps: float = 1e-5, groups: int = 32, dtype=torch.bfloat16,
+                 quant: str = "none", quant_gate: str = "unet"):
         super().__init__()
+        if quant not in ("none", "int8"):
+            raise ValueError(f"quant must be 'none' or 'int8', got {quant!r}")
+        if quant == "int8" and quant_gate != "vae":
+            raise NotImplementedError(f"int8 quant_gate {quant_gate!r} is not ported")
         self.dtype = dtype
+        self.quant = quant
+        self.out_channels = out_channels
         self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         if temb_dim is not None:
@@ -135,6 +152,17 @@ class ResnetBlock2D(nn.Module):
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
             self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
+        if quant == "int8":
+            for name, conv_ in (("conv1", self.conv1), ("conv2", self.conv2)):
+                self.register_buffer(f"{name}_wq", torch.zeros(conv_.weight.shape, dtype=torch.int8),
+                                     persistent=False)
+                self.register_buffer(f"{name}_sw", torch.zeros(out_channels), persistent=False)
+
+    def _q_conv_ok(self, x) -> bool:
+        if self.quant != "int8" or is_training():
+            return False
+        cin, sp = x.shape[-1], max(x.shape[1], x.shape[2])
+        return (cin >= 256 and sp <= 256) or (cin >= 128 and cin == self.out_channels)
 
     def forward(self, x, temb=None, skip=None):
         dt = self.dtype
@@ -143,12 +171,41 @@ class ResnetBlock2D(nn.Module):
             emb = linear(F.silu(temb), self.time_emb_proj, dt)
         if skip is not None:
             x = torch.cat([x, skip], dim=-1)
-        h = conv(F.silu(gn(x, self.norm1)), self.conv1, dt)
-        # h + temb folds into norm2's statistics and affine (ops/norms.py)
-        h = conv(F.silu(gn(h, self.norm2, shift=emb)), self.conv2, dt)
+        if self._q_conv_ok(x):
+            h = qconv3x3(F.silu(gn(x, self.norm1)).to(dt), self.conv1_wq, self.conv1_sw,
+                         self.conv1.bias, out_dtype=dt)
+            if emb is not None:
+                h = h + emb[:, None, None, :].to(h.dtype)
+            h = qconv3x3(F.silu(gn(h, self.norm2)).to(dt), self.conv2_wq, self.conv2_sw,
+                         self.conv2.bias, out_dtype=dt)
+        else:
+            h = conv(F.silu(gn(x, self.norm1)), self.conv1, dt)
+            # h + temb folds into norm2's statistics and affine (ops/norms.py)
+            h = conv(F.silu(gn(h, self.norm2, shift=emb)), self.conv2, dt)
         if hasattr(self, "conv_shortcut"):
             x = conv(x, self.conv_shortcut, dt)
         return x + h
+
+
+@torch.no_grad()
+def quantize_int8_weights_(module: nn.Module, fp32_weights=None) -> nn.Module:
+    """Set the int8 conv weights and per-Cout scales of every
+    `ResnetBlock2D(quant="int8")` under `module` from fp32 weights: the
+    module's own (before `store_weights_in_` casts them), or `fp32_weights`,
+    a state_dict of fp32 tensors keyed as `module`'s (the bridge's). As
+    psd_tpu quantizes the fp32 parameter tree (`ops/quant.py::quant_cols`)."""
+    for prefix, m in module.named_modules():
+        if not (isinstance(m, ResnetBlock2D) and m.quant == "int8"):
+            continue
+        for name in ("conv1", "conv2"):
+            key = f"{prefix}.{name}.weight" if prefix else f"{name}.weight"
+            w = getattr(m, name).weight if fp32_weights is None else fp32_weights[key]
+            if w.dtype != torch.float32:
+                raise ValueError(f"{key}: int8 weights come from fp32 values, got {w.dtype}")
+            wq, sw = quant_cols(w.to(m.conv1_wq.device), axis=0)  # OIHW: Cout first
+            getattr(m, f"{name}_wq").copy_(wq)
+            getattr(m, f"{name}_sw").copy_(sw.reshape(-1))
+    return module
 
 
 class Downsample2D(nn.Module):

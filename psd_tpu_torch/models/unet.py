@@ -1,9 +1,11 @@
-"""SD-v1.4-class conditional UNet (NHWC), `phase="full"` only.
+"""SD-v1.4-class conditional UNet (NHWC), with psd_tpu's forward phases.
 
 Counterpart of `psd_tpu/models/unet.py`. Block roles follow the reference's
 frequency strategy: low-resolution blocks (down index ≥ n−2, mid, up index
 ≤ 1) carry the "disease" gates, high-resolution blocks the "anatomy" gates.
-The encoder/decoder and DeepCache phases wait for the turbo slice.
+`phase` splits the forward for encoder propagation (Faster Diffusion,
+arXiv:2312.09608: "encode"/"decode") and DeepCache (arXiv:2310.01407:
+"deep"/"shallow"), the turbo serving levers of `diffusion/sampler.py`.
 
 `remat` is gradient checkpointing of every ResnetBlock2D and Transformer2D
 (`psd_tpu/models/unet.py:176-178`, `training.gradient_checkpointing`):
@@ -36,6 +38,9 @@ from .layers import (
     gn,
     timestep_embedding,
 )
+
+
+PHASES = ("full", "encode", "decode", "deep", "shallow")
 
 
 @dataclass(frozen=True)
@@ -149,8 +154,22 @@ class UNet2DCondition(nn.Module):
         self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
     def forward(self, sample, timesteps, encoder_hidden_states,
-                delta_scale: Optional[float] = None):
-        """(B, H, W, C_in) latents, (B,) timesteps, (B, N, ctx) → fp32 eps."""
+                delta_scale: Optional[float] = None, phase: str = "full", cached=None):
+        """(B, H, W, C_in) latents, (B,) timesteps, (B, N, ctx) → fp32 eps.
+
+        `phase` splits the forward as `psd_tpu/models/unet.py:137-155` does:
+          "full"    — eps;
+          "encode"  — down + mid only → (h_mid, skips);
+          "decode"  — up + out from `cached` = (h_mid, skips) with a fresh
+                      timestep embedding → eps; never touches `sample`;
+          "deep"    — the full forward → (eps, the feature entering the
+                      last up block), the DeepCache branch feature;
+          "shallow" — conv_in → down block 0 (no downsampler) → the last up
+                      block from `cached` (that feature) → out → eps."""
+        if phase not in PHASES:
+            raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
+        if phase in ("decode", "shallow") and cached is None:
+            raise ValueError(f"phase {phase!r} needs `cached`")
         cfg = self.config
         dt = cfg.dtype
         n = len(cfg.block_out_channels)
@@ -159,24 +178,38 @@ class UNet2DCondition(nn.Module):
             timestep_embedding(timesteps, cfg.block_out_channels[0]).to(dt))
         ctx = encoder_hidden_states.to(dt)
 
-        h = conv(sample, self.conv_in, dt)
-        skips = [h]
-        for i in range(n):
-            for j in range(cfg.layers_per_block):
-                h = m[f"down_blocks_{i}_resnets_{j}"](h, temb)
-                if cfg.has_cross_attn[i]:
-                    h = m[f"down_blocks_{i}_attentions_{j}"](h, ctx, delta_scale)
-                skips.append(h)
-            if i < n - 1:
-                h = m[f"down_blocks_{i}_downsamplers_0"](h)
-                skips.append(h)
+        if phase == "decode":
+            h, skips = cached
+            h, skips = h.to(dt), [s.to(dt) for s in skips]
+        else:
+            h = conv(sample, self.conv_in, dt)
+            skips = [h]
+            # "shallow": down block 0 only; its downsampler output feeds
+            # the deeper blocks, which the cached feature stands in for
+            for i in ((0,) if phase == "shallow" else range(n)):
+                for j in range(cfg.layers_per_block):
+                    h = m[f"down_blocks_{i}_resnets_{j}"](h, temb)
+                    if cfg.has_cross_attn[i]:
+                        h = m[f"down_blocks_{i}_attentions_{j}"](h, ctx, delta_scale)
+                    skips.append(h)
+                if i < n - 1 and phase != "shallow":
+                    h = m[f"down_blocks_{i}_downsamplers_0"](h)
+                    skips.append(h)
 
-        h = m["mid_block_resnets_0"](h, temb)
-        h = m["mid_block_attentions_0"](h, ctx, delta_scale)
-        h = m["mid_block_resnets_1"](h, temb)
+            if phase != "shallow":
+                h = m["mid_block_resnets_0"](h, temb)
+                h = m["mid_block_attentions_0"](h, ctx, delta_scale)
+                h = m["mid_block_resnets_1"](h, temb)
+                if phase == "encode":
+                    return h, tuple(skips)
 
         rev_attn = tuple(reversed(cfg.has_cross_attn))
-        for i in range(n):
+        deep = None
+        if phase == "shallow":
+            h = cached.to(dt)
+        for i in ((n - 1,) if phase == "shallow" else range(n)):
+            if phase == "deep" and i == n - 1:
+                deep = h
             for j in range(cfg.layers_per_block + 1):
                 h = m[f"up_blocks_{i}_resnets_{j}"](h, temb, skips.pop())
                 if rev_attn[i]:
@@ -185,7 +218,8 @@ class UNet2DCondition(nn.Module):
                 h = m[f"up_blocks_{i}_upsamplers_0"](h)
 
         h = F.silu(gn(h, self.conv_norm_out))
-        return final_conv(h, self.conv_out, dt)
+        eps = final_conv(h, self.conv_out, dt)
+        return (eps, deep) if phase == "deep" else eps
 
     def _remat(self, module: nn.Module):
         """`module`, checkpointed when `remat` is set and gradients are on."""

@@ -3,8 +3,9 @@
 Counterpart of the decode half of `psd_tpu/models/vae.py`. The mid-block
 attention is single-head with D = C = 512 over 4096 tokens at 512²; in
 `psd_tpu` it falls off `spattn` (D > 256) onto the stock flash kernel, and
-here it takes the attention kernel in its flash role. The encoder waits for
-training.
+here it takes the attention kernel in its flash role. `VAEConfig.quant =
+"int8"` is the turbo decoder: W8A8 resblock convs (`models/layers.py`).
+The encoder waits for training.
 """
 
 from __future__ import annotations
@@ -27,6 +28,10 @@ class VAEConfig:
     block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
     layers_per_block: int = 2
     norm_groups: int = 32
+    # "int8": W8A8 convs in the decoder resblocks that the "vae" gate admits
+    # (the mid block and the up-block resnets); conv_in, the upsamplers and
+    # conv_out stay in dtype. Inference only (psd_tpu/models/vae.py:41-47).
+    quant: str = "none"
     dtype: torch.dtype = torch.bfloat16
 
 
@@ -53,11 +58,13 @@ class VAEAttention(nn.Module):
 
 
 class VAEMidBlock(nn.Module):
-    def __init__(self, channels: int, groups: int = 32, dtype=torch.bfloat16):
+    def __init__(self, channels: int, groups: int = 32, dtype=torch.bfloat16,
+                 quant: str = "none"):
         super().__init__()
-        self.resnets_0 = ResnetBlock2D(channels, channels, eps=1e-6, groups=groups, dtype=dtype)
+        kw = dict(eps=1e-6, groups=groups, dtype=dtype, quant=quant, quant_gate="vae")
+        self.resnets_0 = ResnetBlock2D(channels, channels, **kw)
         self.attentions_0 = VAEAttention(channels, groups, dtype=dtype)
-        self.resnets_1 = ResnetBlock2D(channels, channels, eps=1e-6, groups=groups, dtype=dtype)
+        self.resnets_1 = ResnetBlock2D(channels, channels, **kw)
 
     def forward(self, h):
         return self.resnets_1(self.attentions_0(self.resnets_0(h)))
@@ -70,12 +77,13 @@ class Decoder(nn.Module):
         dt = cfg.dtype
         rev = tuple(reversed(cfg.block_out_channels))
         self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
-        self.mid_block = VAEMidBlock(rev[0], cfg.norm_groups, dtype=dt)
+        self.mid_block = VAEMidBlock(rev[0], cfg.norm_groups, dtype=dt, quant=cfg.quant)
         h_ch = rev[0]
         for i, ch in enumerate(rev):
             for j in range(cfg.layers_per_block + 1):
                 self.add_module(f"up_blocks_{i}_resnets_{j}", ResnetBlock2D(
-                    h_ch, ch, eps=1e-6, groups=cfg.norm_groups, dtype=dt))
+                    h_ch, ch, eps=1e-6, groups=cfg.norm_groups, dtype=dt, quant=cfg.quant,
+                    quant_gate="vae"))
                 h_ch = ch
             if i < len(rev) - 1:
                 self.add_module(f"up_blocks_{i}_upsamplers_0", Upsample2D(ch, dtype=dt))

@@ -14,13 +14,21 @@ the plain einsum path, as in JAX.
 goes to the plain version; a CUDA tensor launches the kernel or raises.
 `FlashAttention` is the autograd.Function: its forward is the forward
 kernel asked for the per-row log-sum-exp, its backward the backward kernel.
+
+`spatial_attention` is psd_tpu's op of the same name, the one path to its
+int8 kernel `_kernel_q8` (`quant="qk8" | "int8"`; no model path passes
+`quant=`, in psd_tpu as here): a plain-torch quantization pre-pass
+(`quantize_qkv`), then `attention_q8`, the wrapper of `csrc/attention_q8.cu`
+(plain version `attention_q8_reference`, exact integer products).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.mode import is_training, use_kernel
 from . import kernels
@@ -149,3 +157,157 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None):
             return FlashAttention.apply(q, k, v, scale)
         return attention_fwd(q, k, v, scale)
     return attention_reference(q, k, v, scale)
+
+
+# ---- int8 spatial attention (psd_tpu/ops/spattn.py::_kernel_q8) -------------
+
+def _padded_dim(D: int) -> int:
+    """Head dim padded to the int8 MMA depth (32 bytes): 40→64, 80→96."""
+    return (D + 31) // 32 * 32
+
+
+def quantize_qkv(q, k, v, pv8: bool):
+    """The quantization pre-pass of `psd_tpu/ops/spattn.py:116-127`, plain
+    torch as in psd_tpu (XLA outside the kernel), into the layouts
+    `attention_q8` takes. q, k, v: (B, S, H, D). Returns
+      qq, kq: (B·H, S, Dp) int8, D zero-padded to Dp = ceil32(D);
+      sq, sk: (B·H, S) fp32 row scales;
+      v:  "qk8": v itself (B, S, H, D); "int8": vq (B·H, Dp, S) int8, key-major
+          (the B operand of the int8 P·V), zero-padded rows D..Dp;
+      sv: "int8": (B·H, Dp) fp32 column scales over S (1 in the padding);
+          "qk8": None."""
+    from .quant import quant_rows
+
+    B, S, H, D = q.shape
+    Dp = _padded_dim(D)
+
+    def rows(t):
+        tq, ts = quant_rows(t)  # (B, S, H, D), (B, S, H, 1)
+        tq = F.pad(tq.permute(0, 2, 1, 3), (0, Dp - D)).reshape(B * H, S, Dp)
+        return tq.contiguous(), ts[..., 0].permute(0, 2, 1).reshape(B * H, S).contiguous()
+
+    qq, sq = rows(q)
+    kq, sk = rows(k)
+    if not pv8:
+        return qq, sq, kq, sk, v, None
+    vf = v.float()
+    sv = vf.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0)  # (B,1,H,D)
+    vq = torch.round(vf / sv).to(torch.int8)
+    vq = F.pad(vq.permute(0, 2, 3, 1), (0, 0, 0, Dp - D)).reshape(B * H, Dp, S).contiguous()
+    sv = F.pad(sv[:, 0], (0, Dp - D), value=1.0).reshape(B * H, Dp).contiguous()
+    return qq, sq, kq, sk, vq, sv
+
+
+def _exact_matmul(a, b):
+    """Product of integer-valued tensors, exact: fp64 holds every partial
+    sum here (|Σ| ≤ 127²·4096 < 2⁵³), on the CPU and on the card alike."""
+    return torch.matmul(a.double(), b.double())
+
+
+# batch·heads the plain int8 attention takes at a time: bounds its (chunk, S, S)
+# fp32 logits (512 MiB at S = 4096)
+Q8_REFERENCE_CHUNK = 8
+
+
+def attention_q8_reference(qq, sq, kq, sk, v, sv, scale: float, shape, out_dtype=None):
+    """Plain version of the int8 kernel, line for line after
+    `psd_tpu/ops/spattn.py:75-105`, on the layouts of `quantize_qkv`
+    ("int8" mode when `sv` is given, else "qk8"); `shape` = (B, S, H, D) of
+    the attention. Returns (B, S, H, D) in `out_dtype` (default: v's dtype
+    in "qk8", fp32 in "int8"). The integer products are exact."""
+    B, S, H, D = shape
+    pv8 = sv is not None
+    out_dtype = out_dtype or (torch.float32 if pv8 else v.dtype)
+    vt = vq_t = None
+    if pv8:
+        vq_t = v[:, :D, :].transpose(1, 2)  # (BH, S, D) int8
+    else:
+        vt = v.permute(0, 2, 1, 3).reshape(B * H, S, D)
+    c = float(np.float32(scale * LOG2E))
+    outs = []
+    for i in range(0, B * H, Q8_REFERENCE_CHUNK):
+        sl = slice(i, i + Q8_REFERENCE_CHUNK)
+        acc = _exact_matmul(qq[sl, :, :D], kq[sl, :, :D].transpose(1, 2)).float()
+        # log2e folds into the row dequant scale → raw exp2 exponentials
+        logits = acc * (sq[sl, :, None] * c) * sk[sl, None, :]
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.exp2(logits - m)
+        l = p.sum(dim=-1, keepdim=True)
+        if pv8:
+            # probabilities normalized, then quantized per row
+            pn = p / l
+            ps = pn.amax(dim=-1, keepdim=True).clamp_min(1e-20) * (1.0 / 127.0)
+            pq = torch.round(pn / ps)
+            z = _exact_matmul(pq, vq_t[sl]).float() * ps * sv[sl, None, :D]
+        else:
+            z = torch.matmul(p.to(vt.dtype).float(), vt[sl].float()) / l
+        outs.append(z.to(out_dtype))
+    return torch.cat(outs).reshape(B, H, S, D).permute(0, 2, 1, 3)
+
+
+def attention_q8(qq, sq, kq, sk, v, sv, scale: float, shape, out_dtype=None):
+    """The int8 spatial attention (`_kernel_q8`) on pre-quantized operands
+    (the layouts of `quantize_qkv`; "int8" mode when `sv` is given, else
+    "qk8"); `shape` = (B, S, H, D). Kernel on CUDA (bf16 out), plain version
+    on CPU. Returns (B, S, H, D)."""
+    if not qq.is_cuda:
+        return attention_q8_reference(qq, sq, kq, sk, v, sv, scale, shape, out_dtype)
+    B, S, H, D = shape
+    Dp = _padded_dim(D)
+    BH, pv8 = B * H, sv is not None
+    out_dtype = out_dtype or torch.bfloat16
+    dev = qq.device
+    kernels.require(out_dtype == torch.bfloat16, f"attention_q8: bf16 output, got {out_dtype}")
+    kernels.require(D % 8 == 0 and Dp <= 256, f"attention_q8: head dim {D}")
+    kernels.require(S % 64 == 0, f"attention_q8: sequence length {S} must be a multiple of 64")
+    for name, t, shp in (("qq", qq, (BH, S, Dp)), ("kq", kq, (BH, S, Dp))):
+        kernels.require(t.device == dev and t.dtype == torch.int8 and t.is_contiguous()
+                        and tuple(t.shape) == shp and t.data_ptr() % 16 == 0,
+                        f"attention_q8: {name} must be contiguous int8 {shp}")
+    kernels.require_cuda_f32("attention_q8", dev, sq, sk)
+    kernels.require(all(t.data_ptr() % 16 == 0 for t in (sq, sk) + ((sv,) if pv8 else ())),
+                    "attention_q8: 16-byte aligned scales")
+    kernels.require(tuple(sq.shape) == (BH, S) and tuple(sk.shape) == (BH, S),
+                    "attention_q8: sq, sk must be (B·H, S)")
+    if pv8:
+        kernels.require(v.device == dev and v.dtype == torch.int8 and v.is_contiguous()
+                        and tuple(v.shape) == (BH, Dp, S) and v.data_ptr() % 16 == 0,
+                        f"attention_q8: vq must be contiguous int8 {(BH, Dp, S)}")
+        kernels.require_cuda_f32("attention_q8", dev, sv)
+        kernels.require(tuple(sv.shape) == (BH, Dp), "attention_q8: sv must be (B·H, Dp)")
+    else:
+        kernels.require_cuda_bf16("attention_q8", v)
+        kernels.require(tuple(v.shape) == (B, S, H, D), "attention_q8: v must be (B, S, H, D)")
+    out = torch.empty((B, S, H, D), dtype=out_dtype, device=dev)
+    code = kernels.library().psd_attention_q8_fwd(
+        qq.data_ptr(), sq.data_ptr(), kq.data_ptr(), sk.data_ptr(), v.data_ptr(),
+        0 if sv is None else sv.data_ptr(), out.data_ptr(), B, S, H, D,
+        float(np.float32(scale * LOG2E)), int(pv8), kernels.stream_ptr(qq))
+    kernels.check(code, "attention_q8")
+    kernels.launch_counts["attention_q8"] += 1
+    return out
+
+
+def spatial_attention(q, k, v, scale: Optional[float] = None, block_q: Optional[int] = None,
+                      quant: str = "none"):
+    """psd_tpu's `spatial_attention` op (`psd_tpu/ops/spattn.py:221-268`),
+    (B, S, H, D) in and out: None when the caller should take another path
+    (Sq != Sk, S % 256, S > 4096 or D > 256). quant "none" runs the
+    attention kernel (spattn role); "qk8" (int8 QKᵀ) and "int8" (int8 QKᵀ
+    and P·V) quantize q, k (and v) in plain torch, then run the int8
+    kernel; inference only. `block_q` (psd_tpu's query tile) must be None:
+    the kernels fix their own query tile."""
+    if block_q is not None:
+        raise ValueError("spatial_attention: block_q must be None; the CUDA kernels fix "
+                         "their own query tile")
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    if Sq != Sk or Sq % 256 or Sq > 4096 or D > 256:
+        return None
+    sm_scale = float(scale) if scale is not None else D ** -0.5
+    if quant in ("qk8", "int8"):
+        ops = quantize_qkv(q, k, v, quant == "int8")
+        return attention_q8(*ops, sm_scale, q.shape, q.dtype)
+    if quant != "none":
+        raise ValueError(f"quant must be 'none', 'qk8' or 'int8', got {quant!r}")
+    return attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(), sm_scale)

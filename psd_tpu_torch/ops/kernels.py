@@ -41,7 +41,8 @@ NVCC_FLAGS = (
 )
 
 launch_counts: Counter = Counter({"attention": 0, "attention_bwd": 0, "split3": 0,
-                                  "ln_proj": 0, "ln_geglu": 0, "gn_proj": 0})
+                                  "ln_proj": 0, "ln_geglu": 0, "gn_proj": 0,
+                                  "attention_q8": 0})
 attention_head_dims: Counter = Counter()
 
 _lib: Optional[ctypes.CDLL] = None
@@ -56,6 +57,9 @@ _SIGNATURES = {
     "psd_attention_fwd": [_P] * 5 + [_I] * 5 + [_F, _P],
     # q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, D, scale, stream
     "psd_attention_bwd": [_P] * 10 + [_I] * 5 + [_F, _P],
+    # qq, sq, kq, sk, v (bf16) or vq (int8), sv (or null), out, B, S, H, D,
+    # scale·log2e, pv8, stream
+    "psd_attention_q8_fwd": [_P] * 7 + [_I] * 4 + [_F, _I, _P],
     # x, gn_w, gn_b, w, bias, out, B, S, C, N, stream
     "psd_gn_proj_fwd": [_P] * 6 + [_I] * 4 + [_P],
     # q, ka, va, kd, vd, kl, vl, out, B, S, H, D, Ka, Kd, Kl,

@@ -5,6 +5,9 @@ Counterpart of `psd_tpu/pipelines/serve.py::GenerationServer` (fused path).
 Requests (CLIP features + target/source labels) are queued, grouped into
 batches of exactly `max_batch` (partial batches are padded with copies of
 the last request), run through `DADD.generate` and fulfilled as futures.
+The turbo levers (`sampler`, `encoder_stride`, `cache_mode`; psd_tpu's
+`pipelines/serve.py:58-79`) pass through to every batch; the VAE's int8
+mode is the model's (`VAEConfig(quant="int8")`).
 
 Pipelining (`pipeline_depth`, default 2): the worker dispatches batch N+1
 before it reads batch N back to the host. On a GPU the batch is enqueued on
@@ -46,7 +49,8 @@ class GenRequest:
 class GenerationServer:
     def __init__(self, model, image_size: int = 256, sampling_steps: int = 50,
                  steer_scale: float = 1.0, max_batch: int = 8, max_wait_s: float = 0.05,
-                 pipeline_depth: int = 2):
+                 pipeline_depth: int = 2, encoder_stride: int = 1, cache_mode: str = "encoder",
+                 sampler: str = "ddim"):
         self.model = model
         self.image_size = image_size
         self.steps = sampling_steps
@@ -54,6 +58,8 @@ class GenerationServer:
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
         self.pipeline_depth = max(int(pipeline_depth), 1)
+        # the turbo levers, passed to every batch's generate
+        self.turbo = dict(encoder_stride=encoder_stride, cache_mode=cache_mode, sampler=sampler)
         self.device = model.device
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._q: "queue.Queue[Optional[GenRequest]]" = queue.Queue()
@@ -131,7 +137,7 @@ class GenerationServer:
             cond = self.model.prepare_inference_cond(targets, sources, feats)
             imgs = self.model.generate(cond, generator=gen, image_size=self.image_size,
                                        sampling_steps=self.steps, steer_scale=self.steer,
-                                       shared_noise=False)
+                                       shared_noise=False, **self.turbo)
             done = None
             if stream is not None:
                 done = torch.cuda.Event()

@@ -142,3 +142,119 @@ def test_gn_proj_matches_pallas_interpret(S, C, N):
     out = gnproj.gn_proj_fwd(_t(x), w, b, _t(w_in.T.copy()), _t(bias))
     assert out.shape == (B, S, N)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
+
+
+# ---- int8 spatial attention (spattn.py::_kernel_q8) ------------------------------
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+@pytest.mark.parametrize("quant", ["qk8", "int8"])
+@pytest.mark.parametrize("shape", [(1, 256, 2, 40), (2, 512, 2, 80), (1, 256, 1, 160)])
+def test_spatial_attention_q8_matches_pallas_interpret(shape, quant):
+    """The port's op (plain torch quantization pre-pass, then the kernel
+    wrapper's plain version) against psd_tpu's with `_kernel_q8` in
+    interpret mode, fp32 inputs. The quantized operands are bit-equal; the
+    logits, softmax and exact integer products agree to fp32 rounding:
+    relative L2 ≤ 1e-5 in "qk8". "int8" also rounds p to int8, and an
+    fp32-rounding difference in p/l can flip one tie (1e-3: one flip at
+    D = 160 reads 3e-4)."""
+    rng = _rng(sum(shape))
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+    ref = np.asarray(spatial_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                       quant=quant, interpret=True))
+    out = attention.spatial_attention(_t(q), _t(k), _t(v), quant=quant)
+    assert out.shape == shape and out.dtype == torch.float32
+    assert _rel_l2(out.numpy(), ref) <= (1e-5 if quant == "qk8" else 1e-3)
+
+
+@pytest.mark.parametrize("shape_q,shape_k", [
+    ((1, 100, 2, 40), (1, 100, 2, 40)),    # S % 256
+    ((1, 256, 2, 40), (1, 512, 2, 40)),    # Sq != Sk
+    ((1, 4352, 1, 8), (1, 4352, 1, 8)),    # S > 4096
+    ((1, 256, 1, 264), (1, 256, 1, 264)),  # D > 256
+])
+@pytest.mark.parametrize("quant", ["none", "qk8", "int8"])
+def test_spatial_attention_declines_like_psd_tpu(shape_q, shape_k, quant):
+    q, k = np.zeros(shape_q, np.float32), np.zeros(shape_k, np.float32)
+    assert spatial_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k), quant=quant,
+                             interpret=True) is None
+    assert attention.spatial_attention(_t(q), _t(k), _t(k), quant=quant) is None
+
+
+def test_quant_rows_cols_bit_equal_with_ties():
+    """quant_rows / quant_cols bit for bit against psd_tpu, on inputs built
+    with exact rounding ties (x/scale = n + 0.5): half to even, as
+    jnp.round; half away from zero would differ at every tie."""
+    from psd_tpu.ops.quant import quant_cols as jax_quant_cols
+    from psd_tpu.ops.quant import quant_rows as jax_quant_rows
+    from psd_tpu_torch.ops.quant import quant_cols, quant_rows
+
+    rng = _rng(7)
+    x = rng.standard_normal((4, 6, 16)).astype(np.float32)
+    x[..., 0] = 127.0  # scale = 1 in every row: x[..., 1:8] are exact ties
+    x[..., 1:8] = np.array([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5], np.float32)
+    for jfn, tfn, kw in ((jax_quant_rows, quant_rows, {}),
+                         (jax_quant_cols, quant_cols, {"axis": 0}),
+                         (jax_quant_cols, quant_cols, {"axis": -1})):
+        jq, js = jfn(jnp.asarray(x), **kw)
+        tq, ts = tfn(_t(x), **kw)
+        assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+        np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert quant_rows(_t(x))[0][0, 0, 1:8].tolist() == [0, 2, 2, 0, -2, -2, 126]
+
+
+def test_attention_q8_cpu_path_never_builds(monkeypatch):
+    """A CPU tensor takes the plain version: no nvcc, no launch counted."""
+    from psd_tpu_torch.ops import kernels
+
+    def boom():
+        raise AssertionError("kernel library requested for a CPU tensor")
+
+    monkeypatch.setattr(kernels, "library", boom)
+    kernels.reset_launch_counts()
+    q = torch.randn(1, 256, 2, 40)
+    for quant in ("qk8", "int8"):
+        assert attention.spatial_attention(q, q, q, quant=quant).shape == q.shape
+    assert kernels.launch_counts["attention_q8"] == 0
+
+
+@pytest.mark.parametrize("quant", ["none", "qk8", "int8"])
+def test_spatial_attention_rejects_block_q(quant):
+    """psd_tpu's query-tile knob has no meaning for the CUDA kernels, which
+    fix their own tile: giving one raises instead of being ignored."""
+    q = torch.randn(1, 256, 2, 40)
+    with pytest.raises(ValueError, match="block_q"):
+        attention.spatial_attention(q, q, q, block_q=256, quant=quant)
+
+
+def test_chip_smoke_q8_tie_probe_tells_half_even_from_half_away(monkeypatch):
+    """chip_smoke.py's tie probe for attention_q8, at a reduced shape: its
+    rows hold exact ties pn/ps = k + 1/2 (k even), the plain version rounds
+    them half to even, and an output rounded half away from zero would miss
+    the probe's band (2^-7·|ref|) on every tie row and on no other."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "Q8_PROBE_SHAPE", (1, 1024, 2, 40))
+    ops, shape, scale, n_ties = chip_smoke.q8_tie_probe(torch.device("cpu"))
+    assert n_ties >= 20
+    ref = attention.attention_q8_reference(*ops, scale, shape, torch.float32)
+    qq, sq, kq, sk, vq, sv = ops
+    B, S, H, D = shape
+    # the one live key's pn/ps and the output pq·ps·(127·sv), as the plain
+    # version computes them
+    c = float(torch.tensor(attention.LOG2E, dtype=torch.float32))
+    sk1 = 1.0 + torch.arange(B * H).float() / 64.0
+    p1 = torch.exp2((-1.0 * (sq * c)) * sk1[:, None])
+    l_ = 1.0 + p1
+    ps = (1.0 / l_) * (1.0 / 127.0)
+    ratio = (p1 / l_) / ps
+
+    def out(pq):
+        return (pq * 127.0 * ps * sv[:, :1]).reshape(B, H, S).permute(0, 2, 1)
+
+    assert torch.equal(ref[..., :D], out(torch.round(ratio))[..., None].expand(B, S, H, D))
+    off = (out(torch.floor(ratio + 0.5)) - ref[..., 0]).abs() > 2.0 ** -7 * ref[..., 0].abs()
+    assert int(off.sum()) == n_ties
