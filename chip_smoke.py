@@ -14,9 +14,14 @@ Phases, in order; any failure exits non-zero:
                function) library time (CUDA events, median of 10 after
                warm-up); and the bound, the least time the card could take
                (bytes over 3.35 TB/s or FLOPs over 989 TFLOP/s bf16,
-               whichever is larger). attention_q8 (int8 spatial
-               attention, both modes) at the UNet self-attention shapes
-               psd_tpu's spatial_attention accepts, against its plain
+               whichever is larger). The attention kernel at D=512 (the
+               VAE mid block, attention_wide.cu) is held to relative L2
+               bands over the output and each query row, its log-sum-exp
+               to lse_reference, and three smaller wide-head shapes (D <
+               512, H > 1, Sq != Sk) are checked untimed. attention_q8
+               (int8 spatial attention, both modes) at the UNet
+               self-attention shapes psd_tpu's spatial_attention accepts,
+               against its plain
                version with exact integer products (relative L2 of the
                output and of each query row), and a tie probe that tells
                rounding half to even from half away; int8 products bound at
@@ -115,13 +120,18 @@ SERVE_KERNELS = ("attention", "split3", "ln_proj", "ln_geglu", "gn_proj")
 # the attention kernel also takes the stock Pallas flash kernel's forward;
 # attention_bwd is that kernel's dq/dkv backward
 ALSO_REPLACES = {"attention": "psd_tpu/ops/flash.py:121 (jax.experimental.pallas.ops."
-                              "tpu.flash_attention, forward)",
+                              "tpu.flash_attention, forward; psd_tpu_torch/csrc/"
+                              "attention_wide.cu)",
                  "attention_bwd": "jax.experimental.pallas.ops.tpu.flash_attention "
                                   "(dq and dkv backward kernels, configured at "
                                   "psd_tpu/ops/flash.py:104-121)"}
 
 # shapes on the 512², batch-8 main path (SD-v1.4 UNet, 8 heads; VAE mid)
 ATTN_SHAPES = [(8, 4096, 8, 40), (8, 1024, 8, 80), (8, 4096, 1, 512)]
+# the wide-head path at shapes the main path does not give it: D below 512
+# (TMA's zero fill), several heads, Sq != Sk ((B, Sq, H, D), Sk; not timed)
+ATTN_WIDE_EDGE_SHAPES = [((2, 256, 2, 264), 512), ((1, 128, 3, 384), 128),
+                         ((2, 192, 1, 448), 320)]
 SPLIT3_SHAPES = [(8, 4096, 8, 40), (8, 1024, 8, 80), (8, 256, 8, 160)]
 LN_SHAPES = [(32768, 320), (8192, 640), (2048, 1280), (512, 1280)]
 GN_SHAPES = [(8, 4096, 320), (8, 1024, 640), (8, 256, 1280), (8, 64, 1280)]
@@ -262,7 +272,8 @@ def _compare(name, shape, fn_kernel, fn_plain, results, work, fn_library=None, e
         else:
             good, band, readings = judge(a, b)
             ok = ok and bool(torch.isfinite(a).all()) and good
-            extra = {**(extra or {}), **readings}
+            # what the bf16 band alone would have said
+            extra = {**(extra or {}), **readings, "bf16_band_pass": int(d <= ATOL + RTOL * ref)}
     del out_k, out_p, outs_k, outs_p
     ms_k = time_ms(fn_kernel)
     ms_p = time_ms(fn_plain)
@@ -306,8 +317,24 @@ def _sdpa(q, k, v):
                                           v.transpose(1, 2)).transpose(1, 2)
 
 
+def _check_wide_lse(q, k, v) -> None:
+    """The wide-head kernel's per-row log-sum-exp against lse_reference."""
+    from psd_tpu_torch.ops import attention
+    from psd_tpu_torch.testing import WIDE_ATTN_LSE_BAND
+
+    _, lse = attention.attention_fwd(q, k, v, return_lse=True)
+    d = (lse - attention.lse_reference(q, k, q.shape[-1] ** -0.5)).abs().max().item()
+    ok = bool(torch.isfinite(lse).all()) and d <= WIDE_ATTN_LSE_BAND
+    log(f"[kernel] attention lse  {str(tuple(q.shape)):28s} max abs {d:.3e} (log2 units, band "
+        f"{WIDE_ATTN_LSE_BAND:g}) {'ok' if ok else 'FAIL'} (not timed)")
+    if not ok:
+        raise SystemExit(f"chip_smoke.py: attention lse {tuple(q.shape)} disagrees with "
+                         f"lse_reference")
+
+
 def phase_kernels() -> dict:
     from psd_tpu_torch.ops import attention, geglu, gnproj, split3
+    from psd_tpu_torch.testing import wide_attention_judge
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -320,12 +347,24 @@ def phase_kernels() -> dict:
     for shape in ATTN_SHAPES:
         B, S, H, D = shape
         q, k, v = randn(*shape), randn(*shape), randn(*shape)
+        wide = D > 256
         _compare("attention", shape,
                  lambda: attention.attention_fwd(q, k, v),
                  lambda: attention.attention_reference(q, k, v), results,
                  (4.0 * B * H * S * S * D, 4 * B * S * H * D * 2),
-                 fn_library=lambda: _sdpa(q, k, v))
+                 fn_library=lambda: _sdpa(q, k, v), judge=wide_attention_judge if wide else None)
+        if wide:
+            _check_wide_lse(q, k, v)
         del q, k, v
+    for (B, Sq, H, D), Sk in ATTN_WIDE_EDGE_SHAPES:
+        q, k, v = randn(B, Sq, H, D), randn(B, Sk, H, D), randn(B, Sk, H, D)
+        ok, text, _ = wide_attention_judge(attention.attention_fwd(q, k, v),
+                                           attention.attention_reference(q, k, v))
+        log(f"[kernel] attention edge {str((B, Sq, H, D)):22s} Sk {Sk}: {text} "
+            f"{'ok' if ok else 'FAIL'} (wide path; not timed)")
+        if not ok:
+            raise SystemExit(f"chip_smoke.py: attention {(B, Sq, H, D)}, Sk {Sk} disagrees with "
+                             f"its plain version")
     for (B, S, H, D) in SPLIT3_SHAPES:
         q = randn(B, S, H, D)
         banks = [randn(B, 16, H, D) for _ in range(6)]
@@ -396,14 +435,9 @@ def _q8_judge(out, ref):
     """attention_q8 against its plain version: the relative L2 error of the
     whole (B, S, H, D) output and the largest over its query rows (the D
     outputs of one (b, s, h)), against Q8_REL_L2_BAND and Q8_ROW_BAND."""
-    out, ref = out.float(), ref.float()
-    diff = out - ref
-    rel = (diff.norm() / ref.norm()).item()
-    row = (diff.norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)).max().item()
-    text = (f"rel L2 {rel:.3e} (band {Q8_REL_L2_BAND:g}), worst row {row:.3e} "
-            f"(band {Q8_ROW_BAND:.3g})")
-    return rel <= Q8_REL_L2_BAND and row <= Q8_ROW_BAND, text, {"rel_l2": rel,
-                                                               "worst_row_rel": row}
+    from psd_tpu_torch.testing import rel_l2_judge
+
+    return rel_l2_judge(out, ref, Q8_REL_L2_BAND, Q8_ROW_BAND)
 
 
 def q8_tie_probe(dev):

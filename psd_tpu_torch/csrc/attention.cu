@@ -17,17 +17,17 @@
 // by exp2(m_old − m_new) before each tile's P·V).
 //
 // Two paths, chosen by the padded head dim Dp = ceil16(D):
-//  * Dp ≤ 256 (the UNet's 40/80/160): flash_kernel<Dp>. One block of 4
-//    warps per (64 query rows, b·h); each warp owns 16 rows. Logits, the
+//  * Dp ≤ 256 (the UNet's 40/80/160): flash_kernel<Dp>, here. One block of
+//    4 warps per (64 query rows, b·h); each warp owns 16 rows. Logits, the
 //    probabilities and the O accumulator stay in registers: mma.sync
 //    m16n8k16 bf16 with fp32 accumulation, whose accumulator layout is the
 //    A-operand layout of the next product, so P never touches shared memory.
 //    Row max and sum reduce over the 4 lanes that share a row. K/V tiles
 //    are double-buffered in shared memory with cp.async; V's B fragments
 //    come through ldmatrix.trans. Zero columns pad D to Dp.
-//  * Dp > 256 (the VAE's 512): wide_kernel, WMMA 16×16×16 with the per-warp
-//    16×Dp accumulator in shared memory (too wide for registers), 32-row
-//    query and key tiles, ≈173 KB of shared memory (dynamic, opt-in).
+//  * Dp > 256 (the VAE's 512): launch_wide_attention in attention_wide.cu,
+//    a warp-specialised kernel fed by TMA through an mbarrier ring (the
+//    note there gives its design).
 // In both, as in spattn, the denominator sums the bf16-rounded probabilities
 // that enter P·V, so the output is a convex combination of v rows; logits
 // are scaled by scale·log2(e) in fp32 and exponentiated with exp2.
@@ -41,137 +41,6 @@
 
 namespace psd {
 namespace {
-
-struct AttnTiling {
-  int nw, bk, dp, ldq, lds, ldp, ldo;
-  size_t off_k, off_v, off_s, off_p, off_o, bytes;
-};
-
-__host__ __device__ inline AttnTiling attn_tiling(int D) {
-  AttnTiling t;
-  t.dp = (D + 15) / 16 * 16;
-  t.nw = t.dp > 256 ? 2 : 4;
-  t.bk = t.dp > 256 ? 32 : 64;
-  t.ldq = t.dp + 8;  // bf16 rows, +8 staggers the banks
-  t.lds = t.bk + 4;  // fp32 logits
-  t.ldp = t.bk + 8;  // bf16 probabilities
-  t.ldo = t.dp + 4;  // fp32 accumulator
-  const int bq = 16 * t.nw;
-  size_t o = align_up(static_cast<size_t>(bq) * t.ldq * 2, 128);
-  t.off_k = o;
-  o += align_up(static_cast<size_t>(t.bk) * t.ldq * 2, 128);
-  t.off_v = o;
-  o += align_up(static_cast<size_t>(t.bk) * t.ldq * 2, 128);
-  t.off_s = o;
-  o += align_up(static_cast<size_t>(t.nw) * 16 * t.lds * 4, 128);
-  t.off_p = o;
-  o += align_up(static_cast<size_t>(t.nw) * 16 * t.ldp * 2, 128);
-  t.off_o = o;
-  o += align_up(static_cast<size_t>(t.nw) * 16 * t.ldo * 4, 128);
-  t.bytes = o;
-  return t;
-}
-
-__global__ void wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                  const bf16* __restrict__ v, bf16* __restrict__ out,
-                                  float* __restrict__ lse, int Sq, int Sk, int H, int D,
-                                  float scale_log2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const AttnTiling t = attn_tiling(D);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bq = 16 * t.nw;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * bq;
-  const size_t row_stride = static_cast<size_t>(H) * D;
-
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + t.off_k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + t.off_v);
-  float* Sw = reinterpret_cast<float*>(smem + t.off_s) + warp * 16 * t.lds;
-  bf16* Pw = reinterpret_cast<bf16*>(smem + t.off_p) + warp * 16 * t.ldp;
-  float* Ow = reinterpret_cast<float*>(smem + t.off_o) + warp * 16 * t.ldo;
-
-  load_rows(q + (static_cast<size_t>(b) * Sq + q0) * row_stride + static_cast<size_t>(h) * D,
-            row_stride, bq, D, t.dp, Qs, t.ldq);
-  for (int i = lane; i < 16 * t.ldo; i += 32) Ow[i] = 0.f;
-
-  // lane pair (2r, 2r+1) owns query row r of the warp, one half of its columns
-  const int r = lane >> 1, half = lane & 1;
-  float m_i = -INFINITY, l_i = 0.f;
-  const int kc0 = half * (t.bk / 2), kc1 = kc0 + t.bk / 2;
-  const int oc0 = half * (t.dp / 2), oc1 = oc0 + t.dp / 2;
-
-  for (int k0 = 0; k0 < Sk; k0 += t.bk) {
-    __syncthreads();  // the previous tile's K/V are no longer read
-    const size_t kv_off = (static_cast<size_t>(b) * Sk + k0) * row_stride +
-                          static_cast<size_t>(h) * D;
-    load_rows(k + kv_off, row_stride, t.bk, D, t.dp, Ks, t.ldq);
-    load_rows(v + kv_off, row_stride, t.bk, D, t.dp, Vs, t.ldq);
-    __syncthreads();
-
-    // S = Q_w · K_tileᵀ (16 × bk, fp32)
-    for (int n = 0; n < t.bk / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < t.dp / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, Qs + (warp * 16) * t.ldq + kk * 16, t.ldq);
-        wmma::load_matrix_sync(fb, Ks + (n * 16) * t.ldq + kk * 16, t.ldq);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(Sw + n * 16, acc, t.lds, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax over this tile, in log2 units
-    const float* srow = Sw + r * t.lds;
-    float mx = -INFINITY;
-    for (int c = kc0; c < kc1; ++c) mx = fmaxf(mx, srow[c]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1)) * scale_log2;
-    const float m_new = fmaxf(m_i, mx);
-    const float corr = exp2f(m_i - m_new);
-    float sum = 0.f;
-    bf16* prow = Pw + r * t.ldp;
-    for (int c = kc0; c < kc1; ++c) {
-      const bf16 p = __float2bfloat16(exp2f(srow[c] * scale_log2 - m_new));
-      prow[c] = p;
-      sum += __bfloat162float(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_i = l_i * corr + sum;
-    m_i = m_new;
-    float* orow = Ow + r * t.ldo;
-    for (int c = oc0; c < oc1; ++c) orow[c] *= corr;
-    __syncwarp();
-
-    // O_w += P · V_tile
-    for (int n = 0; n < t.dp / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, Ow + n * 16, t.ldo, wmma::mem_row_major);
-      for (int kk = 0; kk < t.bk / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, Pw + kk * 16, t.ldp);
-        wmma::load_matrix_sync(fb, Vs + (kk * 16) * t.ldq + n * 16, t.ldq);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(Ow + n * 16, acc, t.ldo, wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  const float inv_l = 1.f / l_i;
-  const float* orow = Ow + r * t.ldo;
-  bf16* dst = out + (static_cast<size_t>(b) * Sq + q0 + warp * 16 + r) * row_stride +
-              static_cast<size_t>(h) * D;
-  for (int c = oc0; c < oc1 && c < D; ++c) dst[c] = __float2bfloat16(orow[c] * inv_l);
-  if (lse != nullptr && half == 0)
-    lse[static_cast<size_t>(bh) * Sq + q0 + warp * 16 + r] = m_i + log2f(l_i);
-}
-
-
-// ---- register-resident path (Dp <= 256) -------------------------------------
 
 // pack_bf16x2, and add the two rounded values to `sum` (the denominator
 // sums exactly the probabilities that enter P·V).
@@ -345,6 +214,12 @@ cudaError_t launch_flash(const bf16* q, const bf16* k, const bf16* v, bf16* out,
 }
 
 }  // namespace
+
+// attention_wide.cu: the Dp > 256 path
+cudaError_t launch_wide_attention(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                                  float* lse, int B, int Sq, int Sk, int H, int D,
+                                  float scale_log2, cudaStream_t st);
+
 }  // namespace psd
 
 extern "C" int psd_attention_fwd(const void* q, const void* k, const void* v, void* out,
@@ -368,10 +243,5 @@ extern "C" int psd_attention_fwd(const void* q, const void* k, const void* v, vo
     case 160: return static_cast<int>(launch_flash<160>(qp, kp, vp, op, lp, B, Sq, Sk, H, D, sl2, st));
     default: break;
   }
-  const AttnTiling t = attn_tiling(D);
-  cudaError_t err = allow_smem(wide_kernel, t.bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(Sq / (16 * t.nw), B * H);
-  wide_kernel<<<grid, 32 * t.nw, t.bytes, st>>>(qp, kp, vp, op, lp, Sq, Sk, H, D, sl2);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_wide_attention(qp, kp, vp, op, lp, B, Sq, Sk, H, D, sl2, st));
 }

@@ -258,3 +258,61 @@ def test_chip_smoke_q8_tie_probe_tells_half_even_from_half_away(monkeypatch):
     assert torch.equal(ref[..., :D], out(torch.round(ratio))[..., None].expand(B, S, H, D))
     off = (out(torch.floor(ratio + 0.5)) - ref[..., 0]).abs() > 2.0 ** -7 * ref[..., 0].abs()
     assert int(off.sum()) == n_ties
+
+
+# ---- the wide-head attention judge (chip_smoke.py, attention_wide.cu) ----------
+def _wide_kernel_emulation(q, k, v, fault=None):
+    """attention_wide.cu's arithmetic in plain torch, bf16 (B, S, H, D) in and
+    out: 32-key tiles, online softmax in log2 units whose denominator sums
+    the bf16-rounded p, fp32 accumulators. `fault` plants one of chip_smoke's
+    faults: "drop_last_tile" (the last key tile never enters), "skip_rescale"
+    (the second consumer's O half, columns 256-511, is not rescaled on the
+    last tile), "v_box" (V's 64-column box 5 is loaded from box 4's columns)."""
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # (B, H, S, D)
+    if fault == "v_box":
+        vf = vf.clone()
+        vf[..., 320:384] = vf[..., 256:320]
+    c = float(np.float32(q.shape[-1] ** -0.5 * attention.LOG2E))
+    m = torch.full(qf.shape[:-1], -float("inf"))
+    l = torch.zeros(qf.shape[:-1])
+    o = torch.zeros(qf.shape)
+    starts = list(range(0, kf.shape[2], 32))
+    if fault == "drop_last_tile":
+        starts = starts[:-1]
+    for k0 in starts:
+        s = qf @ kf[:, :, k0:k0 + 32].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1) * c)
+        corr = torch.exp2(m - m_new)[..., None].expand(o.shape).clone()
+        p = torch.exp2(s * c - m_new[..., None]).bfloat16().float()
+        l = l * corr[..., 0] + p.sum(-1)
+        if fault == "skip_rescale" and k0 == starts[-1]:
+            corr[..., 256:] = 1.0
+        o = o * corr + p @ vf[:, :, k0:k0 + 32]
+        m = m_new
+    return (o / l[..., None]).permute(0, 2, 1, 3).bfloat16()
+
+
+@pytest.mark.parametrize("fault", [None, "drop_last_tile", "skip_rescale", "v_box"])
+def test_wide_attention_judge_sees_planted_faults(fault):
+    """chip_smoke.py holds the D=512 attention kernel to `attention_reference`
+    with `wide_attention_judge` (relative L2 ≤ 1e-2 over the output, ≤ 2e-2
+    on the worst query row). At (1, 1024, 1, 512), N(0,1) bf16 inputs, the
+    kernel's arithmetic emulated in plain torch reads (relative L2 / worst
+    row; then the max abs error against the old band 1e-2 + 1e-2·max|ref| =
+    1.30e-2):
+      sound            3.03e-3 / 4.06e-3; 1.95e-3, passes both;
+      drop_last_tile   1.81e-1 / 6.19e-1; 1.43e-1, fails both;
+      skip_rescale     5.71e-2 / 6.82e-1; 1.57e-1, fails both;
+      v_box            5.00e-1 / 6.33e-1; 4.38e-1, fails both.
+    (At S = 1024 one tile is 1/32 of the keys; PERF.md §6 gives the
+    readings of the same faults planted in the kernel, on the card at
+    S = 4096.)
+    The judge passes the sound emulation and fails each fault."""
+    from psd_tpu_torch.testing import wide_attention_judge
+
+    rng = _rng(512)
+    q, k, v = (_t(rng.standard_normal((1, 1024, 1, 512)).astype(np.float32)).bfloat16()
+               for _ in range(3))
+    ref = attention.attention_reference(q, k, v)
+    ok, text, readings = wide_attention_judge(_wide_kernel_emulation(q, k, v, fault), ref)
+    assert ok == (fault is None), text
