@@ -17,23 +17,35 @@
 //    keys into a 2-stage ring, each completed on its stage's full mbarrier),
 //    and the group gives its registers away (setmaxnreg 24). WG1 and WG2 are
 //    the consumers (setmaxnreg 240): WG1 owns output columns 0-255, WG2
-//    256-511, so each keeps a 64×256 fp32 accumulator in registers.
+//    256-511, so each keeps a 64×256 fp32 accumulator in registers, 128 a
+//    thread.
 //  * Shared memory holds every tile as TMA wrote it, boxes of 64 columns
 //    (128 B) with the 128-byte swizzle: q 64 KB, the ring 2 × (32 + 32) KB,
 //    a 32 KB exchange buffer, the barriers: 225 KB.
 //  * S = q·kᵀ (64×32, depth 512) is split over the depth: WG1 takes d < 256
-//    and WG2 the rest, each writes its partial to the exchange buffer (in
-//    fragment order, double-buffered by tile parity), meets its partner warp
-//    at a named barrier and adds the other's partial. fp32 addition commutes,
-//    so both hold the same bits of S and reach the same m, l and P.
+//    and WG2 the rest, each with 16 wgmma m64n32k16 whose A (q) and B (K)
+//    both come from shared memory, K-major. Each WG writes its partial to
+//    the exchange buffer (in accumulator order, double-buffered by tile
+//    parity), meets the other at a named barrier and adds the other's
+//    partial. fp32 addition commutes, so both hold the same bits of S and
+//    reach the same m, l and P.
 //  * Online softmax in registers (row max and sum over the 4 lanes that
 //    share a row); each WG rescales its own O half by exp2(m_old − m_new).
-//  * The products run on mma.sync m16n8k16 (bf16, fp32 accumulate). Each
-//    consumer warp owns 16 query rows; ldmatrix reads q and K, and V through
-//    .trans, from the swizzled tiles, conflict-free. P goes from the S
-//    accumulator straight into the A fragment of P·V.
-//  * After its last read of a stage, each consumer warp arrives on the
-//    stage's empty mbarrier; the producer waits on it before the refill.
+//  * P·V: P is packed to bf16 straight from the S accumulator, which is the
+//    A register fragment of wgmma m64nNk16, and two wgmma m64n256k16 (one
+//    per 16 keys) take it from registers with B = V[keys, this WG's 256
+//    columns] from shared memory. V lies key-major, so B is MN-major
+//    (transposed): the descriptor's leading offset steps one 64-column box
+//    (32 rows · 128 B), its stride offset 8 keys (1024 B).
+//  * Once wgmma.wait_group says P·V has read a stage, each consumer warp
+//    arrives on the stage's empty mbarrier; the producer waits on it before
+//    the refill.
+//  * Not yet: the two consumer WGs meet at every tile's exchange, so the
+//    tensor cores idle while both run the softmax; and each stage is read
+//    by one CTA only (no cluster multicast of K/V).
+// ptxas (sm_90a, -O3): 168 registers at entry (the bound for 384 threads),
+// no spills, no stack; setmaxnreg then gives the producer WG 24 and the
+// consumer WGs 240 each.
 // As in flash_kernel, the denominator sums the bf16-rounded probabilities
 // that enter P·V, logits are scaled by scale·log2(e) in fp32 and
 // exponentiated with exp2, and `lse` (when not null) gets m + log2(l) per
@@ -58,18 +70,6 @@ constexpr uint32_t kOffX = kOffK + kStages * 2 * kKVBytes;
 constexpr uint32_t kOffBar = kOffX + 2 * 2 * kXFloats * 4;
 constexpr size_t kSmemBytes = kOffBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 // pack_bf16x2, and add the two rounded values to `sum`
 __device__ __forceinline__ uint32_t pack_sum(float lo, float hi, float& sum) {
   const uint32_t r = pack_bf16x2(lo, hi);
@@ -79,7 +79,8 @@ __device__ __forceinline__ uint32_t pack_sum(float lo, float hi, float& sum) {
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-wide_attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+wide_attention_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
                       float* __restrict__ lse, int Sq, int Sk, int H, int D, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
@@ -129,19 +130,15 @@ wide_attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     // ---- consumers ----
     setmaxnreg_inc<240>();
     const int c = wg - 1;  // output columns [256c, 256c + 256), depth half c of S
-    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int wid = threadIdx.x % 128, warp = wid / 32, lane = wid % 32;
     const int g = lane >> 2, tig = lane & 3;
-    const int mi = lane >> 3, r8 = lane & 7;  // ldmatrix: this lane's matrix and row
     const int col0 = 256 * c;
     const uint32_t qs = smem_addr(smem);
-    const int qrow = warp * 16 + (mi & 1) * 8 + r8;  // q (A): rows g/g+8, cols +0/+8
-    const int kkey = (mi >> 1) * 8 + r8;             // K (B): keys j/j+1 tile, cols +0/+8
-    const int vkey = (mi & 1) * 8 + r8;              // V (B, .trans): keys +0/+8, cols +0/+8
-    float* xbuf = reinterpret_cast<float*>(smem + kOffX) + warp * 16 * 32 + lane;
+    float* xbuf = reinterpret_cast<float*>(smem + kOffX) + wid;
 
-    float o[32][4];
+    float o[128];  // m64n256 accumulator: o[4n + e], columns col0 + 8n + 2·tig (+1)
 #pragma unroll
-    for (int n = 0; n < 32; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    for (int i = 0; i < 128; ++i) o[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
     mbar_wait(qbar, 0);
@@ -150,39 +147,38 @@ wide_attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
       mbar_wait(&full[s], (t / kStages) & 1);
       const uint32_t kst = qs + kOffK + s * 2 * kKVBytes, vst = kst + kKVBytes;
 
-      // this WG's half of S = q·kᵀ, 16 × 32 per warp
-      float sc[4][4];
+      // this WG's half of S = q·kᵀ (64 × 32): 16 steps of k16 over d in [col0, col0 + 256),
+      // q and K both K-major; a k16 step moves 32 B inside a 64-column box
+      float sc[16];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+      for (int i = 0; i < 16; ++i) sc[i] = 0.f;
+      wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < 16; ++ks) {
-        const int d0 = col0 + 16 * ks;
-        uint32_t a[4];
-        ldsm_x4(a, qs + sw128(kBQ, qrow, d0 + (mi >> 1) * 8));
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          uint32_t bb[4];
-          ldsm_x4(bb, kst + sw128(kBK, 16 * jj + kkey, d0 + (mi & 1) * 8));
-          mma_bf16(sc[2 * jj], a, bb[0], bb[1]);
-          mma_bf16(sc[2 * jj + 1], a, bb[2], bb[3]);
-        }
+        const uint32_t box = 4 * c + (ks >> 2), in_box = (ks & 3) * 32;
+        wgmma_m64n32k16_ss(sc, wgmma_desc(qs + box * (kBQ * 128) + in_box, 16, 1024),
+                           wgmma_desc(kst + box * (kBK * 128) + in_box, 16, 1024), ks > 0);
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 16; ++i) reg_fence(sc[i]);
 
-      // exchange the partials with the partner warp of the other WG
+      // exchange the partials with the other consumer WG
       float* mine = xbuf + ((t & 1) * 2 + c) * kXFloats;
       const float* theirs = xbuf + ((t & 1) * 2 + (1 - c)) * kXFloats;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) mine[i * 32] = sc[i / 4][i % 4];
-      named_sync(1 + warp, 64);
+      for (int i = 0; i < 16; ++i) mine[i * 128] = sc[i];
+      named_sync(1, 256);
 #pragma unroll
-      for (int i = 0; i < 16; ++i) sc[i / 4][i % 4] += theirs[i * 32];
+      for (int i = 0; i < 16; ++i) sc[i] += theirs[i * 128];
 
-      // online softmax; rows g (c0, c1) and g + 8 (c2, c3) of the warp's 16
+      // online softmax; rows 16·warp + g (e = 0, 1) and + 8 (e = 2, 3)
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
-        mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
       }
 #pragma unroll
       for (int o_ = 1; o_ <= 2; o_ <<= 1) {
@@ -193,36 +189,38 @@ wide_attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
       const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
       m0 = mn0;
       m1 = mn1;
-      uint32_t pa[2][4];
+      uint32_t pa[2][4];  // P in the A fragment of m64k16: keys 16kk + (0..15)
       float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        pa[j / 2][(j % 2) * 2] = pack_sum(exp2f(sc[j][0] * scale_log2 - mn0),
-                                          exp2f(sc[j][1] * scale_log2 - mn0), ls0);
-        pa[j / 2][(j % 2) * 2 + 1] = pack_sum(exp2f(sc[j][2] * scale_log2 - mn1),
-                                              exp2f(sc[j][3] * scale_log2 - mn1), ls1);
+        pa[j / 2][(j % 2) * 2] = pack_sum(exp2f(sc[4 * j] * scale_log2 - mn0),
+                                          exp2f(sc[4 * j + 1] * scale_log2 - mn0), ls0);
+        pa[j / 2][(j % 2) * 2 + 1] = pack_sum(exp2f(sc[4 * j + 2] * scale_log2 - mn1),
+                                              exp2f(sc[4 * j + 3] * scale_log2 - mn1), ls1);
       }
       l0 = l0 * c0 + ls0;
       l1 = l1 * c1 + ls1;
 #pragma unroll
       for (int n = 0; n < 32; ++n) {
-        o[n][0] *= c0;
-        o[n][1] *= c0;
-        o[n][2] *= c1;
-        o[n][3] *= c1;
+        o[4 * n] *= c0;
+        o[4 * n + 1] *= c0;
+        o[4 * n + 2] *= c1;
+        o[4 * n + 3] *= c1;
       }
 
-      // O[:, 256c : 256c + 256] += P · V_tile
+      // O[:, col0 : col0 + 256] += P · V_tile: V is MN-major (d contiguous);
+      // the leading offset steps one 64-column box (kBK rows · 128 B), the
+      // stride offset 8 keys (1024 B); a k16 step is 16 key rows
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {
-#pragma unroll
-        for (int nn = 0; nn < 16; ++nn) {
-          uint32_t bb[4];
-          ldsm_x4_trans(bb, vst + sw128(kBK, 16 * kk + vkey, col0 + 16 * nn + (mi >> 1) * 8));
-          mma_bf16(o[2 * nn], pa[kk], bb[0], bb[1]);
-          mma_bf16(o[2 * nn + 1], pa[kk], bb[2], bb[3]);
-        }
+        const uint32_t v_addr = vst + 4 * c * (kBK * 128) + kk * 16 * 128;
+        wgmma_m64n256k16_rs_tb(o, pa[kk], wgmma_desc(v_addr, kBK * 128, 1024), 1);
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 128; ++i) reg_fence(o[i]);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
     }
@@ -241,8 +239,10 @@ wide_attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     for (int n = 0; n < 32; ++n) {
       const int col = col0 + n * 8 + tig * 2;
       if (col0 + n * 8 < D) {
-        *reinterpret_cast<__nv_bfloat162*>(r0 + col) = __floats2bfloat162_rn(o[n][0] * i0, o[n][1] * i0);
-        *reinterpret_cast<__nv_bfloat162*>(r1 + col) = __floats2bfloat162_rn(o[n][2] * i1, o[n][3] * i1);
+        *reinterpret_cast<__nv_bfloat162*>(r0 + col) =
+            __floats2bfloat162_rn(o[4 * n] * i0, o[4 * n + 1] * i0);
+        *reinterpret_cast<__nv_bfloat162*>(r1 + col) =
+            __floats2bfloat162_rn(o[4 * n + 2] * i1, o[4 * n + 3] * i1);
       }
     }
     if (lse != nullptr && c == 0 && tig == 0) {

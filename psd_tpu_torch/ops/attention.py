@@ -6,8 +6,10 @@ The TPU package routes long non-causal attention to two Pallas programs:
 `spattn` (S%256==0, S≤4096, D≤256: the UNet self-attention, inference only)
 and JAX's stock flash kernel (S%128==0, S≥512; in training it is the only
 kernel, with its fused dq/dkv backward kernels). Both compute the same
-function, so here ONE forward kernel, `csrc/attention.cu`, serves both roles,
-and `csrc/attention_bwd.cu` is the flash backward. Everything shorter takes
+function, so here ONE forward entry point, `csrc/attention.cu`, serves both
+roles: its register-resident kernel for head dims up to 256, and for wider
+heads (the VAE mid block, D = 512) the TMA/wgmma kernel of
+`csrc/attention_wide.cu`. `csrc/attention_bwd.cu` is the flash backward. Everything shorter takes
 the plain einsum path, as in JAX.
 
 `attention_fwd` and `attention_bwd` are the kernel wrappers: a CPU tensor
