@@ -42,15 +42,6 @@
 namespace psd {
 namespace {
 
-// pack_bf16x2, and add the two rounded values to `sum` (the denominator
-// sums exactly the probabilities that enter P·V).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi, float& sum) {
-  const uint32_t r = pack_bf16x2(lo, hi);
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&r);
-  sum += __low2float(v) + __high2float(v);
-  return r;
-}
-
 constexpr int kFlashBQ = 64, kFlashBK = 64, kFlashWarps = 4;
 
 inline size_t flash_smem(int dp) {
@@ -149,10 +140,10 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
-      pa[j / 2][(j % 2) * 2] = pack_bf16(exp2f(s[j][0] * scale_log2 - mn0),
-                                         exp2f(s[j][1] * scale_log2 - mn0), ls0);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(exp2f(s[j][2] * scale_log2 - mn1),
-                                             exp2f(s[j][3] * scale_log2 - mn1), ls1);
+      pa[j / 2][(j % 2) * 2] = pack_bf16x2_sum(exp2f(s[j][0] * scale_log2 - mn0),
+                                               exp2f(s[j][1] * scale_log2 - mn0), ls0);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16x2_sum(exp2f(s[j][2] * scale_log2 - mn1),
+                                                   exp2f(s[j][3] * scale_log2 - mn1), ls1);
     }
     l0 = l0 * c0 + ls0;
     l1 = l1 * c1 + ls1;

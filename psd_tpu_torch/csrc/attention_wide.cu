@@ -70,14 +70,6 @@ constexpr uint32_t kOffX = kOffK + kStages * 2 * kKVBytes;
 constexpr uint32_t kOffBar = kOffX + 2 * 2 * kXFloats * 4;
 constexpr size_t kSmemBytes = kOffBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
 
-// pack_bf16x2, and add the two rounded values to `sum`
-__device__ __forceinline__ uint32_t pack_sum(float lo, float hi, float& sum) {
-  const uint32_t r = pack_bf16x2(lo, hi);
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&r);
-  sum += __low2float(v) + __high2float(v);
-  return r;
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
 wide_attention_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -193,10 +185,10 @@ wide_attention_kernel(const __grid_constant__ CUtensorMap tq,
       float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        pa[j / 2][(j % 2) * 2] = pack_sum(exp2f(sc[4 * j] * scale_log2 - mn0),
-                                          exp2f(sc[4 * j + 1] * scale_log2 - mn0), ls0);
-        pa[j / 2][(j % 2) * 2 + 1] = pack_sum(exp2f(sc[4 * j + 2] * scale_log2 - mn1),
-                                              exp2f(sc[4 * j + 3] * scale_log2 - mn1), ls1);
+        pa[j / 2][(j % 2) * 2] = pack_bf16x2_sum(
+            exp2f(sc[4 * j] * scale_log2 - mn0), exp2f(sc[4 * j + 1] * scale_log2 - mn0), ls0);
+        pa[j / 2][(j % 2) * 2 + 1] = pack_bf16x2_sum(
+            exp2f(sc[4 * j + 2] * scale_log2 - mn1), exp2f(sc[4 * j + 3] * scale_log2 - mn1), ls1);
       }
       l0 = l0 * c0 + ls0;
       l1 = l1 * c1 + ls1;

@@ -25,10 +25,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__host__ __device__ __forceinline__ size_t align_up(size_t x, size_t a) {
-  return (x + a - 1) / a * a;
-}
-
 // Raise a kernel's dynamic shared memory limit when it needs more than the
 // 48 KB default (opt-in up to 227 KB on Hopper).
 template <typename Kernel>
@@ -79,6 +75,15 @@ __device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// pack_bf16x2, and add the two rounded values to `sum` (an attention
+// denominator sums exactly the probabilities that enter P·V).
+__device__ __forceinline__ uint32_t pack_bf16x2_sum(float lo, float hi, float& sum) {
+  const uint32_t r = pack_bf16x2(lo, hi);
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&r);
+  sum += __low2float(v) + __high2float(v);
+  return r;
 }
 
 }  // namespace psd

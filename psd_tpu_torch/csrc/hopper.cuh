@@ -85,17 +85,6 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-// ---- 128-byte swizzle -------------------------------------------------------------
-
-// Byte offset of element (row, col) of a bf16 tile that TMA wrote as boxes of
-// 64 columns (128 B) × `rows` rows with CU_TENSOR_MAP_SWIZZLE_128B: box
-// col/64 starts at (col/64)·rows·128; inside it, the 16-byte chunk of a row
-// is XORed with row % 8. The tile starts 1024-byte aligned. col % 8 == 0.
-__device__ __forceinline__ uint32_t sw128(int rows, int row, int col) {
-  return static_cast<uint32_t>((col >> 6) * rows * 128 + row * 128 +
-                               ((((col >> 3) & 7) ^ (row & 7)) << 4));
-}
-
 // ---- wgmma -------------------------------------------------------------------------
 
 // Shared-memory matrix descriptor (PTX ISA, "Matrix Descriptor Format"):
