@@ -6,7 +6,8 @@
 Phases, in order; any failure exits non-zero:
   1. device  — require CUDA; print the card's name and power limit.
   2. build   — compile psd_tpu_torch/csrc/*.cu with nvcc (sm_90a), one nvcc
-               per source, all at once.
+               per source, all at once; print ptxas's registers, stack and
+               spills for the attention forward kernels.
   3. kernels — each kernel against its plain PyTorch version at
                every shape the 512², batch-8 serving path gives it (bf16,
                seeded inputs): max abs/rel error against a stated band;
@@ -14,11 +15,14 @@ Phases, in order; any failure exits non-zero:
                function) library time (CUDA events, median of 10 after
                warm-up); and the bound, the least time the card could take
                (bytes over 3.35 TB/s or FLOPs over 989 TFLOP/s bf16,
-               whichever is larger). The attention kernel at D=512 (the
-               VAE mid block, attention_wide.cu) is held to relative L2
-               bands over the output and each query row, its log-sum-exp
-               to lse_reference, and three smaller wide-head shapes (D <
-               512, H > 1, Sq != Sk) are checked untimed. attention_q8
+               whichever is larger). The attention kernels are held to
+               relative L2 bands over the output and each query row: at
+               D=40/80 (the UNet, attention_narrow.cu, also timed with
+               the log-sum-exp at training's (64,1024,8,40)) and at D=512
+               (the VAE mid block, attention_wide.cu); their log-sum-exp
+               to lse_reference; beside their bound, the exp2 count's time
+               at the SFU rate; untimed edge shapes (every padded head dim
+               of each kernel, H of 1 and 3, Sq != Sk). attention_q8
                (int8 spatial attention, both modes) at the UNet
                self-attention shapes psd_tpu's spatial_attention accepts,
                against its plain
@@ -65,6 +69,7 @@ The last line is the device JSON. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import re
@@ -108,7 +113,7 @@ GN_AB_PAIRS = 10
 
 # kernel → (TPU kernel it replaces as file:line, CUDA source)
 KERNELS = {
-    "attention": ("psd_tpu/ops/spattn.py:36", "psd_tpu_torch/csrc/attention.cu"),
+    "attention": ("psd_tpu/ops/spattn.py:36", "psd_tpu_torch/csrc/attention_narrow.cu"),
     "attention_bwd": ("psd_tpu/ops/flash.py:121", "psd_tpu_torch/csrc/attention_bwd.cu"),
     "split3": ("psd_tpu/ops/split3.py:29", "psd_tpu_torch/csrc/split3.cu"),
     "ln_proj": ("psd_tpu/ops/geglu.py:178", "psd_tpu_torch/csrc/ln_proj.cu"),
@@ -117,17 +122,30 @@ KERNELS = {
     "attention_q8": ("psd_tpu/ops/spattn.py:66", "psd_tpu_torch/csrc/attention_q8.cu"),
 }
 SERVE_KERNELS = ("attention", "split3", "ln_proj", "ln_geglu", "gn_proj")
+# the attention kernel's sources: psd_attention_fwd (attention.cu) dispatches
+# D <= 160 to attention_narrow.cu and wider heads to attention_wide.cu
+ATTN_SOURCES = ["psd_tpu_torch/csrc/attention.cu", "psd_tpu_torch/csrc/attention_narrow.cu",
+                "psd_tpu_torch/csrc/attention_wide.cu"]
 # the attention kernel also takes the stock Pallas flash kernel's forward;
 # attention_bwd is that kernel's dq/dkv backward
 ALSO_REPLACES = {"attention": "psd_tpu/ops/flash.py:121 (jax.experimental.pallas.ops."
                               "tpu.flash_attention, forward; psd_tpu_torch/csrc/"
-                              "attention_wide.cu)",
+                              "attention_narrow.cu at D <= 160, attention_wide.cu above)",
                  "attention_bwd": "jax.experimental.pallas.ops.tpu.flash_attention "
                                   "(dq and dkv backward kernels, configured at "
                                   "psd_tpu/ops/flash.py:104-121)"}
 
 # shapes on the 512², batch-8 main path (SD-v1.4 UNet, 8 heads; VAE mid)
 ATTN_SHAPES = [(8, 4096, 8, 40), (8, 1024, 8, 80), (8, 4096, 1, 512)]
+# training's forward (256², batch 64), timed with the log-sum-exp it asks for
+ATTN_LSE_SHAPES = [(64, 1024, 8, 40)]
+# the narrow path at every padded head dim it is built for (32, 48, 64, 80,
+# 96, 128, 160; D below Dp by TMA's zero fill), one or three heads, Sq != Sk
+# ((B, Sq, H, D), Sk; not timed)
+ATTN_NARROW_EDGE_SHAPES = [((1, 512, 3, 24), 1536), ((2, 256, 1, 40), 384),
+                           ((1, 512, 3, 64), 1536), ((2, 256, 1, 72), 384),
+                           ((1, 512, 3, 96), 1536), ((2, 256, 1, 104), 384),
+                           ((1, 512, 3, 136), 1536), ((2, 256, 1, 160), 384)]
 # the wide-head path at shapes the main path does not give it: D below 512
 # (TMA's zero fill), several heads, Sq != Sk ((B, Sq, H, D), Sk; not timed)
 ATTN_WIDE_EDGE_SHAPES = [((2, 256, 2, 264), 512), ((1, 128, 3, 384), 128),
@@ -193,6 +211,9 @@ QCONV_CHECK_SHAPE, QCONV_REL_BAND = (1, 64, 64, 512), 1e-5
 # published H100 SXM peaks (NVIDIA data sheet): dense bf16 and int8 tensor
 # cores and HBM3 bandwidth
 PEAK_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
+# exp2 on the special function units: 16 a clock on each SM (Hopper); the
+# attention's softmax takes one per logit, a floor beside its bound
+SFU_PER_CLK_SM = 16
 
 
 def log(msg: str) -> None:
@@ -215,13 +236,60 @@ def phase_device() -> str:
 
 
 # ---- phase 2 ---------------------------------------------------------------
-def phase_build() -> None:
+def phase_build() -> dict:
     from psd_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
     kernels.library()
     log(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {kernels.build_seconds if kernels.build_seconds is not None else 0:.2f} s)")
+    ptxas = ptxas_attention()
+    log("[build] ptxas, attention forward kernels (registers at entry, stack, spill "
+        "stores/loads in bytes): " + "; ".join(
+            f"{k} {r['registers']} regs, stack {r['stack']}, spills {r['spill_stores']}/"
+            f"{r['spill_loads']}" for k, r in ptxas.items()))
+    if not any(k.startswith("narrow") for k in ptxas):
+        raise SystemExit("chip_smoke.py: build.log names no narrow attention kernel")
+    return ptxas
+
+
+def ptxas_attention() -> dict:
+    """Registers, stack frame and spills (bytes) that ptxas reported for each
+    attention forward kernel (narrow<Dp>, wide) in this build's build.log
+    (nvcc -Xptxas -v)."""
+    from psd_tpu_torch.ops import kernels
+
+    text = (kernels.BUILD_ROOT / kernels.source_hash() / "build.log").read_text()
+    found, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(narrow|wide)_attention_kernel(?:ILi(\d+)E)?",
+                      line)
+        if m:
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            found[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            found[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found[name]["registers"] = int(m.group(1))
+            name = None
+    return found
+
+
+@functools.lru_cache(maxsize=None)
+def sfu_exp2_per_s() -> float:
+    """exp2 a second on the whole card: SFU_PER_CLK_SM on each SM at the
+    card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    return SFU_PER_CLK_SM * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
 
 
 # ---- phase 3 ---------------------------------------------------------------
@@ -317,24 +385,43 @@ def _sdpa(q, k, v):
                                           v.transpose(1, 2)).transpose(1, 2)
 
 
-def _check_wide_lse(q, k, v) -> None:
-    """The wide-head kernel's per-row log-sum-exp against lse_reference."""
+def _attention_judge(out, ref):
+    """The attention kernels against their plain versions: the output by
+    narrow_attention_judge (D <= 160) or wide_attention_judge, the narrow
+    kernel's log-sum-exp (fp32 (B, H, Sq)) by its max abs error in log2
+    units."""
+    from psd_tpu_torch.ops.attention import NARROW_MAX_D
+    from psd_tpu_torch.testing import (NARROW_ATTN_LSE_BAND, narrow_attention_judge,
+                                       wide_attention_judge)
+
+    if out.dim() == 3:
+        d = (out - ref).abs().max().item()
+        return (d <= NARROW_ATTN_LSE_BAND, f"lse max abs {d:.3e} (band {NARROW_ATTN_LSE_BAND:g})",
+                {"lse_max_abs": d})
+    judge = narrow_attention_judge if out.shape[-1] <= NARROW_MAX_D else wide_attention_judge
+    return judge(out, ref)
+
+
+def _check_lse(q, k, v, band: float) -> float:
+    """An attention kernel's per-row log-sum-exp against lse_reference: max
+    abs error in log2 units; raises beyond `band`."""
     from psd_tpu_torch.ops import attention
-    from psd_tpu_torch.testing import WIDE_ATTN_LSE_BAND
 
     _, lse = attention.attention_fwd(q, k, v, return_lse=True)
     d = (lse - attention.lse_reference(q, k, q.shape[-1] ** -0.5)).abs().max().item()
-    ok = bool(torch.isfinite(lse).all()) and d <= WIDE_ATTN_LSE_BAND
-    log(f"[kernel] attention lse  {str(tuple(q.shape)):28s} max abs {d:.3e} (log2 units, band "
-        f"{WIDE_ATTN_LSE_BAND:g}) {'ok' if ok else 'FAIL'} (not timed)")
+    ok = bool(torch.isfinite(lse).all()) and d <= band
+    log(f"[kernel] attention lse  {str(tuple(q.shape)):28s} Sk {k.shape[1]}: max abs {d:.3e} "
+        f"(log2 units, band {band:g}) {'ok' if ok else 'FAIL'} (not timed)")
     if not ok:
         raise SystemExit(f"chip_smoke.py: attention lse {tuple(q.shape)} disagrees with "
                          f"lse_reference")
+    return d
 
 
 def phase_kernels() -> dict:
     from psd_tpu_torch.ops import attention, geglu, gnproj, split3
-    from psd_tpu_torch.testing import wide_attention_judge
+    from psd_tpu_torch.testing import (NARROW_ATTN_LSE_BAND, WIDE_ATTN_LSE_BAND,
+                                       narrow_attention_judge, wide_attention_judge)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -344,27 +431,36 @@ def phase_kernels() -> dict:
         return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
 
     results: dict = {}
-    for shape in ATTN_SHAPES:
+    for shape in ATTN_SHAPES + ATTN_LSE_SHAPES:
         B, S, H, D = shape
         q, k, v = randn(*shape), randn(*shape), randn(*shape)
-        wide = D > 256
-        _compare("attention", shape,
-                 lambda: attention.attention_fwd(q, k, v),
-                 lambda: attention.attention_reference(q, k, v), results,
-                 (4.0 * B * H * S * S * D, 4 * B * S * H * D * 2),
-                 fn_library=lambda: _sdpa(q, k, v), judge=wide_attention_judge if wide else None)
-        if wide:
-            _check_wide_lse(q, k, v)
+        with_lse = shape in ATTN_LSE_SHAPES
+        extra = {"exp2_ms": B * H * S * S / sfu_exp2_per_s() * 1e3}
+        if D <= attention.NARROW_MAX_D and not with_lse:
+            extra["lse_max_abs"] = _check_lse(q, k, v, NARROW_ATTN_LSE_BAND)
+        elif not with_lse:
+            extra["lse_max_abs"] = _check_lse(q, k, v, WIDE_ATTN_LSE_BAND)
+        _compare("attention", shape + (("lse",) if with_lse else ()),
+                 lambda: attention.attention_fwd(q, k, v, return_lse=with_lse),
+                 lambda: ((attention.attention_reference(q, k, v),
+                           attention.lse_reference(q, k, D ** -0.5)) if with_lse
+                          else attention.attention_reference(q, k, v)), results,
+                 (4.0 * B * H * S * S * D, 4 * B * S * H * D * 2 + with_lse * B * H * S * 4),
+                 fn_library=lambda: _sdpa(q, k, v), extra=extra, judge=_attention_judge)
         del q, k, v
-    for (B, Sq, H, D), Sk in ATTN_WIDE_EDGE_SHAPES:
+        torch.cuda.empty_cache()
+    for (B, Sq, H, D), Sk in ATTN_NARROW_EDGE_SHAPES + ATTN_WIDE_EDGE_SHAPES:
         q, k, v = randn(B, Sq, H, D), randn(B, Sk, H, D), randn(B, Sk, H, D)
-        ok, text, _ = wide_attention_judge(attention.attention_fwd(q, k, v),
-                                           attention.attention_reference(q, k, v))
+        narrow = D <= attention.NARROW_MAX_D
+        judge = narrow_attention_judge if narrow else wide_attention_judge
+        ok, text, _ = judge(attention.attention_fwd(q, k, v),
+                            attention.attention_reference(q, k, v))
         log(f"[kernel] attention edge {str((B, Sq, H, D)):22s} Sk {Sk}: {text} "
-            f"{'ok' if ok else 'FAIL'} (wide path; not timed)")
+            f"{'ok' if ok else 'FAIL'} ({'narrow' if narrow else 'wide'} path; not timed)")
         if not ok:
             raise SystemExit(f"chip_smoke.py: attention {(B, Sq, H, D)}, Sk {Sk} disagrees with "
                              f"its plain version")
+        _check_lse(q, k, v, NARROW_ATTN_LSE_BAND if narrow else WIDE_ATTN_LSE_BAND)
     for (B, S, H, D) in SPLIT3_SHAPES:
         q = randn(B, S, H, D)
         banks = [randn(B, 16, H, D) for _ in range(6)]
@@ -698,7 +794,7 @@ def phase_serve(card: str) -> dict:
     wall = time.perf_counter() - t0
     counts = dict(kernels.launch_counts)
     serve_counts = {k: counts[k] for k in SERVE_KERNELS}
-    d512 = kernels.attention_head_dims[512]
+    dims = dict(kernels.attention_head_dims)
     server.close()
     if server._worker.is_alive():
         raise SystemExit("chip_smoke.py: the server worker did not stop")
@@ -709,17 +805,18 @@ def phase_serve(card: str) -> dict:
         "in [0,1]": all(im.min() >= 0.0 and im.max() <= 1.0 for im in images),
         "targets differ": not np.allclose(images[0], images[-1], atol=1e-3),
         "all five serving kernels launched": min(serve_counts.values()) > 0,
-        "attention saw D=512 (VAE)": d512 > 0,
+        "attention saw D=40, 80 (UNet) and 512 (VAE)": all(dims.get(d, 0) > 0
+                                                           for d in (40, 80, 512)),
     }
     log(f"[serve] {batch} requests, {size}px, {steps} DDIM steps, steer 1.0, "
         f"max_batch {batch}: wall {wall:.3f} s, {batch / wall:.4f} img/s on {card}")
-    log(f"[serve] launches {counts}; attention by head dim {dict(kernels.attention_head_dims)}")
+    log(f"[serve] launches {counts}; attention by head dim {dims}")
     log(f"[serve] checks {checks}")
     if not all(checks.values()):
         raise SystemExit(f"chip_smoke.py: serve checks failed: {checks}")
     del server, model
     torch.cuda.empty_cache()
-    return {"counts": counts, "wall_s": wall, "img_per_s": batch / wall}
+    return {"counts": counts, "head_dims": dims, "wall_s": wall, "img_per_s": batch / wall}
 
 
 # ---- turbo -------------------------------------------------------------------
@@ -771,6 +868,7 @@ def phase_turbo(card: str, exact: dict) -> dict:
     images = [f.result(timeout=900) for f in futures]
     wall = time.perf_counter() - t0
     counts = dict(kernels.launch_counts)
+    dims = dict(kernels.attention_head_dims)
     server.close()
     if server._worker.is_alive():
         raise SystemExit("chip_smoke.py: the turbo server worker did not stop")
@@ -782,11 +880,13 @@ def phase_turbo(card: str, exact: dict) -> dict:
         f"{TURBO_FULL} full and {TURBO_SHALLOW} shallow evaluations":
             calls == {"eps_deep": TURBO_FULL, "eps_shallow": TURBO_SHALLOW},
         "all five serving kernels launched": min(counts[k] for k in SERVE_KERNELS) > 0,
+        "attention saw D=40, 80 (UNet) and 512 (VAE)": all(dims.get(d, 0) > 0
+                                                           for d in (40, 80, 512)),
     }
     log(f"[turbo] {batch} requests, {size}px, {TURBO}: wall {wall:.3f} s, "
         f"{batch / wall:.4f} img/s on {card}; the exact path (50 DDIM steps, bf16 VAE) "
         f"in this call: wall {exact['wall_s']:.3f} s, {exact['img_per_s']:.4f} img/s")
-    log(f"[turbo] UNet evaluations {calls}; launches {counts}")
+    log(f"[turbo] UNet evaluations {calls}; launches {counts}; attention by head dim {dims}")
     log(f"[turbo] checks {checks}")
     if not all(checks.values()):
         raise SystemExit(f"chip_smoke.py: turbo checks failed: {checks}")
@@ -794,8 +894,8 @@ def phase_turbo(card: str, exact: dict) -> dict:
     vae_ab = phase_vae_ab(model)
     del model
     torch.cuda.empty_cache()
-    return {"counts": counts, "wall_s": wall, "img_per_s": batch / wall, "calls": calls,
-            "vae_ab": vae_ab}
+    return {"counts": counts, "head_dims": dims, "wall_s": wall, "img_per_s": batch / wall,
+            "calls": calls, "vae_ab": vae_ab}
 
 
 def _spread_channel_gains_(vae, gen) -> bool:
@@ -1032,6 +1132,7 @@ def phase_train(card: str) -> dict:
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
     counts = dict(kernels.launch_counts)
+    dims = dict(kernels.attention_head_dims)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     moved = {n: not torch.equal(w, dict(model.core.named_parameters())[n].detach())
              for n, w in watch.items()}
@@ -1049,11 +1150,13 @@ def phase_train(card: str) -> dict:
             counts["attention"], counts["attention_bwd"], counts["split3"]) > 0,
         "ln_proj, ln_geglu, gn_proj not launched": max(
             counts["ln_proj"], counts["ln_geglu"], counts["gn_proj"]) == 0,
+        # at 256² only the 32×32 sites (S = 1024, D = 40) take the kernel
+        "attention forward at D=40 only": set(dims) == {40},
     }
     log(f"[train] {TRAIN_STEPS} steps at {size}², batch {B}: losses {losses}, grad norms {norms}; "
         f"step times {[round(t, 4) for t in times]} s; steady step {step_s:.4f} s = "
         f"{B / step_s:.2f} img/s on {card}; peak memory {peak_gb:.2f} GiB")
-    log(f"[train] launches over {TRAIN_STEPS} steps {counts}")
+    log(f"[train] launches over {TRAIN_STEPS} steps {counts}; attention by head dim {dims}")
     log(f"[train] checks {checks}")
     if not all(checks.values()):
         raise SystemExit(f"chip_smoke.py: train checks failed: {checks}")
@@ -1105,7 +1208,7 @@ def phase_train(card: str) -> dict:
                          "versions")
     del grad_k, grad_p, model, state, step
     torch.cuda.empty_cache()
-    return {"counts": counts, "step_s": step_s, "img_per_s": B / step_s, "peak_gb": peak_gb,
+    return {"counts": counts, "head_dims": dims, "step_s": step_s, "img_per_s": B / step_s, "peak_gb": peak_gb,
             "rel_loss": rel_loss, "rel_grad": rel_grad, "rel_attn1_leaf": rel_leaf}
 
 
@@ -1119,7 +1222,7 @@ def main() -> int:
         return out
 
     card = timed("device", phase_device)
-    timed("build", phase_build)
+    ptxas = timed("build", phase_build)
     results = timed("kernels", phase_kernels)
     timed("q8 kernels", phase_q8_kernels, results)
     op = timed("op", phase_op)
@@ -1144,6 +1247,12 @@ def main() -> int:
             entry["fwd_bwd_ms"] = r["fwd_bwd_ms"]
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
+        if name == "attention":
+            entry["sources"] = ATTN_SOURCES
+            entry["ptxas"] = ptxas
+            entry["launches_by_head_dim"] = {
+                path: run["head_dims"] for path, run in
+                (("serve", served), ("turbo", turbo), ("train", trained))}
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -206,6 +206,10 @@ cudaError_t launch_flash(const bf16* q, const bf16* k, const bf16* v, bf16* out,
 
 }  // namespace
 
+// attention_narrow.cu: the TMA/wgmma path for Dp <= 160
+cudaError_t launch_narrow_attention(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                                    float* lse, int B, int Sq, int Sk, int H, int D,
+                                    float scale_log2, cudaStream_t st);
 // attention_wide.cu: the Dp > 256 path
 cudaError_t launch_wide_attention(const bf16* q, const bf16* k, const bf16* v, bf16* out,
                                   float* lse, int B, int Sq, int Sk, int H, int D,
@@ -226,9 +230,9 @@ extern "C" int psd_attention_fwd(const void* q, const void* k, const void* v, vo
   const float sl2 = scale * kLog2e;
   switch ((D + 15) / 16 * 16) {
     case 32: return static_cast<int>(launch_flash<32>(qp, kp, vp, op, lp, B, Sq, Sk, H, D, sl2, st));
-    case 48: return static_cast<int>(launch_flash<48>(qp, kp, vp, op, lp, B, Sq, Sk, H, D, sl2, st));
+    case 48: return static_cast<int>(launch_narrow_attention(qp, kp, vp, op, lp, B, Sq, Sk, H, D, sl2, st));
     case 64: return static_cast<int>(launch_flash<64>(qp, kp, vp, op, lp, B, Sq, Sk, H, D, sl2, st));
-    case 80: return static_cast<int>(launch_flash<80>(qp, kp, vp, op, lp, B, Sq, Sk, H, D, sl2, st));
+    case 80: return static_cast<int>(launch_narrow_attention(qp, kp, vp, op, lp, B, Sq, Sk, H, D, sl2, st));
     case 96: return static_cast<int>(launch_flash<96>(qp, kp, vp, op, lp, B, Sq, Sk, H, D, sl2, st));
     case 128: return static_cast<int>(launch_flash<128>(qp, kp, vp, op, lp, B, Sq, Sk, H, D, sl2, st));
     case 160: return static_cast<int>(launch_flash<160>(qp, kp, vp, op, lp, B, Sq, Sk, H, D, sl2, st));

@@ -148,8 +148,8 @@ wide_attention_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int ks = 0; ks < 16; ++ks) {
         const uint32_t box = 4 * c + (ks >> 2), in_box = (ks & 3) * 32;
-        wgmma_m64n32k16_ss(sc, wgmma_desc(qs + box * (kBQ * 128) + in_box, 16, 1024),
-                           wgmma_desc(kst + box * (kBK * 128) + in_box, 16, 1024), ks > 0);
+        wgmma_ss<32>(sc, wgmma_desc(qs + box * (kBQ * 128) + in_box, 16, 1024),
+                     wgmma_desc(kst + box * (kBK * 128) + in_box, 16, 1024), ks > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -207,7 +207,7 @@ wide_attention_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {
         const uint32_t v_addr = vst + 4 * c * (kBK * 128) + kk * 16 * 128;
-        wgmma_m64n256k16_rs_tb(o, pa[kk], wgmma_desc(v_addr, kBK * 128, 1024), 1);
+        wgmma_rs_tb<256>(o, pa[kk], wgmma_desc(v_addr, kBK * 128, 1024), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();

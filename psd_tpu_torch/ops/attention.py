@@ -7,10 +7,11 @@ The TPU package routes long non-causal attention to two Pallas programs:
 and JAX's stock flash kernel (S%128==0, S≥512; in training it is the only
 kernel, with its fused dq/dkv backward kernels). Both compute the same
 function, so here ONE forward entry point, `csrc/attention.cu`, serves both
-roles: its register-resident kernel for head dims up to 256, and for wider
-heads (the VAE mid block, D = 512) the TMA/wgmma kernel of
-`csrc/attention_wide.cu`. `csrc/attention_bwd.cu` is the flash backward. Everything shorter takes
-the plain einsum path, as in JAX.
+roles with two TMA/wgmma kernels: `csrc/attention_narrow.cu` for head dims
+up to 160 (the UNet, D = 40/80) and `csrc/attention_wide.cu` for wider
+heads (the VAE mid block, D = 512); `fwd_shape_error` says which shapes
+they take. `csrc/attention_bwd.cu` is the flash backward. Everything
+shorter takes the plain einsum path, as in JAX.
 
 `attention_fwd` and `attention_bwd` are the kernel wrappers: a CPU tensor
 goes to the plain version; a CUDA tensor launches the kernel or raises.
@@ -77,6 +78,25 @@ def kernel_route(q, k, training: bool = False) -> Optional[str]:
     return None
 
 
+# the forward kernels' tiles (csrc/attention_narrow.cu, attention_wide.cu):
+# head dims up to NARROW_MAX_D take the narrow kernel, whose blocks hold 128
+# query rows and whose key tiles are 128 (64 at Dp = 160) keys; wider heads,
+# up to WIDE_MAX_D, take the wide kernel (64 query rows, 32-key tiles)
+NARROW_MAX_D, NARROW_S_MULTIPLE = 160, 128
+WIDE_MAX_D, WIDE_S_MULTIPLE = 512, 64
+
+
+def fwd_shape_error(Sq: int, Sk: int, D: int) -> Optional[str]:
+    """None when the forward kernels take q (·, Sq, ·, D) against k/v
+    (·, Sk, ·, D), else why not. Any batch and head count."""
+    if D % 8 or not 0 < D <= WIDE_MAX_D:
+        return f"head dim {D} must be a multiple of 8 up to {WIDE_MAX_D}"
+    mult = NARROW_S_MULTIPLE if D <= NARROW_MAX_D else WIDE_S_MULTIPLE
+    if Sq % mult or Sk % mult or not (Sq and Sk):
+        return f"sequence lengths {Sq}, {Sk} must be multiples of {mult} at head dim {D}"
+    return None
+
+
 def attention_fwd(q, k, v, scale: Optional[float] = None, return_lse: bool = False):
     """Non-causal softmax attention; kernel on CUDA, plain version on CPU.
     With `return_lse`, also the per-row log-sum-exp (log2 units, (B, H, Sq))."""
@@ -89,9 +109,8 @@ def attention_fwd(q, k, v, scale: Optional[float] = None, return_lse: bool = Fal
     kernels.require_cuda_bf16("attention_fwd", q, k, v)
     kernels.require(k.shape == (B, Sk, H, D) and v.shape == k.shape,
                     f"attention_fwd: k/v shape {tuple(k.shape)}/{tuple(v.shape)}")
-    kernels.require(D % 8 == 0 and D <= 512, f"attention_fwd: head dim {D}")
-    kernels.require(Sq % 64 == 0 and Sk % 64 == 0,
-                    f"attention_fwd: sequence lengths {Sq}, {Sk} must be multiples of 64")
+    err = fwd_shape_error(Sq, Sk, D)
+    kernels.require(err is None, f"attention_fwd: {err}")
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     lib = kernels.library()

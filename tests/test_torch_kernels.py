@@ -316,3 +316,105 @@ def test_wide_attention_judge_sees_planted_faults(fault):
     ref = attention.attention_reference(q, k, v)
     ok, text, readings = wide_attention_judge(_wide_kernel_emulation(q, k, v, fault), ref)
     assert ok == (fault is None), text
+
+
+# ---- the narrow-head attention (attention_narrow.cu): admission and judge ----
+@pytest.mark.parametrize("training", [False, True])
+def test_fwd_shape_error_admits_every_routed_shape(training):
+    """Every shape kernel_route sends to a kernel at D = 8..160 and
+    S = 512..4096 (steps of 128) is one the forward kernels take."""
+    from types import SimpleNamespace
+
+    routed = 0
+    for D in range(8, 161, 8):
+        for Sq in range(512, 4097, 128):
+            for Sk in range(512, 4097, 128):
+                q = SimpleNamespace(shape=(2, Sq, 8, D))
+                k = SimpleNamespace(shape=(2, Sk, 8, D))
+                if attention.kernel_route(q, k, training) is not None:
+                    routed += 1
+                    assert attention.fwd_shape_error(Sq, Sk, D) is None, (Sq, Sk, D)
+    assert routed == 20 * 29 * 29  # every Sq, Sk pair takes the flash role
+
+
+@pytest.mark.parametrize("Sq,Sk,D,admitted", [
+    (128, 128, 40, True), (512, 1536, 80, True), (256, 384, 160, True),
+    (64, 128, 40, False),    # the narrow kernel's blocks hold 128 query rows
+    (128, 192, 80, False),   # and its key tiles 128 keys
+    (128, 128, 36, False),   # D % 8
+    (64, 64, 512, True), (64, 32, 512, False), (64, 64, 520, False),
+])
+def test_fwd_shape_error_refuses_what_the_kernels_do_not_take(Sq, Sk, D, admitted):
+    assert (attention.fwd_shape_error(Sq, Sk, D) is None) == admitted
+
+
+def _narrow_kernel_emulation(q, k, v, fault=None):
+    """attention_narrow.cu's arithmetic in plain torch, bf16 (B, S, H, D) in
+    and out: 128-key tiles, online softmax in log2 units whose denominator
+    sums the bf16-rounded p, fp32 accumulators; each block's query rows
+    64..127 belong to the second consumer warpgroup. `fault` plants one of
+    chip_smoke's faults: "drop_last_tile" (the last key tile never enters),
+    "skip_rescale" (the second warpgroup's O is not rescaled on the last
+    tile), "neighbour_pad" (q and k padded to Dp = ceil16(D) with head h+1's
+    first columns, as a 2-D (rows, H·D) tensor map would fill them; zeros
+    for the last head)."""
+    B, S, H, D = q.shape
+    Dp = (D + 15) // 16 * 16
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # (B, H, S, D)
+    if fault == "neighbour_pad":
+        def pad(t):
+            nb = torch.zeros_like(t[..., :Dp - D])
+            nb[:, :-1] = t[:, 1:, :, :Dp - D]
+            return torch.cat([t, nb], -1)
+        qf, kf = pad(qf), pad(kf)
+    c = float(np.float32(D ** -0.5 * attention.LOG2E))
+    m = torch.full(qf.shape[:-1], -float("inf"))
+    l = torch.zeros(qf.shape[:-1])
+    o = torch.zeros(vf.shape)
+    wg1 = torch.arange(S) % 128 >= 64
+    starts = list(range(0, S, 128))
+    if fault == "drop_last_tile":
+        starts = starts[:-1]
+    for k0 in starts:
+        s = qf @ kf[:, :, k0:k0 + 128].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1) * c)
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s * c - m_new[..., None]).bfloat16().float()
+        l = l * corr + p.sum(-1)
+        if fault == "skip_rescale" and k0 == starts[-1]:
+            corr = torch.where(wg1, torch.ones_like(corr), corr)
+        o = o * corr[..., None] + p @ vf[:, :, k0:k0 + 128]
+        m = m_new
+    return (o / l[..., None]).permute(0, 2, 1, 3).bfloat16()
+
+
+@pytest.mark.parametrize("D", [40, 80])
+@pytest.mark.parametrize("fault", [None, "drop_last_tile", "skip_rescale", "neighbour_pad"])
+def test_narrow_attention_judge_sees_planted_faults(fault, D):
+    """chip_smoke.py holds the D=40/80 attention kernel to
+    `attention_reference` with `narrow_attention_judge` (relative L2 ≤ 1e-2
+    over the output, ≤ 3e-2 on the worst query row). At (1, 1024, 2, D),
+    N(0,1) bf16 inputs, the kernel's arithmetic emulated in plain torch
+    reads (relative L2 / worst row at D = 40; D = 80):
+      sound            2.98e-3 / 5.41e-3;  3.07e-3 / 4.67e-3, passes;
+      drop_last_tile   3.60e-1 / 8.51e-1;  4.02e-1 / 9.16e-1, fails;
+      skip_rescale     1.28e-1 / 1.69;     1.42e-1 / 2.17, fails;
+      neighbour_pad    3.11e-1 / 1.31;     the sound output bit for bit.
+    At D = 80, Dp = D: S reads no padding column, so a 2-D map's neighbour
+    columns never enter and the judge rightly passes. The old bf16 band
+    1e-2 + 1e-2·max|ref| (≈ 1.3e-2) passes none of the faults' max abs
+    errors either, but sees nothing of a fault below it. (PERF.md §6 PR 6
+    gives the readings of the same faults planted in the kernel, on the
+    card.)"""
+    from psd_tpu_torch.testing import narrow_attention_judge
+
+    rng = _rng(D)
+    q, k, v = (_t(rng.standard_normal((1, 1024, 2, D)).astype(np.float32)).bfloat16()
+               for _ in range(3))
+    ref = attention.attention_reference(q, k, v)
+    out = _narrow_kernel_emulation(q, k, v, fault)
+    ok, text, _ = narrow_attention_judge(out, ref)
+    blind = fault == "neighbour_pad" and D % 16 == 0
+    if blind:
+        assert torch.equal(out, _narrow_kernel_emulation(q, k, v))
+    assert ok == (fault is None or blind), text
