@@ -39,6 +39,10 @@
 //  * Once wgmma.wait_group says P·V has read a stage, each consumer warp
 //    arrives on the stage's empty mbarrier; the producer waits on it
 //    before the refill.
+//  * The two consumer WGs run out of phase: each issues its S only once
+//    the other's S has completed (two named barriers, each WG arriving on
+//    the other's), so one WG's softmax runs while the other's products are
+//    on the tensor cores.
 // As in psd_tpu's kernel, the denominator sums the bf16-rounded
 // probabilities that enter P·V, logits are scaled by scale·log2(e) in fp32
 // and exponentiated with exp2, and `lse` (when not null) gets m + log2(l)
@@ -139,10 +143,16 @@ narrow_attention_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
+    // The consumer WGs take turns: WG c issues S only once the other WG's S
+    // has completed (named barrier 1 + c, which the other WG arrives on), so
+    // one WG's softmax and P·V run while the other's S is on the tensor
+    // cores. WG 0 goes first.
+    if (c == 1) named_arrive(1, 256);
     mbar_wait(qbar, 0);
     for (int t = 0; t < n_tiles; ++t) {
       const int s = t % ST;
       mbar_wait(&full[s], (t / ST) & 1);
+      named_sync(1 + c, 256);
       const uint32_t kst = smem_addr(smem) + T::kOffKV + s * 2 * T::kTileBytes;
       const uint32_t vst = kst + T::kTileBytes;
 
@@ -160,6 +170,7 @@ narrow_attention_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) reg_fence(sc[i]);
+      if (c == 0 || t + 1 < n_tiles) named_arrive(2 - c, 256);  // the other WG's turn
 
       // online softmax; rows 16·warp + g (e = 0, 1) and + 8 (e = 2, 3)
       float mx0 = -INFINITY, mx1 = -INFINITY;
