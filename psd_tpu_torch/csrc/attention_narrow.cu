@@ -15,12 +15,18 @@
 // and the max, the scale, the bf16 packing and the sum of the rounded p
 // run on the CUDA cores beside it. So the softmax, not the tensor cores,
 // sets the floor, and the design keeps the tensor cores busy under it:
-//  * One block per (128 query rows, b·h), three warpgroups. WG0 is the
-//    producer: one thread issues TMA loads (q once; then K and V tiles of
-//    kBK keys into a ring of kStages, each completed on its stage's full
-//    mbarrier), and the group gives its registers away (setmaxnreg 24).
-//    WG1 and WG2 are the consumers (setmaxnreg 240), each owning 64 query
-//    rows (wgmma's M) and its 64×Dp fp32 O in registers (Dp/2 a thread).
+//  * One block per (128 query rows, b·h). Two consumer warpgroups (WG 0
+//    and WG 1) each own 64 query rows (wgmma's M) and their 64×Dp fp32 O in
+//    registers (Dp/2 a thread). After them, the producer: one thread
+//    issues TMA loads (q once; then K and V tiles of kBK keys into a ring
+//    of kStages, each completed on its stage's full mbarrier).
+//  * At Dp ≤ 64 two blocks share an SM (four consumer WGs to hide each
+//    other's waits), with 64-key tiles and a producer warp, every thread
+//    at 112 registers. Above, one block an SM with 128-key tiles (64 at
+//    Dp = 160, for shared memory): the producer is a warpgroup that gives
+//    its registers to the consumers (setmaxnreg 24 / 240). On an H100 two
+//    blocks an SM are 7% faster at D = 40 and, with the 80-wide O spilling
+//    at 112 registers, 1.5× slower at D = 80 (PERF.md §6 PR 6).
 //  * Shared memory holds every tile as TMA wrote it, boxes of 64 columns
 //    (128 B) with the 128-byte swizzle. The maps are 3-D (D, H, B·S) with a
 //    box of 64 columns × one head, so columns D..63 of a box arrive as
@@ -29,7 +35,8 @@
 //    operands from shared memory, K-major: Dp/16 steps (3 at Dp = 48, 5 at
 //    80).
 //  * Online softmax in registers (row max and sum over the 4 lanes that
-//    share a row); O is rescaled by exp2(m_old − m_new).
+//    share a row; exp2 as one ex2.approx); O is rescaled by
+//    exp2(m_old − m_new).
 //  * P·V: P is packed to bf16 straight from the S accumulator, which is
 //    the A register fragment of wgmma m64nDpk16; kBK/16 of them take it
 //    from registers with B = V[keys, 0:Dp] from shared memory. V lies
@@ -39,10 +46,10 @@
 //  * Once wgmma.wait_group says P·V has read a stage, each consumer warp
 //    arrives on the stage's empty mbarrier; the producer waits on it
 //    before the refill.
-//  * The two consumer WGs run out of phase: each issues its S only once
-//    the other's S has completed (two named barriers, each WG arriving on
-//    the other's), so one WG's softmax runs while the other's products are
-//    on the tensor cores.
+//  * The two consumer WGs of a block run out of phase: each issues its S
+//    only once the other's S has completed (two named barriers, each WG
+//    arriving on the other's), so one WG's softmax runs while the other's
+//    products are on the tensor cores.
 // As in psd_tpu's kernel, the denominator sums the bf16-rounded
 // probabilities that enter P·V, logits are scaled by scale·log2(e) in fp32
 // and exponentiated with exp2, and `lse` (when not null) gets m + log2(l)
@@ -57,28 +64,37 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kBQ = 128;       // query rows a block: 64 for each consumer WG
-constexpr int kThreads = 384;  // producer WG + two consumer WGs
+constexpr int kBQ = 128;  // query rows a block: 64 for each consumer WG
 
-// Tiling for a padded head dim: key tile, ring depth and the shared
-// memory they take (q + kStages × (K + V) + barriers + alignment slack,
-// within the 227 KB a block may have).
+// 2^x on the SFU: one MUFU.EX2 (ex2.approx.ftz; results below 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Tiling for a padded head dim: blocks an SM, threads (two consumer WGs,
+// then a producer warp or WG), key tile, ring depth and the shared memory
+// they take (q + kStages × (K + V) + barriers + alignment slack, within the
+// 227 KB an SM's blocks may have).
 template <int DP>
 struct Narrow {
+  static constexpr int kBlocksPerSM = DP <= 64 ? 2 : 1;
+  static constexpr int kThreads = kBlocksPerSM == 2 ? 288 : 384;  // consumers first
   static constexpr int kBoxes = (DP + 63) / 64;
-  static constexpr int kBK = DP <= 128 ? 128 : 64;
-  static constexpr int kStages = DP <= 64 ? 4 : (DP <= 128 ? 2 : 3);
+  static constexpr int kBK = kBlocksPerSM == 2 ? 64 : (DP <= 128 ? 128 : 64);
+  static constexpr int kStages = kBlocksPerSM == 2 ? 4 : (DP <= 128 ? 2 : 3);
   static constexpr uint32_t kQBytes = kBQ * kBoxes * 128;
   static constexpr uint32_t kTileBytes = kBK * kBoxes * 128;  // one K or one V tile
   static constexpr uint32_t kOffKV = kQBytes;  // stage s: K at kOffKV + s·2·kTileBytes, V after
   static constexpr uint32_t kOffBar = kOffKV + kStages * 2 * kTileBytes;
   static constexpr size_t kSmemBytes = kOffBar + 8 * (1 + 2 * kStages) + 1024;
   static_assert(DP % 16 == 0 && DP <= 160, "narrow path: Dp <= 160");
-  static_assert(kSmemBytes <= 232448, "shared memory");
+  static_assert(kSmemBytes * kBlocksPerSM <= 232448, "shared memory");
 };
 
 template <int DP>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Narrow<DP>::kThreads, Narrow<DP>::kBlocksPerSM)
 narrow_attention_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
@@ -95,7 +111,7 @@ narrow_attention_kernel(const __grid_constant__ CUtensorMap tq,
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * kBQ;
   const int n_tiles = Sk / BK;
-  const int wg = threadIdx.x / 128;
+  const int wg = threadIdx.x / 128;  // 0, 1: consumers; 2: the producer
 
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
@@ -107,10 +123,10 @@ narrow_attention_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  if (wg == 0) {
+  if (wg == 2) {
     // ---- producer ----
-    setmaxnreg_dec<24>();
-    if (threadIdx.x == 0) {
+    if constexpr (T::kBlocksPerSM == 1) setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
       tma_prefetch_desc(&tq);
       tma_prefetch_desc(&tk);
       tma_prefetch_desc(&tv);
@@ -131,8 +147,8 @@ narrow_attention_kernel(const __grid_constant__ CUtensorMap tq,
     }
   } else {
     // ---- consumers ----
-    setmaxnreg_inc<240>();
-    const int c = wg - 1;  // query rows q0 + 64c .. q0 + 64c + 63
+    if constexpr (T::kBlocksPerSM == 1) setmaxnreg_inc<240>();
+    const int c = wg;  // query rows q0 + 64c .. q0 + 64c + 63
     const int wid = threadIdx.x % 128, warp = wid / 32, lane = wid % 32;
     const int g = lane >> 2, tig = lane & 3;
     // this WG's 64 rows of each q box start 64 rows (8 KB, whole swizzle atoms) in
@@ -185,7 +201,7 @@ narrow_attention_kernel(const __grid_constant__ CUtensorMap tq,
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
       }
       const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
-      const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+      const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
       m0 = mn0;
       m1 = mn1;
       uint32_t pa[BK / 16][4];  // P in the A fragment of m64k16: keys 16kk + (0..15)
@@ -193,9 +209,9 @@ narrow_attention_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
         pa[j / 2][(j % 2) * 2] = pack_bf16x2_sum(
-            exp2f(sc[4 * j] * scale_log2 - mn0), exp2f(sc[4 * j + 1] * scale_log2 - mn0), ls0);
+            ex2(sc[4 * j] * scale_log2 - mn0), ex2(sc[4 * j + 1] * scale_log2 - mn0), ls0);
         pa[j / 2][(j % 2) * 2 + 1] = pack_bf16x2_sum(
-            exp2f(sc[4 * j + 2] * scale_log2 - mn1), exp2f(sc[4 * j + 3] * scale_log2 - mn1), ls1);
+            ex2(sc[4 * j + 2] * scale_log2 - mn1), ex2(sc[4 * j + 3] * scale_log2 - mn1), ls1);
       }
       l0 = l0 * c0 + ls0;
       l1 = l1 * c1 + ls1;
@@ -261,7 +277,7 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, float
     return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(narrow_attention_kernel<DP>, T::kSmemBytes);
   if (err != cudaSuccess) return err;
-  narrow_attention_kernel<DP><<<dim3(Sq / kBQ, B * H), kThreads, T::kSmemBytes, st>>>(
+  narrow_attention_kernel<DP><<<dim3(Sq / kBQ, B * H), T::kThreads, T::kSmemBytes, st>>>(
       tq, tk, tv, out, lse, Sq, Sk, H, D, scale_log2);
   return cudaGetLastError();
 }

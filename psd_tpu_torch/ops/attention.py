@@ -80,8 +80,8 @@ def kernel_route(q, k, training: bool = False) -> Optional[str]:
 
 # the forward kernels' tiles (csrc/attention_narrow.cu, attention_wide.cu):
 # head dims up to NARROW_MAX_D take the narrow kernel, whose blocks hold 128
-# query rows and whose key tiles are 128 (64 at Dp = 160) keys; wider heads,
-# up to WIDE_MAX_D, take the wide kernel (64 query rows, 32-key tiles)
+# query rows and whose key tiles are 64 or 128 keys; wider heads, up to
+# WIDE_MAX_D, take the wide kernel (64 query rows, 32-key tiles)
 NARROW_MAX_D, NARROW_S_MULTIPLE = 160, 128
 WIDE_MAX_D, WIDE_S_MULTIPLE = 512, 64
 
