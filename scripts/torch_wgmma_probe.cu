@@ -1,0 +1,111 @@
+// Descriptor probes for the narrow attention kernel's wgmma shapes, one warpgroup
+// each: S = q·kᵀ by wgmma_ss<BK> (q and K both K-major, from TMA tiles of
+// 3-D (D, H, rows) maps with 64-column boxes and the 128-byte swizzle) and
+// O = P·V by wgmma_rs_tb<Dp> (P from registers, V MN-major from a TMA tile),
+// each written out in full for scripts/torch_wgmma_probe.py to hold against
+// fp32 torch.matmul. Built on its own with nvcc (not part of the kernels' library).
+#include "common.cuh"
+#include "hopper.cuh"
+using namespace psd;
+using namespace psd::hopper;
+
+template <int DP, int BK>
+__global__ void probe_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv, const bf16* P, float* S, float* O, int h) {
+  constexpr int NB = (DP + 63) / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t qbytes = 64 * NB * 128, tbytes = BK * NB * 128;
+  unsigned char* qs = smem;
+  unsigned char* ks = smem + qbytes;
+  unsigned char* vs = ks + tbytes;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(vs + tbytes);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(bar, qbytes + 2 * tbytes);
+    for (int c = 0; c < NB; ++c) {
+      tma_load_3d(qs + c * 64 * 128, &tq, bar, c * 64, h, 0);
+      tma_load_3d(ks + c * BK * 128, &tk, bar, c * 64, h, 0);
+      tma_load_3d(vs + c * BK * 128, &tv, bar, c * 64, h, 0);
+    }
+  }
+  mbar_wait(bar, 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, tig = lane & 3;
+  const int r0 = 16 * warp + g;
+  float sc[BK / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t box = kk >> 2, in_box = (kk & 3) * 32;
+    wgmma_ss<BK>(sc, wgmma_desc(smem_addr(qs) + box * 64 * 128 + in_box, 16, 1024),
+                 wgmma_desc(smem_addr(ks) + box * BK * 128 + in_box, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  for (int i = 0; i < BK / 2; ++i) reg_fence(sc[i]);
+  for (int j = 0; j < BK / 8; ++j) {
+    S[r0 * BK + 8 * j + 2 * tig] = sc[4 * j];
+    S[r0 * BK + 8 * j + 2 * tig + 1] = sc[4 * j + 1];
+    S[(r0 + 8) * BK + 8 * j + 2 * tig] = sc[4 * j + 2];
+    S[(r0 + 8) * BK + 8 * j + 2 * tig + 1] = sc[4 * j + 3];
+  }
+  uint32_t pa[BK / 16][4];
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const int c0 = 16 * kk + 2 * tig;
+    pa[kk][0] = *reinterpret_cast<const uint32_t*>(P + r0 * BK + c0);
+    pa[kk][1] = *reinterpret_cast<const uint32_t*>(P + (r0 + 8) * BK + c0);
+    pa[kk][2] = *reinterpret_cast<const uint32_t*>(P + r0 * BK + c0 + 8);
+    pa[kk][3] = *reinterpret_cast<const uint32_t*>(P + (r0 + 8) * BK + c0 + 8);
+  }
+  float o[DP / 2];
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs_tb<DP>(o, pa[kk], wgmma_desc(smem_addr(vs) + kk * 16 * 128, BK * 128, 1024), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  for (int i = 0; i < DP / 2; ++i) reg_fence(o[i]);
+  for (int n = 0; n < DP / 8; ++n) {
+    O[r0 * DP + 8 * n + 2 * tig] = o[4 * n];
+    O[r0 * DP + 8 * n + 2 * tig + 1] = o[4 * n + 1];
+    O[(r0 + 8) * DP + 8 * n + 2 * tig] = o[4 * n + 2];
+    O[(r0 + 8) * DP + 8 * n + 2 * tig + 1] = o[4 * n + 3];
+  }
+}
+
+template <int DP, int BK>
+int run(const void* q, const void* k, const void* v, const void* P, void* S, void* O, int H, int D, int h) {
+  CUtensorMap tq, tk, tv;
+  if (!bf16_rows_map(&tq, q, 64, H, D, 64) || !bf16_rows_map(&tk, k, BK, H, D, BK) ||
+      !bf16_rows_map(&tv, v, BK, H, D, BK))
+    return -1;
+  constexpr int NB = (DP + 63) / 64;
+  const size_t smem = (64 + 2 * BK) * NB * 128 + 8 + 1024;
+  cudaError_t e = allow_smem(probe_kernel<DP, BK>, smem);
+  if (e != cudaSuccess) return e;
+  probe_kernel<DP, BK><<<1, 128, smem>>>(tq, tk, tv, (const bf16*)P, (float*)S, (float*)O, h);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return cudaDeviceSynchronize();
+}
+
+extern "C" int probe_run(int DP, int BK, const void* q, const void* k, const void* v, const void* P,
+                         void* S, void* O, int H, int D, int h) {
+  if (DP == 32 && BK == 64) return run<32, 64>(q, k, v, P, S, O, H, D, h);
+  if (DP == 48 && BK == 64) return run<48, 64>(q, k, v, P, S, O, H, D, h);
+  if (DP == 64 && BK == 64) return run<64, 64>(q, k, v, P, S, O, H, D, h);
+  if (DP == 32 && BK == 128) return run<32, 128>(q, k, v, P, S, O, H, D, h);
+  if (DP == 48 && BK == 128) return run<48, 128>(q, k, v, P, S, O, H, D, h);
+  if (DP == 64 && BK == 128) return run<64, 128>(q, k, v, P, S, O, H, D, h);
+  if (DP == 80 && BK == 128) return run<80, 128>(q, k, v, P, S, O, H, D, h);
+  if (DP == 96 && BK == 128) return run<96, 128>(q, k, v, P, S, O, H, D, h);
+  if (DP == 128 && BK == 128) return run<128, 128>(q, k, v, P, S, O, H, D, h);
+  if (DP == 160 && BK == 64) return run<160, 64>(q, k, v, P, S, O, H, D, h);
+  return -2;
+}

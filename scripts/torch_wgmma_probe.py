@@ -1,0 +1,82 @@
+#!/usr/bin/env python3
+"""Probe the narrow attention kernel's wgmma descriptors on one NVIDIA GPU
+(H100), each alone, against fp32 torch.matmul.
+
+    python3 scripts/torch_wgmma_probe.py
+
+Builds `scripts/torch_wgmma_probe.cu` with nvcc (sm_90a) into
+`build/psd_tpu_torch/probe/` (git-ignored) and runs one warpgroup per
+(Dp, key tile, D): S = q·kᵀ through `wgmma_ss<BK>` over Dp/16 k-steps of
+64-column swizzled boxes, and O = P·V through `wgmma_rs_tb<Dp>` with V
+MN-major, the operands loaded by TMA from 3-D maps of a (rows, 3 heads, D)
+tensor at head 1, so columns D..Dp arrive as zeros. Each product is held
+to its fp32 torch.matmul (relative L2 ≤ 1e-5, the padding columns of O
+exactly 0). Prints the card's name and power limit; exits 1 if a probe
+fails.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "scripts" / "torch_wgmma_probe.cu"
+OUT = ROOT / "build" / "psd_tpu_torch" / "probe"
+# (padded head dim, key tile, head dim): every Dp the kernel is built for,
+# with and without zero fill
+PROBES = [(32, 64, 24), (32, 128, 32), (48, 64, 40), (48, 128, 40), (64, 64, 56),
+          (64, 128, 64), (80, 128, 80), (80, 128, 72), (96, 128, 88), (128, 128, 104),
+          (128, 128, 128), (160, 64, 136), (160, 64, 160)]
+REL_BAND = 1e-5
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_wgmma_probe.py: needs an NVIDIA GPU")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    sys.path.insert(0, str(ROOT))
+    from psd_tpu_torch.ops.kernels import NVCC_FLAGS, _nvcc
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    lib_path = OUT / "libwgmma_probe.so"
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-I", str(ROOT / "psd_tpu_torch/csrc"),
+                          "-o", str(lib_path), str(SRC)], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise SystemExit("nvcc failed:\n" + res.stdout[-3000:] + res.stderr[-3000:])
+    lib = ctypes.CDLL(str(lib_path))
+    lib.probe_run.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    lib.probe_run.restype = ctypes.c_int
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    H, h, failed = 3, 1, 0
+    for dp, bk, d in PROBES:
+        q = torch.randn((64, H, d), generator=g, device="cuda").bfloat16()
+        k = torch.randn((bk, H, d), generator=g, device="cuda").bfloat16()
+        v = torch.randn((bk, H, d), generator=g, device="cuda").bfloat16()
+        p = torch.rand((64, bk), generator=g, device="cuda").bfloat16()
+        s = torch.zeros((64, bk), device="cuda")
+        o = torch.zeros((64, dp), device="cuda")
+        rc = lib.probe_run(dp, bk, q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
+                           s.data_ptr(), o.data_ptr(), H, d, h)
+        s_ref = q[:, h].float() @ k[:, h].float().T
+        o_ref = p.float() @ v[:, h].float()
+        s_rel = ((s - s_ref).norm() / s_ref.norm()).item()
+        o_rel = ((o[:, :d] - o_ref).norm() / o_ref.norm()).item()
+        pad = o[:, d:].abs().max().item() if dp > d else 0.0
+        ok = rc == 0 and s_rel <= REL_BAND and o_rel <= REL_BAND and pad == 0.0
+        failed += not ok
+        print(f"[probe] Dp {dp} key tile {bk} D {d}: rc {rc}; S wgmma_ss<{bk}> rel L2 {s_rel:.3e}; "
+              f"O wgmma_rs_tb<{dp}> rel L2 {o_rel:.3e}, padding columns max {pad:.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+    print(f"[probe] {failed} of {len(PROBES)} failed (band {REL_BAND:g})")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
