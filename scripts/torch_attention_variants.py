@@ -159,6 +159,49 @@ __device__ __forceinline__ uint32_t pack_rn_sum(float lo, float hi, float& sum) 
 }
 constexpr int kBQ = 128;'''
 
+# d_clock: SM clock stamps of one consumer thread (WG 0) and the producer
+# thread, per key tile, in two blocks of the grid (the first, and one from
+# the middle), read back through psd_narrow_clocks
+_CLOCK_DECL = '''
+__device__ unsigned long long g_narrow_clk[2][64][8];
+#define NARROW_STAMP(i, who)                                                        \\
+  if (rec >= 0 && threadIdx.x == (who) && t < 64) g_narrow_clk[rec][t][i] = clock64();
+constexpr int kBQ = 128;'''
+_CLOCK_DUMP = '''
+extern "C" int psd_narrow_clocks(void* dst) {
+  return static_cast<int>(cudaMemcpyFromSymbol(dst, psd::g_narrow_clk, sizeof(psd::g_narrow_clk)));
+}
+'''
+
+
+def _clock(s: str) -> str:
+    s = s.replace("namespace psd {\nnamespace {", "namespace psd {\n__device__ unsigned long long "
+                  "g_narrow_clk[2][64][8];\nnamespace {", 1)
+    edits = [
+        ("constexpr int kBQ = 128;", _CLOCK_DECL.replace(
+            "__device__ unsigned long long g_narrow_clk[2][64][8];\n", "")),
+        ("  const int wg = threadIdx.x / 128;", "  const int rec = (blockIdx.x == 0 && blockIdx.y == 0) ? 0 "
+         ": (blockIdx.x == 16 && blockIdx.y == 33) ? 1 : -1;\n  const int wg = threadIdx.x / 128;"),
+        ("        if (t >= ST) mbar_wait(&empty[s], ((t / ST) - 1) & 1);\n",
+         "        NARROW_STAMP(6, 256)\n        if (t >= ST) mbar_wait(&empty[s], ((t / ST) - 1) & 1);\n"),
+        ("        mbar_arrive_expect_tx(&full[s], 2 * T::kTileBytes);\n",
+         "        mbar_arrive_expect_tx(&full[s], 2 * T::kTileBytes);\n        NARROW_STAMP(7, 256)\n"),
+        ("      mbar_wait(&full[s], (t / ST) & 1);\n      named_sync(1 + c, 256);\n",
+         "      NARROW_STAMP(0, 0)\n      mbar_wait(&full[s], (t / ST) & 1);\n      NARROW_STAMP(1, 0)\n"
+         "      named_sync(1 + c, 256);\n      NARROW_STAMP(2, 0)\n"),
+        ("      for (int i = 0; i < BK / 2; ++i) reg_fence(sc[i]);\n      if (c == 0",
+         "      for (int i = 0; i < BK / 2; ++i) reg_fence(sc[i]);\n      NARROW_STAMP(3, 0)\n      if (c == 0"),
+        ("      // O += P · V_tile", "      NARROW_STAMP(4, 0)\n      // O += P · V_tile"),
+        ("      for (int i = 0; i < DP / 2; ++i) reg_fence(o[i]);\n      __syncwarp();\n"
+         "      if (lane == 0) mbar_arrive(&empty[s]);",
+         "      for (int i = 0; i < DP / 2; ++i) reg_fence(o[i]);\n      NARROW_STAMP(5, 0)\n"
+         "      __syncwarp();\n      if (lane == 0) mbar_arrive(&empty[s]);"),
+    ]
+    for old, new in edits:
+        s = _rep(old, new)(s)
+    return s + _CLOCK_DUMP
+
+
 _BLOCKS = "static constexpr int kBlocksPerSM = DP <= 64 ? 2 : 1;"
 _BK = "static constexpr int kBK = kBlocksPerSM == 2 ? 64 : (DP <= 128 ? 128 : 64);"
 _STAGES = "static constexpr int kStages = kBlocksPerSM == 2 ? 4 : (DP <= 128 ? 2 : 3);"
@@ -223,6 +266,8 @@ VARIANTS = {
                     _rep('  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));', "  y = x;"),
                     _rep("pack_bf16x2_sum(", "pack_bf16x2(", 2), _rep(", ls0);", ");"),
                     _rep(", ls1);", ");")]),
+    "d_clock": ("diagnostic: clock64 stamps per key tile (median cycles between them)",
+                [_clock]),
     # planted faults
     "fault_drop_last_tile": ("fault: the last key tile's S computed, then dropped",
                              [_rep(_ARRIVE, _ARRIVE + "      if (t == n_tiles - 1) {\n"
@@ -274,13 +319,23 @@ def build(root: Path) -> str:
     logs = sorted((root / "build" / "psd_tpu_torch").glob("*/build.log"),
                   key=lambda p: p.stat().st_mtime)
     text = logs[-1].read_text() if logs else ""
-    found = []
-    for dp in (48, 80):
-        m = re.search(rf"narrow_attention_kernelILi{dp}E.*?Used (\d+) registers", text, re.S)
-        s = re.search(rf"narrow_attention_kernelILi{dp}E.*?(\d+) bytes spill stores", text, re.S)
+    found, name, spill = [], None, "?"
+    for line in text.splitlines():  # ptxas -v: each entry function, then its stats
+        m = re.search(r"Compiling entry function '\w*?narrow_attention_kernelILi(\d+)E", line)
         if m:
-            found.append(f"narrow<{dp}> {m.group(1)} regs, {s.group(1) if s else '?'} B spilled")
-    return "; ".join(found)
+            name, spill = m.group(1), "?"
+            continue
+        if name not in ("48", "80"):
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found.append(f"narrow<{name}> {m.group(1)} regs, {spill} B spilled")
+            name = None
+    warnings = [l.strip() for l in text.splitlines() if "Performance Loss" in l or "warning" in l]
+    return "; ".join(found + [f"{len(warnings)} ptxas warnings"])
 
 
 _TIME_ONE = '''
@@ -308,6 +363,34 @@ for shape, lse in shapes:
                 "worst_row": row, "lse_abs": dl}})
 print(json.dumps(res))
 '''
+
+
+_CLOCK_REPORT = '''
+import ctypes, statistics, torch
+from psd_tpu_torch.ops import attention, kernels
+g = torch.Generator(device="cuda").manual_seed(0)
+q, k, v = (torch.randn((8, 4096, 8, 40), generator=g, device="cuda").bfloat16() for _ in range(3))
+for _ in range(3):
+    attention.attention_fwd(q, k, v)
+torch.cuda.synchronize()
+buf = (ctypes.c_ulonglong * (2 * 64 * 8))()
+lib = kernels.library()
+lib.psd_narrow_clocks.argtypes = [ctypes.c_void_p]
+assert lib.psd_narrow_clocks(ctypes.addressof(buf)) == 0
+c = [[[buf[(r * 64 + t) * 8 + i] for i in range(8)] for t in range(64)] for r in range(2)]
+names = ["wait full", "turn (named barrier)", "S issue to done", "softmax", "P.V issue to done",
+         "release to next wait"]
+for r, block in enumerate(("first block", "block (16, 33)")):
+    d = [[c[r][t][i + 1] - c[r][t][i] for t in range(4, 60)] for i in range(5)]
+    d.append([c[r][t + 1][0] - c[r][t][5] for t in range(4, 59)])
+    tile = [c[r][t + 1][0] - c[r][t][0] for t in range(4, 59)]
+    prod = [c[r][t][7] - c[r][t][6] for t in range(8, 60)]
+    print(f"[clock] (8,4096,8,40) {block}, consumer WG 0 thread 0, median SM cycles over tiles 4-59: "
+          + "; ".join(f"{n} {statistics.median(x):.0f}" for n, x in zip(names, d))
+          + f"; whole tile {statistics.median(tile):.0f}; producer wait empty + issue "
+          f"{statistics.median(prod):.0f}")
+'''
+EXTRA_REPORTS = {"d_clock": _CLOCK_REPORT}
 
 
 def time_tree(root: Path):
@@ -363,6 +446,9 @@ def main() -> int:
 
         print(f"[variant] {name:20s} " + " | ".join(judged(r) for r in rows)
               + f" | {regs[name]} | {what}", flush=True)
+        if name in EXTRA_REPORTS:
+            res = _in(trees[name], EXTRA_REPORTS[name], 300)
+            print(res.stdout.strip() or (res.stdout + res.stderr)[-1500:], flush=True)
     return 1 if failed else 0
 
 
