@@ -266,6 +266,17 @@ VARIANTS = {
                     _rep('  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));', "  y = x;"),
                     _rep("pack_bf16x2_sum(", "pack_bf16x2(", 2), _rep(", ls0);", ");"),
                     _rep(", ls1);", ");")]),
+    "d_skeleton_no_loads": ("diagnostic: d_skeleton without the K/V refills either",
+                            [_rep("        wgmma_ss<BK>(sc, wgmma_desc(qs",
+                                  "        if (t == 0) wgmma_ss<BK>(sc, wgmma_desc(qs"),
+                             _rep("        wgmma_rs_tb<DP>(o, pa[kk]",
+                                  "        if (kk < 0) wgmma_rs_tb<DP>(o, pa[kk]"),
+                             _rep('  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));', "  y = x;"),
+                             _rep("pack_bf16x2_sum(", "pack_bf16x2(", 2), _rep(", ls0);", ");"),
+                             _rep(", ls1);", ");"),
+                             _rep("        mbar_arrive_expect_tx(&full[s], 2 * T::kTileBytes);",
+                                  "        if (t >= ST) { mbar_arrive(&full[s]); continue; }\n"
+                                  "        mbar_arrive_expect_tx(&full[s], 2 * T::kTileBytes);")]),
     "d_clock": ("diagnostic: clock64 stamps per key tile (median cycles between them)",
                 [_clock]),
     # planted faults
