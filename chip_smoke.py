@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero:
   1. device  — require CUDA; print the card's name and power limit.
   2. build   — compile psd_tpu_torch/csrc/*.cu with nvcc (sm_90a), one nvcc
                per source, all at once; print ptxas's registers, stack and
-               spills for the attention forward kernels.
+               spills for the attention forward kernels (kept in the kernels
+               line only when this run ran nvcc).
   3. kernels — each kernel against its plain PyTorch version at
                every shape the 512², batch-8 serving path gives it (bf16,
                seeded inputs): max abs/rel error against a stated band;
@@ -18,11 +19,13 @@ Phases, in order; any failure exits non-zero:
                whichever is larger). The attention kernels are held to
                relative L2 bands over the output and each query row: at
                D=40/80 (the UNet, attention_narrow.cu, also timed with
-               the log-sum-exp at training's (64,1024,8,40)) and at D=512
-               (the VAE mid block, attention_wide.cu); their log-sum-exp
-               to lse_reference; beside their bound, the exp2 count's time
-               at the SFU rate; untimed edge shapes (every padded head dim
-               of each kernel, H of 1 and 3, Sq != Sk). attention_q8
+               the log-sum-exp at training's (64,1024,8,40), a reading kept
+               apart from the entry's sums) and at D=512 (the VAE mid
+               block, attention_wide.cu); their log-sum-exp to
+               lse_reference; printed beside their bound, not kept, the
+               exp2 count's time at the SFU rate; untimed edge shapes
+               (every padded head dim of each kernel, H of 1 and 3,
+               Sq != Sk). attention_q8
                (int8 spatial attention, both modes) at the UNet
                self-attention shapes psd_tpu's spatial_attention accepts,
                against its plain
@@ -236,21 +239,26 @@ def phase_device() -> str:
 
 
 # ---- phase 2 ---------------------------------------------------------------
-def phase_build() -> dict:
+def phase_build():
+    """Builds the kernels; returns ptxas's report of the attention forward
+    kernels when this process ran nvcc, else None (the report in the cached
+    build's log is an earlier run's and is only printed)."""
     from psd_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
     kernels.library()
+    built = kernels.build_seconds is not None
     log(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {kernels.build_seconds if kernels.build_seconds is not None else 0:.2f} s)")
+        f"(nvcc {kernels.build_seconds if built else 0:.2f} s)")
     ptxas = ptxas_attention()
     log("[build] ptxas, attention forward kernels (registers at entry, stack, spill "
-        "stores/loads in bytes): " + "; ".join(
+        "stores/loads in bytes" + ("" if built else "; from the cached build, an earlier run's")
+        + "): " + "; ".join(
             f"{k} {r['registers']} regs, stack {r['stack']}, spills {r['spill_stores']}/"
             f"{r['spill_loads']}" for k, r in ptxas.items()))
     if not any(k.startswith("narrow") for k in ptxas):
         raise SystemExit("chip_smoke.py: build.log names no narrow attention kernel")
-    return ptxas
+    return ptxas if built else None
 
 
 def ptxas_attention() -> dict:
@@ -318,30 +326,36 @@ def bound(flops: float, nbytes: float, int8_ops: float = 0.0):
 
 
 def _compare(name, shape, fn_kernel, fn_plain, results, work, fn_library=None, extra=None,
-             judge=None):
+             judge=None, note=None, key="shapes"):
     """`work` = (bf16 FLOPs, bytes[, int8 ops]) of the function at this
-    shape; `extra` is added to the shape's entry. `judge(out, ref)` →
-    (ok, text, readings) replaces the bf16 band ATOL + RTOL·max|ref|."""
+    shape; `extra` is added to the shape's entry; `note` (name → number) is
+    printed beside the readings and not kept. `judge(out, ref)` → (ok, text,
+    readings), on the whole outputs, replaces the bf16 band ATOL +
+    RTOL·max|ref|. The shape's entry goes to the kernel's `key` list; only
+    "shapes" adds to the kernel's summed times and bound and its
+    max_abs_err."""
     out_k = fn_kernel()
     out_p = fn_plain()
     torch.cuda.synchronize()
     outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
     outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
     abs_err = rel_err = 0.0
-    ok = True
+    ok = bf16_pass = True
     band = f"band {ATOL:g}+{RTOL:g}*max|ref|"
     for a, b in zip(outs_k, outs_p):
         d = (a.float() - b.float()).abs().max().item()
         ref = b.float().abs().max().item()
         abs_err = max(abs_err, d)
         rel_err = max(rel_err, d / max(ref, 1e-12))
-        if judge is None:
-            ok = ok and bool(torch.isfinite(a).all()) and d <= ATOL + RTOL * ref
-        else:
-            good, band, readings = judge(a, b)
-            ok = ok and bool(torch.isfinite(a).all()) and good
-            # what the bf16 band alone would have said
-            extra = {**(extra or {}), **readings, "bf16_band_pass": int(d <= ATOL + RTOL * ref)}
+        ok = ok and bool(torch.isfinite(a).all())
+        bf16_pass = bf16_pass and d <= ATOL + RTOL * ref
+    if judge is None:
+        ok = ok and bf16_pass
+    else:
+        good, band, readings = judge(out_k, out_p)
+        ok = ok and good
+        # what the bf16 band alone would have said
+        extra = {**(extra or {}), **readings, "bf16_band_pass": int(bf16_pass)}
     del out_k, out_p, outs_k, outs_p
     ms_k = time_ms(fn_kernel)
     ms_p = time_ms(fn_plain)
@@ -351,20 +365,21 @@ def _compare(name, shape, fn_kernel, fn_plain, results, work, fn_library=None, e
         f"{band} {'ok' if ok else 'FAIL'}  "
         f"kernel {ms_k:.4f} ms  plain {ms_p:.4f} ms  library "
         f"{'none' if ms_l is None else f'{ms_l:.4f} ms'}  bound {b_ms:.4f} ms ({b_by})"
-        + "".join(f"  {k} {v:.4g}" for k, v in (extra or {}).items()))
+        + "".join(f"  {k} {v:.4g}" for k, v in {**(note or {}), **(extra or {})}.items()))
     r = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                   "library_ms": None, "bound_ms": 0.0, "shapes": []})
-    r["max_abs_err"] = max(r["max_abs_err"], abs_err)
-    r["ms"] += ms_k
-    r["plain_ms"] += ms_p
-    if ms_l is not None:
-        r["library_ms"] = (r["library_ms"] or 0.0) + ms_l
-    r["bound_ms"] += b_ms
-    r["shapes"].append({"shape": list(shape), "max_abs_err": abs_err,
-                        "max_rel_err": rel_err, "ms": ms_k, "plain_ms": ms_p,
-                        "library_ms": ms_l, "bound_ms": b_ms, "bound_by": b_by,
-                        "flops": work[0], "bytes": work[1],
-                        **({"int8_ops": work[2]} if len(work) > 2 else {}), **(extra or {})})
+    if key == "shapes":
+        r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+        r["ms"] += ms_k
+        r["plain_ms"] += ms_p
+        if ms_l is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + ms_l
+        r["bound_ms"] += b_ms
+    r.setdefault(key, []).append({
+        "shape": list(shape), "max_abs_err": abs_err, "max_rel_err": rel_err, "ms": ms_k,
+        "plain_ms": ms_p, "library_ms": ms_l, "bound_ms": b_ms, "bound_by": b_by,
+        "flops": work[0], "bytes": work[1],
+        **({"int8_ops": work[2]} if len(work) > 2 else {}), **(extra or {})})
     if not ok:
         raise SystemExit(f"chip_smoke.py: {name} {shape} disagrees with its plain version")
 
@@ -385,23 +400,6 @@ def _sdpa(q, k, v):
                                           v.transpose(1, 2)).transpose(1, 2)
 
 
-def _attention_judge(out, ref):
-    """The attention kernels against their plain versions: the output by
-    narrow_attention_judge (D <= 160) or wide_attention_judge, the narrow
-    kernel's log-sum-exp (fp32 (B, H, Sq)) by its max abs error in log2
-    units."""
-    from psd_tpu_torch.ops.attention import NARROW_MAX_D
-    from psd_tpu_torch.testing import (NARROW_ATTN_LSE_BAND, narrow_attention_judge,
-                                       wide_attention_judge)
-
-    if out.dim() == 3:
-        d = (out - ref).abs().max().item()
-        return (d <= NARROW_ATTN_LSE_BAND, f"lse max abs {d:.3e} (band {NARROW_ATTN_LSE_BAND:g})",
-                {"lse_max_abs": d})
-    judge = narrow_attention_judge if out.shape[-1] <= NARROW_MAX_D else wide_attention_judge
-    return judge(out, ref)
-
-
 def _check_lse(q, k, v, band: float) -> float:
     """An attention kernel's per-row log-sum-exp against lse_reference: max
     abs error in log2 units; raises beyond `band`."""
@@ -420,8 +418,7 @@ def _check_lse(q, k, v, band: float) -> float:
 
 def phase_kernels() -> dict:
     from psd_tpu_torch.ops import attention, geglu, gnproj, split3
-    from psd_tpu_torch.testing import (NARROW_ATTN_LSE_BAND, WIDE_ATTN_LSE_BAND,
-                                       narrow_attention_judge, wide_attention_judge)
+    from psd_tpu_torch.testing import ATTN_LSE_BAND, attention_judge
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -435,32 +432,33 @@ def phase_kernels() -> dict:
         B, S, H, D = shape
         q, k, v = randn(*shape), randn(*shape), randn(*shape)
         with_lse = shape in ATTN_LSE_SHAPES
-        extra = {"exp2_ms": B * H * S * S / sfu_exp2_per_s() * 1e3}
-        if not with_lse:  # the timed call below checks it
-            extra["lse_max_abs"] = _check_lse(q, k, v, NARROW_ATTN_LSE_BAND
-                                              if D <= attention.NARROW_MAX_D
-                                              else WIDE_ATTN_LSE_BAND)
+        lse_abs = _check_lse(q, k, v, ATTN_LSE_BAND)
+        # training's shape with its lse is a reading of its own, outside the
+        # entry's sums, which cover the three serving shapes as in earlier runs
         _compare("attention", shape + (("lse",) if with_lse else ()),
                  lambda: attention.attention_fwd(q, k, v, return_lse=with_lse),
                  lambda: ((attention.attention_reference(q, k, v),
                            attention.lse_reference(q, k, D ** -0.5)) if with_lse
                           else attention.attention_reference(q, k, v)), results,
                  (4.0 * B * H * S * S * D, 4 * B * S * H * D * 2 + with_lse * B * H * S * 4),
-                 fn_library=lambda: _sdpa(q, k, v), extra=extra, judge=_attention_judge)
+                 fn_library=lambda: _sdpa(q, k, v), extra={"lse_max_abs": lse_abs},
+                 judge=(lambda a, b: attention_judge(a[0], b[0])) if with_lse
+                 else attention_judge,
+                 note={"exp2_ms_at_sfu_rate": B * H * S * S / sfu_exp2_per_s() * 1e3},
+                 key="lse_shapes" if with_lse else "shapes")
         del q, k, v
         torch.cuda.empty_cache()
     for (B, Sq, H, D), Sk in ATTN_NARROW_EDGE_SHAPES + ATTN_WIDE_EDGE_SHAPES:
         q, k, v = randn(B, Sq, H, D), randn(B, Sk, H, D), randn(B, Sk, H, D)
-        narrow = D <= attention.NARROW_MAX_D
-        judge = narrow_attention_judge if narrow else wide_attention_judge
-        ok, text, _ = judge(attention.attention_fwd(q, k, v),
-                            attention.attention_reference(q, k, v))
+        ok, text, _ = attention_judge(attention.attention_fwd(q, k, v),
+                                      attention.attention_reference(q, k, v))
         log(f"[kernel] attention edge {str((B, Sq, H, D)):22s} Sk {Sk}: {text} "
-            f"{'ok' if ok else 'FAIL'} ({'narrow' if narrow else 'wide'} path; not timed)")
+            f"{'ok' if ok else 'FAIL'} "
+            f"({'narrow' if D <= attention.NARROW_MAX_D else 'wide'} path; not timed)")
         if not ok:
             raise SystemExit(f"chip_smoke.py: attention {(B, Sq, H, D)}, Sk {Sk} disagrees with "
                              f"its plain version")
-        _check_lse(q, k, v, NARROW_ATTN_LSE_BAND if narrow else WIDE_ATTN_LSE_BAND)
+        _check_lse(q, k, v, ATTN_LSE_BAND)
     for (B, S, H, D) in SPLIT3_SHAPES:
         q = randn(B, S, H, D)
         banks = [randn(B, 16, H, D) for _ in range(6)]
@@ -1250,7 +1248,9 @@ def main() -> int:
             entry["also_replaces"] = ALSO_REPLACES[name]
         if name == "attention":
             entry["sources"] = ATTN_SOURCES
-            entry["ptxas"] = ptxas
+            entry["lse_shapes"] = r["lse_shapes"]
+            if ptxas is not None:
+                entry["ptxas"] = ptxas
             entry["launches_by_head_dim"] = {
                 path: run["head_dims"] for path, run in
                 (("serve", served), ("turbo", turbo), ("train", trained))}

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Variants of the narrow attention forward (`psd_tpu_torch/csrc/
 attention_narrow.cu`) on one NVIDIA GPU (H100): where its time goes, and
-whether `narrow_attention_judge` sees planted faults.
+whether `attention_judge` sees planted faults.
 
     python3 scripts/torch_attention_variants.py                 # every variant
     python3 scripts/torch_attention_variants.py one_block d_no_pv  # some
@@ -18,7 +18,7 @@ each in its own process, at (8,4096,8,40), (8,1024,8,80) and, with the
 log-sum-exp, (64,1024,8,40), seeded N(0,1) bf16 inputs: the forward's time
 (CUDA events, median of 20 after 3 warm-up calls); its relative L2 error
 against attention_reference over the output and on the worst query row,
-held to `narrow_attention_judge`'s bands, and the max abs error of the
+held to `attention_judge`'s bands, and the max abs error of the
 log-sum-exp against lse_reference. Prints ptxas's registers and spills for
 narrow<48> and narrow<80>, and the card's name and power limit.
 """
@@ -424,8 +424,7 @@ def main() -> int:
     import torch
 
     sys.path.insert(0, str(ROOT))
-    from psd_tpu_torch.testing import (NARROW_ATTN_LSE_BAND, NARROW_ATTN_REL_L2_BAND,
-                                       NARROW_ATTN_ROW_BAND)
+    from psd_tpu_torch.testing import ATTN_LSE_BAND, ATTN_REL_L2_BAND, ATTN_ROW_BAND
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_attention_variants.py: needs an NVIDIA GPU")
@@ -449,8 +448,8 @@ def main() -> int:
             print(f"[variant] {name:20s} FAILED | {what}\n{rows}", flush=True)
             continue
         def judged(r):
-            ok = (r["rel_l2"] <= NARROW_ATTN_REL_L2_BAND and r["worst_row"] <= NARROW_ATTN_ROW_BAND
-                  and r["lse_abs"] <= NARROW_ATTN_LSE_BAND)
+            ok = (r["rel_l2"] <= ATTN_REL_L2_BAND and r["worst_row"] <= ATTN_ROW_BAND
+                  and r["lse_abs"] <= ATTN_LSE_BAND)
             return (f"{tuple(r['shape'])}{' lse' if r['lse'] else ''} {r['ms']:.4f} ms (rel L2 "
                     f"{r['rel_l2']:.3e}, row {r['worst_row']:.3e}, lse {r['lse_abs']:.3e} "
                     f"{'pass' if ok else 'FAIL'})")

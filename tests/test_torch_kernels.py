@@ -295,7 +295,7 @@ def _wide_kernel_emulation(q, k, v, fault=None):
 @pytest.mark.parametrize("fault", [None, "drop_last_tile", "skip_rescale", "v_box"])
 def test_wide_attention_judge_sees_planted_faults(fault):
     """chip_smoke.py holds the D=512 attention kernel to `attention_reference`
-    with `wide_attention_judge` (relative L2 ≤ 1e-2 over the output, ≤ 2e-2
+    with `attention_judge` (relative L2 ≤ 1e-2 over the output, ≤ 2e-2
     on the worst query row). At (1, 1024, 1, 512), N(0,1) bf16 inputs, the
     kernel's arithmetic emulated in plain torch reads (relative L2 / worst
     row; then the max abs error against the old band 1e-2 + 1e-2·max|ref| =
@@ -308,13 +308,13 @@ def test_wide_attention_judge_sees_planted_faults(fault):
     readings of the same faults planted in the kernel, on the card at
     S = 4096.)
     The judge passes the sound emulation and fails each fault."""
-    from psd_tpu_torch.testing import wide_attention_judge
+    from psd_tpu_torch.testing import attention_judge
 
     rng = _rng(512)
     q, k, v = (_t(rng.standard_normal((1, 1024, 1, 512)).astype(np.float32)).bfloat16()
                for _ in range(3))
     ref = attention.attention_reference(q, k, v)
-    ok, text, readings = wide_attention_judge(_wide_kernel_emulation(q, k, v, fault), ref)
+    ok, text, readings = attention_judge(_wide_kernel_emulation(q, k, v, fault), ref)
     assert ok == (fault is None), text
 
 
@@ -392,7 +392,7 @@ def _narrow_kernel_emulation(q, k, v, fault=None):
 @pytest.mark.parametrize("fault", [None, "drop_last_tile", "skip_rescale", "neighbour_pad"])
 def test_narrow_attention_judge_sees_planted_faults(fault, D):
     """chip_smoke.py holds the D=40/80 attention kernel to
-    `attention_reference` with `narrow_attention_judge` (relative L2 ≤ 1e-2
+    `attention_reference` with `attention_judge` (relative L2 ≤ 1e-2
     over the output, ≤ 2e-2 on the worst query row). At (1, 1024, 2, D),
     N(0,1) bf16 inputs, the kernel's arithmetic emulated in plain torch
     reads (relative L2 / worst row at D = 40; D = 80):
@@ -404,14 +404,14 @@ def test_narrow_attention_judge_sees_planted_faults(fault, D):
     columns never enter and the judge rightly passes. (PERF.md §6 PR 6
     gives the readings of the same faults planted in the kernel, on the
     card.)"""
-    from psd_tpu_torch.testing import narrow_attention_judge
+    from psd_tpu_torch.testing import attention_judge
 
     rng = _rng(D)
     q, k, v = (_t(rng.standard_normal((1, 1024, 2, D)).astype(np.float32)).bfloat16()
                for _ in range(3))
     ref = attention.attention_reference(q, k, v)
     out = _narrow_kernel_emulation(q, k, v, fault)
-    ok, text, _ = narrow_attention_judge(out, ref)
+    ok, text, _ = attention_judge(out, ref)
     blind = fault == "neighbour_pad" and D % 16 == 0
     if blind:
         assert torch.equal(out, _narrow_kernel_emulation(q, k, v))
