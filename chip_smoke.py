@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero:
   2. build   — compile psd_tpu_torch/csrc/*.cu with nvcc (sm_90a), one nvcc
                per source, all at once; print ptxas's registers, stack and
                spills for the attention forward kernels (kept in the kernels
-               line only when this run ran nvcc).
+               line only when this run ran nvcc) and for the backward's dQ
+               and dK/dV kernels (printed only).
   3. kernels — each kernel against its plain PyTorch version at
                every shape the 512², batch-8 serving path gives it (bf16,
                seeded inputs): max abs/rel error against a stated band;
@@ -52,9 +53,14 @@ Phases, in order; any failure exits non-zero:
                weights (PSNR floor, max abs diff, ms each), and qconv3x3
                against an exact fp64 conv at one decoder shape.
   6. train   — the attention backward kernel against autograd through the
-               plain version, and split3's autograd.Function against the
-               plain version, at the training shapes; then the SD-scale
-               train step of configs/train_ip.yaml (256², batch 64, fp32
+               plain version at the training shapes, by relative L2 over
+               each of dQ, dK, dV and each of their rows
+               (attention_bwd_judge), timed beside SDPA's backward alone
+               (library) and fwd+bwd, with the exp2 count's time printed
+               beside the bound; untimed edge shapes at every padded head
+               dim; split3's autograd.Function against the plain version at
+               the training shapes; then the SD-scale train step of
+               configs/train_ip.yaml (256², batch 64, fp32
                masters, bf16 compute, gradient checkpointing, AdamW in two
                LR groups, EMA from step 0) takes 3 steps on seeded random
                pre-encoded batches; loss and gradients on the kernels are
@@ -66,7 +72,9 @@ The line before the last is a JSON object with one entry per kernel:
 6, each with the counts set to 0 just before it; `launches_by_path` splits
 them),
 `max_abs_err` is the largest over the kernel's shapes, `ms`, `plain_ms`,
-`library_ms` and `bound_ms` sum one call at each of its main-path shapes.
+`library_ms` and `bound_ms` sum one call at each of its main-path shapes
+(attention_bwd's `library_ms` is SDPA's backward alone, on a retained
+graph; `fwd_bwd_ms` and `sdpa_fwd_bwd_ms` are the two fwd+bwd readings).
 The last line is the device JSON. Imports nothing of JAX.
 """
 
@@ -89,9 +97,9 @@ sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
-# bf16 band for kernel-vs-plain: both round their inputs, probabilities and
-# outputs to bf16 at different points (2^-8 relative each), and sum in
-# different orders.
+# bf16 band for kernel-vs-plain (split3, ln_proj, ln_geglu, gn_proj): both
+# round their inputs, probabilities and outputs to bf16 at different points
+# (2^-8 relative each), and sum in different orders.
 ATOL, RTOL = 1e-2, 1e-2
 # UNet eps on the kernels vs with the plain versions forced: ~150 bf16
 # layers, each rounding differently; relative L2 error.
@@ -109,7 +117,9 @@ UNET_REL_BAND = 5e-2
 # leaves 1.9e-2 for lse + 0.02, 1.3e-1 for a dQ pass that skips its last key
 # tile; PERF.md). The loss is the forward's alone: 10x its reading, 3.2e-5.
 TRAIN_LOSS_BAND, TRAIN_GRAD_BAND, ATTN1_LEAF_BAND = 5e-4, 1e-2, 1e-2
-# the attn1 sites on the attention kernel at 256² (32×32 latents, S = 1024)
+# the attn1 sites on the attention kernel at 256² (32×32 latents, S = 1024):
+# 2 in down_blocks_0, 3 in up_blocks_3, one backward launch each a step
+ATTN1_SITES = 5
 ATTN1_LEAF = re.compile(r"unet\.(down_blocks_0|up_blocks_3)_attentions_\d+\.transformer_blocks_0"
                         r"\.attn1\.to_[qkv]\.weight")
 GN_AB_PAIRS = 10
@@ -250,28 +260,35 @@ def phase_build():
     built = kernels.build_seconds is not None
     log(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {kernels.build_seconds if built else 0:.2f} s)")
-    ptxas = ptxas_attention()
+    source = "" if built else "; from the cached build, an earlier run's"
+    ptxas = ptxas_report(r"(narrow|wide)_attention_kernel")
     log("[build] ptxas, attention forward kernels (registers at entry, stack, spill "
-        "stores/loads in bytes" + ("" if built else "; from the cached build, an earlier run's")
-        + "): " + "; ".join(
-            f"{k} {r['registers']} regs, stack {r['stack']}, spills {r['spill_stores']}/"
-            f"{r['spill_loads']}" for k, r in ptxas.items()))
+        "stores/loads in bytes" + source + "): " + _ptxas_text(ptxas))
     if not any(k.startswith("narrow") for k in ptxas):
         raise SystemExit("chip_smoke.py: build.log names no narrow attention kernel")
+    bwd = ptxas_report(r"(dq|dkv)_kernel")
+    log("[build] ptxas, attention backward kernels (attention_bwd.cu; printed, not kept"
+        + source + "): " + _ptxas_text(bwd))
+    if not any(k.startswith("dkv") for k in bwd) or not any(k.startswith("dq") for k in bwd):
+        raise SystemExit("chip_smoke.py: build.log names no dQ or dK/dV backward kernel")
     return ptxas if built else None
 
 
-def ptxas_attention() -> dict:
+def _ptxas_text(report: dict) -> str:
+    return "; ".join(f"{k} {r['registers']} regs, stack {r['stack']}, spills "
+                     f"{r['spill_stores']}/{r['spill_loads']}" for k, r in report.items())
+
+
+def ptxas_report(kernel: str) -> dict:
     """Registers, stack frame and spills (bytes) that ptxas reported for each
-    attention forward kernel (narrow<Dp>, wide) in this build's build.log
-    (nvcc -Xptxas -v)."""
+    kernel whose name matches `kernel` (a regex with one group, the name;
+    e.g. narrow<Dp>, wide) in this build's build.log (nvcc -Xptxas -v)."""
     from psd_tpu_torch.ops import kernels
 
     text = (kernels.BUILD_ROOT / kernels.source_hash() / "build.log").read_text()
     found, name = {}, None
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '\w*?(narrow|wide)_attention_kernel(?:ILi(\d+)E)?",
-                      line)
+        m = re.search(r"Compiling entry function '\w*?" + kernel + r"(?:ILi(\d+)E)?", line)
         if m:
             name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
             found[name] = {}
@@ -1013,9 +1030,28 @@ def _grad_compare(name, shape, tags, got, want):
     return max(e[1] for e in errs)
 
 
+def _check_attention_bwd(q, k, v, dout, label: str):
+    """The backward kernel against autograd through the plain version with
+    attention_bwd_judge; returns (max abs error, readings); raises beyond
+    the bands."""
+    from psd_tpu_torch.ops import attention
+    from psd_tpu_torch.testing import attention_bwd_judge
+
+    out, lse = attention.attention_fwd(q, k, v, return_lse=True)
+    got = attention.attention_bwd(q, k, v, out, lse, dout)
+    want = attention.attention_bwd_reference(q, k, v, dout)
+    ok, text, readings = attention_bwd_judge(got, want)
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    log(f"[train] attention_bwd {label}: {text}; max abs {err:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"chip_smoke.py: attention_bwd {label} disagrees with its plain version")
+    return err, readings
+
+
 def phase_train_kernels(results: dict) -> None:
     """The attention backward kernel and split3's autograd.Function at the
-    training shapes, against autograd through their plain versions."""
+    training shapes, against autograd through their plain versions; the
+    backward also at its edge shapes."""
     from psd_tpu_torch.ops import attention, split3
 
     dev = torch.device("cuda")
@@ -1027,11 +1063,8 @@ def phase_train_kernels(results: dict) -> None:
     for shape in ATTN_BWD_SHAPES:
         B, S, H, D = shape
         q, k, v, dout = (randn(*shape) for _ in range(4))
+        err, readings = _check_attention_bwd(q, k, v, dout, str(shape))
         out, lse = attention.attention_fwd(q, k, v, return_lse=True)
-        got = attention.attention_bwd(q, k, v, out, lse, dout)
-        want = attention.attention_bwd_reference(q, k, v, dout)
-        err = _grad_compare("attention_bwd", shape, ("dq", "dk", "dv"), got, want)
-        del got, want
 
         def fwd_bwd_kernel():
             o, l_ = attention.attention_fwd(q, k, v, return_lse=True)
@@ -1042,30 +1075,47 @@ def phase_train_kernels(results: dict) -> None:
         def fwd_bwd_sdpa():
             return torch.autograd.grad(_sdpa(qg, kg, vg), (qg, kg, vg), dout)
 
+        o_sdpa = _sdpa(qg, kg, vg)  # a retained graph: SDPA's backward alone
+
+        def bwd_sdpa():
+            return torch.autograd.grad(o_sdpa, (qg, kg, vg), dout, retain_graph=True)
+
         ms_k = time_ms(lambda: attention.attention_bwd(q, k, v, out, lse, dout), n=5)
         ms_p = time_ms(lambda: attention.attention_bwd_reference(q, k, v, dout), n=3, warmup=1)
+        ms_l = time_ms(bwd_sdpa, n=5)
         ms_fb = time_ms(fwd_bwd_kernel, n=5)
-        ms_l = time_ms(fwd_bwd_sdpa, n=5)
+        ms_lfb = time_ms(fwd_bwd_sdpa, n=5)
         flops = 5 * 2.0 * B * H * S * S * D
         nbytes = 8 * B * S * H * D * 2 + B * H * S * 4
         b_ms, b_by = bound(flops, nbytes)
+        # one exp2 a logit in each of the dQ and dK/dV passes
+        exp2_ms = 2 * B * H * S * S / sfu_exp2_per_s() * 1e3
         log(f"[train] attention_bwd {shape}: kernel {ms_k:.4f} ms, plain (autograd through "
-            f"the plain forward) {ms_p:.4f} ms, kernel fwd+bwd {ms_fb:.4f} ms, SDPA fwd+bwd "
-            f"{ms_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {flops / 1e9:.1f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB)")
+            f"the plain forward) {ms_p:.4f} ms, SDPA backward {ms_l:.4f} ms, bound {b_ms:.4f} "
+            f"ms ({b_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), exp2 at the SFU "
+            f"rate {exp2_ms:.4f} ms (printed, not kept); kernel fwd+bwd {ms_fb:.4f} ms, SDPA "
+            f"fwd+bwd {ms_lfb:.4f} ms")
         r = results.setdefault("attention_bwd", {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                                  "library_ms": 0.0, "bound_ms": 0.0,
-                                                 "fwd_bwd_ms": 0.0, "shapes": []})
+                                                 "fwd_bwd_ms": 0.0, "sdpa_fwd_bwd_ms": 0.0,
+                                                 "shapes": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         for key, val in (("ms", ms_k), ("plain_ms", ms_p), ("library_ms", ms_l),
-                         ("bound_ms", b_ms), ("fwd_bwd_ms", ms_fb)):
+                         ("bound_ms", b_ms), ("fwd_bwd_ms", ms_fb), ("sdpa_fwd_bwd_ms", ms_lfb)):
             r[key] += val
         r["shapes"].append({"shape": list(shape), "max_abs_err": err, "ms": ms_k,
                             "plain_ms": ms_p, "library_ms": ms_l, "fwd_bwd_ms": ms_fb,
-                            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
-                            "bytes": nbytes})
-        del q, k, v, dout, out, lse, qg, kg, vg
+                            "sdpa_fwd_bwd_ms": ms_lfb, "bound_ms": b_ms, "bound_by": b_by,
+                            "flops": flops, "bytes": nbytes, **readings})
+        del q, k, v, dout, out, lse, qg, kg, vg, o_sdpa
         torch.cuda.empty_cache()
+
+    # the narrow forward's edge shapes: every padded head dim the backward is
+    # built for too, one or three heads, Sq != Sk (not timed)
+    for (B, Sq, H, D), Sk in ATTN_NARROW_EDGE_SHAPES:
+        q, dout = randn(B, Sq, H, D), randn(B, Sq, H, D)
+        k, v = randn(B, Sk, H, D), randn(B, Sk, H, D)
+        _check_attention_bwd(q, k, v, dout, f"edge {(B, Sq, H, D)} Sk {Sk} (not timed)")
 
     for (B, S, H, D) in SPLIT3_TRAIN_SHAPES:
         ins = [randn(B, S, H, D)] + [randn(B, 16, H, D) for _ in range(6)]
@@ -1146,6 +1196,8 @@ def phase_train(card: str) -> dict:
         "EMA updated": all(ema_moved.values()) and state.ema.count == ema_updates,
         "attention, attention_bwd, split3 launched": min(
             counts["attention"], counts["attention_bwd"], counts["split3"]) > 0,
+        f"attention_bwd launched {ATTN1_SITES} times a step":
+            counts["attention_bwd"] == ATTN1_SITES * TRAIN_STEPS,
         "ln_proj, ln_geglu, gn_proj not launched": max(
             counts["ln_proj"], counts["ln_geglu"], counts["gn_proj"]) == 0,
         # at 256² only the 32×32 sites (S = 1024, D = 40) take the kernel
@@ -1177,8 +1229,9 @@ def phase_train(card: str) -> dict:
 
     leaves = [i for i, (n, _) in enumerate(model.core.named_parameters())
               if ATTN1_LEAF.fullmatch(n)]
-    if len(leaves) != 15:
-        raise SystemExit(f"chip_smoke.py: expected 15 attn1 q/k/v leaves, found {len(leaves)}")
+    if len(leaves) != 3 * ATTN1_SITES:
+        raise SystemExit(f"chip_smoke.py: expected {3 * ATTN1_SITES} attn1 q/k/v leaves, found "
+                         f"{len(leaves)}")
     offsets = [0]
     for p in params:
         offsets.append(offsets[-1] + p.numel())
@@ -1244,6 +1297,7 @@ def main() -> int:
                  "library_ms": r["library_ms"], "shapes": r["shapes"]}
         if "fwd_bwd_ms" in r:
             entry["fwd_bwd_ms"] = r["fwd_bwd_ms"]
+            entry["sdpa_fwd_bwd_ms"] = r["sdpa_fwd_bwd_ms"]
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
         if name == "attention":

@@ -1,337 +1,530 @@
 // attention_bwd: the gradient of non-causal softmax attention,
-//   O = softmax(Q·Kᵀ·scale)·V,  (B, S, H, D) bf16 operands,
-// given dO, O and the forward's per-row log-sum-exp (attention.cu, log2
-// units, fp32 (B, H, Sq)). Writes dQ, dK, dV (bf16, the operands' layout).
+//   O = softmax(Q·Kᵀ·scale)·V,  (B, S, H, D) bf16 operands, D <= 160,
+// given dO, O and the forward's per-row log-sum-exp (attention_narrow.cu,
+// log2 units, fp32 (B, H, Sq)). Writes dQ, dK, dV (bf16, the operands'
+// layout).
 //
 // Replaces the backward of JAX's stock Pallas flash attention
 // (jax.experimental.pallas.ops.tpu.flash_attention, its dq and dkv kernels),
 // which psd_tpu/ops/flash.py:104-121 configures and psd_tpu trains with.
 //
 // What bounds it on the H100. At the 256² training shape (64, 1024, 8, 40)
-// the backward does five S²-sized products (recomputed S, dP, dV, dK, dQ):
-// 5·2·B·H·S²·D ≈ 215 GFLOP against ≈ 337 MB of operands and gradients, so
-// it is compute-bound on paper; at this small head dim the S² exponentials and
-// the elementwise dS work on the CUDA cores cost as much as the products,
-// as in the forward.
+// the gradient takes five S²-sized products (S, dP, dV, dK, dQ): at the
+// padded Dp = 48, 5·2·B·H·S²·Dp = 258 GFLOP, 0.26 ms at 989 TFLOP/s,
+// against ≈ 0.34 GB of operands and gradients. The dQ pass below computes
+// S and dP again (7 products, 0.365 ms), and each pass takes one exp2 a
+// logit on the SFU, 16 a clock on each SM: B·H·S² = 537 M exp2, 0.128 ms a
+// pass at 1.98 GHz, beside the dS elementwise work on the CUDA cores. So the
+// products and the softmax work share the floor. Measured (PERF.md §6 PR 7),
+// the call sits at ≈ 2.6× that floor, held by two near-equal limits: the
+// ring refills (rows of 80 bytes at D = 40 streamed by TMA from L2; with no
+// products, exp2 or dS work the passes still take 0.92 of 1.04 ms at
+// (64, 1024, 8, 40)) and each consumer warpgroup's serial chain of products
+// and elementwise work (0.98 ms with the rings never refilled).
 //
-// Three launches, no atomics, deterministic:
-//  1. dot_kernel: Δ = rowsum(dO ∘ O) per (batch·head, query), fp32.
-//  2. dkv_kernel<Dp>: one block of 4 warps per (64 key rows, batch·head);
-//     each warp owns 16 key rows and loops over all query tiles (double-
-//     buffered with cp.async: Q, dO, and the tile's log-sum-exp and Δ).
-//     Per tile, in registers: Sᵀ = K_w·Qᵀ and dPᵀ = V_w·dOᵀ (mma.sync
-//     m16n8k16, bf16 in, fp32 accumulate), Pᵀ = exp2(Sᵀ·scale·log2e − lse),
-//     dSᵀ = Pᵀ∘(dPᵀ − Δ); then dV += Pᵀ·dO and dK += dSᵀ·Q, with the
-//     accumulator-as-A-operand trick of the forward (P and dS never touch
-//     shared memory) and dO/Q fragments through ldmatrix.trans.
-//  3. dq_kernel<Dp>: one block per (64 query rows, batch·head), looping over
-//     key tiles: S and dP recomputed, dS = P∘(dP − Δ), dQ += dS·K.
-// The separate dQ pass recomputes S and dP once more instead of adding dQ
-// across key blocks with fp32 atomics: simpler, and the result does not
-// depend on the order blocks run in. Head dims pad to Dp = ceil16(D) with
-// zero columns, as in the forward. Requires D % 8 == 0, Dp ≤ 160,
-// Sq % 64 == 0, Sk % 64 == 0 (the wrapper checks).
-#include <cuda_pipeline.h>
+// Two launches, no atomics, deterministic, the dQ pass first. Each pass is
+// persistent: one block an SM walks the pass's work items (128 resident
+// rows of one b·h) in turn, its producer loading the next item's resident
+// tiles (into a second buffer where shared memory allows) and ring tiles
+// while the consumers finish the current one; a block for each item was
+// 7% slower at (64, 1024, 8, 40) and 24% at (8, 1024, 8, 80) (PERF.md §6
+// PR 7).
+//  1. dq_kernel<Dp>: items of 128 query rows, PR 6's forward with one more
+//     product and no online max. Two consumer warpgroups (64 rows each,
+//     wgmma's M) and a producer warpgroup whose registers go to the
+//     consumers (setmaxnreg 24 / 240). The producer loads an item's q and
+//     dO by TMA, then its K and V tiles of kBK keys into a ring of mbarrier
+//     stages. Each consumer first takes Δ = rowsum(dO ∘ O) of its two rows
+//     from global memory (the four lanes of a row split its 16-byte chunks)
+//     while q and dO arrive, and writes it (fp32 (B, H, Sq)) for the dK/dV
+//     pass: 0.04–0.10 ms faster at the training shapes than a Δ kernel of
+//     its own, which kept 5 of a warp's 32 lanes busy at D = 40 (PERF.md §6
+//     PR 7).
+//     Per tile: S = q·Kᵀ and dP = dO·Vᵀ (wgmma_ss<kBK>, K-major operands,
+//     Dp/16 k-steps each), P = 2^(S·scale·log2e − lse), dS = P∘(dP − Δ)
+//     packed to bf16 straight from the accumulators as A register
+//     fragments, then dQ += dS·K (wgmma_rs_tb<Dp>, K MN-major).
+//  2. dkv_kernel<Dp>: items of 128 key rows, two consumer warpgroups of 64
+//     keys, each with its dK and dV (64 × Dp fp32) in registers. An item's
+//     K and V arrive by TMA once; the producer fills a ring of (Q, dO)
+//     tiles of kBQ queries, with those queries' lse and Δ by bulk copy on
+//     the same mbarrier. Per tile: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ
+//     (wgmma_ss<kBQ>), Pᵀ = 2^(Sᵀ·scale·log2e − lse[col]), dSᵀ =
+//     Pᵀ∘(dPᵀ − Δ[col]); Pᵀ and dSᵀ packed to bf16 as A fragments; dV +=
+//     Pᵀ·dO and dK += dSᵀ·Q (wgmma_rs_tb<Dp>, dO and Q MN-major). The stage
+//     is released once wgmma.wait_group says both products have read it.
+// dQ is a pass of its own, computing S and dP again, instead of adding dQ
+// across key blocks with fp32 atomics: the result does not depend on the
+// order blocks run in (ROADMAP Decisions). The two consumer warpgroups of a
+// pass run independently: taking turns on the tensor cores, as the
+// forward's do (two named barriers, each issuing its first products once
+// the other's have completed), was 1–4% slower here at the three training
+// shapes (PERF.md §6 PR 7), where the products, not the exp2, outweigh the
+// elementwise work.
+// Every exp2 is one ex2.approx. Tiles are 64-column boxes with the 128-byte
+// swizzle from 3-D (D, H, B·S) tensor maps, so columns D..Dp arrive as
+// zeros and never reach an output; gradients are written for columns < D.
+// Requires D % 8 == 0, D <= 160, Sq % 128 == 0 and Sk % 128 == 0 (the
+// wrapper checks: ops/attention.py::bwd_shape_error).
+#include <algorithm>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace psd {
 namespace {
 
-constexpr int kBQ = 64, kBK = 64, kWarps = 4, kThreads = 32 * kWarps;
+using namespace hopper;
 
-// 64 rows of one head (row stride H·D) → shared tile of stride DP + 8, by
-// cp.async; columns D..DP are zero-filled. The caller commits.
+constexpr int kRows = 128;     // an item's query rows (dQ) or key rows (dK/dV): 64 a WG
+constexpr int kThreads = 384;  // two consumer WGs, then the producer WG
+constexpr size_t kSmemMax = 232448;  // the shared memory of the one block an SM
+
+// 2^x on the SFU: one MUFU.EX2 (ex2.approx.ftz; results below 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~static_cast<uintptr_t>(1023));
+}
+
+// The deepest ring (up to 4 stages) that fits beside `fixed` bytes.
+constexpr int ring_depth(size_t fixed, size_t stage) {
+  return (kSmemMax - 1024 - 128 - fixed) / stage >= 4
+             ? 4
+             : static_cast<int>((kSmemMax - 1024 - 128 - fixed) / stage);
+}
+
+// Two buffers of the resident tiles (the next work item's load under this
+// one's products) where the ring keeps 3 stages beside them, else one.
+constexpr int resident_buffers(size_t resident, size_t stage) {
+  return ring_depth(2 * resident, stage) >= 3 ? 2 : 1;
+}
+
+// dQ pass tiling: q and dO (128 rows each) resident, in one or two
+// buffers, a ring of K and V tiles of kBK keys. 128-key tiles where S, dP,
+// dQ and the packed dS fit the consumers' 240 registers (Dp <= 80), 64-key
+// tiles above. (Two blocks an SM at 112 registers a thread spilled and
+// were 1.2× slower at D = 40: PERF.md §6 PR 7.)
 template <int DP>
-__device__ __forceinline__ void tile_async(const bf16* __restrict__ src, size_t row_stride,
-                                           int D, bf16* dst) {
-  constexpr int LD = DP + 8;
-  for (int idx = threadIdx.x; idx < 64 * (DP / 8); idx += blockDim.x) {
-    const int r = idx / (DP / 8), c = (idx % (DP / 8)) * 8;
-    if (c < D) {
-      __pipeline_memcpy_async(dst + r * LD + c, src + r * row_stride + c, 16);
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = make_uint4(0, 0, 0, 0);
+struct DqPass {
+  static constexpr int kBoxes = (DP + 63) / 64;
+  static constexpr int kBK = DP <= 80 ? 128 : 64;
+  static constexpr uint32_t kRowsBytes = kRows * kBoxes * 128;  // q or dO
+  static constexpr uint32_t kTileBytes = kBK * kBoxes * 128;   // one K or one V tile
+  static constexpr int kResBufs = resident_buffers(2 * kRowsBytes, 2 * kTileBytes);
+  static constexpr int kStages = ring_depth(kResBufs * 2 * kRowsBytes, 2 * kTileBytes);
+  static constexpr uint32_t kOffKV = kResBufs * 2 * kRowsBytes;  // stage s: K, then V
+  static constexpr uint32_t kOffBar = kOffKV + kStages * 2 * kTileBytes;
+  static constexpr size_t kSmemBytes = kOffBar + 8 * 2 * (kResBufs + kStages) + 1024;
+  static_assert(DP % 16 == 0 && DP <= 160, "Dp <= 160");
+  static_assert(kStages >= 2 && kSmemBytes <= kSmemMax, "shared memory");
+};
+
+// dK/dV pass tiling: K and V (128 rows each) resident, in one or two
+// buffers, a ring of (Q, dO) tiles of kBQ queries with their lse and Δ.
+// dK, dV, Sᵀ, dPᵀ and the packed Pᵀ, dSᵀ take Dp + 3·kBQ/2 registers:
+// 64-query tiles up to Dp = 96, 32-query tiles above.
+template <int DP>
+struct DkvPass {
+  static constexpr int kBoxes = (DP + 63) / 64;
+  static constexpr int kBQ = DP <= 96 ? 64 : 32;
+  static constexpr uint32_t kRowsBytes = kRows * kBoxes * 128;  // K or V
+  static constexpr uint32_t kTileBytes = kBQ * kBoxes * 128;   // one Q or one dO tile
+  static constexpr uint32_t kVecBytes = kBQ * 4;              // the tile's lse or Δ
+  static constexpr uint32_t kStageBytes = 2 * kTileBytes + 2 * kVecBytes;
+  static constexpr int kResBufs = resident_buffers(2 * kRowsBytes, kStageBytes);
+  static constexpr int kStages = ring_depth(kResBufs * 2 * kRowsBytes, kStageBytes);
+  static constexpr uint32_t kOffRing = kResBufs * 2 * kRowsBytes;  // stage s: Q, then dO
+  static constexpr uint32_t kOffVec = kOffRing + kStages * 2 * kTileBytes;  // lse, then Δ
+  static constexpr uint32_t kOffBar = kOffVec + kStages * 2 * kVecBytes;
+  static constexpr size_t kSmemBytes = kOffBar + 8 * 2 * (kResBufs + kStages) + 1024;
+  static_assert(DP % 16 == 0 && DP <= 160, "Dp <= 160");
+  static_assert(kStages >= 2 && kSmemBytes <= kSmemMax, "shared memory");
+};
+
+// A pass's work item: 128 resident rows (query rows for dQ, key rows for
+// dK/dV) of one b·h; items w run x fastest, so a head's items run together.
+struct Item {
+  int x, b, h, bh;
+};
+
+__device__ __forceinline__ Item item_of(int w, int nx, int H) {
+  const int bh = w / nx;
+  return {w % nx, bh / H, bh % H, bh};
+}
+
+// The mbarriers of a pass: the resident tiles' (full: TMA bytes landed;
+// empty: the 8 consumer warps are done with them) and the ring's, each
+// full barrier with one arrival (the producer's, with the bytes).
+struct Bars {
+  uint64_t *rfull, *rempty, *full, *empty;
+};
+
+template <int RB, int ST>
+__device__ __forceinline__ Bars init_bars(unsigned char* at) {
+  uint64_t* b = reinterpret_cast<uint64_t*>(at);
+  const Bars bars{b, b + RB, b + 2 * RB, b + 2 * RB + ST};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < RB; ++i) {
+      mbar_init(&bars.rfull[i], 1);
+      mbar_init(&bars.rempty[i], 8);
     }
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&bars.full[s], 1);
+      mbar_init(&bars.empty[s], 8);
+    }
+    mbar_fence_init();
   }
+  __syncthreads();
+  return bars;
 }
 
-// 64 consecutive floats → shared, by cp.async (16 threads × 16 bytes).
-__device__ __forceinline__ void vec64_async(const float* __restrict__ src, float* dst) {
-  if (threadIdx.x < 16) __pipeline_memcpy_async(dst + threadIdx.x * 4, src + threadIdx.x * 4, 16);
-}
-
-__device__ __forceinline__ void zero(float (&a)[4]) { a[0] = a[1] = a[2] = a[3] = 0.f; }
-
-// A fragment (16 rows × 16 of k) of a warp's rows, from a shared tile; `p`
-// points at (row g, column 2·tig) of the warp's first row.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* p, int ld, int ks) {
-  a[0] = ld_u32(p + ks * 16);
-  a[1] = ld_u32(p + 8 * ld + ks * 16);
-  a[2] = ld_u32(p + ks * 16 + 8);
-  a[3] = ld_u32(p + 8 * ld + ks * 16 + 8);
-}
-
-// Δ[b, h, q] = Σ_d dO[b, q, h, d]·O[b, q, h, d]; one warp per (b, q, h) row.
-__global__ void dot_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ out,
-                           float* __restrict__ delta, int rows, int Sq, int H, int D) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32, lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const bf16* a = dout + static_cast<size_t>(row) * D;
-  const bf16* o = out + static_cast<size_t>(row) * D;
+// Σ of the products of two runs of 8 bf16, in fp32.
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
   float s = 0.f;
-  for (int c8 = lane; c8 < D / 8; c8 += 32) {
-    const uint4 ua = *reinterpret_cast<const uint4*>(a + c8 * 8);
-    const uint4 uo = *reinterpret_cast<const uint4*>(o + c8 * 8);
-    const bf16* ea = reinterpret_cast<const bf16*>(&ua);
-    const bf16* eo = reinterpret_cast<const bf16*>(&uo);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) s += __bfloat162float(ea[i]) * __bfloat162float(eo[i]);
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), v = __bfloat1622float2(y[i]);
+    s = fmaf(u.x, v.x, fmaf(u.y, v.y, s));
   }
-  s = warp_sum(s);
-  if (lane == 0) {
-    const int h = row % H, q = (row / H) % Sq, b = row / (H * Sq);
-    delta[(static_cast<size_t>(b) * H + h) * Sq + q] = s;
+  return s;
+}
+
+// A K-major product over the head dim: acc (=|+)= A[64 rows]·B[N rows]ᵀ,
+// both tiles as TMA wrote them (64-column boxes of `a_rows` / `b_rows` rows,
+// 128 B a row, swizzled); a k16 step moves 32 B inside a box.
+template <int N, int DP>
+__device__ __forceinline__ void product_over_d(float (&acc)[N / 2], uint32_t a, int a_rows,
+                                               uint32_t bt, int b_rows) {
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks) {
+    const uint32_t box = ks >> 2, in_box = (ks & 3) * 32;
+    wgmma_ss<N>(acc, wgmma_desc(a + box * (a_rows * 128) + in_box, 16, 1024),
+                wgmma_desc(bt + box * (b_rows * 128) + in_box, 16, 1024), ks > 0);
   }
 }
 
+// acc += A·B over `rows` rows of B (K = rows, N = Dp): A from registers
+// (k16 fragments), B MN-major as TMA wrote it: the leading offset steps one
+// 64-column box (rows · 128 B), the stride offset 8 rows (1024 B).
+template <int ROWS, int DP>
+__device__ __forceinline__ void product_over_rows(float (&acc)[DP / 2],
+                                                  const uint32_t (&a)[ROWS / 16][4],
+                                                  uint32_t bt) {
+#pragma unroll
+  for (int kk = 0; kk < ROWS / 16; ++kk)
+    wgmma_rs_tb<DP>(acc, a[kk], wgmma_desc(bt + kk * 16 * 128, ROWS * 128, 1024), 1);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) reg_fence(r[i]);
+}
+
+// Rows `row` and row + 8 of a (B, S, H, D) gradient from a 64 × Dp
+// accumulator (m64nDp layout), times `mul`; columns past D are dropped.
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-           const bf16* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-           int Sq, int Sk, int H, int D, float scale, float scale_log2) {
-  constexpr int LD = DP + 8, NO = DP / 8, NS = kBQ / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kBK * LD;
-  bf16* Qs = Vs + kBK * LD;        // [2][BQ][LD]
-  bf16* Os = Qs + 2 * kBQ * LD;    // dO, [2][BQ][LD]
-  float* Ls = reinterpret_cast<float*>(Os + 2 * kBQ * LD);  // [2][BQ]
-  float* Ds = Ls + 2 * kBQ;                                  // [2][BQ]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * kBK;
-  const size_t rs = static_cast<size_t>(H) * D, hoff = static_cast<size_t>(h) * D;
-
-  load_rows(k + (static_cast<size_t>(b) * Sk + k0) * rs + hoff, rs, kBK, D, DP, Ks, LD);
-  load_rows(v + (static_cast<size_t>(b) * Sk + k0) * rs + hoff, rs, kBK, D, DP, Vs, LD);
-
-  auto load_q = [&](int tile, int buf) {
-    const size_t base = (static_cast<size_t>(b) * Sq + tile * kBQ) * rs + hoff;
-    tile_async<DP>(q + base, rs, D, Qs + buf * kBQ * LD);
-    tile_async<DP>(dout + base, rs, D, Os + buf * kBQ * LD);
-    const size_t vb = static_cast<size_t>(bh) * Sq + tile * kBQ;
-    vec64_async(lse + vb, Ls + buf * kBQ);
-    vec64_async(delta + vb, Ds + buf * kBQ);
-    __pipeline_commit();
-  };
-
-  float dka[NO][4], dva[NO][4];
+__device__ __forceinline__ void store_rows(bf16* __restrict__ g, const float (&acc)[DP / 2],
+                                           int b, int S, int row, int H, int h, int D, int tig,
+                                           float mul) {
+  const size_t row_stride = static_cast<size_t>(H) * D;
+  bf16* r0 = g + (static_cast<size_t>(b) * S + row) * row_stride + static_cast<size_t>(h) * D;
+  bf16* r1 = r0 + 8 * row_stride;
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    zero(dka[n]);
-    zero(dva[n]);
-  }
-  const bf16* kw = Ks + (warp * 16 + g) * LD + tig * 2;
-  const bf16* vw = Vs + (warp * 16 + g) * LD + tig * 2;
-
-  const int n_tiles = Sq / kBQ;
-  load_q(0, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int cur = t & 1;
-    if (t + 1 < n_tiles) {
-      load_q(t + 1, cur ^ 1);
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    const bf16* qc = Qs + cur * kBQ * LD;
-    const bf16* oc = Os + cur * kBQ * LD;
-    const float* lc = Ls + cur * kBQ;
-    const float* dc = Ds + cur * kBQ;
-
-    // Sᵀ = K_w·Qᵀ and dPᵀ = V_w·dOᵀ: 16 key rows × 64 queries per warp
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      zero(s[j]);
-      zero(dp[j]);
-    }
-#pragma unroll
-    for (int ks = 0; ks < DP / 16; ++ks) {
-      uint32_t ak[4], av[4];
-      load_a(ak, kw, LD, ks);
-      load_a(av, vw, LD, ks);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const bf16* qp = qc + (j * 8 + g) * LD + ks * 16 + tig * 2;
-        const bf16* op = oc + (j * 8 + g) * LD + ks * 16 + tig * 2;
-        mma_bf16(s[j], ak, ld_u32(qp), ld_u32(qp + 8));
-        mma_bf16(dp[j], av, ld_u32(op), ld_u32(op + 8));
-      }
-    }
-
-    // Pᵀ and dSᵀ; this lane's columns are queries j·8 + 2·tig (+1)
-    uint32_t pa[NS / 2][4], da[NS / 2][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const int c = j * 8 + tig * 2;
-      const float l0 = lc[c], l1 = lc[c + 1], d0 = dc[c], d1 = dc[c + 1];
-      const float p0 = exp2f(s[j][0] * scale_log2 - l0);
-      const float p1 = exp2f(s[j][1] * scale_log2 - l1);
-      const float p2 = exp2f(s[j][2] * scale_log2 - l0);
-      const float p3 = exp2f(s[j][3] * scale_log2 - l1);
-      pa[j / 2][(j % 2) * 2] = pack_bf16x2(p0, p1);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16x2(p2, p3);
-      da[j / 2][(j % 2) * 2] = pack_bf16x2(p0 * (dp[j][0] - d0), p1 * (dp[j][1] - d1));
-      da[j / 2][(j % 2) * 2 + 1] = pack_bf16x2(p2 * (dp[j][2] - d0), p3 * (dp[j][3] - d1));
-    }
-
-    // dV += Pᵀ·dO, dK += dSᵀ·Q
-#pragma unroll
-    for (int kk = 0; kk < NS / 2; ++kk) {
-      const bf16* orow = oc + (kk * 16 + (lane & 15)) * LD;
-      const bf16* qrow = qc + (kk * 16 + (lane & 15)) * LD;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, orow + n * 8);
-        mma_bf16(dva[n], pa[kk], b0, b1);
-        ldmatrix_x2_trans(b0, b1, qrow + n * 8);
-        mma_bf16(dka[n], da[kk], b0, b1);
-      }
-    }
-    __syncthreads();  // this buffer is refilled two tiles on
-  }
-
-  const size_t r0 = (static_cast<size_t>(b) * Sk + k0 + warp * 16 + g) * rs + hoff;
-  const size_t r1 = r0 + 8 * rs;
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int c = n * 8 + tig * 2;
+  for (int n = 0; n < DP / 8; ++n) {
+    const int col = n * 8 + tig * 2;
     if (n * 8 < D) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + r0 + c) =
-          __floats2bfloat162_rn(dka[n][0] * scale, dka[n][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dk + r1 + c) =
-          __floats2bfloat162_rn(dka[n][2] * scale, dka[n][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + r0 + c) = __floats2bfloat162_rn(dva[n][0], dva[n][1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + r1 + c) = __floats2bfloat162_rn(dva[n][2], dva[n][3]);
+      *reinterpret_cast<__nv_bfloat162*>(r0 + col) =
+          __floats2bfloat162_rn(acc[4 * n] * mul, acc[4 * n + 1] * mul);
+      *reinterpret_cast<__nv_bfloat162*>(r1 + col) =
+          __floats2bfloat162_rn(acc[4 * n + 2] * mul, acc[4 * n + 3] * mul);
     }
   }
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-          const bf16* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Sk, int H, int D,
-          float scale, float scale_log2) {
-  constexpr int LD = DP + 8, NO = DP / 8, NS = kBK / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Os = Qs + kBQ * LD;          // dO
-  bf16* Ks = Os + kBQ * LD;          // [2][BK][LD]
-  bf16* Vs = Ks + 2 * kBK * LD;      // [2][BK][LD]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kBQ;
-  const size_t rs = static_cast<size_t>(H) * D, hoff = static_cast<size_t>(h) * D;
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+          const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+          const bf16* __restrict__ out, const bf16* __restrict__ dout,
+          const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq,
+          int B, int Sq, int Sk, int H, int D, float scale, float scale_log2) {
+  using T = DqPass<DP>;
+  constexpr int BK = T::kBK, NB = T::kBoxes, ST = T::kStages, RB = T::kResBufs;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const Bars bars = init_bars<RB, ST>(smem + T::kOffBar);
+  const int nx = Sq / kRows, n_items = nx * B * H, n_tiles = Sk / BK;
+  const int wg = threadIdx.x / 128;  // 0, 1: consumers; 2: the producer
 
-  load_rows(q + (static_cast<size_t>(b) * Sq + q0) * rs + hoff, rs, kBQ, D, DP, Qs, LD);
-  load_rows(dout + (static_cast<size_t>(b) * Sq + q0) * rs + hoff, rs, kBQ, D, DP, Os, LD);
-  const size_t rb = static_cast<size_t>(bh) * Sq + q0 + warp * 16 + g;
-  const float l0 = lse[rb], l1 = lse[rb + 8], d0 = delta[rb], d1 = delta[rb + 8];
-
-  auto load_kv = [&](int tile, int buf) {
-    const size_t base = (static_cast<size_t>(b) * Sk + tile * kBK) * rs + hoff;
-    tile_async<DP>(k + base, rs, D, Ks + buf * kBK * LD);
-    tile_async<DP>(v + base, rs, D, Vs + buf * kBK * LD);
-    __pipeline_commit();
-  };
-
-  float dqa[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) zero(dqa[n]);
-  const bf16* qw = Qs + (warp * 16 + g) * LD + tig * 2;
-  const bf16* ow = Os + (warp * 16 + g) * LD + tig * 2;
-
-  const int n_tiles = Sk / kBK;
-  load_kv(0, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int cur = t & 1;
-    if (t + 1 < n_tiles) {
-      load_kv(t + 1, cur ^ 1);
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    const bf16* kc = Ks + cur * kBK * LD;
-    const bf16* vc = Vs + cur * kBK * LD;
-
-    // S = Q_w·Kᵀ and dP = dO_w·Vᵀ: 16 query rows × 64 keys per warp
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      zero(s[j]);
-      zero(dp[j]);
-    }
-#pragma unroll
-    for (int ks = 0; ks < DP / 16; ++ks) {
-      uint32_t aq[4], ao[4];
-      load_a(aq, qw, LD, ks);
-      load_a(ao, ow, LD, ks);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const bf16* kp = kc + (j * 8 + g) * LD + ks * 16 + tig * 2;
-        const bf16* vp = vc + (j * 8 + g) * LD + ks * 16 + tig * 2;
-        mma_bf16(s[j], aq, ld_u32(kp), ld_u32(kp + 8));
-        mma_bf16(dp[j], ao, ld_u32(vp), ld_u32(vp + 8));
+  if (wg == 2) {
+    // ---- producer: each item's q and dO, then its K and V tiles ----
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      tma_prefetch_desc(&tq);
+      tma_prefetch_desc(&tdo);
+      tma_prefetch_desc(&tk);
+      tma_prefetch_desc(&tv);
+      int seq = 0, it = 0;  // ring tiles and items so far
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++it) {
+        const Item m = item_of(w, nx, H);
+        const int rb = it % RB;
+        if (it >= RB) mbar_wait(&bars.rempty[rb], ((it / RB) - 1) & 1);
+        unsigned char* res = smem + rb * 2 * T::kRowsBytes;
+        mbar_arrive_expect_tx(&bars.rfull[rb], 2 * T::kRowsBytes);
+        for (int c = 0; c < NB; ++c) {
+          tma_load_3d(res + c * kRows * 128, &tq, &bars.rfull[rb], c * 64, m.h,
+                      m.b * Sq + m.x * kRows);
+          tma_load_3d(res + T::kRowsBytes + c * kRows * 128, &tdo, &bars.rfull[rb], c * 64, m.h,
+                      m.b * Sq + m.x * kRows);
+        }
+        for (int t = 0; t < n_tiles; ++t, ++seq) {
+          const int s = seq % ST;
+          if (seq >= ST) mbar_wait(&bars.empty[s], ((seq / ST) - 1) & 1);
+          mbar_arrive_expect_tx(&bars.full[s], 2 * T::kTileBytes);
+          unsigned char* kt = smem + T::kOffKV + s * 2 * T::kTileBytes;
+          const int row = m.b * Sk + t * BK;
+          for (int c = 0; c < NB; ++c) {
+            tma_load_3d(kt + c * BK * 128, &tk, &bars.full[s], c * 64, m.h, row);
+            tma_load_3d(kt + T::kTileBytes + c * BK * 128, &tv, &bars.full[s], c * 64, m.h, row);
+          }
+        }
       }
     }
+  } else {
+    // ---- consumers ----
+    setmaxnreg_inc<240>();
+    const int c = wg;  // an item's query rows 64c .. 64c + 63
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int g = lane >> 2, tig = lane & 3;
+    const size_t row_stride = static_cast<size_t>(H) * D;
 
-    // dS = P∘(dP − Δ); rows g (c0, c1) and g + 8 (c2, c3)
-    uint32_t da[NS / 2][4];
+    int seq = 0, it = 0;
+    for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++it) {
+      const Item m = item_of(w, nx, H);
+      const int rb = it % RB;
+      const int row = m.x * kRows + 64 * c + 16 * warp + g;
+      const size_t vr = static_cast<size_t>(m.bh) * Sq + row;
+      const float l0 = lse[vr], l1 = lse[vr + 8];
+
+      // Δ of rows `row` and row + 8 = Σ_d dO·O, each of the row's four lanes
+      // taking every fourth 16-byte chunk, while q and dO arrive
+      const size_t at =
+          (static_cast<size_t>(m.b) * Sq + row) * row_stride + static_cast<size_t>(m.h) * D;
+      float d0 = 0.f, d1 = 0.f;
+      for (int c8 = tig; c8 < D / 8; c8 += 4) {
+        const size_t e = at + c8 * 8;
+        d0 += dot8(*reinterpret_cast<const uint4*>(dout + e),
+                   *reinterpret_cast<const uint4*>(out + e));
+        d1 += dot8(*reinterpret_cast<const uint4*>(dout + e + 8 * row_stride),
+                   *reinterpret_cast<const uint4*>(out + e + 8 * row_stride));
+      }
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const float p0 = exp2f(s[j][0] * scale_log2 - l0);
-      const float p1 = exp2f(s[j][1] * scale_log2 - l0);
-      const float p2 = exp2f(s[j][2] * scale_log2 - l1);
-      const float p3 = exp2f(s[j][3] * scale_log2 - l1);
-      da[j / 2][(j % 2) * 2] = pack_bf16x2(p0 * (dp[j][0] - d0), p1 * (dp[j][1] - d0));
-      da[j / 2][(j % 2) * 2 + 1] = pack_bf16x2(p2 * (dp[j][2] - d1), p3 * (dp[j][3] - d1));
+      for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+        d0 += __shfl_xor_sync(0xffffffffu, d0, o_);
+        d1 += __shfl_xor_sync(0xffffffffu, d1, o_);
+      }
+      if (tig == 0) {  // for the dK/dV pass
+        delta[vr] = d0;
+        delta[vr + 8] = d1;
+      }
+
+      float acc[DP / 2];  // dQ, m64nDp: acc[4n + e], columns 8n + 2·tig (+1)
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+      // this WG's 64 rows of each q / dO box start 64 rows (8 KB, whole swizzle atoms) in
+      const uint32_t qs = smem_addr(smem) + rb * 2 * T::kRowsBytes + c * 64 * 128;
+      const uint32_t os = qs + T::kRowsBytes;
+      mbar_wait(&bars.rfull[rb], (it / RB) & 1);
+      for (int t = 0; t < n_tiles; ++t, ++seq) {
+        const int s = seq % ST;
+        mbar_wait(&bars.full[s], (seq / ST) & 1);
+        const uint32_t kst = smem_addr(smem) + T::kOffKV + s * 2 * T::kTileBytes;
+        const uint32_t vst = kst + T::kTileBytes;
+
+        float sc[BK / 2], dp[BK / 2];  // S = q·Kᵀ and dP = dO·Vᵀ, 64 × BK
+        wgmma_fence();
+        product_over_d<BK, DP>(sc, qs, kRows, kst, BK);
+        product_over_d<BK, DP>(dp, os, kRows, vst, BK);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        // dS = P∘(dP − Δ) as the A fragments of m64k16: keys 16kk + (0..15);
+        // rows g (e = 0, 1) and g + 8 (e = 2, 3)
+        uint32_t da[BK / 16][4];
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const float p0 = ex2(sc[4 * j] * scale_log2 - l0);
+          const float p1 = ex2(sc[4 * j + 1] * scale_log2 - l0);
+          const float p2 = ex2(sc[4 * j + 2] * scale_log2 - l1);
+          const float p3 = ex2(sc[4 * j + 3] * scale_log2 - l1);
+          da[j / 2][(j % 2) * 2] = pack_bf16x2(p0 * (dp[4 * j] - d0), p1 * (dp[4 * j + 1] - d0));
+          da[j / 2][(j % 2) * 2 + 1] =
+              pack_bf16x2(p2 * (dp[4 * j + 2] - d1), p3 * (dp[4 * j + 3] - d1));
+        }
+
+        // dQ += dS · K_tile, K MN-major (the head dim contiguous)
+        wgmma_fence();
+        product_over_rows<BK, DP>(acc, da, kst);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&bars.empty[s]);  // this warp is done with stage s
+      }
+      if (lane == 0) mbar_arrive(&bars.rempty[rb]);  // and with the item's q and dO
+      store_rows<DP>(dq, acc, m.b, Sq, row, H, m.h, D, tig, scale);
     }
+  }
+}
 
-    // dQ += dS·K
-#pragma unroll
-    for (int kk = 0; kk < NS / 2; ++kk) {
-      const bf16* krow = kc + (kk * 16 + (lane & 15)) * LD;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, krow + n * 8);
-        mma_bf16(dqa[n], da[kk], b0, b1);
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+           const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int Sq, int Sk, int H, int D,
+           float scale, float scale_log2) {
+  using T = DkvPass<DP>;
+  constexpr int BQ = T::kBQ, NB = T::kBoxes, ST = T::kStages, RB = T::kResBufs;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const Bars bars = init_bars<RB, ST>(smem + T::kOffBar);
+  const int nx = Sk / kRows, n_items = nx * B * H, n_tiles = Sq / BQ;
+  const int wg = threadIdx.x / 128;  // 0, 1: consumers; 2: the producer
+
+  if (wg == 2) {
+    // ---- producer: each item's K and V, then its (Q, dO, lse, Δ) tiles ----
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      tma_prefetch_desc(&tq);
+      tma_prefetch_desc(&tdo);
+      tma_prefetch_desc(&tk);
+      tma_prefetch_desc(&tv);
+      int seq = 0, it = 0;  // ring tiles and items so far
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++it) {
+        const Item m = item_of(w, nx, H);
+        const int rb = it % RB;
+        if (it >= RB) mbar_wait(&bars.rempty[rb], ((it / RB) - 1) & 1);
+        unsigned char* res = smem + rb * 2 * T::kRowsBytes;
+        mbar_arrive_expect_tx(&bars.rfull[rb], 2 * T::kRowsBytes);
+        for (int c = 0; c < NB; ++c) {
+          tma_load_3d(res + c * kRows * 128, &tk, &bars.rfull[rb], c * 64, m.h,
+                      m.b * Sk + m.x * kRows);
+          tma_load_3d(res + T::kRowsBytes + c * kRows * 128, &tv, &bars.rfull[rb], c * 64, m.h,
+                      m.b * Sk + m.x * kRows);
+        }
+        const float* lrow = lse + static_cast<size_t>(m.bh) * Sq;
+        const float* drow = delta + static_cast<size_t>(m.bh) * Sq;
+        for (int t = 0; t < n_tiles; ++t, ++seq) {
+          const int s = seq % ST;
+          if (seq >= ST) mbar_wait(&bars.empty[s], ((seq / ST) - 1) & 1);
+          mbar_arrive_expect_tx(&bars.full[s], T::kStageBytes);
+          unsigned char* qt = smem + T::kOffRing + s * 2 * T::kTileBytes;
+          const int row = m.b * Sq + t * BQ;
+          for (int c = 0; c < NB; ++c) {
+            tma_load_3d(qt + c * BQ * 128, &tq, &bars.full[s], c * 64, m.h, row);
+            tma_load_3d(qt + T::kTileBytes + c * BQ * 128, &tdo, &bars.full[s], c * 64, m.h, row);
+          }
+          unsigned char* vec = smem + T::kOffVec + s * 2 * T::kVecBytes;
+          bulk_load(vec, lrow + t * BQ, T::kVecBytes, &bars.full[s]);
+          bulk_load(vec + T::kVecBytes, drow + t * BQ, T::kVecBytes, &bars.full[s]);
+        }
       }
     }
-    __syncthreads();  // this buffer is refilled two tiles on
-  }
+  } else {
+    // ---- consumers ----
+    setmaxnreg_inc<240>();
+    const int c = wg;  // an item's key rows 64c .. 64c + 63
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int g = lane >> 2, tig = lane & 3;
 
-  bf16* r0 = dq + (static_cast<size_t>(b) * Sq + q0 + warp * 16 + g) * rs + hoff;
-  bf16* r1 = r0 + 8 * rs;
+    int seq = 0, it = 0;
+    for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++it) {
+      const Item m = item_of(w, nx, H);
+      const int rb = it % RB;
+      const uint32_t ks = smem_addr(smem) + rb * 2 * T::kRowsBytes + c * 64 * 128;  // K rows
+      const uint32_t vs = ks + T::kRowsBytes;                                        // V rows
+
+      float dka[DP / 2], dva[DP / 2];  // m64nDp: [4n + e], columns 8n + 2·tig (+1)
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int c = n * 8 + tig * 2;
-    if (n * 8 < D) {
-      *reinterpret_cast<__nv_bfloat162*>(r0 + c) =
-          __floats2bfloat162_rn(dqa[n][0] * scale, dqa[n][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(r1 + c) =
-          __floats2bfloat162_rn(dqa[n][2] * scale, dqa[n][3] * scale);
+      for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
+      mbar_wait(&bars.rfull[rb], (it / RB) & 1);
+      for (int t = 0; t < n_tiles; ++t, ++seq) {
+        const int s = seq % ST;
+        mbar_wait(&bars.full[s], (seq / ST) & 1);
+        const uint32_t qst = smem_addr(smem) + T::kOffRing + s * 2 * T::kTileBytes;
+        const uint32_t ost = qst + T::kTileBytes;
+        const float* lv = reinterpret_cast<const float*>(smem + T::kOffVec + s * 2 * T::kVecBytes);
+        const float* dl = lv + BQ;
+
+        float st[BQ / 2], dpt[BQ / 2];  // Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ: 64 keys × BQ queries
+        wgmma_fence();
+        product_over_d<BQ, DP>(st, ks, kRows, qst, BQ);
+        product_over_d<BQ, DP>(dpt, vs, kRows, ost, BQ);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+
+        // Pᵀ and dSᵀ as the A fragments of m64k16 (queries 16kk + (0..15));
+        // this thread's columns are queries 8j + 2·tig (+1)
+        uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 l = *reinterpret_cast<const float2*>(lv + 8 * j + 2 * tig);
+          const float2 d = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * tig);
+          const float p0 = ex2(st[4 * j] * scale_log2 - l.x);
+          const float p1 = ex2(st[4 * j + 1] * scale_log2 - l.y);
+          const float p2 = ex2(st[4 * j + 2] * scale_log2 - l.x);
+          const float p3 = ex2(st[4 * j + 3] * scale_log2 - l.y);
+          pa[j / 2][(j % 2) * 2] = pack_bf16x2(p0, p1);
+          pa[j / 2][(j % 2) * 2 + 1] = pack_bf16x2(p2, p3);
+          da[j / 2][(j % 2) * 2] =
+              pack_bf16x2(p0 * (dpt[4 * j] - d.x), p1 * (dpt[4 * j + 1] - d.y));
+          da[j / 2][(j % 2) * 2 + 1] =
+              pack_bf16x2(p2 * (dpt[4 * j + 2] - d.x), p3 * (dpt[4 * j + 3] - d.y));
+        }
+
+        // dV += Pᵀ·dO and dK += dSᵀ·Q, dO and Q MN-major
+        wgmma_fence();
+        product_over_rows<BQ, DP>(dva, pa, ost);
+        product_over_rows<BQ, DP>(dka, da, qst);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dva);
+        fence_regs(dka);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&bars.empty[s]);  // this warp is done with stage s
+      }
+      if (lane == 0) mbar_arrive(&bars.rempty[rb]);  // and with the item's K and V
+      const int row = m.x * kRows + 64 * c + 16 * warp + g;
+      store_rows<DP>(dk, dka, m.b, Sk, row, H, m.h, D, tig, scale);
+      store_rows<DP>(dv, dva, m.b, Sk, row, H, m.h, D, tig, 1.f);
     }
   }
+}
+
+// The SMs of the current device, looked up once: the passes' grids.
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    return sms;
+  }();
+  return n;
 }
 
 template <int DP>
@@ -339,32 +532,40 @@ cudaError_t launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* 
                        const bf16* dout, const float* lse, float* delta, bf16* dq, bf16* dk,
                        bf16* dv, int B, int Sq, int Sk, int H, int D, float scale,
                        cudaStream_t st) {
-  constexpr int LD = DP + 8;
+  using Q = DqPass<DP>;
+  using KV = DkvPass<DP>;
+  if (Sq % kRows != 0 || Sk % kRows != 0 || sm_count() == 0) return cudaErrorInvalidValue;
   const float sl2 = scale * kLog2e;
-  const int rows = B * Sq * H;
-  dot_kernel<<<(rows + 7) / 8, 256, 0, st>>>(dout, out, delta, rows, Sq, H, D);
-  cudaError_t err = cudaGetLastError();
+  CUtensorMap tq, tdo, tk, tv;
+  if (!bf16_rows_map(&tq, q, B * Sq, H, D, kRows) ||
+      !bf16_rows_map(&tdo, dout, B * Sq, H, D, kRows) ||
+      !bf16_rows_map(&tk, k, B * Sk, H, D, Q::kBK) || !bf16_rows_map(&tv, v, B * Sk, H, D, Q::kBK))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(dq_kernel<DP>, Q::kSmemBytes);
   if (err != cudaSuccess) return err;
-
-  const size_t kv_bytes = static_cast<size_t>(2 * kBK + 4 * kBQ) * LD * 2 + 4 * kBQ * sizeof(float);
-  err = allow_smem(dkv_kernel<DP>, kv_bytes);
-  if (err != cudaSuccess) return err;
-  dkv_kernel<DP><<<dim3(Sk / kBK, B * H), kThreads, kv_bytes, st>>>(
-      q, k, v, dout, lse, delta, dk, dv, Sq, Sk, H, D, scale, sl2);
+  const int dq_items = Sq / kRows * B * H;
+  dq_kernel<DP><<<std::min(dq_items, sm_count()), kThreads, Q::kSmemBytes, st>>>(
+      tq, tdo, tk, tv, out, dout, lse, delta, dq, B, Sq, Sk, H, D, scale, sl2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t q_bytes = static_cast<size_t>(2 * kBQ + 4 * kBK) * LD * 2;
-  err = allow_smem(dq_kernel<DP>, q_bytes);
+  if (!bf16_rows_map(&tq, q, B * Sq, H, D, KV::kBQ) ||
+      !bf16_rows_map(&tdo, dout, B * Sq, H, D, KV::kBQ) ||
+      !bf16_rows_map(&tk, k, B * Sk, H, D, kRows) || !bf16_rows_map(&tv, v, B * Sk, H, D, kRows))
+    return cudaErrorInvalidValue;
+  err = allow_smem(dkv_kernel<DP>, KV::kSmemBytes);
   if (err != cudaSuccess) return err;
-  dq_kernel<DP><<<dim3(Sq / kBQ, B * H), kThreads, q_bytes, st>>>(
-      q, k, v, dout, lse, delta, dq, Sq, Sk, H, D, scale, sl2);
+  const int dkv_items = Sk / kRows * B * H;
+  dkv_kernel<DP><<<std::min(dkv_items, sm_count()), kThreads, KV::kSmemBytes, st>>>(
+      tq, tdo, tk, tv, lse, delta, dk, dv, B, Sq, Sk, H, D, scale, sl2);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace psd
 
+// The padded head dims the kernels are built for; a D between two of them
+// is zero-filled up to the next by TMA.
 extern "C" int psd_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                  const void* dout, const void* lse, void* delta, void* dq,
                                  void* dk, void* dv, int B, int Sq, int Sk, int H, int D,
@@ -381,18 +582,18 @@ extern "C" int psd_attention_bwd(const void* q, const void* k, const void* v, co
   bf16* dkp = static_cast<bf16*>(dk);
   bf16* dvp = static_cast<bf16*>(dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D % 8 != 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
 #define PSD_BWD(DP) \
   launch_bwd<DP>(qp, kp, vp, op, gp, lp, dl, dqp, dkp, dvp, B, Sq, Sk, H, D, scale, st)
-  switch ((D + 15) / 16 * 16) {
-    case 32: return static_cast<int>(PSD_BWD(32));
-    case 48: return static_cast<int>(PSD_BWD(48));
-    case 64: return static_cast<int>(PSD_BWD(64));
-    case 80: return static_cast<int>(PSD_BWD(80));
-    case 96: return static_cast<int>(PSD_BWD(96));
-    case 128: return static_cast<int>(PSD_BWD(128));
-    case 160: return static_cast<int>(PSD_BWD(160));
-    default: break;
-  }
+  cudaError_t err = cudaErrorInvalidValue;
+  const int dp = (D + 15) / 16 * 16;
+  if (dp <= 32) err = PSD_BWD(32);
+  else if (dp <= 48) err = PSD_BWD(48);
+  else if (dp <= 64) err = PSD_BWD(64);
+  else if (dp <= 80) err = PSD_BWD(80);
+  else if (dp <= 96) err = PSD_BWD(96);
+  else if (dp <= 128) err = PSD_BWD(128);
+  else if (dp <= 160) err = PSD_BWD(160);
 #undef PSD_BWD
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(err);
 }

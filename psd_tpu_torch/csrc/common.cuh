@@ -20,11 +20,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // Raise a kernel's dynamic shared memory limit when it needs more than the
 // 48 KB default (opt-in up to 227 KB on Hopper).
 template <typename Kernel>

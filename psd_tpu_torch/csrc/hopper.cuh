@@ -1,8 +1,9 @@
-// Hopper (sm_90a) primitives as raw PTX: TMA tile loads completed on
-// mbarriers, the mbarrier itself, named barriers, the wgmma shared-memory
-// descriptor for 128-byte swizzled tiles with its fence / commit / wait, and
-// setmaxnreg. Host side: a 128B-swizzled bf16 tensor map, encoded through the
-// driver entry point the runtime hands out (the library links no -lcuda).
+// Hopper (sm_90a) primitives as raw PTX: TMA tile loads and bulk copies
+// completed on mbarriers, the mbarrier itself, named barriers, the wgmma
+// shared-memory descriptor for 128-byte swizzled tiles with its fence /
+// commit / wait, and setmaxnreg. Host side: a 128B-swizzled bf16 tensor
+// map, encoded through the driver entry point the runtime hands out (the
+// library links no -lcuda).
 #pragma once
 
 #include <cuda.h>
@@ -66,6 +67,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A contiguous run of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory by the bulk copy engine;
+// completion adds the bytes to `bar`'s transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(smem_addr(bar))
       : "memory");
 }
 

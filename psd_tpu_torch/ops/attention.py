@@ -10,8 +10,9 @@ function, so here ONE forward entry point, `csrc/attention.cu`, serves both
 roles with two TMA/wgmma kernels: `csrc/attention_narrow.cu` for head dims
 up to 160 (the UNet, D = 40/80) and `csrc/attention_wide.cu` for wider
 heads (the VAE mid block, D = 512); `fwd_shape_error` says which shapes
-they take. `csrc/attention_bwd.cu` is the flash backward. Everything
-shorter takes the plain einsum path, as in JAX.
+they take. `csrc/attention_bwd.cu` is the flash backward (head dims up to
+160, `bwd_shape_error`). Everything shorter takes the plain einsum path, as
+in JAX.
 
 `attention_fwd` and `attention_bwd` are the kernel wrappers: a CPU tensor
 goes to the plain version; a CUDA tensor launches the kernel or raises.
@@ -37,8 +38,6 @@ from ..core.mode import is_training, use_kernel
 from . import kernels
 
 LOG2E = 1.4426950408889634
-# padded head dims the backward kernel is instantiated for (attention_bwd.cu)
-BWD_PADDED_DIMS = (32, 48, 64, 80, 96, 128, 160)
 
 
 def attention_reference(q, k, v, scale: Optional[float] = None):
@@ -97,6 +96,22 @@ def fwd_shape_error(Sq: int, Sk: int, D: int) -> Optional[str]:
     return None
 
 
+# the backward kernels' tiles (csrc/attention_bwd.cu): head dims up to
+# NARROW_MAX_D; the dQ pass's work items are 128 query rows, the dK/dV
+# pass's 128 key rows
+BWD_S_MULTIPLE = 128
+
+
+def bwd_shape_error(Sq: int, Sk: int, D: int) -> Optional[str]:
+    """None when the backward kernels take q (·, Sq, ·, D) against k/v
+    (·, Sk, ·, D), else why not. Any batch and head count."""
+    if D % 8 or not 0 < D <= NARROW_MAX_D:
+        return f"head dim {D} must be a multiple of 8 up to {NARROW_MAX_D}"
+    if Sq % BWD_S_MULTIPLE or Sk % BWD_S_MULTIPLE or not (Sq and Sk):
+        return f"sequence lengths {Sq}, {Sk} must be multiples of {BWD_S_MULTIPLE}"
+    return None
+
+
 def attention_fwd(q, k, v, scale: Optional[float] = None, return_lse: bool = False):
     """Non-causal softmax attention; kernel on CUDA, plain version on CPU.
     With `return_lse`, also the per-row log-sum-exp (log2 units, (B, H, Sq))."""
@@ -136,12 +151,11 @@ def attention_bwd(q, k, v, out, lse, dout, scale: Optional[float] = None):
     kernels.require(k.shape == (B, Sk, H, D) and v.shape == k.shape
                     and out.shape == q.shape and dout.shape == q.shape,
                     "attention_bwd: operand shapes")
-    kernels.require(D % 8 == 0 and (D + 15) // 16 * 16 in BWD_PADDED_DIMS,
-                    f"attention_bwd: head dim {D}")
-    kernels.require(Sq % 64 == 0 and Sk % 64 == 0,
-                    f"attention_bwd: sequence lengths {Sq}, {Sk} must be multiples of 64")
+    err = bwd_shape_error(Sq, Sk, D)
+    kernels.require(err is None, f"attention_bwd: {err}")
     kernels.require_cuda_f32("attention_bwd", q.device, lse)
-    kernels.require(lse.shape == (B, H, Sq), "attention_bwd: lse must be (B, H, Sq)")
+    kernels.require(lse.shape == (B, H, Sq) and lse.data_ptr() % 16 == 0,
+                    "attention_bwd: lse must be 16-byte aligned (B, H, Sq)")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     code = kernels.library().psd_attention_bwd(

@@ -1,7 +1,7 @@
 """Helpers shared by the tests and chip_smoke.py: the tiny full-stack
 factory (the same shapes as `psd_tpu.testing.tiny_dadd()`: split3 routing,
-AOE, IP-Plus, purifier; fp32, seeded flax-style init), and the judge that
-holds a kernel's output to its plain version by relative L2 error."""
+AOE, IP-Plus, purifier; fp32, seeded flax-style init), and the judges that
+hold a kernel's output to its plain version by relative L2 error."""
 
 from __future__ import annotations
 
@@ -77,3 +77,32 @@ def rel_l2_judge(out: torch.Tensor, ref: torch.Tensor, rel_band: float, row_band
 def attention_judge(out: torch.Tensor, ref: torch.Tensor):
     """rel_l2_judge at the attention bands."""
     return rel_l2_judge(out, ref, ATTN_REL_L2_BAND, ATTN_ROW_BAND)
+
+
+# The attention backward (attention_bwd.cu, D <= 160) against
+# attention_bwd_reference (autograd through attention_reference), bf16:
+# each of dQ, dK and dV over the whole gradient and on its worst row (a
+# query row of dQ, a key row of dK and dV: the last axis). The two round at
+# other points (the kernel P and dS before its products, the plain version
+# dP and its outputs). On an H100 the sound kernel reads ≤ 3.4e-3 over each
+# gradient and ≤ 8.0e-3 on its worst row at the training shapes and the edge
+# shapes. Faults planted in it read, where they change a gradient: lse +
+# 0.02 (P off by 1.4%) 1.41e-2–1.42e-2 over each and ≥ 1.77e-2 on the worst
+# row; a pass's last tile dropped ≥ 0.12 / ≥ 0.82 (one tile of 64 at
+# S = 4096); the neighbour head's padding columns at D = 40 ≥ 0.52 / ≥ 3.8
+# (PERF.md §6 PR 7; emulated on the CPU by
+# tests/test_torch_kernels.py::test_attention_bwd_judge_sees_planted_faults).
+# Both bands sit between the sound readings and the faults'.
+ATTN_BWD_REL_L2_BAND, ATTN_BWD_ROW_BAND = 8e-3, 2e-2
+
+
+def attention_bwd_judge(grads, refs):
+    """rel_l2_judge of each of (dq, dk, dv) against its plain version at the
+    backward's bands; readings keyed "dq_rel_l2", "dq_worst_row_rel", …"""
+    ok, texts, readings = True, [], {}
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        good, text, red = rel_l2_judge(g, r, ATTN_BWD_REL_L2_BAND, ATTN_BWD_ROW_BAND)
+        ok = ok and good and bool(torch.isfinite(g).all())
+        texts.append(f"{name} {text}")
+        readings.update({f"{name}_{k}": v for k, v in red.items()})
+    return ok, "; ".join(texts), readings

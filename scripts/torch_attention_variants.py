@@ -303,15 +303,16 @@ VARIANTS = {
 }
 
 
-def make_tree(name: str) -> Path:
-    """A copy of psd_tpu_torch/ with the variant's edits applied."""
-    root = OUT / name
+def make_tree(name: str, variants: dict = VARIANTS, src: str = SRC, out: Path = OUT) -> Path:
+    """A copy of psd_tpu_torch/ under `out` with the edits of `variants[name]`
+    applied to the source `src`."""
+    root = out / name
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(ROOT / "psd_tpu_torch", root / "psd_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    path = root / SRC
+    path = root / src
     text = path.read_text()
-    for edit in VARIANTS[name][1]:
+    for edit in variants[name][1]:
         text = edit(text)
     path.write_text(text)
     return root
@@ -323,13 +324,21 @@ def _in(root: Path, code: str, timeout: int) -> subprocess.CompletedProcess:
                            + code], capture_output=True, text=True, timeout=timeout)
 
 
-def build(root: Path) -> str:
+def compile_tree(root: Path):
+    """Build the kernels of the tree at `root`: (True, its build.log) or
+    (False, the tail of the error)."""
     res = _in(root, "from psd_tpu_torch.ops import kernels; kernels.build()", 600)
     if res.returncode != 0:
-        return "build failed: " + (res.stdout + res.stderr)[-2000:]
+        return False, "build failed: " + (res.stdout + res.stderr)[-2000:]
     logs = sorted((root / "build" / "psd_tpu_torch").glob("*/build.log"),
                   key=lambda p: p.stat().st_mtime)
-    text = logs[-1].read_text() if logs else ""
+    return True, logs[-1].read_text() if logs else ""
+
+
+def build(root: Path) -> str:
+    ok, text = compile_tree(root)
+    if not ok:
+        return text
     found, name, spill = [], None, "?"
     for line in text.splitlines():  # ptxas -v: each entry function, then its stats
         m = re.search(r"Compiling entry function '\w*?narrow_attention_kernelILi(\d+)E", line)

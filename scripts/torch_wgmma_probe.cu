@@ -1,5 +1,5 @@
-// Descriptor probes for the narrow attention kernel's wgmma shapes, one warpgroup
-// each: S = q·kᵀ by wgmma_ss<BK> (q and K both K-major, from TMA tiles of
+// Descriptor probes for the wgmma shapes of the narrow attention forward and
+// the attention backward, one warpgroup each: S = q·kᵀ by wgmma_ss<BK> (q and K both K-major, from TMA tiles of
 // 3-D (D, H, rows) maps with 64-column boxes and the 128-byte swizzle) and
 // O = P·V by wgmma_rs_tb<Dp> (P from registers, V MN-major from a TMA tile),
 // each written out in full for scripts/torch_wgmma_probe.py to hold against
@@ -107,5 +107,10 @@ extern "C" int probe_run(int DP, int BK, const void* q, const void* k, const voi
   if (DP == 96 && BK == 128) return run<96, 128>(q, k, v, P, S, O, H, D, h);
   if (DP == 128 && BK == 128) return run<128, 128>(q, k, v, P, S, O, H, D, h);
   if (DP == 160 && BK == 64) return run<160, 64>(q, k, v, P, S, O, H, D, h);
+  if (DP == 80 && BK == 64) return run<80, 64>(q, k, v, P, S, O, H, D, h);
+  if (DP == 96 && BK == 64) return run<96, 64>(q, k, v, P, S, O, H, D, h);
+  if (DP == 128 && BK == 64) return run<128, 64>(q, k, v, P, S, O, H, D, h);
+  if (DP == 128 && BK == 32) return run<128, 32>(q, k, v, P, S, O, H, D, h);
+  if (DP == 160 && BK == 32) return run<160, 32>(q, k, v, P, S, O, H, D, h);
   return -2;
 }

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Probe the narrow attention kernel's wgmma descriptors on one NVIDIA GPU
-(H100), each alone, against fp32 torch.matmul.
+"""Probe the wgmma descriptors of the narrow attention forward and of the
+attention backward on one NVIDIA GPU (H100), each alone, against fp32
+torch.matmul.
 
     python3 scripts/torch_wgmma_probe.py
 
 Builds `scripts/torch_wgmma_probe.cu` with nvcc (sm_90a) into
 `build/psd_tpu_torch/probe/` (git-ignored) and runs one warpgroup per
-(Dp, key tile, D): S = q·kᵀ through `wgmma_ss<BK>` over Dp/16 k-steps of
+(Dp, tile, D): S = q·kᵀ through `wgmma_ss<BK>` over Dp/16 k-steps of
 64-column swizzled boxes, and O = P·V through `wgmma_rs_tb<Dp>` with V
-MN-major, the operands loaded by TMA from 3-D maps of a (rows, 3 heads, D)
-tensor at head 1, so columns D..Dp arrive as zeros. Each product is held
+MN-major, the operands loaded by TMA from 3-D maps of a (rows, 3 heads,
+D) tensor at head 1, so columns D..Dp arrive as zeros. These are the forms
+of every product in attention_narrow.cu and attention_bwd.cu: the tile is
+the forward's and the dQ pass's key tile, or the dK/dV pass's query tile,
+whose Q and dO take both roles. Each product is held
 to its fp32 torch.matmul (relative L2 ≤ 1e-5, the padding columns of O
 exactly 0). Prints the card's name and power limit; exits 1 if a probe
 fails.
@@ -25,11 +29,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "scripts" / "torch_wgmma_probe.cu"
 OUT = ROOT / "build" / "psd_tpu_torch" / "probe"
-# (padded head dim, key tile, head dim): every Dp the kernel is built for,
-# with and without zero fill
+# (padded head dim, tile, head dim): every (Dp, tile) the kernels are built
+# for, with and without zero fill
 PROBES = [(32, 64, 24), (32, 128, 32), (48, 64, 40), (48, 128, 40), (64, 64, 56),
           (64, 128, 64), (80, 128, 80), (80, 128, 72), (96, 128, 88), (128, 128, 104),
-          (128, 128, 128), (160, 64, 136), (160, 64, 160)]
+          (128, 128, 128), (160, 64, 136), (160, 64, 160),
+          # the backward's own: dK/dV query tiles of 64 at Dp 80 and 96 and of
+          # 32 above, dQ key tiles of 64 at Dp 96 and 128
+          (80, 64, 72), (96, 64, 88), (128, 64, 104), (128, 32, 104), (128, 32, 128),
+          (160, 32, 136), (160, 32, 160)]
 REL_BAND = 1e-5
 
 
@@ -71,7 +79,7 @@ def main() -> int:
         pad = o[:, d:].abs().max().item() if dp > d else 0.0
         ok = rc == 0 and s_rel <= REL_BAND and o_rel <= REL_BAND and pad == 0.0
         failed += not ok
-        print(f"[probe] Dp {dp} key tile {bk} D {d}: rc {rc}; S wgmma_ss<{bk}> rel L2 {s_rel:.3e}; "
+        print(f"[probe] Dp {dp} tile {bk} D {d}: rc {rc}; S wgmma_ss<{bk}> rel L2 {s_rel:.3e}; "
               f"O wgmma_rs_tb<{dp}> rel L2 {o_rel:.3e}, padding columns max {pad:.3e} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
     print(f"[probe] {failed} of {len(PROBES)} failed (band {REL_BAND:g})")

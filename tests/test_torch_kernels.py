@@ -416,3 +416,110 @@ def test_narrow_attention_judge_sees_planted_faults(fault, D):
     if blind:
         assert torch.equal(out, _narrow_kernel_emulation(q, k, v))
     assert ok == (fault is None or blind), text
+
+
+# ---- the attention backward (attention_bwd.cu): admission and judge ----------
+@pytest.mark.parametrize("training", [False, True])
+def test_bwd_shape_error_admits_every_routed_shape(training):
+    """Every shape kernel_route sends to a kernel at D = 8..160 and
+    S = 512..4096 (steps of 128) is one the backward kernels take: the
+    FlashAttention autograd.Function runs the backward wherever a routed
+    shape needs gradients."""
+    from types import SimpleNamespace
+
+    routed = 0
+    for D in range(8, 161, 8):
+        for Sq in range(512, 4097, 128):
+            for Sk in range(512, 4097, 128):
+                q = SimpleNamespace(shape=(2, Sq, 8, D))
+                k = SimpleNamespace(shape=(2, Sk, 8, D))
+                if attention.kernel_route(q, k, training) is not None:
+                    routed += 1
+                    assert attention.bwd_shape_error(Sq, Sk, D) is None, (Sq, Sk, D)
+    assert routed == 20 * 29 * 29
+
+
+@pytest.mark.parametrize("Sq,Sk,D,admitted", [
+    (128, 128, 40, True), (512, 1536, 80, True), (256, 384, 160, True), (1024, 1024, 104, True),
+    (64, 128, 40, False),    # the dQ pass's blocks hold 128 query rows
+    (128, 192, 80, False),   # and the dK/dV pass's 128 key rows
+    (128, 128, 36, False),   # D % 8
+    (128, 128, 168, False),  # Dp <= 160
+    (512, 512, 512, False),  # the VAE's head width has no backward kernel
+])
+def test_bwd_shape_error_refuses_what_the_kernels_do_not_take(Sq, Sk, D, admitted):
+    assert (attention.bwd_shape_error(Sq, Sk, D) is None) == admitted
+
+
+def _bwd_kernel_emulation(q, k, v, dout, fault=None):
+    """attention_bwd.cu's arithmetic in plain torch, bf16 (B, S, H, D) in
+    and out: P = 2^(S·scale·log2e − lse) from the forward's lse, Δ from its
+    bf16 output, dS = P∘(dP − Δ) in fp32, P and dS rounded to bf16 before
+    the dV, dK and dQ products, fp32 accumulators. `fault` plants one of
+    chip_smoke's faults: "dkv_drop_last_tile" (the dK/dV pass skips its last
+    tile of 64 queries), "dq_drop_last_tile" (the dQ pass skips its last
+    tile of 128 keys), "lse_offset" (lse + 0.02 in both passes),
+    "neighbour_pad" (q, k, v, dO padded to Dp = ceil16(D) with head h+1's
+    first columns, as 2-D (rows, H·D) tensor maps would fill them; zeros for
+    the last head)."""
+    B, S, H, D = q.shape
+    Dp = (D + 15) // 16 * 16
+    scale = D ** -0.5
+    c = float(np.float32(scale * attention.LOG2E))
+    out, lse = attention.attention_fwd(q, k, v, return_lse=True)
+    if fault == "lse_offset":
+        lse = lse + 0.02
+    qf, kf, vf, of, gf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, out, dout))
+    delta = (gf * of).sum(-1)
+    ops = [qf, kf, vf, gf]
+    if fault == "neighbour_pad":
+        def pad(t):
+            nb = torch.zeros_like(t[..., :Dp - D])
+            nb[:, :-1] = t[:, 1:, :, :Dp - D]
+            return torch.cat([t, nb], -1)
+        ops = [pad(t) for t in ops]
+    qs, ks, vs, gs = ops
+    p = torch.exp2((qs @ ks.transpose(-1, -2)) * c - lse[..., None])
+    ds = (p * (gs @ vs.transpose(-1, -2) - delta[..., None])).bfloat16().float()
+    p = p.bfloat16().float()
+    ds_kv, p_kv, ds_q = ds.clone(), p.clone(), ds.clone()
+    if fault == "dkv_drop_last_tile":  # the dK/dV pass's tiles are 64 queries
+        ds_kv[..., -64:, :] = 0
+        p_kv[..., -64:, :] = 0
+    if fault == "dq_drop_last_tile":   # the dQ pass's tiles are 128 keys at Dp <= 80
+        ds_q[..., -128:] = 0
+    grads = (scale * ds_q @ kf, scale * ds_kv.transpose(-1, -2) @ qf,
+             p_kv.transpose(-1, -2) @ gf)
+    return tuple(t.permute(0, 2, 1, 3).bfloat16() for t in grads)
+
+
+@pytest.mark.parametrize("D", [40, 80])
+@pytest.mark.parametrize("fault", [None, "dkv_drop_last_tile", "dq_drop_last_tile",
+                                   "lse_offset", "neighbour_pad"])
+def test_attention_bwd_judge_sees_planted_faults(fault, D):
+    """chip_smoke.py holds the attention backward to
+    `attention_bwd_reference` with `attention_bwd_judge` (each of dQ, dK,
+    dV: relative L2 ≤ 8e-3 over the gradient, ≤ 2e-2 on its worst row). At
+    (1, 1024, 2, D), N(0,1) bf16 inputs, the kernel's arithmetic emulated in
+    plain torch reads (relative L2 / worst row of dQ, dK, dV at D = 40):
+      sound               3.3e-3 / 6.5e-3, 3.2e-3 / 5.8e-3, 1.3e-4 / 2.3e-3, passes;
+      dkv_drop_last_tile  dK 0.24 / 0.88, dV 0.26 / 0.61, fails;
+      dq_drop_last_tile   dQ 0.36 / 0.93, fails;
+      lse_offset          1.4e-2 / 1.7e-2..1.9e-2 on each, fails;
+      neighbour_pad       0.39..0.58 / 2.5..4.1, fails; at D = 80 the
+                          sound gradients bit for bit (Dp = D: no padding
+                          column is read), and the judge rightly passes.
+    (PERF.md §6 PR 7 gives the readings of the same faults planted in the
+    kernel, on the card.)"""
+    from psd_tpu_torch.testing import attention_bwd_judge
+
+    rng = _rng(100 + D)
+    q, k, v, g = (_t(rng.standard_normal((1, 1024, 2, D)).astype(np.float32)).bfloat16()
+                  for _ in range(4))
+    refs = attention.attention_bwd_reference(q, k, v, g)
+    grads = _bwd_kernel_emulation(q, k, v, g, fault)
+    ok, text, _ = attention_bwd_judge(grads, refs)
+    blind = fault == "neighbour_pad" and D % 16 == 0
+    if blind:
+        assert all(torch.equal(a, b) for a, b in zip(grads, _bwd_kernel_emulation(q, k, v, g)))
+    assert ok == (fault is None or blind), text
