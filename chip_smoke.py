@@ -8,8 +8,9 @@ Phases, in order; any failure exits non-zero:
   2. build   — compile psd_tpu_torch/csrc/*.cu with nvcc (sm_90a), one nvcc
                per source, all at once; print ptxas's registers, stack and
                spills for the attention forward kernels (kept in the kernels
-               line only when this run ran nvcc) and for the backward's dQ
-               and dK/dV kernels (printed only).
+               line only when this run ran nvcc), for the backward's dQ
+               and dK/dV kernels and for the LayerNorm GEMM kernels
+               (printed only).
   3. kernels — each kernel against its plain PyTorch version at
                every shape the 512², batch-8 serving path gives it (bf16,
                seeded inputs): max abs/rel error against a stated band;
@@ -26,7 +27,14 @@ Phases, in order; any failure exits non-zero:
                lse_reference; printed beside their bound, not kept, the
                exp2 count's time at the SFU rate; untimed edge shapes
                (every padded head dim of each kernel, H of 1 and 3,
-               Sq != Sk). attention_q8
+               Sq != Sk). ln_proj (3 and 1 outputs) and ln_geglu by
+               relative L2 over each output and each row
+               (ln_gemm_judge), with printed yardsticks beside each shape
+               (not kept): the device time of one call (CUDA-graph
+               replay), the cuBLAS product of the same size alone and the
+               wrapper's host time; untimed edge inputs (rows of large
+               mean at every LN_SHAPES entry, C = 64, 192, 448, N = 200).
+               attention_q8
                (int8 spatial attention, both modes) at the UNet
                self-attention shapes psd_tpu's spatial_attention accepts,
                against its plain
@@ -41,7 +49,9 @@ Phases, in order; any failure exits non-zero:
                latents (8, 64, 64, 4), 48 tokens, δ=1) on the kernels and
                with the plain versions forced: relative error; then eps time
                with gn_proj on and off in 10 alternating pairs (host clock:
-               wall and enqueue, medians and quartiles).
+               wall and enqueue, medians and quartiles); then the eps's
+               device time (captured in a CUDA graph, replayed) on the
+               kernels, with the LN kernels off and all plain.
   5. serve   — a GenerationServer over the SD-scale DADD at 512², 50 DDIM
                steps, max_batch 8, steer 1.0 answers 8 requests; images are
                checked and every serving kernel's launch count must be > 0.
@@ -97,9 +107,9 @@ sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
-# bf16 band for kernel-vs-plain (split3, ln_proj, ln_geglu, gn_proj): both
-# round their inputs, probabilities and outputs to bf16 at different points
-# (2^-8 relative each), and sum in different orders.
+# bf16 band for kernel-vs-plain (split3, gn_proj): both round their inputs,
+# probabilities and outputs to bf16 at different points (2^-8 relative
+# each), and sum in different orders.
 ATOL, RTOL = 1e-2, 1e-2
 # UNet eps on the kernels vs with the plain versions forced: ~150 bf16
 # layers, each rounding differently; relative L2 error.
@@ -165,6 +175,14 @@ ATTN_WIDE_EDGE_SHAPES = [((2, 256, 2, 264), 512), ((1, 128, 3, 384), 128),
                          ((2, 192, 1, 448), 320)]
 SPLIT3_SHAPES = [(8, 4096, 8, 40), (8, 1024, 8, 80), (8, 256, 8, 160)]
 LN_SHAPES = [(32768, 320), (8192, 640), (2048, 1280), (512, 1280)]
+# untimed LN edge inputs, (M, C, N of ln_proj, N of ln_geglu): C at 64, 192
+# and 448 (ln_proj's one-output 160-column tile ragged at each), and N not a
+# multiple of any tile (TMA's zero fill, masked stores); plus every
+# LN_SHAPES entry with rows of a large mean (LN_EDGE_MEAN_STD)
+LN_EDGE_SHAPES = [(512, 64, 64, 256), (512, 192, 192, 768), (512, 448, 448, 1792),
+                  (1024, 192, 200, 200)]
+# each edge row's x gets an offset of this std (x + 8·N(0,1) a row)
+LN_EDGE_MEAN_STD = 8.0
 GN_SHAPES = [(8, 4096, 320), (8, 1024, 640), (8, 256, 1280), (8, 64, 1280)]
 # a generate call of batch 1 or 3 at 512²: B·S % 128 == 64 at the mid block,
 # the kernel's half-full last row tile (checked, not timed)
@@ -221,6 +239,9 @@ VAE_GAIN_LOG2 = 2.0
 # the same integer operands, at the decoder's first resblock shape
 QCONV_CHECK_SHAPE, QCONV_REL_BAND = (1, 64, 64, 512), 1e-5
 
+# ln_gemm_kernel<Kind> in ln_gemm_sm90.cuh, by the enum's value
+LN_KINDS = ("proj1", "proj3", "geglu")
+
 # published H100 SXM peaks (NVIDIA data sheet): dense bf16 and int8 tensor
 # cores and HBM3 bandwidth
 PEAK_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
@@ -271,6 +292,13 @@ def phase_build():
         + source + "): " + _ptxas_text(bwd))
     if not any(k.startswith("dkv") for k in bwd) or not any(k.startswith("dq") for k in bwd):
         raise SystemExit("chip_smoke.py: build.log names no dQ or dK/dV backward kernel")
+    ln = ptxas_report(r"(ln_gemm_kernel|ln_stats_kernel)(?:ILN\w*?KindE(\d)E)?",
+                      label=lambda m: m.group(1) if m.group(2) is None
+                      else f"{m.group(1)}<{LN_KINDS[int(m.group(2))]}>")
+    log("[build] ptxas, LayerNorm GEMM kernels (ln_gemm_sm90.cuh; printed, not kept"
+        + source + "): " + _ptxas_text(ln))
+    if not any(k.startswith("ln_gemm_kernel") for k in ln):
+        raise SystemExit("chip_smoke.py: build.log names no LayerNorm GEMM kernel")
     return ptxas if built else None
 
 
@@ -279,18 +307,20 @@ def _ptxas_text(report: dict) -> str:
                      f"{r['spill_stores']}/{r['spill_loads']}" for k, r in report.items())
 
 
-def ptxas_report(kernel: str) -> dict:
+def ptxas_report(kernel: str, label=None) -> dict:
     """Registers, stack frame and spills (bytes) that ptxas reported for each
     kernel whose name matches `kernel` (a regex with one group, the name;
-    e.g. narrow<Dp>, wide) in this build's build.log (nvcc -Xptxas -v)."""
+    e.g. narrow<Dp>, wide) in this build's build.log (nvcc -Xptxas -v).
+    `label(match)` names the entry where `kernel` has groups of its own."""
     from psd_tpu_torch.ops import kernels
 
     text = (kernels.BUILD_ROOT / kernels.source_hash() / "build.log").read_text()
     found, name = {}, None
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '\w*?" + kernel + r"(?:ILi(\d+)E)?", line)
+        m = re.search(r"Compiling entry function '\w*?" + kernel
+                      + ("" if label else r"(?:ILi(\d+)E)?"), line)
         if m:
-            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            name = label(m) if label else m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
             found[name] = {}
             continue
         if name is None:
@@ -433,9 +463,71 @@ def _check_lse(q, k, v, band: float) -> float:
     return d
 
 
+def host_ms(fn, n: int = 20) -> float:
+    """The host time of one call (its Python, checks, allocations and
+    launch enqueue, before the device runs it): median of `n`, each after a
+    synchronize."""
+    times = []
+    for _ in range(n + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times[3:])
+
+
+def graph_ms(fn, calls: int = 10) -> float:
+    """The device time of one call: `calls` calls captured in one CUDA
+    graph, replayed (median of 10 replays over CUDA events) / calls; the
+    host's time to prepare each launch is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay) / calls
+    del graph
+    return ms
+
+
+def _check_ln_edge(randn, M, C, n_proj, n_geglu, mean_std):
+    """ln_proj (3 and 1 outputs of n_proj columns) and ln_geglu (n_geglu
+    columns) at an edge input against their plain versions with
+    ln_gemm_judge; x gets a per-row offset of std `mean_std` (not timed)."""
+    from psd_tpu_torch.ops import geglu
+    from psd_tpu_torch.testing import ln_gemm_judge
+
+    x = randn(M, C, dtype=torch.float32)
+    x = (x + mean_std * randn(M, 1, dtype=torch.float32)).to(torch.bfloat16)
+    lw = 1.0 + randn(C, std=0.1, dtype=torch.float32)
+    lb = randn(C, std=0.1, dtype=torch.float32)
+    cases = []
+    for n_out in (3, 1):
+        ws = tuple(randn(n_proj, C, std=C ** -0.5) for _ in range(n_out))
+        cases.append((f"ln_proj n_out {n_out}", geglu.ln_proj_fwd(x, lw, lb, ws),
+                      geglu.ln_proj_reference(x, lw, lb, ws)))
+    w0 = randn(2 * n_geglu, C, std=C ** -0.5)
+    b0 = randn(2 * n_geglu, std=0.02, dtype=torch.float32)
+    cases.append(("ln_geglu", geglu.ln_geglu_fwd(x, lw, lb, w0, b0),
+                  geglu.ln_geglu_reference(x, lw, lb, w0, b0)))
+    for name, out, ref in cases:
+        ok, text, _ = ln_gemm_judge(out, ref)
+        label = (f"(M, C) {(M, C)}, N {n_geglu if name == 'ln_geglu' else n_proj}"
+                 + (f", row means ~ N(0, {mean_std:g}²)" if mean_std else ""))
+        log(f"[kernel] {name} edge {label}: {text} {'ok' if ok else 'FAIL'} (not timed)")
+        if not ok:
+            raise SystemExit(f"chip_smoke.py: {name} edge {label} disagrees with its plain version")
+
+
 def phase_kernels() -> dict:
     from psd_tpu_torch.ops import attention, geglu, gnproj, split3
-    from psd_tpu_torch.testing import ATTN_LSE_BAND, attention_judge
+    from psd_tpu_torch.testing import ATTN_LSE_BAND, attention_judge, ln_gemm_judge
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -487,20 +579,41 @@ def phase_kernels() -> dict:
         x = randn(M, C)
         lw = 1.0 + randn(C, std=0.1, dtype=torch.float32)
         lb = randn(C, std=0.1, dtype=torch.float32)
+        xhat = geglu.ln_reference(x, lw, lb)  # the cuBLAS yardstick's A
         for n_out in (3, 1):
             ws = tuple(randn(C, C, std=C ** -0.5) for _ in range(n_out))
+            wcat = torch.cat(ws)
             _compare("ln_proj", (M, C, n_out),
                      lambda: geglu.ln_proj_fwd(x, lw, lb, ws),
                      lambda: geglu.ln_proj_reference(x, lw, lb, ws), results,
                      (2.0 * M * C * C * n_out,
-                      M * C * 2 + 2 * C * 4 + n_out * (C * C * 2 + M * C * 2)))
+                      M * C * 2 + 2 * C * 4 + n_out * (C * C * 2 + M * C * 2)),
+                     judge=ln_gemm_judge,
+                     note={"device_ms": graph_ms(lambda: geglu.ln_proj_fwd(x, lw, lb, ws)),
+                           "cublas_product_ms": time_ms(lambda: torch.matmul(xhat, wcat.T)),
+                           "wrapper_host_ms": host_ms(lambda: geglu.ln_proj_fwd(x, lw, lb, ws))})
         w0 = randn(8 * C, C, std=C ** -0.5)
         b0 = randn(8 * C, std=0.02, dtype=torch.float32)
         _compare("ln_geglu", (M, C),
                  lambda: geglu.ln_geglu_fwd(x, lw, lb, w0, b0),
                  lambda: geglu.ln_geglu_reference(x, lw, lb, w0, b0), results,
                  (2.0 * M * C * 8 * C,
-                  M * C * 2 + 2 * C * 4 + 8 * C * C * 2 + 8 * C * 4 + M * 4 * C * 2))
+                  M * C * 2 + 2 * C * 4 + 8 * C * C * 2 + 8 * C * 4 + M * 4 * C * 2),
+                 judge=ln_gemm_judge,
+                 note={"device_ms": graph_ms(lambda: geglu.ln_geglu_fwd(x, lw, lb, w0, b0)),
+                       "cublas_product_ms": time_ms(lambda: torch.matmul(xhat, w0.T)),
+                       "wrapper_host_ms": host_ms(lambda: geglu.ln_geglu_fwd(x, lw, lb, w0, b0))})
+        del x, xhat, w0
+        torch.cuda.empty_cache()
+    # the edge inputs draw from a generator of their own, so the inputs of
+    # the shapes after them stay those of earlier runs
+    ge = torch.Generator(device=dev).manual_seed(9)
+    ln_edges = [(M, C, C, 4 * C, LN_EDGE_MEAN_STD) for M, C in LN_SHAPES]
+    ln_edges += [shape + (0.0,) for shape in LN_EDGE_SHAPES]
+    for M, C, n_proj, n_geglu, mean_std in ln_edges:
+        _check_ln_edge(lambda *shape, std=1.0, dtype=bf: (
+            torch.randn(shape, generator=ge, device=dev) * std).to(dtype),
+            M, C, n_proj, n_geglu, mean_std)
     for (B, S, C) in GN_SHAPES:
         x = randn(B, S, C)
         gw = 1.0 + randn(B, C, std=0.1, dtype=torch.float32)
@@ -724,6 +837,9 @@ def phase_unet() -> dict:
         with disable_kernels(*KERNELS):
             ms_p = time_ms(run, n=3, warmup=1)
         ab = _gn_proj_ab(run)
+        device = {side: _eps_device_ms(run, off) for side, off in
+                  (("kernels", ()), ("LN kernels off", ("ln_proj", "ln_geglu")),
+                   ("all plain", KERNELS))}
     ok = bool(torch.isfinite(out_k).all()) and rel <= UNET_REL_BAND
     log(f"[unet] SD-scale split3 eps (8,64,64,4), 48 tokens, delta 1.0: "
         f"rel L2 kernels vs plain {rel:.3e} (band {UNET_REL_BAND:g}) "
@@ -734,12 +850,31 @@ def phase_unet() -> dict:
             f"{side} wall {_q(ab[side]['wall'])} enqueue {_q(ab[side]['enqueue'])}"
             for side in ("on", "off"))
         + f"; paired wall difference on - off {_q(ab['diff'])}")
+    log("[unet] eps device ms (one eps captured in a CUDA graph, replayed; the host's "
+        "enqueue left out): " + ", ".join(f"{k} {v}" for k, v in device.items())
+        + f"; host enqueue of an eps on the kernels {_q(ab['on']['enqueue'])} ms")
     if not ok or min(counts.values()) == 0:
         raise SystemExit("chip_smoke.py: UNet on the kernels disagrees with the plain "
                          "versions or skipped a kernel")
     del unet, out_k, out_p
     torch.cuda.empty_cache()
-    return {"rel_l2": rel, "eps_ms": ms_k, "eps_plain_ms": ms_p, "gn_proj_ab": ab}
+    return {"rel_l2": rel, "eps_ms": ms_k, "eps_plain_ms": ms_p, "gn_proj_ab": ab,
+            "device_ms": device}
+
+
+def _eps_device_ms(run, off) -> str:
+    """The device time of one eps with the kernels `off` routed to their
+    plain versions (graph_ms of one call), or "not measured" and why when
+    the eps cannot be captured in a CUDA graph."""
+    from psd_tpu_torch.core.mode import disable_kernels
+
+    try:
+        with disable_kernels(*off):
+            ms = f"{graph_ms(run, calls=1):.2f}"
+    except RuntimeError as e:
+        ms = f"not measured ({str(e).splitlines()[0][:100]})"
+    torch.cuda.empty_cache()
+    return ms
 
 
 def _q(xs) -> str:

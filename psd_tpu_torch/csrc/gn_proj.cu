@@ -23,8 +23,8 @@
 // stages both batches' affines and a batch slot per row (row / S), and each
 // element looks its affine up by its row's slot, never once per tile. The
 // last tile may be half full (B·S % 128 == 64): its missing rows read as 0
-// and are not stored. N % 128 == 64 (C = 320, 640) leaves the last column
-// tile half empty, as in ln_proj. Requires S % 64 == 0, C % 32 == 0,
+// and are not stored. N % 128 == 64 (C = 320; 640 = 5·128) leaves the
+// last column tile half empty. Requires S % 64 == 0, C % 32 == 0,
 // N % 64 == 0 (the wrapper checks).
 #include "ln_gemm.cuh"
 

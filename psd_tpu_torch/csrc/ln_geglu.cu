@@ -9,76 +9,72 @@
 //
 // What bounds it on the H100. At stage 0 (M = 32768, C = 320, N = 1280) it is
 // 2·M·C·2N ≈ 54 GFLOP against 21 MB of x in and 84 MB out: ≈500 FLOP per
-// byte, compute-bound. Unfused, the (M, 2N) projection (335 MB in fp32 at
-// stage 0) is written and read back for the bias and gate, and LayerNorm
-// takes its own pass over x.
+// byte, compute-bound (0.054 ms at 989 TFLOP/s). Unfused, the (M, 2N)
+// projection (335 MB in fp32 at stage 0) is written and read back for the
+// bias and gate, and LayerNorm takes its own pass over x.
 //
-// Design: the LN-fused GEMM of ln_gemm.cuh. A block owns 64 output columns:
-// its 128-row B tile holds the h rows n0..n0+63 and the g rows N+n0..N+n0+63
-// of W0, and each warp's four column fragments pair two h fragments with the
-// two g fragments of the same output columns. The epilogue adds the fp32
-// biases and applies h·gelu(g) in fp32 from the warp's stage; the (M, N)
-// bf16 output is the only write, and the (M, 2N) projection never leaves the
-// SM. Requires M % 128 == 0, C % 32 == 0, N % 64 == 0 (the wrapper checks).
-#include "ln_gemm.cuh"
+// Design: the LN-fused wgmma GEMM of ln_gemm_sm90.cuh (stats pass, TMA
+// ring, A normalized in registers). A tile is 128 rows × 128 output
+// columns: its B tile stacks W0's h rows n0..n0+127 over its g rows
+// N+n0..N+n0+127 (two TMA boxes from two maps of W0's halves, so a ragged
+// last tile reads zeros in each half), one m64n256k16 per k16 step. In the
+// accumulator layout output column 8j + 2·tig (+1) of h and of g sit in the
+// same thread (acc[4j + e] and acc[4(j + 16) + e]), so the fp32 biases and
+// h·gelu(g) are applied in registers; the bf16 result goes through shared
+// memory to TMA stores, and the (M, N) output is the only write: the
+// (M, 2N) projection never leaves the SM.
+#include "ln_gemm_sm90.cuh"
 
 namespace psd {
 namespace {
 
-using namespace lngemm;
+using namespace lnsm90;
 
 __device__ __forceinline__ float gelu_erf(float g) {
   return 0.5f * g * (1.f + erff(g * 0.70710678118654752f));
 }
 
-__global__ void __launch_bounds__(kThreads)
-ln_geglu_kernel(const bf16* __restrict__ x, const float* __restrict__ lw,
-                const float* __restrict__ lb, const bf16* __restrict__ w,
-                const float* __restrict__ bias, bf16* __restrict__ out, int C, int N,
-                float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem s = carve(smem);
-  const int row0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * 64;
+struct GegluEpi {
+  static constexpr int kOutputs = 1;
+  const float* bias;  // (2N,): h's, then g's
+  int N;
 
-  const LnNorm norm = ln_stats(x, lw, lb, row0, C, eps, s);
-  Acc acc[2][4];
-  mainloop(
-      x, w, row0, gridDim.x * kBM, C, norm, [=](int t) { return t < 64 ? n0 + t : N + n0 + (t - 64); },
-      [](int wc, int j) { return j < 2 ? wc * 32 + j * 16 : 64 + wc * 32 + (j - 2) * 16; },
-      s, acc);
-  const float* st = stage_acc(s, acc);  // cols 0..31: h, 32..63: g
+  __host__ __device__ static constexpr int out_map(int) { return 0; }
+  // a tile's output columns ct·128 .. +127: two 64-column boxes
+  __device__ static int out_col(int ct, int b) { return ct * 128 + 64 * b; }
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp % 4, wc = warp / 4;
-  const int c = (lane % 16) * 2;
-  const int col = n0 + wc * 32 + c;
-  const float bh0 = bias[col], bh1 = bias[col + 1];
-  const float bg0 = bias[N + col], bg1 = bias[N + col + 1];
-  for (int r = lane / 16; r < 32; r += 2) {
-    const float* sr = st + r * kLdStage;
-    const float h0 = sr[c] + bh0, h1 = sr[c + 1] + bh1;
-    const float g0 = sr[32 + c] + bg0, g1 = sr[32 + c + 1] + bg1;
-    const __nv_bfloat162 v = __floats2bfloat162_rn(h0 * gelu_erf(g0), h1 * gelu_erf(g1));
-    *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(row0 + wr * 32 + r) * N + col) = v;
+  // Output column block jb (columns ct·128 + 8jb + 2·tig (+1)) of rows g and
+  // g + 8 as packed bf16: h from acc[4jb + e], g from acc[4(jb + 16) + e].
+  __device__ __forceinline__ void pack(const float (&acc)[128], int jb, int ct, int tig,
+                                       uint32_t& lo, uint32_t& hi) const {
+    const int col = ct * 128 + 8 * jb + 2 * tig;
+    float2 bh = make_float2(0.f, 0.f), bg = bh;  // columns past N are not stored
+    if (col < N) {
+      bh = __ldg(reinterpret_cast<const float2*>(bias + col));
+      bg = __ldg(reinterpret_cast<const float2*>(bias + N + col));
+    }
+    const int h = 4 * jb, g = 4 * (jb + 16);
+    lo = pack_bf16x2((acc[h] + bh.x) * gelu_erf(acc[g] + bg.x),
+                     (acc[h + 1] + bh.y) * gelu_erf(acc[g + 1] + bg.y));
+    hi = pack_bf16x2((acc[h + 2] + bh.x) * gelu_erf(acc[g + 2] + bg.x),
+                     (acc[h + 3] + bh.y) * gelu_erf(acc[g + 3] + bg.y));
   }
-}
+};
 
 }  // namespace
 }  // namespace psd
 
 extern "C" int psd_ln_geglu_fwd(const void* x, const void* ln_w, const void* ln_b,
-                                const void* w, const void* b, void* out, int M, int C,
-                                int N, float eps, void* stream) {
+                                const void* w, const void* b, void* out, void* stats, int M,
+                                int C, int N, float eps, void* stream) {
   using namespace psd;
-  using namespace psd::lngemm;
-  const size_t bytes = smem_bytes(C);
-  cudaError_t err = allow_smem(ln_geglu_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(M / kBM, N / 64);
-  ln_geglu_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  using namespace psd::lnsm90;
+  const bf16* w0 = static_cast<const bf16*>(w);
+  const bf16* const halves[3] = {w0, w0 + static_cast<size_t>(N) * C, nullptr};
+  bf16* const outs[3] = {static_cast<bf16*>(out), nullptr, nullptr};
+  const GegluEpi epi{static_cast<const float*>(b), N};
+  return static_cast<int>(launch<Kind::kGeglu>(
       static_cast<const bf16*>(x), static_cast<const float*>(ln_w),
-      static_cast<const float*>(ln_b), static_cast<const bf16*>(w),
-      static_cast<const float*>(b), static_cast<bf16*>(out), C, N, eps);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const float*>(ln_b), halves, outs, epi, static_cast<float2*>(stats), M, C, N,
+      eps, static_cast<cudaStream_t>(stream)));
 }

@@ -1,6 +1,5 @@
-// Normalization fused into the A operand of a bf16 GEMM: the main loop shared
-// by ln_proj_fwd (ln_proj.cu), ln_geglu_fwd (ln_geglu.cu) and gn_proj_fwd
-// (gn_proj.cu).
+// Normalization fused into the A operand of a bf16 GEMM: the WMMA main loop
+// of gn_proj_fwd (gn_proj.cu).
 //
 //   out tile = norm(x)[rows] · W[tile rows]ᵀ,  x (M, C) bf16, W (·, C) bf16
 //
@@ -15,8 +14,7 @@
 // fragments). The epilogue (in the including file) reads the strip back
 // from a per-warp fp32 stage that reuses the operand buffers.
 //
-// Two norms: LnNorm (LayerNorm: per-row μ, rstd and the per-column affine)
-// and GnNorm (a GroupNorm folded into a per-(batch, column) affine; a
+// The norm: GnNorm (a GroupNorm folded into a per-(batch, column) affine; a
 // 128-row tile may span two batch elements, so each row carries its batch
 // slot). Requires C % 32 == 0; rows at or past M read as 0 and W rows past
 // the valid range read as 0.
@@ -38,17 +36,16 @@ constexpr size_t kOperandBytes = 4 * kTileBytes;                  // A and B, do
 constexpr size_t kStageBytes = static_cast<size_t>(kWarps) * 32 * kLdStage * 4;
 constexpr size_t kUnionBytes = kOperandBytes > kStageBytes ? kOperandBytes : kStageBytes;
 
-// `n_vec` fp32 vectors of length C follow the two per-row arrays.
-inline size_t smem_bytes(int C, int n_vec = 2) {
-  return kUnionBytes + 2 * kBM * sizeof(float) + static_cast<size_t>(n_vec) * C * sizeof(float);
+// `n_vec` fp32 vectors of length C follow the per-row array.
+inline size_t smem_bytes(int C, int n_vec) {
+  return kUnionBytes + kBM * sizeof(float) + static_cast<size_t>(n_vec) * C * sizeof(float);
 }
 
 struct Smem {
   bf16* a[2];
   bf16* b[2];
   float* stage;  // aliases the operand buffers after the main loop
-  float* row0;   // kBM per-row values (LN: μ; GN: batch slot, as int)
-  float* row1;   // kBM per-row values (LN: rstd)
+  float* row0;   // kBM per-row values (the batch slot, as int)
   float* vec;    // n_vec · C per-column values
 };
 
@@ -60,21 +57,9 @@ __device__ inline Smem carve(unsigned char* base) {
   s.b[1] = reinterpret_cast<bf16*>(base + 3 * kTileBytes);
   s.stage = reinterpret_cast<float*>(base);
   s.row0 = reinterpret_cast<float*>(base + kUnionBytes);
-  s.row1 = s.row0 + kBM;
-  s.vec = s.row1 + kBM;
+  s.vec = s.row0 + kBM;
   return s;
 }
-
-// LayerNorm: (x − μ_r)·rstd_r·lw_c + lb_c.
-struct LnNorm {
-  const float* mu;
-  const float* rstd;
-  const float* lw;
-  const float* lb;
-  __device__ float operator()(int r, int c, float x) const {
-    return (x - mu[r]) * rstd[r] * lw[c] + lb[c];
-  }
-};
 
 // Folded GroupNorm: x·w[slot_r, c] + b[slot_r, c], two slots of C columns.
 struct GnNorm {
@@ -87,43 +72,6 @@ struct GnNorm {
     return x * w[o] + b[o];
   }
 };
-
-// Per-row LN statistics of rows [row0, row0 + 128) and the LN affine, into
-// shared memory. Ends with __syncthreads().
-__device__ inline LnNorm ln_stats(const bf16* __restrict__ x, const float* __restrict__ lw,
-                                  const float* __restrict__ lb, int row0, int C, float eps,
-                                  const Smem& s) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* slw = s.vec;
-  float* slb = s.vec + C;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    slw[c] = lw[c];
-    slb[c] = lb[c];
-  }
-  for (int r = warp; r < kBM; r += kWarps) {
-    const bf16* xr = x + static_cast<size_t>(row0 + r) * C;
-    float s1 = 0.f, s2 = 0.f;
-    for (int c8 = lane; c8 < C / 8; c8 += 32) {
-      uint4 u = *reinterpret_cast<const uint4*>(xr + c8 * 8);
-      const bf16* e = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float f = __bfloat162float(e[i]);
-        s1 += f;
-        s2 += f * f;
-      }
-    }
-    s1 = warp_sum(s1);
-    s2 = warp_sum(s2);
-    if (lane == 0) {
-      const float mu = s1 / C;
-      s.row0[r] = mu;
-      s.row1[r] = rsqrtf(fmaxf(s2 / C - mu * mu, 0.f) + eps);
-    }
-  }
-  __syncthreads();
-  return LnNorm{s.row0, s.row1, slw, slb};
-}
 
 // The block's raw x chunk: 128 rows × 32 columns = 512 16-byte pieces,
 // two per thread. Rows at or past M read as zeros.

@@ -7,73 +7,87 @@
 //
 // What bounds it on the H100. At stage 0 (M = 32768, C = 320, three outputs)
 // it is 2·M·C·3C ≈ 20 GFLOP against 21 MB of x in and 63 MB out: about 240
-// FLOP per byte, just under the card's ≈295 balance point, so both the tensor
-// cores and the output write matter; at C = 1280 (M = 2048) it is firmly
-// compute-bound. Unfused, LayerNorm is its own read and write of x, and x̂
-// is read once more per projection.
+// FLOP per byte, just under the card's ≈295 balance point, so the output
+// write sets the bound (0.025 ms); at C = 640 and 1280 it is compute-bound.
+// Unfused, LayerNorm is its own read and write of x, and x̂ is read once
+// more per projection.
 //
-// Design: the LN-fused GEMM of ln_gemm.cuh (128 × 128 tiles, x normalized
-// on its way into shared memory, W through cp.async, WMMA bf16). Each block
-// takes one 128-column tile of one output; grid.y walks the tiles of all
-// outputs, so x̂ is recomputed from x per column tile (x stays in L2) rather
-// than written. N % 128 == 64 (C = 320, 640) leaves the last tile half
-// empty: its W rows read as zeros and its missing half is not stored.
-// Requires M % 128 == 0, C % 32 == 0, N % 64 == 0 (the wrapper checks).
-#include "ln_gemm.cuh"
+// Design: the LN-fused wgmma GEMM of ln_gemm_sm90.cuh (stats pass, TMA
+// ring, A normalized in registers). With three outputs a tile's B stacks 64
+// rows of each of W_q, W_k and W_v (three TMA boxes, m64n192k16), so each
+// normalized A fragment feeds all three outputs and x is normalized once
+// for q, k and v; every C % 64 == 0 splits into whole 64-column slices, so
+// C = 320 has no half-empty tile. Each output's 64 columns leave through
+// shared memory by TMA store. With one output the tile is 160 columns
+// (m64n160k16; 160 divides 320, 640 and 1280), stored from registers;
+// elsewhere TMA's zero fill covers the ragged last tile and its missing
+// columns are not stored.
+#include "ln_gemm_sm90.cuh"
 
 namespace psd {
 namespace {
 
-using namespace lngemm;
+using namespace lnsm90;
 
-__global__ void __launch_bounds__(kThreads)
-ln_proj_kernel(const bf16* __restrict__ x, const float* __restrict__ lw,
-               const float* __restrict__ lb, const bf16* w0, const bf16* w1,
-               const bf16* w2, bf16* o0, bf16* o1, bf16* o2, int C, int N, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem s = carve(smem);
-  const int row0 = blockIdx.x * kBM;
-  const int tiles_per_out = (N + kBN - 1) / kBN;
-  const int which = blockIdx.y / tiles_per_out;
-  const int n0 = (blockIdx.y % tiles_per_out) * kBN;
-  const bf16* W = which == 0 ? w0 : (which == 1 ? w1 : w2);
-  bf16* O = which == 0 ? o0 : (which == 1 ? o1 : o2);
+// Three outputs: accumulator column block jb (columns 8jb + 2·tig (+1)) is
+// output jb / 8's columns ct·64 + 8(jb % 8) + 2·tig (+1); each output's 64
+// columns are one box, stored by TMA.
+struct Proj3Epi {
+  static constexpr int kOutputs = 3;
 
-  const LnNorm norm = ln_stats(x, lw, lb, row0, C, eps, s);
-  Acc acc[2][4];
-  mainloop(
-      x, W, row0, gridDim.x * kBM, C, norm, [=](int t) { return n0 + t < N ? n0 + t : -1; },
-      [](int wc, int j) { return wc * 64 + j * 16; }, s, acc);
-  const float* st = stage_acc(s, acc);
+  __host__ __device__ static constexpr int out_map(int b) { return b; }
+  __device__ static int out_col(int ct, int) { return ct * 64; }
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp % 4, wc = warp / 4;
-  const int col0 = n0 + wc * 64;
-  if (col0 >= N) return;
-  const int c = lane * 2;
-  for (int r = 0; r < 32; ++r) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(st[r * kLdStage + c], st[r * kLdStage + c + 1]);
-    *reinterpret_cast<__nv_bfloat162*>(O + static_cast<size_t>(row0 + wr * 32 + r) * N + col0 + c) = v;
+  __device__ __forceinline__ void pack(const float (&acc)[96], int jb, int, int, uint32_t& lo,
+                                       uint32_t& hi) const {
+    lo = pack_bf16x2(acc[4 * jb], acc[4 * jb + 1]);
+    hi = pack_bf16x2(acc[4 * jb + 2], acc[4 * jb + 3]);
   }
-}
+};
+
+// One output: rows `row` and row + 8 of columns ct·160 + 8j + 2·tig (+1),
+// stored from registers (columns past N are not stored).
+struct Proj1Epi {
+  static constexpr int kOutputs = 1;
+  bf16* out;
+  int N;
+
+  __device__ __forceinline__ void store(const float (&acc)[80], int row, int ct, int tig) const {
+#pragma unroll
+    for (int j = 0; j < 20; ++j) {
+      const int col = ct * 160 + 8 * j + 2 * tig;
+      if (col < N) {
+        bf16* r0 = out + static_cast<size_t>(row) * N + col;
+        *reinterpret_cast<uint32_t*>(r0) = pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(r0 + 8 * static_cast<size_t>(N)) =
+            pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+  }
+};
 
 }  // namespace
 }  // namespace psd
 
 extern "C" int psd_ln_proj_fwd(const void* x, const void* ln_w, const void* ln_b,
                                const void* w0, const void* w1, const void* w2, void* o0,
-                               void* o1, void* o2, int n_out, int M, int C, int N,
+                               void* o1, void* o2, void* stats, int n_out, int M, int C, int N,
                                float eps, void* stream) {
   using namespace psd;
-  using namespace psd::lngemm;
-  const size_t bytes = smem_bytes(C);
-  cudaError_t err = allow_smem(ln_proj_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(M / kBM, n_out * ((N + kBN - 1) / kBN));
-  ln_proj_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(ln_w),
-      static_cast<const float*>(ln_b), static_cast<const bf16*>(w0),
-      static_cast<const bf16*>(w1), static_cast<const bf16*>(w2), static_cast<bf16*>(o0),
-      static_cast<bf16*>(o1), static_cast<bf16*>(o2), C, N, eps);
-  return static_cast<int>(cudaGetLastError());
+  using namespace psd::lnsm90;
+  const bf16* const w[3] = {static_cast<const bf16*>(w0), static_cast<const bf16*>(w1),
+                            static_cast<const bf16*>(w2)};
+  bf16* const o[3] = {static_cast<bf16*>(o0), static_cast<bf16*>(o1), static_cast<bf16*>(o2)};
+  const bf16* xp = static_cast<const bf16*>(x);
+  const float* lw = static_cast<const float*>(ln_w);
+  const float* lb = static_cast<const float*>(ln_b);
+  float2* sp = static_cast<float2*>(stats);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_out == 3)
+    return static_cast<int>(
+        launch<Kind::kProj3>(xp, lw, lb, w, o, Proj3Epi{}, sp, M, C, N, eps, st));
+  if (n_out == 1)
+    return static_cast<int>(
+        launch<Kind::kProj1>(xp, lw, lb, w, o, Proj1Epi{o[0], N}, sp, M, C, N, eps, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -65,10 +65,10 @@ _SIGNATURES = {
     # q, ka, va, kd, vd, kl, vl, out, B, S, H, D, Ka, Kd, Kl,
     # g_anat, g_dis, delta, scale, stream
     "psd_split3_fwd": [_P] * 8 + [_I] * 7 + [_F] * 4 + [_P],
-    # x, ln_w, ln_b, w0, w1, w2, o0, o1, o2, n_out, M, C, N, eps, stream
-    "psd_ln_proj_fwd": [_P] * 9 + [_I] * 4 + [_F, _P],
-    # x, ln_w, ln_b, w, b, out, M, C, N, eps, stream
-    "psd_ln_geglu_fwd": [_P] * 6 + [_I] * 3 + [_F, _P],
+    # x, ln_w, ln_b, w0, w1, w2, o0, o1, o2, stats, n_out, M, C, N, eps, stream
+    "psd_ln_proj_fwd": [_P] * 10 + [_I] * 4 + [_F, _P],
+    # x, ln_w, ln_b, w, b, out, stats, M, C, N, eps, stream
+    "psd_ln_geglu_fwd": [_P] * 7 + [_I] * 3 + [_F, _P],
 }
 
 

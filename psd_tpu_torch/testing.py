@@ -1,7 +1,8 @@
 """Helpers shared by the tests and chip_smoke.py: the tiny full-stack
 factory (the same shapes as `psd_tpu.testing.tiny_dadd()`: split3 routing,
 AOE, IP-Plus, purifier; fp32, seeded flax-style init), and the judges that
-hold a kernel's output to its plain version by relative L2 error."""
+hold a kernel's output to its plain version by relative L2 error
+(attention forward and backward, the LayerNorm-fused GEMMs)."""
 
 from __future__ import annotations
 
@@ -106,3 +107,35 @@ def attention_bwd_judge(grads, refs):
         texts.append(f"{name} {text}")
         readings.update({f"{name}_{k}": v for k, v in red.items()})
     return ok, "; ".join(texts), readings
+
+
+# The LayerNorm-fused GEMMs (ln_gemm_sm90.cuh: ln_proj_fwd's 1 or 3 outputs,
+# ln_geglu_fwd's one) against ln_proj_reference / ln_geglu_reference, bf16:
+# each output over the whole output and on its worst row (one row's N
+# columns). Both round x̂ and the outputs to bf16 and sum in other orders;
+# the plain GEGLU also rounds h and g to bf16 before the gate, where the
+# kernel keeps them in fp32. On an H100 the sound kernels read ≤ 4.4e-4 /
+# ≤ 3.0e-3 (ln_proj) and ≤ 3.47e-3 / ≤ 7.2e-3 (ln_geglu) at chip_smoke.py's
+# LN_SHAPES and edge inputs (rows of large mean included). Faults planted in
+# them (scripts/torch_ln_gemm_variants.py: the last K chunk dropped, row r
+# taking row r+1's statistics, the neighbour K chunk's LN affine, GEGLU's
+# gate from column j+8) read ≥ 4.7e-2 / ≥ 0.128 wherever they change an
+# output (PERF.md §6, the LayerNorm GEMMs' entry; emulated on the CPU by
+# tests/test_torch_kernels.py::test_ln_gemm_judge_sees_planted_faults). Both
+# bands sit between the sound readings and the faults'.
+LN_REL_L2_BAND, LN_ROW_BAND = 1e-2, 2e-2
+
+
+def ln_gemm_judge(outs, refs):
+    """rel_l2_judge of each output of an LN-fused GEMM (a tensor or a tuple
+    of them) against its plain version at the LN bands; readings are the
+    largest over the outputs."""
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    refs = refs if isinstance(refs, tuple) else (refs,)
+    ok, texts, worst = True, [], {"rel_l2": 0.0, "worst_row_rel": 0.0}
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        good, text, red = rel_l2_judge(o, r, LN_REL_L2_BAND, LN_ROW_BAND)
+        ok = ok and good and bool(torch.isfinite(o).all())
+        texts.append(text if len(outs) == 1 else f"out {i}: {text}")
+        worst = {k: max(worst[k], v) for k, v in red.items()}
+    return ok, "; ".join(texts), worst

@@ -3,7 +3,11 @@
 // 3-D (D, H, rows) maps with 64-column boxes and the 128-byte swizzle) and
 // O = P·V by wgmma_rs_tb<Dp> (P from registers, V MN-major from a TMA tile),
 // each written out in full for scripts/torch_wgmma_probe.py to hold against
-// fp32 torch.matmul. Built on its own with nvcc (not part of the kernels' library).
+// fp32 torch.matmul. And the LayerNorm GEMMs' product (ln_gemm_sm90.cuh):
+// D = X·Wᵀ by wgmma_rs<N>, the A fragments ldmatrix-ed from a swizzled
+// TMA tile of X (64 rows × 64 columns at K chunk kc), B K-major from N W
+// rows stacked as N/R boxes of R rows, rows past W's reading as zeros.
+// Built on its own with nvcc (not part of the kernels' library).
 #include "common.cuh"
 #include "hopper.cuh"
 using namespace psd;
@@ -112,5 +116,72 @@ extern "C" int probe_run(int DP, int BK, const void* q, const void* k, const voi
   if (DP == 128 && BK == 64) return run<128, 64>(q, k, v, P, S, O, H, D, h);
   if (DP == 128 && BK == 32) return run<128, 32>(q, k, v, P, S, O, H, D, h);
   if (DP == 160 && BK == 32) return run<160, 32>(q, k, v, P, S, O, H, D, h);
+  return -2;
+}
+
+
+template <int N, int R>
+__global__ void probe_rs_kernel(const __grid_constant__ CUtensorMap tx,
+                                const __grid_constant__ CUtensorMap tw, float* D, int kc) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* xs = smem;
+  unsigned char* ws = smem + 64 * 128;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ws + N * 128);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(bar, (64 + N) * 128);
+    tma_load_3d(xs, &tx, bar, kc * 64, 0, 0);
+    for (int i = 0; i < N / R; ++i) tma_load_3d(ws + i * R * 128, &tw, bar, kc * 64, 0, i * R);
+  }
+  mbar_wait(bar, 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, tig = lane & 3;
+  const uint32_t lrow = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
+  float d[N / 2];
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  uint32_t a[4][4];
+  for (int kk = 0; kk < 4; ++kk)
+    ldmatrix_x4(a[kk], smem_addr(xs) + lrow * 128 + (((2 * kk + (lane >> 4)) ^ (lane & 7)) << 4));
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<N>(d, a[kk], wgmma_desc(smem_addr(ws) + kk * 32, 16, 1024), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  for (int i = 0; i < N / 2; ++i) reg_fence(d[i]);
+  const int r0 = 16 * warp + g;
+  for (int j = 0; j < N / 8; ++j) {
+    D[r0 * N + 8 * j + 2 * tig] = d[4 * j];
+    D[r0 * N + 8 * j + 2 * tig + 1] = d[4 * j + 1];
+    D[(r0 + 8) * N + 8 * j + 2 * tig] = d[4 * j + 2];
+    D[(r0 + 8) * N + 8 * j + 2 * tig + 1] = d[4 * j + 3];
+  }
+}
+
+template <int N, int R>
+int run_rs(const void* x, const void* w, void* D, int C, int Nw, int kc) {
+  CUtensorMap tx, tw;
+  if (!bf16_rows_map(&tx, x, 64, 1, C, 64) || !bf16_rows_map(&tw, w, Nw, 1, C, R)) return -1;
+  const size_t smem = (64 + N) * 128 + 8 + 1024;
+  cudaError_t e = allow_smem(probe_rs_kernel<N, R>, smem);
+  if (e != cudaSuccess) return e;
+  probe_rs_kernel<N, R><<<1, 128, smem>>>(tx, tw, (float*)D, kc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return cudaDeviceSynchronize();
+}
+
+// x (64, C) and w (Nw, C) bf16; D (64, N) fp32 = x[:, 64kc:64kc+64] ·
+// w[:, 64kc:64kc+64]ᵀ with W rows past Nw as zeros.
+extern "C" int probe_rs_run(int N, int R, const void* x, const void* w, void* D, int C, int Nw,
+                            int kc) {
+  if (N == 160 && R == 160) return run_rs<160, 160>(x, w, D, C, Nw, kc);
+  if (N == 192 && R == 64) return run_rs<192, 64>(x, w, D, C, Nw, kc);
+  if (N == 256 && R == 128) return run_rs<256, 128>(x, w, D, C, Nw, kc);
   return -2;
 }

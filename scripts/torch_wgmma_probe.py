@@ -15,7 +15,11 @@ of every product in attention_narrow.cu and attention_bwd.cu: the tile is
 the forward's and the dQ pass's key tile, or the dK/dV pass's query tile,
 whose Q and dO take both roles. Each product is held
 to its fp32 torch.matmul (relative L2 ≤ 1e-5, the padding columns of O
-exactly 0). Prints the card's name and power limit; exits 1 if a probe
+exactly 0). Then the LayerNorm GEMMs' product `wgmma_rs<N>` (N = 160,
+192, 256) with its A fragments ldmatrix-ed from a swizzled TMA tile of X and
+B K-major from stacked boxes of W rows (RS_PROBES), against fp32
+torch.matmul at the same band, the zero-filled columns past W's rows
+exactly 0. Prints the card's name and power limit; exits 1 if a probe
 fails.
 """
 
@@ -38,6 +42,12 @@ PROBES = [(32, 64, 24), (32, 128, 32), (48, 64, 40), (48, 128, 40), (64, 64, 56)
           # 32 above, dQ key tiles of 64 at Dp 96 and 128
           (80, 64, 72), (96, 64, 88), (128, 64, 104), (128, 32, 104), (128, 32, 128),
           (160, 32, 136), (160, 32, 160)]
+# the LayerNorm GEMMs' wgmma_rs<N> (ln_gemm_sm90.cuh): (N, rows a box, W
+# rows, C, K chunk): every B tile the kernels stack (one 160-row box, three
+# of 64, two of 128), with W rows missing at the end (zero fill) and a K
+# chunk past the first
+RS_PROBES = [(160, 160, 160, 64, 0), (160, 160, 100, 192, 2), (192, 64, 192, 128, 1),
+             (192, 64, 136, 64, 0), (256, 128, 256, 320, 4), (256, 128, 200, 128, 1)]
 REL_BAND = 1e-5
 
 
@@ -82,7 +92,24 @@ def main() -> int:
         print(f"[probe] Dp {dp} tile {bk} D {d}: rc {rc}; S wgmma_ss<{bk}> rel L2 {s_rel:.3e}; "
               f"O wgmma_rs_tb<{dp}> rel L2 {o_rel:.3e}, padding columns max {pad:.3e} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
-    print(f"[probe] {failed} of {len(PROBES)} failed (band {REL_BAND:g})")
+    lib.probe_rs_run.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    lib.probe_rs_run.restype = ctypes.c_int
+    for n, r, nw, c, kc in RS_PROBES:
+        x = torch.randn((64, c), generator=g, device="cuda").bfloat16()
+        w = torch.randn((nw, c), generator=g, device="cuda").bfloat16()
+        d = torch.full((64, n), float("nan"), device="cuda")
+        rc = lib.probe_rs_run(n, r, x.data_ptr(), w.data_ptr(), d.data_ptr(), c, nw, kc)
+        cols = slice(64 * kc, 64 * kc + 64)
+        ref = x[:, cols].float() @ w[:, cols].float().T
+        rel = ((d[:, :nw] - ref).norm() / ref.norm()).item()
+        pad = d[:, nw:].abs().max().item() if n > nw else 0.0
+        ok = rc == 0 and rel <= REL_BAND and pad == 0.0
+        failed += not ok
+        print(f"[probe] wgmma_rs<{n}> B of {n // r} box(es) of {r} rows, W rows {nw}, C {c}, "
+              f"K chunk {kc}: rc {rc}; rel L2 {rel:.3e}, zero-filled columns max {pad:.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+    n_all = len(PROBES) + len(RS_PROBES)
+    print(f"[probe] {failed} of {n_all} failed (band {REL_BAND:g})")
     return 1 if failed else 0
 
 
