@@ -515,18 +515,6 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   }
 }
 
-// The SMs of the current device, looked up once: the passes' grids.
-inline int sm_count() {
-  static const int n = [] {
-    int dev = 0, sms = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      return 0;
-    return sms;
-  }();
-  return n;
-}
-
 template <int DP>
 cudaError_t launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* out,
                        const bf16* dout, const float* lse, float* delta, bf16* dq, bf16* dk,

@@ -5,13 +5,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace psd {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -27,19 +25,6 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
-}
-
-// Copy `rows` rows of one head (row stride H·D in global memory) into a
-// shared tile with row stride ld, zero-filling columns D..Dp.
-__device__ inline void load_rows(const bf16* __restrict__ src, size_t row_stride,
-                                 int rows, int D, int dp, bf16* dst, int ld) {
-  const int chunks = dp / 8;
-  for (int idx = threadIdx.x; idx < rows * chunks; idx += blockDim.x) {
-    const int r = idx / chunks, c = (idx % chunks) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (c < D) v = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * ld + c) = v;
-  }
 }
 
 // mma.sync m16n8k16, bf16 operands, fp32 accumulate, in place: d += a·b.
@@ -60,10 +45,6 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, co
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r0), "=r"(r1)
                : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // Two floats rounded to bf16 and packed into one register, lo in the low half.

@@ -16,73 +16,47 @@
 // and 1280 (M = 8192, 2048) compute-bound. Unfused, the affine is its own
 // read and write of x.
 //
-// Design: the normalization-fused GEMM of ln_gemm.cuh (128 × 128 tiles, x
-// transformed on its way into shared memory, W through cp.async, WMMA bf16)
-// with GnNorm as the transform. A 128-row tile covers at most two batch
-// elements (S % 64 == 0, so S ≥ 64; at the mid block S = 64): the prologue
-// stages both batches' affines and a batch slot per row (row / S), and each
-// element looks its affine up by its row's slot, never once per tile. The
-// last tile may be half full (B·S % 128 == 64): its missing rows read as 0
-// and are not stored. N % 128 == 64 (C = 320; 640 = 5·128) leaves the
-// last column tile half empty. Requires S % 64 == 0, C % 32 == 0,
-// N % 64 == 0 (the wrapper checks).
-#include "ln_gemm.cuh"
+// Design: Kind::kGn of the normalization-fused wgmma GEMM of
+// ln_gemm_sm90.cuh (no stats pass; persistent, TMA ring, x transformed in
+// the A registers). Each stage brings the K chunk's w and b of both batch
+// elements a 128-row tile can cover (S % 64 == 0, so S ≥ 64: at the mid
+// block S = 64 every tile straddles two), and each row picks its own by
+// its batch slot. B is a 192-row slice of W (m64n192); the epilogue adds
+// the fp32 bias and the bf16 tile leaves through shared memory by TMA
+// stores under the next tile's products (stores from registers of
+// 160-column tiles measured 17–81% slower on an H100,
+// scripts/torch_ln_gemm_variants.py gn_register_store). A half-full last
+// row tile (B·S % 128 == 64: B odd, S % 128 == 64) reads zeros past M
+// through TMA and its stores write none of its missing rows. Requires
+// S % 64 == 0, C % 64 == 0, N % 8 == 0 (ops/gnproj.py::gn_shape_error).
+#include "ln_gemm_sm90.cuh"
 
 namespace psd {
 namespace {
 
-using namespace lngemm;
+using namespace lnsm90;
 
-__global__ void __launch_bounds__(kThreads)
-gn_proj_kernel(const bf16* __restrict__ x, const float* __restrict__ gw,
-               const float* __restrict__ gb, const bf16* __restrict__ w,
-               const float* __restrict__ bias, bf16* __restrict__ out, int B, int S, int C,
-               int N) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem s = carve(smem);
-  const int M = B * S;
-  const int row0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
+// Output column block jb (columns ct·192 + 8jb + 2·tig (+1)) of rows g and
+// g + 8 as packed bf16, with the fp32 bias; a tile's 192 columns are three
+// 64-column boxes, stored by TMA (columns past N and rows past M are not
+// written).
+struct GnEpi {
+  static constexpr int kOutputs = 1;
+  const float* bias;
+  int N;
 
-  // prologue: batch slot per row, and the affines of the (at most two)
-  // batch elements the tile covers
-  const int b0 = row0 / S;
-  int* slot = reinterpret_cast<int*>(s.row0);
-  for (int r = threadIdx.x; r < kBM; r += kThreads) {
-    const int bb = min((row0 + r) / S, B - 1);
-    slot[r] = bb - b0;
+  __host__ __device__ static constexpr int out_map(int) { return 0; }
+  __device__ static int out_col(int ct, int b) { return ct * 192 + 64 * b; }
+
+  __device__ __forceinline__ void pack(const float (&acc)[96], int jb, int ct, int tig,
+                                       uint32_t& lo, uint32_t& hi) const {
+    const int col = ct * 192 + 8 * jb + 2 * tig;
+    const float2 bb =
+        col < N ? __ldg(reinterpret_cast<const float2*>(bias + col)) : make_float2(0.f, 0.f);
+    lo = pack_bf16x2(acc[4 * jb] + bb.x, acc[4 * jb + 1] + bb.y);
+    hi = pack_bf16x2(acc[4 * jb + 2] + bb.x, acc[4 * jb + 3] + bb.y);
   }
-  float* sw = s.vec;
-  float* sb = s.vec + 2 * C;
-  for (int i = threadIdx.x; i < 2 * C; i += kThreads) {
-    const int bb = min(b0 + i / C, B - 1);
-    const int c = i % C;
-    sw[i] = gw[static_cast<size_t>(bb) * C + c];
-    sb[i] = gb[static_cast<size_t>(bb) * C + c];
-  }
-  __syncthreads();
-  const GnNorm norm{slot, sw, sb, C};
-
-  Acc acc[2][4];
-  mainloop(
-      x, w, row0, M, C, norm, [=](int t) { return n0 + t < N ? n0 + t : -1; },
-      [](int wc, int j) { return wc * 64 + j * 16; }, s, acc);
-  const float* st = stage_acc(s, acc);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp % 4, wc = warp / 4;
-  const int col0 = n0 + wc * 64;
-  if (col0 >= N) return;
-  const int c = lane * 2;
-  const float bias0 = bias[col0 + c], bias1 = bias[col0 + c + 1];
-  for (int r = 0; r < 32; ++r) {
-    const int row = row0 + wr * 32 + r;
-    if (row >= M) break;
-    const __nv_bfloat162 v = __floats2bfloat162_rn(st[r * kLdStage + c] + bias0,
-                                                   st[r * kLdStage + c + 1] + bias1);
-    *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(row) * N + col0 + c) = v;
-  }
-}
+};
 
 }  // namespace
 }  // namespace psd
@@ -91,15 +65,12 @@ extern "C" int psd_gn_proj_fwd(const void* x, const void* gw, const void* gb, co
                                const void* bias, void* out, int B, int S, int C, int N,
                                void* stream) {
   using namespace psd;
-  using namespace psd::lngemm;
-  const size_t bytes = smem_bytes(C, 4);
-  cudaError_t err = allow_smem(gn_proj_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  using namespace psd::lnsm90;
+  const bf16* const ws[3] = {static_cast<const bf16*>(w), nullptr, nullptr};
+  bf16* const outs[3] = {static_cast<bf16*>(out), nullptr, nullptr};
   const int M = B * S;
-  dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  gn_proj_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(gw),
-      static_cast<const float*>(gb), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), B, S, C, N);
-  return static_cast<int>(cudaGetLastError());
+  const GnEpi epi{static_cast<const float*>(bias), N};
+  return static_cast<int>(launch<Kind::kGn>(
+      static_cast<const bf16*>(x), static_cast<const float*>(gw), static_cast<const float*>(gb),
+      ws, outs, epi, nullptr, M, C, N, 0.f, static_cast<cudaStream_t>(stream), S));
 }

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives as raw PTX: TMA tile loads and bulk copies
 // completed on mbarriers, TMA tile stores in bulk groups, the mbarrier
 // itself, named barriers, the wgmma shared-memory descriptor for 128-byte
-// swizzled tiles with its fence / commit / wait, ldmatrix / stmatrix, and
-// setmaxnreg. Host side: a 128B-swizzled bf16 tensor
+// swizzled tiles with its fence / commit / wait, ldmatrix / stmatrix, 32-bit
+// shared loads and stores, and
+// setmaxnreg. Host side: the SM count, and a 128B-swizzled bf16 tensor
 // map, encoded through the driver entry point the runtime hands out (the
 // library links no -lcuda).
 #pragma once
@@ -203,6 +204,25 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t saddr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(saddr));
+}
+
+// Two 8 × 8 bf16 matrices from shared memory, transposed: lanes 0-15 give
+// the row addresses; thread 4·g + tig gets column g, rows 2·tig (+1) of
+// each, in r[i] (the mma.m16n8k16 B fragment of a K-major tile).
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], uint32_t saddr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(saddr));
+}
+
+__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t saddr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(saddr));
+  return v;
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t saddr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(saddr), "r"(v) : "memory");
 }
 
 template <>
@@ -574,7 +594,20 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&
 }
 
 
-// ---- host: tensor maps -------------------------------------------------------------
+// ---- host: the SM count, tensor maps ----------------------------------------------
+
+// The SMs of the current device, looked up once: persistent kernels' grids.
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    return sms;
+  }();
+  return n;
+}
+
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,

@@ -252,6 +252,17 @@ def ln_fused_ok(x) -> bool:
     return (x.shape[0] * x.shape[1]) % 512 == 0 and x.shape[-1] % 64 == 0
 
 
+def gn_proj_ok(S: int, C: int) -> bool:
+    """Shape gate of the fused GroupNorm → proj_in kernel, any batch
+    (psd_tpu/models/layers.py:570-583 on one device)."""
+    return S % 64 == 0 and C % 64 == 0
+
+
+def split3_kernel_ok(S: int) -> bool:
+    """Shape gate of the split3 kernel (psd_tpu/models/layers.py:449)."""
+    return S >= 256 and S % 128 == 0
+
+
 class Attention(nn.Module):
     """Multi-head attention; self-attention when `context` is None.
 
@@ -312,7 +323,7 @@ class Attention(nn.Module):
                 (dis_tok, self.to_k_dis), (dis_tok, self.to_v_dis),
                 (delta_tok, self.to_k_dis), (delta_tok, self.to_v_dis)))
             ds = 0.0 if delta_scale is None else float(delta_scale)
-            if S >= 256 and S % 128 == 0 and use_kernel("split3"):
+            if split3_kernel_ok(S) and use_kernel("split3"):
                 z = split3_attention(q.contiguous(), *banks, ds, m.anat_gate, m.dis_gate)
             else:
                 z_anat = dot_product_attention(q, banks[0], banks[1])
@@ -388,7 +399,7 @@ class Transformer2D(nn.Module):
     def forward(self, x, context, delta_scale=None):
         B, H, W, C = x.shape
         S = H * W
-        if S % 64 == 0 and C % 64 == 0 and use_kernel("gn_proj"):
+        if gn_proj_ok(S, C) and use_kernel("gn_proj"):
             # folded GroupNorm affine + proj_in as one kernel (layers.py:835-857)
             n = self.norm
             w, b = group_norm_fold(x, n.weight, n.bias, n.num_groups, n.eps)

@@ -63,8 +63,9 @@ _SIGNATURES = {
     # x, gn_w, gn_b, w, bias, out, B, S, C, N, stream
     "psd_gn_proj_fwd": [_P] * 6 + [_I] * 4 + [_P],
     # q, ka, va, kd, vd, kl, vl, out, B, S, H, D, Ka, Kd, Kl,
-    # g_anat, g_dis, delta, scale, stream
-    "psd_split3_fwd": [_P] * 8 + [_I] * 7 + [_F] * 4 + [_P],
+    # g_anat, g_dis, delta, scale, rows, heads, stages, blocks an SM
+    # (split3_plan), stream
+    "psd_split3_fwd": [_P] * 8 + [_I] * 7 + [_F] * 4 + [_I] * 4 + [_P],
     # x, ln_w, ln_b, w0, w1, w2, o0, o1, o2, stats, n_out, M, C, N, eps, stream
     "psd_ln_proj_fwd": [_P] * 10 + [_I] * 4 + [_F, _P],
     # x, ln_w, ln_b, w, b, out, stats, M, C, N, eps, stream

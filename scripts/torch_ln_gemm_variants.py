@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Variants of the LayerNorm-fused GEMMs (`psd_tpu_torch/csrc/ln_gemm_sm90.cuh`,
-`ln_proj.cu`, `ln_geglu.cu`) on one NVIDIA GPU (H100): where their time goes,
-and whether `ln_gemm_judge` sees planted faults.
+"""Variants of the normalization-fused GEMMs (`psd_tpu_torch/csrc/ln_gemm_sm90.cuh`,
+`ln_proj.cu`, `ln_geglu.cu`, `gn_proj.cu`) on one NVIDIA GPU (H100): where
+their time goes, and whether `ln_gemm_judge` and `gn_proj_judge` see planted
+faults.
 
     python3 scripts/torch_ln_gemm_variants.py                       # every variant
     python3 scripts/torch_ln_gemm_variants.py d_no_norm fault_gate_shift
@@ -19,15 +20,16 @@ drift within the call) and each `--tree` run one after another, each in its
 own process (with `--rounds N`, N rounds, every other one in reverse
 order), at chip_smoke.py's LN_SHAPES with seeded inputs drawn as
 chip_smoke.py draws them: ln_proj with three and with one output and
-ln_geglu, each timed on the device (10 calls captured in one CUDA graph,
+ln_geglu; then gn_proj at chip_smoke.py's GN_SHAPES and at (3, 64, 1280),
+where the last row tile is half full; each timed on the device (10 calls captured in one CUDA graph,
 replayed; CUDA events, median of 10 replays) and eagerly (one call between
 CUDA events, median of 20, the wrapper's host time included: the card
 idles while the host prepares the launch) and on the host clock (the
 wrapper's own time, after a synchronize, median of 20), and held to its plain version by
 relative L2 over each output and on its worst row, against
-`ln_gemm_judge`'s bands. Prints ptxas's registers, spills and
-"Performance Loss" notes of the LayerNorm kernels, and the card's name and
-power limit.
+`ln_gemm_judge`'s bands (gn_proj: `gn_proj_judge`'s). Prints ptxas's
+registers, spills and "Performance Loss" notes of the GEMM kernels, and the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -47,23 +49,24 @@ from torch_attention_variants import _in, _rep, compile_tree  # noqa: E402
 
 HDR = "psd_tpu_torch/csrc/ln_gemm_sm90.cuh"
 GEGLU = "psd_tpu_torch/csrc/ln_geglu.cu"
+GN = "psd_tpu_torch/csrc/gn_proj.cu"
 OUT = ROOT / "build" / "psd_tpu_torch" / "ln_variants"
 SHAPES = [(32768, 320), (8192, 640), (2048, 1280), (512, 1280)]
+GN_SHAPES = [(8, 4096, 320), (8, 1024, 640), (8, 256, 1280), (8, 64, 1280), (3, 64, 1280)]
 
 _PRODUCT = "          wgmma_rs<BN>(acc, a[kk], wgmma_desc(bs + kk * 32, 16, 1024), 1);\n"
 _PACK = ("  return pack_bf16x2(fmaf((lo - st.x) * st.y, w.x, b.x), "
          "fmaf((hi - st.x) * st.y, w.y, b.y));\n")
-_STATS_READ = "      const float2 st0 = stats[row], st1 = stats[row + 8];\n"
+_STATS_READ = "        st0 = stats[row];\n        st1 = stats[row + 8];\n"
 _EXPECT = "          mbar_arrive_expect_tx(&full[s], T::kStageBytes);\n"
-_STATS_LAUNCH = "  ln_stats_kernel<<<(M + 7) / 8, 256, 0, st>>>(x, stats, M, C, eps);\n"
+_STATS_LAUNCH = "    ln_stats_kernel<<<(M + 7) / 8, 256, 0, st>>>(x, stats, M, C, eps);\n"
 _GRID = "<<<std::min(n_tiles, sm_count()), kThreads, T::kSmemBytes, st>>>("
 _EPILOGUE = "      if constexpr (T::kOutBoxes == 0) {\n"
 _NO_EPILOGUE = "      if (n_k > 0) continue;\n      if constexpr (T::kOutBoxes == 0) {\n"
 # the statistics in each tile's prologue instead of a pass of their own: the
 # four lanes of a row pair sum every fourth 16-byte chunk of rows `row` and
 # row + 8 from device memory (x reaches the kernel in the `stats` argument)
-_STATS_IN_BLOCK = '''      float2 st0, st1;
-      {
+_STATS_IN_BLOCK = '''      {
         const bf16* xg = reinterpret_cast<const bf16*>(stats);
         float s[4] = {0.f, 0.f, 0.f, 0.f};
         for (int c8 = tig; c8 < C / 8; c8 += 4) {
@@ -90,62 +93,6 @@ _STATS_IN_BLOCK = '''      float2 st0, st1;
         st1 = make_float2(m1, rsqrtf(fmaxf(s[3] / C - m1 * m1, 0.f) + 1e-5f));
       }
 '''
-_LOOP_START = "acc[i] = 0.f;\n      for (int k = 0; k < n_k; ++k, ++seq) {\n"
-_LOOP_END = ("        if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s\n"
-             "      }\n")
-# the A fragments in two buffers: chunk k's products are issued from one
-# while chunk k + 1 is normalized into the other; wgmma_wait<1> first makes
-# sure chunk k − 1's products, which read that buffer, have completed
-_DOUBLE_BUFFER = """      auto normalize = [&](int sq, uint32_t(&a)[kBK / 16][4]) {
-        const int s = sq % ST;
-        mbar_wait(&full[s], (sq / ST) & 1);
-        const uint32_t xs = smem_addr(smem) + s * T::kTileBytes;
-        const float2* vw = reinterpret_cast<const float2*>(smem + T::kOffVec + s * kVecBytes);
-        const float2* vb = vw + kBK / 2;
-#pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk) {
-          ldmatrix_x4(a[kk], xs + xoff + (((2 * kk + khalf) ^ sw) << 4));
-          const int cp = 8 * kk + tig;
-          const float2 w0 = vw[cp], w1 = vw[cp + 4], b0 = vb[cp], b1 = vb[cp + 4];
-          a[kk][0] = ln_pack(a[kk][0], st0, w0, b0);
-          a[kk][1] = ln_pack(a[kk][1], st1, w0, b0);
-          a[kk][2] = ln_pack(a[kk][2], st0, w1, b1);
-          a[kk][3] = ln_pack(a[kk][3], st1, w1, b1);
-        }
-      };
-      auto release = [&](int sq) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[sq % ST]);
-      };
-      uint32_t a0[kBK / 16][4], a1[kBK / 16][4];
-      auto step = [&](int k, const uint32_t(&cur)[kBK / 16][4], uint32_t(&nxt)[kBK / 16][4]) {
-        const uint32_t bs = smem_addr(smem) + ((seq + k) % ST) * T::kTileBytes + kXBytes;
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk)
-          wgmma_rs<BN>(acc, cur[kk], wgmma_desc(bs + kk * 32, 16, 1024), 1);
-        wgmma_commit();
-        wgmma_wait<1>();
-        if (k > 0) release(seq + k - 1);
-        if (k + 1 < n_k) normalize(seq + k + 1, nxt);
-      };
-      normalize(seq, a0);
-      for (int k = 0; k < n_k; k += 2) {
-        step(k, a0, a1);
-        if (k + 1 < n_k) step(k + 1, a1, a0);
-      }
-      wgmma_wait<0>();
-      release(seq + n_k - 1);
-      seq += n_k;
-"""
-
-
-def _double_buffer(s: str) -> str:
-    i = s.index(_LOOP_START)
-    j = s.index(_LOOP_END, i) + len(_LOOP_END)
-    return s[:i] + "acc[i] = 0.f;\n" + _DOUBLE_BUFFER + s[j:]
-
-
 PROJ = "psd_tpu_torch/csrc/ln_proj.cu"
 # ln_geglu's and ln_proj's three-output epilogues from registers: each
 # thread stores its bf16 pairs straight to device memory (4-byte stores,
@@ -185,7 +132,8 @@ _PROJ3_STORE = """  static constexpr int kOutputs = 3;
   }"""
 _DIRECT_STORE = [
     (HDR, _rep("kStages = 3, kOutBoxes = 2;", "kStages = 3, kOutBoxes = 0;")),
-    (HDR, _rep("kStages = 4, kOutBoxes = 3;", "kStages = 4, kOutBoxes = 0;")),
+    (HDR, _rep("kSliceRows = 64, kStages = 4, kOutBoxes = 3;",
+               "kSliceRows = 64, kStages = 4, kOutBoxes = 0;")),
     (GEGLU, _rep("  __host__ __device__ static constexpr int out_map(int) { return 0; }",
                  _GEGLU_STORE)),
     (GEGLU, _rep("GegluEpi epi{static_cast<const float*>(b), N};",
@@ -199,6 +147,39 @@ def _edits(path: str, *edits):
     return [(path, e) for e in edits]
 
 
+# gn_proj's B tile 160 W rows, its epilogue storing bf16 pairs (bias
+# added) from registers, rows past M and columns past N left out; the ring
+# 6 deep, as ln_proj's one output
+_GN_STORE = """  const float* bias;
+  int N;
+  bf16* out;
+  int M;
+
+  __device__ __forceinline__ void store(const float (&acc)[80], int row, int ct, int tig) const {
+#pragma unroll
+    for (int j = 0; j < 20; ++j) {
+      const int col = ct * 160 + 8 * j + 2 * tig;
+      if (col < N) {
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col));
+        bf16* r0 = out + static_cast<size_t>(row) * N + col;
+        if (row < M)
+          *reinterpret_cast<uint32_t*>(r0) = pack_bf16x2(acc[4 * j] + bb.x, acc[4 * j + 1] + bb.y);
+        if (row + 8 < M)
+          *reinterpret_cast<uint32_t*>(r0 + 8 * static_cast<size_t>(N)) =
+              pack_bf16x2(acc[4 * j + 2] + bb.x, acc[4 * j + 3] + bb.y);
+      }
+    }
+  }
+"""
+_GN_REGISTER_STORE = [
+    (HDR, _rep("kSlices = 1, kSliceRows = 192, kStages = 4, kOutBoxes = 3;",
+               "kSlices = 1, kSliceRows = 160, kStages = 6, kOutBoxes = 0;")),
+    (GN, _rep("  const float* bias;\n  int N;\n", _GN_STORE)),
+    (GN, _rep("GnEpi epi{static_cast<const float*>(bias), N};",
+              "GnEpi epi{static_cast<const float*>(bias), N, static_cast<bf16*>(out), M};")),
+]
+
+
 # name → (what it tests, [(source, edit), ...])
 VARIANTS = {
     "not_persistent": ("a block for each tile (the grid of tiles), not one an SM",
@@ -206,17 +187,19 @@ VARIANTS = {
     "stats_in_block": ("the statistics in each tile's prologue, no stats pass",
                        _edits(HDR, _rep(_STATS_READ, _STATS_IN_BLOCK),
                               _rep(_STATS_LAUNCH, ""),
-                              _rep("      maps, stats, lw, lb, epi, M, C, N);",
+                              _rep("      maps, stats, lw, lb, epi, M, C, N, S);",
                                    "      maps, reinterpret_cast<const float2*>(x), lw, lb, epi, "
-                                   "M, C, N);"))),
+                                   "M, C, N, S);"))),
     "direct_store": ("ln_geglu's and ln_proj's three-output epilogues stored from registers, "
                      "not staged for TMA stores", _DIRECT_STORE),
-    "double_buffer": ("two A buffers: chunk k + 1 normalized while chunk k's products run",
-                      _edits(HDR, _double_buffer)),
-    "stages_minus1": ("every ring one stage shallower (3/4/6 as built: 2/3/5)",
+    "stages_minus1": ("every ring one stage shallower (3/4/6/4 as built: 2/3/5/3)",
                       _edits(HDR, _rep("kSliceRows = 128, kStages = 3,", "kSliceRows = 128, kStages = 2,"),
                              _rep("kSliceRows = 64, kStages = 4,", "kSliceRows = 64, kStages = 3,"),
-                             _rep("kSliceRows = 160, kStages = 6,", "kSliceRows = 160, kStages = 5,"))),
+                             _rep("kSliceRows = 160, kStages = 6,", "kSliceRows = 160, kStages = 5,"),
+                             _rep("kSliceRows = 192, kStages = 4,", "kSliceRows = 192, kStages = 3,"))),
+    "gn_register_store": ("gn_proj on 160-column tiles (m64n160) stored from registers, not "
+                          "192-column tiles whose bf16 output leaves by stmatrix and TMA stores",
+                          _GN_REGISTER_STORE),
     # diagnostics: each removes one piece of work; the outputs are wrong on purpose
     "d_no_launch": ("diagnostic: the wrapper alone (no tensor map encoded, no launch)",
                     _edits(HDR, _rep("  Maps maps{};\n", "  if (true) return cudaSuccess;\n"
@@ -225,9 +208,9 @@ VARIANTS = {
                     _edits(HDR, _rep("  cudaError_t err = allow_smem(",
                                      "  if (true) return cudaSuccess;\n  cudaError_t err = allow_smem("))),
     "d_stats_only": ("diagnostic: the stats pass alone (the GEMM not launched)",
-                     _edits(HDR, _rep("  const int n_tiles = (M / kBM) * ((N",
+                     _edits(HDR, _rep("  const int n_tiles = ((M + kBM - 1) / kBM) * ((N",
                                       "  if (true) return cudaGetLastError();\n"
-                                      "  const int n_tiles = (M / kBM) * ((N"))),
+                                      "  const int n_tiles = ((M + kBM - 1) / kBM) * ((N"))),
     "d_gemm_only": ("diagnostic: the GEMM alone (the stats pass not launched)",
                     _edits(HDR, _rep(_STATS_LAUNCH, ""))),
     "d_no_norm": ("diagnostic: x enters the products raw (no LayerNorm arithmetic)",
@@ -250,14 +233,28 @@ VARIANTS = {
                                                + _PRODUCT))),
     "fault_neighbour_stats": ("fault: row r takes row r+1's statistics",
                               _edits(HDR, _rep(_STATS_READ,
-                                               "      const float2 st0 = stats[(row + 1) % M], "
-                                               "st1 = stats[(row + 9) % M];\n"))),
+                                               "        st0 = stats[(row + 1) % M];\n"
+                                               "        st1 = stats[(row + 9) % M];\n"))),
     "fault_gate_shift": ("fault: GEGLU gates h column j with g column j+8 of its tile",
                          _edits(GEGLU, _rep("const int h = 4 * jb, g = 4 * (jb + 16);",
                                             "const int h = 4 * jb, g = 4 * ((jb + 1) % 16 + 16);"))),
     "fault_neighbour_affine": ("fault: K chunk k takes chunk k+1's LN affine",
                                _edits(HDR, _rep("lw + k * kBK,", "lw + ((k + 1) % n_k) * kBK,"),
                                       _rep("lb + k * kBK,", "lb + ((k + 1) % n_k) * kBK,"))),
+    "fault_gn_neighbour_slot": ("fault: gn_proj's rows take the other batch slot's affine "
+                                "(the neighbour element's, where a tile straddles two)",
+                                _edits(HDR, _rep("sl0 = (row / S - b0) * kBK;",
+                                                 "sl0 = (1 - (row / S - b0)) * kBK;"),
+                                       _rep("sl1 = ((row + 8) / S - b0) * kBK;",
+                                            "sl1 = (1 - ((row + 8) / S - b0)) * kBK;"))),
+    "fault_gn_drop_bias": ("fault: gn_proj's epilogue drops the bias",
+                           _edits(GN, _rep("col < N ? __ldg(reinterpret_cast<const float2*>(bias + "
+                                           "col)) : make_float2(0.f, 0.f);",
+                                           "make_float2(0.f, 0.f);"))),
+    "fault_gn_ragged_unwritten": ("fault: a half-full last row tile's stores are not issued",
+                                  _edits(HDR, _rep("        if (leader) {\n",
+                                                   "        if (leader && (t / n_ct + 1) * kBM <= M) {"
+                                                   "\n"))),
 }
 
 
@@ -274,9 +271,9 @@ def make_tree(name: str) -> Path:
 
 
 def ptxas(text: str) -> str:
-    """Registers, spills and Performance Loss notes of the LN kernels."""
+    """Registers, spills and Performance Loss notes of the GEMM kernels."""
     found, name, spill = [], None, "?"
-    kinds = {"0": "proj1", "1": "proj3", "2": "geglu"}
+    kinds = {"0": "proj1", "1": "proj3", "2": "geglu", "3": "gn"}
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '\w*?ln_gemm_kernelILN\w*?KindE(\d)E", line)
         if m:
@@ -381,6 +378,18 @@ for M, C in shapes:
     res.append(row)
     del x, w0
     torch.cuda.empty_cache()
+from psd_tpu_torch.ops import gnproj
+for B, S, C in {gn_shapes!r}:
+    x = randn(B, S, C)
+    gw = 1.0 + randn(B, C, std=0.1, dtype=torch.float32)
+    gb = randn(B, C, std=0.1, dtype=torch.float32)
+    w = randn(C, C, std=C ** -0.5)
+    bias = randn(C, std=0.02, dtype=torch.float32)
+    row = {{"kernel": "gn_proj", "shape": [B, S, C]}}
+    row["judge"] = rel(gnproj.gn_proj_fwd(x, gw, gb, w, bias),
+                       gnproj.gn_proj_reference(x, gw, gb, w, bias))
+    row["ms"] = timed(lambda: gnproj.gn_proj_fwd(x, gw, gb, w, bias))
+    res.append(row)
 print(json.dumps(res))
 '''
 
@@ -388,7 +397,7 @@ print(json.dumps(res))
 def time_tree(root: Path):
     """The timing rows of one tree, or the tail of its error output."""
     try:
-        res = _in(root, _TIME_ONE.format(shapes=SHAPES), 300)
+        res = _in(root, _TIME_ONE.format(shapes=SHAPES, gn_shapes=GN_SHAPES), 300)
     except subprocess.TimeoutExpired:
         return "timed out after 300 s"
     if res.returncode != 0:
@@ -409,7 +418,7 @@ def main() -> int:
     import torch
 
     sys.path.insert(0, str(ROOT))
-    from psd_tpu_torch.testing import LN_REL_L2_BAND, LN_ROW_BAND
+    from psd_tpu_torch.testing import GN_REL_L2_BAND, GN_ROW_BAND, LN_REL_L2_BAND, LN_ROW_BAND
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_ln_gemm_variants.py: needs an NVIDIA GPU")
@@ -438,7 +447,9 @@ def main() -> int:
 
         def judged(r):
             rel, row, finite = r["judge"]
-            ok = finite and rel <= LN_REL_L2_BAND and row <= LN_ROW_BAND
+            bands = (GN_REL_L2_BAND, GN_ROW_BAND) if r["kernel"] == "gn_proj" else (
+                LN_REL_L2_BAND, LN_ROW_BAND)
+            ok = finite and rel <= bands[0] and row <= bands[1]
             eager, device, host = r["ms"]
             return (f"{r['kernel']} {tuple(r['shape'])} {device:.4f} ms device, {eager:.4f} eager, "
                     f"{host:.4f} host ({rel:.3e}/{row:.3e} {'pass' if ok else 'FAIL'})")

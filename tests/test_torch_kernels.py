@@ -70,12 +70,18 @@ def test_attention_routing_follows_psd_tpu(shape, route):
     assert attention.kernel_route(q, q) == route
 
 
-@pytest.mark.parametrize("delta", [0.0, 1.3])
-def test_split3_matches_pallas_interpret(delta):
-    rng = _rng(int(delta * 10))
-    B, S, H, D, K = 2, 256, 2, 40, 16
+@pytest.mark.parametrize("delta,lens,S", [
+    pytest.param(0.0, (16, 16, 16), 256, id="0.0"),
+    pytest.param(1.3, (16, 16, 16), 256, id="1.3"),
+    pytest.param(-1.5, (4, 16, 7), 384, id="unequal_banks_S384"),
+])
+def test_split3_matches_pallas_interpret(delta, lens, S):
+    """Banks of 16 tokens each, and banks of unequal lengths at S = 384
+    (three 128-row Pallas blocks)."""
+    rng = _rng(int(delta * 10) + sum(lens))
+    B, H, D = 2, 2, 40
     q = rng.standard_normal((B, S, H, D)).astype(np.float32)
-    banks = [rng.standard_normal((B, K, H, D)).astype(np.float32) for _ in range(6)]
+    banks = [rng.standard_normal((B, n, H, D)).astype(np.float32) for n in lens for _ in range(2)]
     ref = np.asarray(split3_attention(jnp.asarray(q), *map(jnp.asarray, banks),
                                       jnp.float32(delta), 0.9, 0.2, None, 128, True))
     out = split3.split3_fwd(_t(q), *map(_t, banks), delta, 0.9, 0.2).numpy()
@@ -125,12 +131,17 @@ def test_ln_reference_is_flax_fast_variance():
     assert torch.isfinite(y).all()
 
 
-@pytest.mark.parametrize("S,C,N", [(64, 64, 64), (256, 64, 128), (128, 128, 64)])
-def test_gn_proj_matches_pallas_interpret(S, C, N):
-    """B = 2. S = 64 is the mid-block case, where a 128-row tile of the
-    CUDA kernel spans both batch elements."""
-    rng = _rng(S + C + N)
-    B = 2
+@pytest.mark.parametrize("B,S,C,N", [
+    pytest.param(2, 64, 64, 64, id="64-64-64"),
+    pytest.param(2, 256, 64, 128, id="256-64-128"),
+    pytest.param(2, 128, 128, 64, id="128-128-64"),
+    pytest.param(3, 64, 128, 128, id="B3-S64"),
+])
+def test_gn_proj_matches_pallas_interpret(B, S, C, N):
+    """S = 64 is the mid-block case, where a 128-row tile of the CUDA
+    kernel spans two batch elements; at B = 3 the last tile holds the third
+    element's 64 rows alone (half full)."""
+    rng = _rng(S + C + N + 100 * (B - 2))
     x = (rng.standard_normal((B, S, C)) * 2.0 + 0.3).astype(np.float32)
     gs = (1.0 + 0.1 * rng.standard_normal(C)).astype(np.float32)
     gb = (0.1 * rng.standard_normal(C)).astype(np.float32)
@@ -667,3 +678,213 @@ def test_ln_geglu_matches_pallas_interpret_on_large_mean_rows():
                                   jnp.asarray(w0), jnp.asarray(b0), 1e-5, 256, True))
     out = geglu.ln_geglu_reference(_t(x), _t(s), _t(b), _t(w0.T.copy()), _t(b0)).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-3, atol=1e-3)
+
+
+# ---- gn_proj (ln_gemm_sm90.cuh, Kind::kGn): admission and judge ---------------
+def test_gn_shape_error_admits_every_routed_shape():
+    """Every (B, S, C) that `Transformer2D` sends to gn_proj (`gn_proj_ok`:
+    S % 64 == 0, C % 64 == 0, any B; N = C) is one the kernel takes,
+    B·S % 128 == 64 (a half-full last row tile) included."""
+    from psd_tpu_torch.models.layers import gn_proj_ok
+
+    routed = ragged = 0
+    for B in range(1, 9):
+        for S in range(64, 4097, 64):
+            for C in range(32, 1313, 32):
+                if gn_proj_ok(S, C):
+                    routed += 1
+                    ragged += (B * S) % 128 == 64
+                    assert gnproj.gn_shape_error(B, S, C, C) is None, (B, S, C)
+    assert routed == 8 * 64 * 20 and ragged == 4 * 32 * 20
+
+
+@pytest.mark.parametrize("B,S,C,N,admitted", [
+    (8, 4096, 320, 320, True), (8, 64, 1280, 1280, True),
+    (3, 64, 1280, 1280, True),   # B·S % 128 == 64: a half-full last row tile
+    (3, 192, 640, 640, True),    # the same with S % 128 == 64, S > 128
+    (3, 64, 320, 200, True),     # N not a multiple of the kernel's 192-column tile
+    (8, 96, 320, 320, False),    # S % 64: a row tile could span three batch elements
+    (8, 64, 96, 96, False),      # C % 64: the kernel's K chunks are 64 columns
+    (8, 64, 320, 300, False),    # N % 8: 16-byte output rows for TMA
+    (0, 64, 64, 64, False), (8, 0, 64, 64, False), (8, 64, 0, 64, False), (8, 64, 64, 0, False),
+])
+def test_gn_shape_error_refuses_what_the_kernel_does_not_take(B, S, C, N, admitted):
+    assert (gnproj.gn_shape_error(B, S, C, N) is None) == admitted
+
+
+def _gn_proj_kernel_emulation(x, w, b, weight, bias, fault=None):
+    """gn_proj's kernel arithmetic in plain torch: x̂ = bf16(x·w[b] + b[b])
+    (a product, then a sum, in fp32), fp32 products, the fp32 bias added
+    before one rounding to bf16. `fault` plants one of the faults the bands
+    were set against: "neighbour_slot" (rows take the other batch slot of
+    their 128-row tile: element b ^ 1, the last element its own where B is
+    odd and S = 64), "drop_last_chunk" (the last 64-column K chunk never
+    enters), "drop_bias", "ragged_unwritten" (the half-full last row
+    tile's 64 rows left at zero)."""
+    B, S, C = x.shape
+    bidx = torch.arange(B)
+    if fault == "neighbour_slot":
+        bidx = torch.clamp(bidx ^ 1, max=B - 1)
+    xa = (x.float() * w[bidx][:, None, :] + b[bidx][:, None, :]).bfloat16().float()
+    if fault == "drop_last_chunk":
+        xa[..., -64:] = 0
+    out = xa.reshape(B * S, C) @ weight.float().T
+    if fault != "drop_bias":
+        out = out + bias
+    out = out.bfloat16()
+    if fault == "ragged_unwritten" and (B * S) % 128 == 64:
+        out[B * S - 64:] = 0
+    return out.reshape(B, S, -1)
+
+
+@pytest.mark.parametrize("fault", [None, "neighbour_slot", "drop_last_chunk", "drop_bias",
+                                   "ragged_unwritten"])
+@pytest.mark.parametrize("large_shift", [False, True])
+def test_gn_proj_judge_sees_planted_faults(fault, large_shift):
+    """chip_smoke.py holds gn_proj to its plain version with
+    `gn_proj_judge` (relative L2 ≤ GN_REL_L2_BAND over the output, ≤
+    GN_ROW_BAND on its worst row). At (B, S, C) = (3, 64, 320), where every
+    row tile but the last straddles two batch elements and the last is half
+    full, N(0,1) bf16 x, affines w = 1 + 0.1·N(0,1), b = 0.1·N(0,1) (or, with
+    `large_shift`, folded by group_norm_fold from channels of mean std 8)
+    and a bias of std 0.02, the kernel's arithmetic emulated in plain torch
+    reads ≤ 2.93e-3 / ≤ 3.67e-3 sound; the faults ≥ 1.91e-2 / ≥ 2.01e-2,
+    the dropped bias the least. (PERF.md §6 gives the readings of the same
+    faults planted in the kernel, on the card.)"""
+    from psd_tpu_torch.testing import gn_proj_judge
+
+    rng = _rng(909 + large_shift)
+    B, S, C = 3, 64, 320
+    xf = rng.standard_normal((B, S, C)).astype(np.float32)
+    if large_shift:
+        xf = xf + 8.0 * rng.standard_normal((B, 1, C)).astype(np.float32)
+        x = _t(xf).bfloat16()
+        w, b = group_norm_fold(x.float(), _t((1 + 0.1 * rng.standard_normal(C)).astype(np.float32)),
+                               _t((0.1 * rng.standard_normal(C)).astype(np.float32)), 32, 1e-6)
+    else:
+        x = _t(xf).bfloat16()
+        w = _t((1 + 0.1 * rng.standard_normal((B, C))).astype(np.float32))
+        b = _t((0.1 * rng.standard_normal((B, C))).astype(np.float32))
+    weight = _t((rng.standard_normal((C, C)) / np.sqrt(C)).astype(np.float32)).bfloat16()
+    bias = _t((0.02 * rng.standard_normal(C)).astype(np.float32))
+    ref = gnproj.gn_proj_reference(x, w, b, weight, bias)
+    ok, text, _ = gn_proj_judge(_gn_proj_kernel_emulation(x, w, b, weight, bias, fault), ref)
+    assert ok == (fault is None), text
+
+
+# ---- split3 (csrc/split3.cu): admission, plan, judge ----------------------------
+def test_split3_shape_error_admits_every_routed_shape():
+    """Every q the UNet sends to split3 (`split3_kernel_ok`: S ≥ 256,
+    S % 128 == 0; 8 heads of C/8 at C = 320, 640, 1280; banks of 1..16
+    tokens) is one the kernel takes, serving's and training's batches."""
+    from psd_tpu_torch.models.layers import split3_kernel_ok
+
+    routed = 0
+    for S in range(64, 4097, 64):
+        if not split3_kernel_ok(S):
+            continue
+        for D in (40, 80, 160):
+            for B in (1, 3, 8, 64):
+                for lens in ((16, 16, 16), (1, 4, 15), (4, 16, 7)):
+                    routed += 1
+                    assert split3.split3_shape_error(B, S, 8, D, lens) is None, (B, S, D, lens)
+    assert routed == 31 * 3 * 4 * 3
+
+
+@pytest.mark.parametrize("B,S,H,D,lens,admitted", [
+    (8, 4096, 8, 40, (16, 16, 16), True), (1, 384, 3, 24, (1, 4, 15), True),
+    (3, 256, 1, 160, (16, 4, 15), True), (3, 384, 3, 160, (4, 15, 1), True),
+    (8, 64, 8, 40, (16, 16, 16), True),     # S % 64 == 0 is enough for the kernel
+    (8, 4096, 8, 40, (0, 16, 16), False),   # a bank needs a token
+    (8, 4096, 8, 40, (16, 17, 16), False),  # and holds at most 16 (one 16-key slice)
+    (8, 4096, 8, 44, (16, 16, 16), False),  # 16-byte head slices
+    (8, 4096, 8, 16, (16, 16, 16), False),  # head dims 24..160
+    (8, 4096, 8, 168, (16, 16, 16), False),
+    (8, 4032, 8, 40, (16, 16, 16), True), (8, 4000, 8, 40, (16, 16, 16), False),
+    (8, 4096, 8, 152, (16, 16, 16), False),  # no head group's banks fit beside the ring
+])
+def test_split3_shape_error_refuses_what_the_kernel_does_not_take(B, S, H, D, lens, admitted):
+    assert (split3.split3_shape_error(B, S, H, D, lens) is None) == admitted
+
+
+@pytest.mark.parametrize("H,D,rows,plan", [
+    (8, 40, 8 * 4096, (64, 8, 4, 1)),   # whole rows, four items a block
+    (8, 80, 8 * 1024, (32, 4, 2, 2)),   # fewer than two items a block: two blocks an SM
+    (8, 160, 8 * 256, (64, 2, 4, 1)),   # D > 80: one block an SM
+    (8, 40, 64 * 1024, (64, 8, 4, 1)), (8, 80, 64 * 256, (64, 4, 4, 1)),  # training
+    (3, 160, 384, (64, 3, 2, 1)),       # G = H, whose last box runs past H·D
+])
+def test_split3_plan_fits_and_follows_the_rows(H, D, rows, plan):
+    """split3_plan on an H100's 132 SMs: the plan, a group G whose TMA boxes
+    cover it exactly (or all H heads), and shared memory within what one or
+    two blocks an SM may take."""
+    got = split3.split3_plan(H, D, rows, 132)
+    assert got == plan
+    R, G, stages, blocks = got
+    assert H % G == 0 and (G == H or G * D % 64 == 0) and rows % R == 0
+    limit = split3.SPLIT3_SMEM_MAX if blocks == 1 else split3.SPLIT3_SMEM_MAX_2
+    assert split3._split3_smem(R, G, stages, D) <= limit
+
+
+def _split3_kernel_emulation(q, banks, delta, anat_gate, dis_gate, fault=None):
+    """split3's kernel arithmetic in plain torch: fp32 logits, an exact
+    softmax per bank in exp2 form, p·gate/sum rounded to bf16, the three
+    products summed in fp32, one rounding to bf16. `fault` plants one of the
+    faults the bands were set against: "mask_last_key" (the disease bank's
+    last valid key masked), "pad_key_in" (the delta bank, where shorter
+    than 16, lets one zero padding key in), "delta_on_anat" (δ gates the anatomy bank),
+    "neighbour_head_q" (each head takes the next head's q), "skip_group"
+    (rows 48..63 of every 64 of the last head left as q)."""
+    B, S, H, D = q.shape
+    gates = [anat_gate, dis_gate, delta]
+    if fault == "delta_on_anat":
+        gates[0] = delta
+    qf = q.float().roll(-1, dims=2) if fault == "neighbour_head_q" else q.float()
+    out = torch.zeros(B, S, H, D)
+    for i in range(3):
+        k, v = banks[2 * i].float(), banks[2 * i + 1].float()
+        if fault == "mask_last_key" and i == 1:
+            k, v = k[:, :-1], v[:, :-1]
+        if fault == "pad_key_in" and i == 2 and k.shape[1] < 16:
+            k = torch.cat([k, torch.zeros(B, 1, H, D)], 1)
+            v = torch.cat([v, torch.zeros(B, 1, H, D)], 1)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, k) * (D ** -0.5 * 1.4426950408889634)
+        p = torch.exp2(s - s.amax(-1, keepdim=True))
+        p = (p * (gates[i] / p.sum(-1, keepdim=True))).bfloat16().float()
+        out += torch.einsum("bhqk,bkhd->bqhd", p, v)
+    out = out.bfloat16()
+    if fault == "skip_group":
+        rows = torch.arange(S) % 64 >= 48
+        out[:, rows, H - 1] = q[:, rows, H - 1]
+    return out
+
+
+@pytest.mark.parametrize("fault", [None, "mask_last_key", "pad_key_in", "delta_on_anat",
+                                   "neighbour_head_q", "skip_group"])
+@pytest.mark.parametrize("shape,lens,delta", [
+    ((2, 256, 8, 40), (16, 16, 16), 1.0),
+    ((2, 384, 8, 80), (4, 16, 7), -1.5),
+    ((1, 384, 3, 24), (1, 4, 15), 0.0),
+    ((2, 128, 2, 160), (15, 4, 1), 1.0),
+])
+def test_split3_judge_sees_planted_faults(fault, shape, lens, delta):
+    """chip_smoke.py holds split3 to its plain version with `split3_judge`
+    (relative L2 ≤ SPLIT3_REL_L2_BAND over the output, ≤ SPLIT3_ROW_BAND on
+    its worst query row). With N(0,1) bf16 inputs and gates 0.1 (anatomy)
+    and 0.9 (disease), the kernel's arithmetic emulated in plain torch reads
+    ≤ 4.24e-3 / ≤ 8.21e-3 sound; every fault that changes the output reads ≥
+    8.7e-2 / ≥ 0.256 (a padded key let in changes only a short delta bank
+    gated by δ ≠ 0). (PERF.md §6 gives the readings of the same faults planted in the
+    kernel, on the card.)"""
+    from psd_tpu_torch.testing import split3_judge
+
+    rng = _rng(303 + sum(shape) + sum(lens))
+    B, S, H, D = shape
+    q = _t(rng.standard_normal(shape).astype(np.float32)).bfloat16()
+    banks = [_t(rng.standard_normal((B, n, H, D)).astype(np.float32)).bfloat16()
+             for n in lens for _ in range(2)]
+    ref = split3.split3_reference(q, *banks, delta, 0.1, 0.9)
+    out = _split3_kernel_emulation(q, banks, delta, 0.1, 0.9, fault)
+    ok, text, _ = split3_judge(out, ref)
+    changes = not (fault == "pad_key_in" and (lens[2] == 16 or delta == 0.0))
+    assert ok == (fault is None or not changes), text
