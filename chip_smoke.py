@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero:
                spills for the attention forward kernels (kept in the kernels
                line only when this run ran nvcc), for the backward's dQ
                and dK/dV kernels, the LayerNorm and GroupNorm GEMM kernels
-               (gn_proj's Kind::kGn among them) and the split3 kernels
+               (gn_proj's Kind::kGn among them), the attention_q8 kernels
+               (each padded head dim, both modes) and the split3 kernels
                (printed only).
   3. kernels — each kernel against its plain PyTorch version at
                every shape the 512², batch-8 serving path gives it (bf16,
@@ -48,14 +49,21 @@ Phases, in order; any failure exits non-zero:
                attention_q8
                (int8 spatial attention, both modes) at the UNet
                self-attention shapes psd_tpu's spatial_attention accepts,
-               against its plain
-               version with exact integer products (relative L2 of the
-               output and of each query row), and a tie probe that tells
-               rounding half to even from half away; int8 products bound at
-               1979 TOPS; beside it the bf16 attention kernel's time.
+               against its plain version with exact integer products
+               (relative L2 of the output and of each query row,
+               attention_q8_judge), with the device time of one call
+               (CUDA-graph replay), the wrapper's host time and the
+               design's quarter-rate operations at the exp2 rate printed
+               beside (not kept); untimed edge shapes (every padded head
+               dim 32..256, H = 1 and 3, S = 256 and 768, both modes); a tie
+               probe that tells rounding half to even from half away; int8
+               products bound at 1979 TOPS; beside it the bf16 attention
+               kernel's time.
   3b. op     — psd_tpu_torch.ops.attention.spatial_attention(quant=...) at
                those shapes: the op path that reaches attention_q8, as
-               scripts/bench_attn2.py drives psd_tpu's.
+               scripts/bench_attn2.py drives psd_tpu's (6 launches); the
+               op's time, the kernel's alone and the quantization
+               pre-pass's, printed.
   4. unet    — one SD-scale UNet eps (split3, seeded flax-style init, bf16,
                latents (8, 64, 64, 4), 48 tokens, δ=1) on the kernels and
                with the plain versions forced: relative error; then eps time
@@ -221,17 +229,17 @@ TRAIN_STEPS, TRAIN_BATCH = 3, 64
 # spatial_attention accepts at 512², batch 8 (S % 256 == 0, S <= 4096)
 Q8_SHAPES = [(8, 4096, 8, 40), (8, 1024, 8, 80), (8, 256, 8, 160)]
 Q8_MODES = ("qk8", "int8")
-# attention_q8 against its plain version. Both take the same quantized
-# operands and compute the same fp32 values up to the summation order of l
-# and of P·V, then round to bf16: an output that lands on the other side of a
-# rounding boundary moves one bf16 ulp (2^-9..2^-7 relative). In "int8" the
-# order of l also moves pn/ps across a half now and then, which flips one
-# quantized probability by one level and moves its row by ps·|v_j|, about
-# 2e-3..3e-3 of the row's norm at these shapes. Bands: the relative L2 error
-# of the whole output, and of each query row (its D outputs) against one bf16
-# ulp. Not quantizing P in "int8" moves the output ~3 % (relative L2),
-# dropping a key tile more (PERF.md §6).
-Q8_REL_L2_BAND, Q8_ROW_BAND = 2e-3, 2.0 ** -7
+# untimed attention_q8 edge shapes, both modes: every padded head dim the
+# kernel is built for (Dp = 32..256, D below Dp except at 256), one or three
+# heads, S = 256 and 768 (three key tiles of 128, not a power of two)
+Q8_EDGE_SHAPES = [(1, 256, 3, 24), (1, 768, 1, 56), (1, 256, 3, 88), (1, 768, 1, 120),
+                  (1, 256, 3, 152), (1, 768, 1, 184), (1, 256, 3, 216), (1, 768, 1, 256)]
+# the operations a logit the kernel's design runs on the SFU at exp2's rate
+# (16 a clock on each SM): one exp2 in "qk8", two in "int8" (the divisions
+# and the rounding run on the full-rate pipes; its I2F and bf16 packing
+# measured faster than that rate on an H100, PERF.md §6 PR 10); printed at
+# the exp2 rate beside the bound, not kept
+Q8_QUARTER_RATE_OPS = {"qk8": 1.0, "int8": 2.0}
 # The tie probe (int8 mode): rows with two live keys, the row max and one
 # key whose pn/ps is k + 1/2 (k even) or near it, where rounding half to even
 # and half away from zero differ by one level, 1/k of the output (k <= 62).
@@ -325,6 +333,17 @@ def phase_build():
         "not kept" + source + "): " + _ptxas_text(ln))
     if not any(k.startswith("ln_gemm_kernel") for k in ln) or "ln_gemm_kernel<gn>" not in ln:
         raise SystemExit("chip_smoke.py: build.log names no LayerNorm or gn_proj GEMM kernel")
+    q8 = ptxas_report(r"(q8_kernel)ILi(\d+)ELb([01])E",
+                      label=lambda m: f"q8_kernel<{m.group(2)}, "
+                                      f"{'int8' if m.group(3) == '1' else 'qk8'}>")
+    log("[build] ptxas, attention_q8 kernels (attention_q8.cu, by padded head dim and mode; "
+        "printed, not kept" + source + "): " + _ptxas_text(q8))
+    if len(q8) != 16:
+        raise SystemExit(f"chip_smoke.py: build.log names {len(q8)} attention_q8 kernels, not 16")
+    serialized = [line for line in (kernels.BUILD_ROOT / kernels.source_hash() / "build.log")
+                  .read_text().splitlines() if "C7512" in line and "q8_kernel" in line]
+    log(f"[build] ptxas serialized the wgmma of {len(serialized)} attention_q8 kernels "
+        f"(C7512, insufficient registers; printed, not kept)")
     s3 = ptxas_report(r"(split3_kernel)")
     log("[build] ptxas, split3 kernels (split3.cu, by padded head dim; printed, not kept"
         + source + "): " + _ptxas_text(s3))
@@ -719,15 +738,6 @@ def q8_work(shape, mode):
     return prod, nbytes + B * S * H * D * 2, prod
 
 
-def _q8_judge(out, ref):
-    """attention_q8 against its plain version: the relative L2 error of the
-    whole (B, S, H, D) output and the largest over its query rows (the D
-    outputs of one (b, s, h)), against Q8_REL_L2_BAND and Q8_ROW_BAND."""
-    from psd_tpu_torch.testing import rel_l2_judge
-
-    return rel_l2_judge(out, ref, Q8_REL_L2_BAND, Q8_ROW_BAND)
-
-
 def q8_tie_probe(dev):
     """Quantized operands at Q8_PROBE_SHAPE (int8 mode, scale 1) whose rows
     each have two live keys: the row max j0 (logit 0) and j1 with logit
@@ -761,7 +771,7 @@ def q8_tie_probe(dev):
     sq = (-torch.log2(tie / 127.0)[None, :] / (c * sk1.double()[:, None])).float()
     sq = (sq.view(torch.int32) + step[None, :].int()).view(torch.float32).contiguous()
     vq = torch.zeros((BH, Dp, S), dtype=torch.int8, device=dev)
-    vq[bh, :D, j1] = 127
+    vq[bh, :D, attention.q8_key_position(j1)] = 127  # key j1, where the kernel takes it
     sv = torch.ones((BH, Dp), device=dev)
     sv[:, :D] = 1.0 / 127.0
     # pn/ps of key j1 as attention_q8_reference computes it
@@ -775,11 +785,15 @@ def q8_tie_probe(dev):
 
 def phase_q8_kernels(results: dict) -> None:
     """attention_q8 in both modes against its plain version (exact integer
-    products) on the quantized operands of seeded bf16 q, k, v; beside it,
+    products) on the quantized operands of seeded bf16 q, k, v, with the
+    device time of one call (CUDA-graph replay), the wrapper's host time and
+    the design's quarter-rate operations at the exp2 rate printed beside;
     for context only, the bf16 attention kernel at the same shape (no one
-    PyTorch call computes int8 attention: library none). Then the tie probe.
-    Every shape and mode is checked before a failure is raised."""
+    PyTorch call computes int8 attention: library none). Then untimed edge
+    shapes and the tie probe. Every shape and mode is checked before a
+    failure is raised."""
     from psd_tpu_torch.ops import attention
+    from psd_tpu_torch.testing import attention_q8_judge
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
@@ -789,20 +803,41 @@ def phase_q8_kernels(results: dict) -> None:
                    for _ in range(3))
         scale = shape[-1] ** -0.5
         ms_bf16 = time_ms(lambda: attention.attention_fwd(q, k, v))
+        B, S, H, _ = shape
         for mode in Q8_MODES:
             ops = attention.quantize_qkv(q, k, v, mode == "int8")
+            run = functools.partial(attention.attention_q8, *ops, scale, shape)
             try:
-                _compare("attention_q8", shape + (mode,),
-                         lambda: attention.attention_q8(*ops, scale, shape),
+                _compare("attention_q8", shape + (mode,), run,
                          lambda: attention.attention_q8_reference(*ops, scale, shape,
                                                                   torch.bfloat16),
                          results, q8_work(shape, mode), extra={"bf16_attention_ms": ms_bf16},
-                         judge=_q8_judge)
+                         judge=attention_q8_judge,
+                         note={"device_ms": graph_ms(run), "wrapper_host_ms": host_ms(run),
+                               "quarter_rate_ms_at_exp2_rate": Q8_QUARTER_RATE_OPS[mode]
+                               * B * H * S * S / sfu_exp2_per_s() * 1e3})
             except SystemExit as e:
                 failed.append(str(e))
-            del ops
+            del ops, run
         del q, k, v
         torch.cuda.empty_cache()
+
+    # the edge shapes draw from a generator of their own, so the inputs of
+    # the shapes above stay those of earlier runs
+    ge = torch.Generator(device=dev).manual_seed(13)
+    for shape in Q8_EDGE_SHAPES:
+        q, k, v = (torch.randn(shape, generator=ge, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        for mode in Q8_MODES:
+            ops = attention.quantize_qkv(q, k, v, mode == "int8")
+            ok, text, _ = attention_q8_judge(
+                attention.attention_q8(*ops, shape[-1] ** -0.5, shape),
+                attention.attention_q8_reference(*ops, shape[-1] ** -0.5, shape, torch.bfloat16))
+            log(f"[kernel] attention_q8 edge {str(shape):20s} {mode}: {text} "
+                f"{'ok' if ok else 'FAIL'} (not timed)")
+            if not ok:
+                failed.append(f"chip_smoke.py: attention_q8 edge {shape} {mode} disagrees with "
+                              f"its plain version")
 
     ops, shape, scale, n_ties = q8_tie_probe(dev)
     out = attention.attention_q8(*ops, scale, shape).float()
@@ -828,8 +863,11 @@ def phase_op() -> dict:
     Q8_SHAPES, both modes, as scripts/bench_attn2.py drives psd_tpu's op
     (the quantization pre-pass, then the int8 kernel); launches counted
     from 0; outputs held against the plain version on the same pre-pass,
-    with attention_q8's bands."""
+    with attention_q8's bands. Then the op's time, its kernel's alone on
+    the op's operands and the pre-pass's (op minus kernel, and
+    quantize_qkv timed alone), printed."""
     from psd_tpu_torch.ops import attention, kernels
+    from psd_tpu_torch.testing import Q8_REL_L2_BAND, Q8_ROW_BAND, attention_q8_judge
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
@@ -841,28 +879,34 @@ def phase_op() -> dict:
             for shape, qkv in inputs.items() for mode in Q8_MODES}
     torch.cuda.synchronize()
     counts = dict(kernels.launch_counts)
-    worst, op_ms = 0.0, {}
+    worst, op_ms, prepass = 0.0, {}, {}
     for (shape, mode), out in outs.items():
         q, k, v = inputs[shape]
-        ref = attention.attention_q8_reference(
-            *attention.quantize_qkv(q, k, v, mode == "int8"), shape[-1] ** -0.5, shape,
-            torch.bfloat16)
-        good, text, readings = _q8_judge(out, ref)
+        ops = attention.quantize_qkv(q, k, v, mode == "int8")
+        ref = attention.attention_q8_reference(*ops, shape[-1] ** -0.5, shape, torch.bfloat16)
+        good, text, readings = attention_q8_judge(out, ref)
         if not (bool(torch.isfinite(out).all()) and good):
             raise SystemExit(f"chip_smoke.py: spatial_attention(quant={mode!r}) {shape} "
                              f"disagrees with the plain version: {text}")
         worst = max(worst, readings["rel_l2"])
-        op_ms[f"{shape} {mode}"] = time_ms(lambda: attention.spatial_attention(q, k, v, quant=mode),
-                                           n=5)
+        key = f"{shape} {mode}"
+        op_ms[key] = time_ms(lambda: attention.spatial_attention(q, k, v, quant=mode), n=5)
+        kernel = time_ms(lambda: attention.attention_q8(*ops, shape[-1] ** -0.5, shape), n=5)
+        quant = time_ms(lambda: attention.quantize_qkv(q, k, v, mode == "int8"), n=5)
+        prepass[key] = {"op_minus_kernel_ms": op_ms[key] - kernel, "quantize_qkv_ms": quant}
+        del ops, ref
     log(f"[op] spatial_attention(quant=qk8|int8) at {Q8_SHAPES}: launches {counts}; "
         f"largest rel L2 vs plain {worst:.3e} (band {Q8_REL_L2_BAND:g}; each query row "
         f"within {Q8_ROW_BAND:.3g}); op ms (pre-pass + kernel) {op_ms}")
+    log("[op] the pre-pass (quantize_qkv, plain torch) a call, ms: "
+        + "; ".join(f"{k}: op - kernel {v['op_minus_kernel_ms']:.4f}, alone "
+                    f"{v['quantize_qkv_ms']:.4f}" for k, v in prepass.items()))
     if counts["attention_q8"] != len(outs):
         raise SystemExit(f"chip_smoke.py: the op path launched attention_q8 "
                          f"{counts['attention_q8']} times, not {len(outs)}")
     del inputs, outs
     torch.cuda.empty_cache()
-    return {"counts": counts, "op_ms": op_ms}
+    return {"counts": counts, "op_ms": op_ms, "prepass": prepass}
 
 
 # ---- phase 4 ---------------------------------------------------------------

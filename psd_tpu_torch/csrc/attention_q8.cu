@@ -7,345 +7,454 @@
 // ceil32(D); sq, sk fp32 (B·H, S) row scales; and
 //  * "qk8": v bf16 (B, S, H, D) as the model holds it;
 //  * "int8": vq int8 (B·H, Dp, S), key-major, with sv fp32 (B·H, Dp)
-//    column scales over S.
+//    column scales over S; within each 32-key chunk the keys are placed
+//    where the P·V product's A fragment wants them (below;
+//    ops/attention.py q8_place_keys).
 // Output bf16 (B, S, H, D). Per query row (log2 units, c = scale·log2e):
-//   x = acc·(sq·c)·sk,  m = max x,  p = exp2(x − m),  l = Σp (fp32)
+//   x = (acc·(sq·c))·sk,  m = max x,  p = exp2(x − m),  l = Σp (fp32)
 //   "qk8":  out = (Σ bf16(p)·v) / l
 //   "int8": pn = p/l, ps = max(max pn, 1e-20)/127 (max pn = 1/l: the row
 //           max contributes exp2(0) = 1), pq = rint(pn/ps) (half to even),
-//           out = (Σ pq·vq)·ps·sv.
+//           out = ((Σ pq·vq)·ps)·sv.
 //
 // What bounds it on the H100. At (8, 4096, 8, 40) the function is 86 G
-// int8 ops (QKᵀ) + 86 G bf16 or int8 ops (P·V) against 11 MB of
-// operands: operations-bound, and, as in the bf16 kernel, the S² softmax
-// elementwise work (exp2, the dequant multiplies, and in "int8" two fp32
-// divisions and a rounding per logit) on the CUDA cores costs more than the
-// tensor-core products at this small D.
-//
-// Design. The TPU kernel keeps a whole logit row resident and takes the
-// exact softmax once. A 64-row tile at S = 4096 would be 1 MB of fp32 here,
-// and "int8" quantizes p with a scale that needs the final m and l before
-// any P·V product, so a single online pass cannot reproduce its rounding.
-// So two passes over the keys, for both modes: pass 1 computes QKᵀ and
-// keeps the running row max m and sum l (online); pass 2 recomputes QKᵀ,
-// forms p against the final m, and runs P·V. "qk8" could fold into one
-// online pass (it is linear in p once m is known); two passes keep one code
-// path and give bf16(p) exactly as psd_tpu rounds it. One block of 4 warps
-// per (64 query rows, b·h), each warp 16 rows; K (and V in pass 2) tiles of
-// 64 keys double-buffered in shared memory with cp.async, one tile sequence
-// over both passes.
-//  * QKᵀ: mma.sync m16n8k32 s8·s8 → s32. Its accumulator has the per-thread
-//    layout of m16n8k16's f32 accumulator, so "qk8" reuses the bf16 kernel's
-//    register path: P becomes the A operand of an m16n8k16 bf16 product, V's
-//    B fragments come through ldmatrix.trans.
-//  * "int8" P·V: the s8 A operand holds 4 consecutive k per register, the
-//    accumulator pairs of columns. The keys are permuted within each
-//    32-key chunk instead of moving data between threads: logical k = 4·tig
-//    + e reads key 2·tig + {0, 1, 8, 9}[e] (and +16 for the upper half),
-//    which is exactly what thread tig holds in the accumulator; V's B
-//    fragment reads the same keys, two 16-bit loads from the key-major
-//    tile (ldmatrix .trans moves only 16-bit elements). The contraction
-//    over keys does not depend on their order.
-// Requires D % 8 == 0, Dp ≤ 256, S % 64 == 0 (the wrapper checks).
-#include <cuda_pipeline.h>
+// int8 ops (QKᵀ) + 86 G bf16 or int8 ops (P·V) against 11 MB of operands:
+// 0.13 / 0.09 ms at the tensor cores' peak. Every logit also takes one exp2
+// on the SFU (16 a clock on each SM; 1.07 G logits, ≈ 0.26 ms) in "qk8"
+// and two in "int8", and ~12 ("qk8") to ~22 ("int8") other instructions
+// on the CUDA cores, which issue 128 a clock on each SM. So the issue of
+// the per-logit work and the waits between it and the products, not the
+// tensor cores, set the time; the design keeps the products on the tensor
+// cores and the instructions a logit few:
+//  * One block per (128 query rows, b·h): two consumer warpgroups of 64
+//    rows each, then a producer (one thread issues TMA loads: q once, then
+//    K and sk tiles of 128 keys, and V tiles in the P·V pass, into a ring
+//    of kStages, each completed on its stage's full mbarrier and released
+//    on its empty one, as in attention_narrow.cu). Two blocks an SM at
+//    Dp ≤ 64 (at most 112 registers a thread; ptxas takes 96), one above
+//    (setmaxnreg 24 / 240; one block an SM at Dp ≤ 64 measured 30% slower).
+//  * Shared memory holds every int8 tile as 128-byte swizzled rows: q and
+//    K rows of Dp bytes arrive in boxes of 128 columns whose columns past
+//    Dp TMA fills with zeros (64-byte rows in 64B swizzle at Dp ≤ 64
+//    measured no faster); a Vᵀ row is a tile's 128 keys.
+//  * QKᵀ on s8 wgmma m64n64k32, both operands K-major from shared memory,
+//    s32 accumulators, for each 64-key half of a tile (Dp/32 steps). In
+//    pass 1, where O is not live yet, both halves' products are issued at
+//    once and the second runs under the first half's work (8% faster at
+//    D = 40; issued so in pass 2, beside O, ptxas serializes the wgmma at
+//    Dp ≤ 64). The consumer warpgroups run freely (taking turns at the
+//    products, as attention_narrow.cu's do, measured 2–4% slower).
+//  * Passes over the keys, one loop each. The TPU kernel keeps a whole
+//    logit row resident and takes the exact softmax once; here a row is
+//    streamed twice.
+//    "qk8": pass 1 keeps only each lane's running max (no exp2); pass 2
+//    forms p against the final m (the row's max, bit for bit x.amax()),
+//    sums l and runs P·V. "int8" quantizes p with ps, which needs the final
+//    l before its first P·V product: pass 1 keeps each lane's online (m, l),
+//    merged across the row's 4 lanes at its end; pass 2 forms p, pn, pq
+//    and runs P·V (three passes, the max, then l against it, measured
+//    slower: a third QKᵀ sweep costs more than the online rescale).
+//  * "qk8" P·V on bf16 wgmma m64nDpk16: P packed to bf16 straight from the
+//    accumulator, which is the A register fragment; B = V MN-major through
+//    the 3-D (D, H, B·S) map, columns past D zero-filled.
+//  * "int8" P·V on s8 wgmma m64nDpk32 with A from registers. The s8 A
+//    fragment holds 4 consecutive k per register, the accumulator pairs of
+//    columns; instead of moving bytes between lanes, vq's keys are placed
+//    within each 32-key chunk so that logical k = 4·tig + e holds key
+//    2·tig + {0, 1, 8, 9}[e] (+16 in a[2], a[3]), exactly what thread tig
+//    holds in the accumulator. B = that Vᵀ tile, K-major (keys contiguous).
+//  * Per-logit arithmetic in as few instructions as measured fastest,
+//    bit-exact against the plain version: the two divisions p/l and pn/ps
+//    by Markstein's correction from one correctly rounded reciprocal a row
+//    (div_rn: three full-rate instructions each in place of IEEE division's
+//    reciprocal and refinement); rint as + 1.5·2²³, whose low byte is pq;
+//    int32 → fp32 by I2F (one instruction; the add trick, two full-rate
+//    ones, measured 3–5% slower); exp2 as one ex2.approx.ftz. The dequant
+//    multiplies are __fmul_rn so nothing contracts them into an FMA: the
+//    fp32 values that decide p and pq are the plain version's.
+// Requires D % 8 == 0, Dp ≤ 256, S % 128 == 0 (the wrapper checks
+// q8_shape_error).
+#include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace psd {
 namespace {
 
-constexpr int kQ8BQ = 64, kQ8BK = 64, kQ8Warps = 4;
+using namespace hopper;
+
+constexpr int kQ8BQ = 128;  // query rows a block: 64 for each consumer WG
+constexpr int kQ8BK = 128;  // keys a tile: one 128-byte row of the int8 Vᵀ tile
 constexpr float kInv127 = 1.0f / 127.0f;
+constexpr float kMagic = 12582912.0f;  // 1.5·2^23: integers |n| < 2^22 in the low mantissa
 
-// mma.sync m16n8k32, s8 operands, s32 accumulate, in place: d += a·b.
-// A: register r holds 4 consecutive k of row g (r = 0, 2) or g + 8 (r = 1,
-// 3) at k = 4·tig (r = 0, 1) or 16 + 4·tig (r = 2, 3); B: b0 holds k =
-// 4·tig..+3, b1 k = 16 + 4·tig..+3, at column g; C/D as m16n8k16's.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_b32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ld_b16(const int8_t* p) {
-  return *reinterpret_cast<const uint16_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
-  return (static_cast<uint32_t>(a) & 0xffu) | ((static_cast<uint32_t>(b) & 0xffu) << 8) |
-         ((static_cast<uint32_t>(c) & 0xffu) << 16) | (static_cast<uint32_t>(d) << 24);
-}
-
-// shared memory: Q tile, then two buffers of (K tile, sk tile, V tile)
+// Tiling for a padded head dim and mode: blocks an SM, threads (two
+// consumer WGs, then a producer warp or WG), ring depth and the shared
+// memory they take (q, kStages × (K, V), kStages × sk, barriers, alignment
+// slack), within what one or two blocks an SM may have.
 template <int DP, bool PV8>
-struct Q8Tiling {
-  static constexpr int LDQ = DP + 16;                     // int8 rows, +16 staggers the banks
-  static constexpr int LDV = PV8 ? kQ8BK + 16 : DP + 8;   // int8 Vᵀ rows (bytes) / bf16 V rows
-  static constexpr size_t Q = static_cast<size_t>(kQ8BQ) * LDQ;
-  static constexpr size_t K = static_cast<size_t>(kQ8BK) * LDQ;
-  static constexpr size_t SK = kQ8BK * 4;
-  static constexpr size_t V = PV8 ? static_cast<size_t>(DP) * LDV
-                                  : static_cast<size_t>(kQ8BK) * LDV * 2;
-  static constexpr size_t BUF = K + SK + V;
-  static constexpr size_t BYTES = Q + 2 * BUF;
+struct Q8 {
+  static constexpr int kBlocksPerSM = DP <= 64 ? 2 : 1;
+  static constexpr int kThreads = kBlocksPerSM == 2 ? 288 : 384;  // consumers first
+  static constexpr int kKBoxes = (DP + 127) / 128;  // 128-byte boxes of a q or K row
+  static constexpr int kVBoxes = (DP + 63) / 64;    // 64-column bf16 boxes of a V row ("qk8")
+  static constexpr uint32_t kQBytes = kQ8BQ * kKBoxes * 128;
+  static constexpr uint32_t kKBytes = kQ8BK * kKBoxes * 128;
+  static constexpr uint32_t kVBytes = PV8 ? DP * 128 : kQ8BK * kVBoxes * 128;
+  static constexpr uint32_t kSkBytes = kQ8BK * 4;
+  static constexpr uint32_t kStageBytes = kKBytes + kVBytes;  // whole swizzle atoms
+  static constexpr size_t kLimit = kBlocksPerSM == 2 ? 115712 : 232448;
+  // a stage: K, V, sk and two barriers
+  static constexpr size_t kPerStage = kStageBytes + kSkBytes + 16;
+  static constexpr size_t kFixed = kQBytes + 8 + 1024;  // q, its barrier, alignment slack
+  static constexpr int kStages = kFixed + 4 * kPerStage <= kLimit   ? 4
+                                 : kFixed + 3 * kPerStage <= kLimit ? 3
+                                                                    : 2;
+  static constexpr uint32_t kOffStage = kQBytes;  // stage s: K at kOffStage + s·kStageBytes, V after
+  static constexpr uint32_t kOffSk = kOffStage + kStages * kStageBytes;
+  static constexpr uint32_t kOffBar = kOffSk + kStages * kSkBytes;
+  static constexpr size_t kSmemBytes = kFixed + kStages * kPerStage;
+  static_assert(DP % 32 == 0 && DP <= 256, "Dp = ceil32(D) <= 256");
+  static_assert(kSmemBytes <= kLimit, "shared memory");
 };
 
+// 2^x on the SFU: one MUFU.EX2 (ex2.approx.ftz), torch.exp2's (exp2f's)
+// result wherever that is a normal number; below 2^-126 it is 0, which
+// changes no l (≥ 1) and no pq (0 either way)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (acc·rq)·sk in fp32 (acc exact: |acc| ≤ 127²·256 < 2^24)
+__device__ __forceinline__ float dequant(int acc, float rq, float s) {
+  return __fmul_rn(__fmul_rn(static_cast<float>(acc), rq), s);
+}
+
+// x/d correctly rounded, given r = __frcp_rn(d) (Markstein: q0 within an
+// ulp of x/d and its exact residual e give the correctly rounded quotient)
+__device__ __forceinline__ float div_rn(float x, float d, float r) {
+  const float q0 = __fmul_rn(x, r);
+  return __fmaf_rn(__fmaf_rn(-q0, d, x), r, q0);
+}
+
+// round(pn/ps) half to even: the bits of y + 1.5·2^23, whose low byte is
+// the integer (0 <= y < 2^22)
+__device__ __forceinline__ uint32_t quantize(float p, float l, float rl, float ps, float rps) {
+  return __float_as_uint(__fadd_rn(div_rn(div_rn(p, l, rl), ps, rps), kMagic));
+}
+
+// the low bytes of four words, a in byte 0
+__device__ __forceinline__ uint32_t low_bytes(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
 template <int DP, bool PV8>
-__global__ void __launch_bounds__(32 * kQ8Warps)
-q8_kernel(const int8_t* __restrict__ qq, const float* __restrict__ sq,
-          const int8_t* __restrict__ kq, const float* __restrict__ sk,
-          const void* __restrict__ vp, const float* __restrict__ sv, bf16* __restrict__ out,
-          int S, int H, int D, float c) {
-  using T = Q8Tiling<DP, PV8>;
-  constexpr int LDQ = T::LDQ, LDV = T::LDV, NS = kQ8BK / 8, NO = DP / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  int8_t* Qs = reinterpret_cast<int8_t*>(smem);
-  unsigned char* bufs = smem + T::Q;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
+__global__ void __launch_bounds__(Q8<DP, PV8>::kThreads, Q8<DP, PV8>::kBlocksPerSM)
+q8_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv, const float* __restrict__ sq,
+          const float* __restrict__ sk, const float* __restrict__ sv, bf16* __restrict__ out,
+          int S, int H, int D, float c_log2) {
+  using T = Q8<DP, PV8>;
+  constexpr int ST = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + T::kOffBar);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + ST;
+  float* sks = reinterpret_cast<float*>(smem + T::kOffSk);
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * kQ8BQ;
   const int n_tiles = S / kQ8BK;
+  const int wg = threadIdx.x / 128;  // 0, 1: consumers; 2: the producer
 
-  {
-    const int8_t* src = qq + (static_cast<size_t>(bh) * S + q0) * DP;
-    for (int idx = threadIdx.x; idx < kQ8BQ * (DP / 16); idx += blockDim.x) {
-      const int r = idx / (DP / 16), cc = (idx % (DP / 16)) * 16;
-      *reinterpret_cast<uint4*>(Qs + r * LDQ + cc) =
-          *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * DP + cc);
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  // tile t < n_tiles: pass 1 (K, sk); t ≥ n_tiles: pass 2 (K, sk, V)
-  auto load = [&](int t, int buf) {
-    const bool pass2 = t >= n_tiles;
-    const int k0 = (pass2 ? t - n_tiles : t) * kQ8BK;
-    unsigned char* base = bufs + buf * T::BUF;
-    int8_t* kd = reinterpret_cast<int8_t*>(base);
-    const int8_t* ks = kq + (static_cast<size_t>(bh) * S + k0) * DP;
-    for (int idx = threadIdx.x; idx < kQ8BK * (DP / 16); idx += blockDim.x) {
-      const int r = idx / (DP / 16), cc = (idx % (DP / 16)) * 16;
-      __pipeline_memcpy_async(kd + r * LDQ + cc, ks + static_cast<size_t>(r) * DP + cc, 16);
-    }
-    if (threadIdx.x < kQ8BK / 4)
-      __pipeline_memcpy_async(reinterpret_cast<float*>(base + T::K) + threadIdx.x * 4,
-                              sk + static_cast<size_t>(bh) * S + k0 + threadIdx.x * 4, 16);
-    if (pass2) {
-      if constexpr (PV8) {
-        int8_t* vd = reinterpret_cast<int8_t*>(base + T::K + T::SK);
-        const int8_t* vs = static_cast<const int8_t*>(vp) + static_cast<size_t>(bh) * DP * S + k0;
-        for (int idx = threadIdx.x; idx < DP * (kQ8BK / 16); idx += blockDim.x) {
-          const int r = idx / (kQ8BK / 16), cc = (idx % (kQ8BK / 16)) * 16;
-          __pipeline_memcpy_async(vd + r * LDV + cc, vs + static_cast<size_t>(r) * S + cc, 16);
-        }
-      } else {
-        bf16* vd = reinterpret_cast<bf16*>(base + T::K + T::SK);
-        const size_t row_stride = static_cast<size_t>(H) * D;
-        const bf16* vs = static_cast<const bf16*>(vp) +
-                         (static_cast<size_t>(b) * S + k0) * row_stride + static_cast<size_t>(h) * D;
-        for (int idx = threadIdx.x; idx < kQ8BK * (DP / 8); idx += blockDim.x) {
-          const int r = idx / (DP / 8), cc = (idx % (DP / 8)) * 8;
-          if (cc < D)
-            __pipeline_memcpy_async(vd + r * LDV + cc, vs + r * row_stride + cc, 16);
-          else
-            *reinterpret_cast<uint4*>(vd + r * LDV + cc) = make_uint4(0, 0, 0, 0);
+  if (wg == 2) {
+    // ---- producer ----
+    if constexpr (T::kBlocksPerSM == 1) setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      tma_prefetch_desc(&tq);
+      tma_prefetch_desc(&tk);
+      tma_prefetch_desc(&tv);
+      mbar_arrive_expect_tx(qbar, T::kQBytes);
+      for (int x = 0; x < T::kKBoxes; ++x)
+        tma_load_2d(smem + x * kQ8BQ * 128, &tq, qbar, x * 128, bh * S + q0);
+      for (int t = 0; t < 2 * n_tiles; ++t) {  // two passes over the keys
+        const int s = t % ST, k0 = (t % n_tiles) * kQ8BK;
+        const bool pv = t >= n_tiles;
+        if (t >= ST) mbar_wait(&empty[s], ((t / ST) - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], T::kKBytes + T::kSkBytes + (pv ? T::kVBytes : 0));
+        unsigned char* ks = smem + T::kOffStage + s * T::kStageBytes;
+        for (int x = 0; x < T::kKBoxes; ++x)
+          tma_load_2d(ks + x * kQ8BK * 128, &tk, &full[s], x * 128, bh * S + k0);
+        bulk_load(sks + s * kQ8BK, sk + static_cast<size_t>(bh) * S + k0, T::kSkBytes, &full[s]);
+        if (pv) {
+          unsigned char* vs = ks + T::kKBytes;
+          if constexpr (PV8) {
+            tma_load_2d(vs, &tv, &full[s], k0, bh * DP);
+          } else {
+            for (int x = 0; x < T::kVBoxes; ++x)
+              tma_load_3d(vs + x * kQ8BK * 128, &tv, &full[s], x * 64, h, b * S + k0);
+          }
         }
       }
     }
-    __pipeline_commit();
-  };
+  } else {
+    // ---- consumers ----
+    if constexpr (T::kBlocksPerSM == 1) setmaxnreg_inc<240>();
+    const int c = wg;  // query rows q0 + 64c .. q0 + 64c + 63
+    const int wid = threadIdx.x % 128, warp = wid / 32, lane = wid % 32;
+    const int g = lane >> 2, tig = lane & 3;
+    // this WG's 64 rows of each q box start 64 rows (8 KB, whole swizzle atoms) in
+    const uint32_t qs = smem_addr(smem) + c * 64 * 128;
+    const int row = q0 + 64 * c + 16 * warp + g;
+    const size_t srow = static_cast<size_t>(bh) * S + row;
+    const float rq0 = __fmul_rn(sq[srow], c_log2), rq1 = __fmul_rn(sq[srow + 8], c_log2);
 
-  const size_t row0 = static_cast<size_t>(bh) * S + q0 + warp * 16 + g;
-  const float rq0 = sq[row0] * c, rq1 = sq[row0 + 8] * c;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, ps0 = 0.f, ps1 = 0.f;
-  float of[PV8 ? 1 : NO][4];
-  int oi[PV8 ? NO : 1][4];
-#pragma unroll
-  for (int n = 0; n < (PV8 ? 1 : NO); ++n) of[n][0] = of[n][1] = of[n][2] = of[n][3] = 0.f;
-#pragma unroll
-  for (int n = 0; n < (PV8 ? NO : 1); ++n) oi[n][0] = oi[n][1] = oi[n][2] = oi[n][3] = 0;
-  const int8_t* qw = Qs + (warp * 16 + g) * LDQ + tig * 4;
+    // each lane's statistics over its own columns until a pass ends, then
+    // the row's (the 4 lanes of a row merged)
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    float rl0 = 0.f, rl1 = 0.f, ps0 = 0.f, ps1 = 0.f, rps0 = 0.f, rps1 = 0.f;
 
-  load(0, 0);
-  for (int t = 0; t < 2 * n_tiles; ++t) {
-    const int cur = t & 1;
-    if (t + 1 < 2 * n_tiles) {
-      load(t + 1, cur ^ 1);
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    const unsigned char* base = bufs + cur * T::BUF;
-    const int8_t* kc = reinterpret_cast<const int8_t*>(base);
-    const float* skc = reinterpret_cast<const float*>(base + T::K);
-
-    // QKᵀ, 16 × 64 per warp, int32 in registers
-    int si[NS][4];
+    // S = q·kᵀ (64 × 64) of the tile in stage s, 64-key half hh: Dp/32
+    // steps of k32, both K-major (a k32 step moves 32 B inside a 128-byte
+    // box), one commit group; then, once it has completed, x in log2 units:
+    // rows 16·warp + g (e = 0, 1) and + 8 (e = 2, 3), keys 64·hh + 8j +
+    // 2·tig (+1)
+    auto issue_s = [&](int s, int hh, int (&acc)[32]) {
+      const uint32_t kst = smem_addr(smem) + T::kOffStage + s * T::kStageBytes;
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NS; ++j) si[j][0] = si[j][1] = si[j][2] = si[j][3] = 0;
-#pragma unroll
-    for (int ks = 0; ks < DP / 32; ++ks) {
-      const uint32_t a[4] = {ld_b32(qw + ks * 32), ld_b32(qw + 8 * LDQ + ks * 32),
-                             ld_b32(qw + ks * 32 + 16), ld_b32(qw + 8 * LDQ + ks * 32 + 16)};
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const int8_t* kp = kc + (j * 8 + g) * LDQ + ks * 32 + tig * 4;
-        mma_s8(si[j], a, ld_b32(kp), ld_b32(kp + 16));
+      for (int ks = 0; ks < DP / 32; ++ks) {
+        const uint32_t box = ks >> 2, in_box = (ks & 3) * 32;
+        wgmma_ss_s8<64>(acc, wgmma_desc(qs + box * (kQ8BQ * 128) + in_box, 16, 1024),
+                        wgmma_desc(kst + box * (kQ8BK * 128) + hh * 64 * 128 + in_box, 16, 1024),
+                        ks > 0);
       }
-    }
-    // exact per-element dequant, in log2 units: (acc·(sq·c))·sk; rows g
-    // (elements 0, 1) and g + 8 (2, 3), keys j·8 + 2·tig (+1)
-    float x[NS][4];
+      wgmma_commit();
+    };
+    auto dequant_s = [&](int s, int hh, int (&acc)[32], float (&x)[32]) {
+      const float* skc = sks + s * kQ8BK;
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const float s0 = skc[j * 8 + 2 * tig], s1 = skc[j * 8 + 2 * tig + 1];
-      x[j][0] = static_cast<float>(si[j][0]) * rq0 * s0;
-      x[j][1] = static_cast<float>(si[j][1]) * rq0 * s1;
-      x[j][2] = static_cast<float>(si[j][2]) * rq1 * s0;
-      x[j][3] = static_cast<float>(si[j][3]) * rq1 * s1;
+      for (int i = 0; i < 32; ++i) reg_fence(acc[i]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 s2 = *reinterpret_cast<const float2*>(skc + hh * 64 + 8 * j + 2 * tig);
+        x[4 * j] = dequant(acc[4 * j], rq0, s2.x);
+        x[4 * j + 1] = dequant(acc[4 * j + 1], rq0, s2.y);
+        x[4 * j + 2] = dequant(acc[4 * j + 2], rq1, s2.x);
+        x[4 * j + 3] = dequant(acc[4 * j + 3], rq1, s2.y);
+      }
+    };
+
+    mbar_wait(qbar, 0);
+    // pass 1: this lane's statistics over its own columns; both halves'
+    // products issued at once, the second under the first half's work (o
+    // is not live yet, so the two accumulators fit)
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % ST;
+      mbar_wait(&full[s], (t / ST) & 1);
+      int acc[2][32];
+      issue_s(s, 0, acc[0]);
+      issue_s(s, 1, acc[1]);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float x[32];
+        if (hh == 0) wgmma_wait<1>(); else wgmma_wait<0>();
+        dequant_s(s, hh, acc[hh], x);
+        if (PV8) {  // online max and sum
+          float mx0 = m0, mx1 = m1;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            mx0 = fmaxf(mx0, fmaxf(x[4 * j], x[4 * j + 1]));
+            mx1 = fmaxf(mx1, fmaxf(x[4 * j + 2], x[4 * j + 3]));
+          }
+          float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            ls0 += ex2(x[4 * j] - mx0) + ex2(x[4 * j + 1] - mx0);
+            ls1 += ex2(x[4 * j + 2] - mx1) + ex2(x[4 * j + 3] - mx1);
+          }
+          l0 = l0 * ex2(m0 - mx0) + ls0;
+          l1 = l1 * ex2(m1 - mx1) + ls1;
+          m0 = mx0;
+          m1 = mx1;
+        } else {  // the max alone
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            m0 = fmaxf(m0, fmaxf(x[4 * j], x[4 * j + 1]));
+            m1 = fmaxf(m1, fmaxf(x[4 * j + 2], x[4 * j + 3]));
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
     }
 
-    if (t < n_tiles) {
-      // pass 1: running max and sum (each lane sums its own columns)
-      float mx0 = -INFINITY, mx1 = -INFINITY;
+    // the row max (and, "int8", its sum) over the row's 4 lanes
+    float mr0 = m0, mr1 = m1;
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(x[j][0], x[j][1]));
-        mx1 = fmaxf(mx1, fmaxf(x[j][2], x[j][3]));
-      }
+    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+      mr0 = fmaxf(mr0, __shfl_xor_sync(0xffffffffu, mr0, o_));
+      mr1 = fmaxf(mr1, __shfl_xor_sync(0xffffffffu, mr1, o_));
+    }
+    if constexpr (PV8) {
+      l0 *= ex2(m0 - mr0);
+      l1 *= ex2(m1 - mr1);
 #pragma unroll
       for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+        l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
       }
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      float ls0 = 0.f, ls1 = 0.f;
+      // ps and the reciprocals the divisions take
+      rl0 = __frcp_rn(l0);
+      rl1 = __frcp_rn(l1);
+      ps0 = __fmul_rn(fmaxf(rl0, 1e-20f), kInv127);
+      ps1 = __fmul_rn(fmaxf(rl1, 1e-20f), kInv127);
+      rps0 = __frcp_rn(ps0);
+      rps1 = __frcp_rn(ps1);
+    }
+    m0 = mr0;
+    m1 = mr1;
+
+    // pass 2: p against the final max, and P·V into the m64nDp accumulator
+    // o[4n + e] (columns 8n + 2·tig (+1), rows g, g + 8), live from here on
+    using Acc = typename std::conditional<PV8, int, float>::type;
+    Acc o[DP / 2];
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        ls0 += exp2f(x[j][0] - mn0) + exp2f(x[j][1] - mn0);
-        ls1 += exp2f(x[j][2] - mn1) + exp2f(x[j][3] - mn1);
-      }
-      l0 = l0 * exp2f(m0 - mn0) + ls0;
-      l1 = l1 * exp2f(m1 - mn1) + ls1;
-      m0 = mn0;
-      m1 = mn1;
-    } else {
-      if (t == n_tiles) {  // the final m and l; the row's sum over its 4 lanes
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0;
+    for (int t = n_tiles; t < 2 * n_tiles; ++t) {
+      const int s = t % ST;
+      mbar_wait(&full[s], (t / ST) & 1);
+      const uint32_t vst = smem_addr(smem) + T::kOffStage + s * T::kStageBytes + T::kKBytes;
+#pragma unroll 1
+      for (int hh = 0; hh < 2; ++hh) {
+        int acc[32];
+        float x[32];
+        issue_s(s, hh, acc);
+        wgmma_wait<0>();
+        dequant_s(s, hh, acc, x);
+        if constexpr (PV8) {
+          // pq packed as the s8 A fragment of each 32-key chunk: logical
+          // k = 4·tig + e ↔ key 2·tig + {0, 1, 8, 9}[e] (+16 in a[2], a[3])
+          uint32_t pa[2][4];
 #pragma unroll
-        for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-          l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
-          l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
-        }
-        ps0 = fmaxf(1.f / l0, 1e-20f) * kInv127;
-        ps1 = fmaxf(1.f / l1, 1e-20f) * kInv127;
-      }
-      // pass 2: p against the final max, then P·V
+          for (int ch = 0; ch < 2; ++ch) {
+            uint32_t w[4][4];
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        x[j][0] = exp2f(x[j][0] - m0);
-        x[j][1] = exp2f(x[j][1] - m0);
-        x[j][2] = exp2f(x[j][2] - m1);
-        x[j][3] = exp2f(x[j][3] - m1);
-      }
-      if constexpr (PV8) {
-        const int8_t* vc = reinterpret_cast<const int8_t*>(base + T::K + T::SK);
-        int pq[NS][4];
-#pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          pq[j][0] = __float2int_rn((x[j][0] / l0) / ps0);
-          pq[j][1] = __float2int_rn((x[j][1] / l0) / ps0);
-          pq[j][2] = __float2int_rn((x[j][2] / l1) / ps1);
-          pq[j][3] = __float2int_rn((x[j][3] / l1) / ps1);
-        }
-#pragma unroll
-        for (int ch = 0; ch < kQ8BK / 32; ++ch) {
-          const int j0 = ch * 4;
-          // logical k = 4·tig + e ↔ key 2·tig + {0, 1, 8, 9}[e] (+16 in a[2], a[3])
-          const uint32_t a[4] = {
-              pack_s8(pq[j0][0], pq[j0][1], pq[j0 + 1][0], pq[j0 + 1][1]),
-              pack_s8(pq[j0][2], pq[j0][3], pq[j0 + 1][2], pq[j0 + 1][3]),
-              pack_s8(pq[j0 + 2][0], pq[j0 + 2][1], pq[j0 + 3][0], pq[j0 + 3][1]),
-              pack_s8(pq[j0 + 2][2], pq[j0 + 2][3], pq[j0 + 3][2], pq[j0 + 3][3])};
-#pragma unroll
-          for (int n = 0; n < NO; ++n) {
-            const int8_t* vr = vc + (n * 8 + g) * LDV + ch * 32 + 2 * tig;
-            mma_s8(oi[n], a, ld_b16(vr) | (ld_b16(vr + 8) << 16),
-                   ld_b16(vr + 16) | (ld_b16(vr + 24) << 16));
+            for (int jj = 0; jj < 4; ++jj) {
+              const int j = 4 * ch + jj;
+              w[jj][0] = quantize(ex2(x[4 * j] - m0), l0, rl0, ps0, rps0);
+              w[jj][1] = quantize(ex2(x[4 * j + 1] - m0), l0, rl0, ps0, rps0);
+              w[jj][2] = quantize(ex2(x[4 * j + 2] - m1), l1, rl1, ps1, rps1);
+              w[jj][3] = quantize(ex2(x[4 * j + 3] - m1), l1, rl1, ps1, rps1);
+            }
+            pa[ch][0] = low_bytes(w[0][0], w[0][1], w[1][0], w[1][1]);
+            pa[ch][1] = low_bytes(w[0][2], w[0][3], w[1][2], w[1][3]);
+            pa[ch][2] = low_bytes(w[2][0], w[2][1], w[3][0], w[3][1]);
+            pa[ch][3] = low_bytes(w[2][2], w[2][3], w[3][2], w[3][3]);
           }
-        }
-      } else {
-        const bf16* vc = reinterpret_cast<const bf16*>(base + T::K + T::SK);
-        uint32_t pa[NS / 2][4];
+          // O += Pq · Vq_half: B K-major, 128-byte rows of keys; a k32 step
+          // is 32 keys (bytes) of the row
+          wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          pa[j / 2][(j % 2) * 2] = pack_bf16x2(x[j][0], x[j][1]);
-          pa[j / 2][(j % 2) * 2 + 1] = pack_bf16x2(x[j][2], x[j][3]);
-        }
+          for (int ch = 0; ch < 2; ++ch)
+            wgmma_rs_s8<DP>(o, pa[ch], wgmma_desc(vst + (2 * hh + ch) * 32, 16, 1024), 1);
+        } else {
+          uint32_t pa[4][4];  // bf16(p) in the A fragment of m64k16: keys 16kk + (0..15)
 #pragma unroll
-        for (int kk = 0; kk < NS / 2; ++kk) {
-          const bf16* vrow = vc + (kk * 16 + (lane & 15)) * LDV;
-#pragma unroll
-          for (int n = 0; n < NO; ++n) {
-            uint32_t b0, b1;
-            ldmatrix_x2_trans(b0, b1, vrow + n * 8);
-            mma_bf16(of[n], pa[kk], b0, b1);
+          for (int j = 0; j < 8; ++j) {
+            const float p0 = ex2(x[4 * j] - m0), p1 = ex2(x[4 * j + 1] - m0);
+            const float p2 = ex2(x[4 * j + 2] - m1), p3 = ex2(x[4 * j + 3] - m1);
+            l0 += p0 + p1;
+            l1 += p2 + p3;
+            pa[j / 2][(j % 2) * 2] = pack_bf16x2(p0, p1);
+            pa[j / 2][(j % 2) * 2 + 1] = pack_bf16x2(p2, p3);
           }
+          // O += P · V_half: V MN-major (d contiguous); the leading offset
+          // steps one 64-column box (128 rows · 128 B), the stride offset 8
+          // keys (1024 B); a k16 step is 16 key rows
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs_tb<DP>(o, pa[kk],
+                            wgmma_desc(vst + (hh * 64 + kk * 16) * 128, kQ8BK * 128, 1024), 1);
         }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < DP / 2; ++i) reg_fence(o[i]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
+    }
+
+    if constexpr (!PV8) {
+#pragma unroll
+      for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
       }
     }
-    __syncthreads();  // this buffer is refilled two tiles on
-  }
-
-  const size_t row_stride = static_cast<size_t>(H) * D;
-  bf16* r0 = out + (static_cast<size_t>(b) * S + q0 + warp * 16 + g) * row_stride +
-             static_cast<size_t>(h) * D;
-  bf16* r1 = r0 + 8 * row_stride;
+    const size_t row_stride = static_cast<size_t>(H) * D;
+    bf16* r0 = out + (static_cast<size_t>(b) * S + row) * row_stride + static_cast<size_t>(h) * D;
+    bf16* r1 = r0 + 8 * row_stride;
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int col = n * 8 + tig * 2;
-    if (n * 8 < D) {
-      float v00, v01, v10, v11;
-      if constexpr (PV8) {
-        const float s0 = sv[static_cast<size_t>(bh) * DP + col];
-        const float s1 = sv[static_cast<size_t>(bh) * DP + col + 1];
-        v00 = static_cast<float>(oi[n][0]) * ps0 * s0;
-        v01 = static_cast<float>(oi[n][1]) * ps0 * s1;
-        v10 = static_cast<float>(oi[n][2]) * ps1 * s0;
-        v11 = static_cast<float>(oi[n][3]) * ps1 * s1;
-      } else {
-        v00 = of[n][0] / l0;
-        v01 = of[n][1] / l0;
-        v10 = of[n][2] / l1;
-        v11 = of[n][3] / l1;
+    for (int n = 0; n < DP / 8; ++n) {
+      const int col = n * 8 + tig * 2;
+      if (n * 8 < D) {
+        float v00, v01, v10, v11;
+        if constexpr (PV8) {
+          const float2 s2 = *reinterpret_cast<const float2*>(sv + static_cast<size_t>(bh) * DP + col);
+          v00 = __fmul_rn(__fmul_rn(__int2float_rn(o[4 * n]), ps0), s2.x);
+          v01 = __fmul_rn(__fmul_rn(__int2float_rn(o[4 * n + 1]), ps0), s2.y);
+          v10 = __fmul_rn(__fmul_rn(__int2float_rn(o[4 * n + 2]), ps1), s2.x);
+          v11 = __fmul_rn(__fmul_rn(__int2float_rn(o[4 * n + 3]), ps1), s2.y);
+        } else {
+          v00 = o[4 * n] / l0;
+          v01 = o[4 * n + 1] / l0;
+          v10 = o[4 * n + 2] / l1;
+          v11 = o[4 * n + 3] / l1;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(r0 + col) = __floats2bfloat162_rn(v00, v01);
+        *reinterpret_cast<__nv_bfloat162*>(r1 + col) = __floats2bfloat162_rn(v10, v11);
       }
-      *reinterpret_cast<__nv_bfloat162*>(r0 + col) = __floats2bfloat162_rn(v00, v01);
-      *reinterpret_cast<__nv_bfloat162*>(r1 + col) = __floats2bfloat162_rn(v10, v11);
     }
   }
 }
 
 template <int DP, bool PV8>
-cudaError_t launch_q8(const int8_t* qq, const float* sq, const int8_t* kq, const float* sk,
+cudaError_t launch_q8(const void* qq, const float* sq, const void* kq, const float* sk,
                       const void* v, const float* sv, bf16* out, int B, int S, int H, int D,
                       float c, cudaStream_t st) {
-  const size_t bytes = Q8Tiling<DP, PV8>::BYTES;
-  cudaError_t err = allow_smem(q8_kernel<DP, PV8>, bytes);
+  using T = Q8<DP, PV8>;
+  CUtensorMap tq, tk, tv;
+  const int rows = B * H * S;
+  if (!s8_rows_map(&tq, qq, rows, DP, kQ8BQ) || !s8_rows_map(&tk, kq, rows, DP, kQ8BK))
+    return cudaErrorInvalidValue;
+  if (PV8 ? !s8_rows_map(&tv, v, B * H * DP, S, DP) : !bf16_rows_map(&tv, v, B * S, H, D, kQ8BK))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(q8_kernel<DP, PV8>, T::kSmemBytes);
   if (err != cudaSuccess) return err;
-  q8_kernel<DP, PV8><<<dim3(S / kQ8BQ, B * H), 32 * kQ8Warps, bytes, st>>>(
-      qq, sq, kq, sk, v, sv, out, S, H, D, c);
+  q8_kernel<DP, PV8><<<dim3(S / kQ8BQ, B * H), T::kThreads, T::kSmemBytes, st>>>(
+      tq, tk, tv, sq, sk, sv, out, S, H, D, c);
   return cudaGetLastError();
 }
 
 template <bool PV8>
-cudaError_t dispatch_q8(int DP, const int8_t* qq, const float* sq, const int8_t* kq,
+cudaError_t dispatch_q8(int DP, const void* qq, const float* sq, const void* kq,
                         const float* sk, const void* v, const float* sv, bf16* out, int B,
                         int S, int H, int D, float c, cudaStream_t st) {
   switch (DP) {
@@ -369,16 +478,15 @@ extern "C" int psd_attention_q8_fwd(const void* qq, const void* sq, const void* 
                                     int B, int S, int H, int D, float scale_log2, int pv8,
                                     void* stream) {
   using namespace psd;
+  if (D % 8 != 0 || D <= 0 || S % kQ8BK != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int dp = (D + 31) / 32 * 32;
-  const int8_t* qp = static_cast<const int8_t*>(qq);
-  const int8_t* kp = static_cast<const int8_t*>(kq);
   const float* sqp = static_cast<const float*>(sq);
   const float* skp = static_cast<const float*>(sk);
   const float* svp = static_cast<const float*>(sv);
   bf16* op = static_cast<bf16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      pv8 ? dispatch_q8<true>(dp, qp, sqp, kp, skp, v, svp, op, B, S, H, D, scale_log2, st)
-          : dispatch_q8<false>(dp, qp, sqp, kp, skp, v, svp, op, B, S, H, D, scale_log2, st);
+      pv8 ? dispatch_q8<true>(dp, qq, sqp, kq, skp, v, svp, op, B, S, H, D, scale_log2, st)
+          : dispatch_q8<false>(dp, qq, sqp, kq, skp, v, svp, op, B, S, H, D, scale_log2, st);
   return static_cast<int>(err);
 }

@@ -23,7 +23,8 @@ kernel asked for the per-row log-sum-exp, its backward the backward kernel.
 int8 kernel `_kernel_q8` (`quant="qk8" | "int8"`; no model path passes
 `quant=`, in psd_tpu as here): a plain-torch quantization pre-pass
 (`quantize_qkv`), then `attention_q8`, the wrapper of `csrc/attention_q8.cu`
-(plain version `attention_q8_reference`, exact integer products).
+(plain version `attention_q8_reference`, exact integer products), which
+takes the shapes `q8_shape_error` admits.
 """
 
 from __future__ import annotations
@@ -201,6 +202,55 @@ def _padded_dim(D: int) -> int:
     return (D + 31) // 32 * 32
 
 
+# what csrc/attention_q8.cu takes: every shape spatial_attention routes
+# (S % 256 == 0, S <= 4096, D <= 256) whose head dim is a multiple of 8 (TMA's
+# 16-byte strides for the bf16 v of "qk8"); its blocks hold 128 query rows and
+# its key tiles 128 keys
+Q8_MAX_D, Q8_S_MULTIPLE, Q8_MAX_S = 256, 256, 4096
+
+
+def q8_shape_error(S: int, D: int) -> Optional[str]:
+    """None when the int8 attention kernel takes a (·, S, ·, D) attention,
+    else why not. Any batch and head count."""
+    if D % 8 or not 0 < D <= Q8_MAX_D:
+        return f"head dim {D} must be a multiple of 8 up to {Q8_MAX_D}"
+    if S % Q8_S_MULTIPLE or not 0 < S <= Q8_MAX_S:
+        return f"sequence length {S} must be a multiple of {Q8_S_MULTIPLE} up to {Q8_MAX_S}"
+    return None
+
+
+# The int8 P·V product takes pq straight from the QKᵀ accumulator as its A
+# operand, whose register holds 4 consecutive k where the accumulator holds
+# pairs of keys (csrc/attention_q8.cu). So vq's keys are placed within each
+# 32-key chunk: position 16·hi + 4·t + 2·e1 + e0 holds key
+# 16·hi + 8·e1 + 2·t + e0 (hi, e1, e0 in {0, 1}, t in 0..3), a swap of the
+# t and e1 axes. The contraction over keys does not depend on their order.
+Q8_KEY_CHUNK = 32
+
+
+def q8_key_position(key):
+    """Where key `key` (an int or an integer tensor) sits in the last axis
+    of vq as quantize_qkv writes it."""
+    k = key % Q8_KEY_CHUNK
+    hi, e1, t, e0 = k // 16, (k // 8) % 2, (k // 2) % 4, k % 2
+    return key - k + 16 * hi + 4 * t + 2 * e1 + e0
+
+
+def _swap_in_chunks(x, shape):
+    lead, S = x.shape[:-1], x.shape[-1]
+    return x.reshape(*lead, S // Q8_KEY_CHUNK, *shape).transpose(-3, -2).reshape(*lead, S)
+
+
+def q8_place_keys(x):
+    """(..., S) with keys in order → the kernel's placement (q8_key_position)."""
+    return _swap_in_chunks(x, (2, 2, 4, 2))
+
+
+def q8_unplace_keys(x):
+    """The inverse of q8_place_keys: keys back in order."""
+    return _swap_in_chunks(x, (2, 4, 2, 2))
+
+
 def quantize_qkv(q, k, v, pv8: bool):
     """The quantization pre-pass of `psd_tpu/ops/spattn.py:116-127`, plain
     torch as in psd_tpu (XLA outside the kernel), into the layouts
@@ -208,7 +258,8 @@ def quantize_qkv(q, k, v, pv8: bool):
       qq, kq: (B·H, S, Dp) int8, D zero-padded to Dp = ceil32(D);
       sq, sk: (B·H, S) fp32 row scales;
       v:  "qk8": v itself (B, S, H, D); "int8": vq (B·H, Dp, S) int8, key-major
-          (the B operand of the int8 P·V), zero-padded rows D..Dp;
+          (the B operand of the int8 P·V), zero-padded rows D..Dp, keys
+          placed within 32-key chunks by q8_place_keys;
       sv: "int8": (B·H, Dp) fp32 column scales over S (1 in the padding);
           "qk8": None."""
     from .quant import quant_rows
@@ -228,7 +279,8 @@ def quantize_qkv(q, k, v, pv8: bool):
     vf = v.float()
     sv = vf.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0)  # (B,1,H,D)
     vq = torch.round(vf / sv).to(torch.int8)
-    vq = F.pad(vq.permute(0, 2, 3, 1), (0, 0, 0, Dp - D)).reshape(B * H, Dp, S).contiguous()
+    vq = q8_place_keys(F.pad(vq.permute(0, 2, 3, 1), (0, 0, 0, Dp - D)).reshape(B * H, Dp, S))
+    vq = vq.contiguous()
     sv = F.pad(sv[:, 0], (0, Dp - D), value=1.0).reshape(B * H, Dp).contiguous()
     return qq, sq, kq, sk, vq, sv
 
@@ -255,7 +307,7 @@ def attention_q8_reference(qq, sq, kq, sk, v, sv, scale: float, shape, out_dtype
     out_dtype = out_dtype or (torch.float32 if pv8 else v.dtype)
     vt = vq_t = None
     if pv8:
-        vq_t = v[:, :D, :].transpose(1, 2)  # (BH, S, D) int8
+        vq_t = q8_unplace_keys(v[:, :D, :]).transpose(1, 2)  # (BH, S, D) int8
     else:
         vt = v.permute(0, 2, 1, 3).reshape(B * H, S, D)
     c = float(np.float32(scale * LOG2E))
@@ -293,8 +345,8 @@ def attention_q8(qq, sq, kq, sk, v, sv, scale: float, shape, out_dtype=None):
     out_dtype = out_dtype or torch.bfloat16
     dev = qq.device
     kernels.require(out_dtype == torch.bfloat16, f"attention_q8: bf16 output, got {out_dtype}")
-    kernels.require(D % 8 == 0 and Dp <= 256, f"attention_q8: head dim {D}")
-    kernels.require(S % 64 == 0, f"attention_q8: sequence length {S} must be a multiple of 64")
+    err = q8_shape_error(S, D)
+    kernels.require(err is None, f"attention_q8: {err}")
     for name, t, shp in (("qq", qq, (BH, S, Dp)), ("kq", kq, (BH, S, Dp))):
         kernels.require(t.device == dev and t.dtype == torch.int8 and t.is_contiguous()
                         and tuple(t.shape) == shp and t.data_ptr() % 16 == 0,
@@ -323,6 +375,12 @@ def attention_q8(qq, sq, kq, sk, v, sv, scale: float, shape, out_dtype=None):
     return out
 
 
+def spatial_attention_routes(Sq: int, Sk: int, D: int) -> bool:
+    """Whether psd_tpu's spatial_attention takes a (·, Sq, ·, D) attention
+    against (·, Sk, ·, D) keys (`psd_tpu/ops/spattn.py:221-268`)."""
+    return Sq == Sk and Sq % 256 == 0 and Sq <= 4096 and D <= 256
+
+
 def spatial_attention(q, k, v, scale: Optional[float] = None, block_q: Optional[int] = None,
                       quant: str = "none"):
     """psd_tpu's `spatial_attention` op (`psd_tpu/ops/spattn.py:221-268`),
@@ -336,8 +394,7 @@ def spatial_attention(q, k, v, scale: Optional[float] = None, block_q: Optional[
         raise ValueError("spatial_attention: block_q must be None; the CUDA kernels fix "
                          "their own query tile")
     B, Sq, H, D = q.shape
-    Sk = k.shape[1]
-    if Sq != Sk or Sq % 256 or Sq > 4096 or D > 256:
+    if not spatial_attention_routes(Sq, k.shape[1], D):
         return None
     sm_scale = float(scale) if scale is not None else D ** -0.5
     if quant in ("qk8", "int8"):

@@ -2,8 +2,8 @@
 factory (the same shapes as `psd_tpu.testing.tiny_dadd()`: split3 routing,
 AOE, IP-Plus, purifier; fp32, seeded flax-style init), and the judges that
 hold a kernel's output to its plain version by relative L2 error
-(attention forward and backward, the LayerNorm-fused GEMMs, gn_proj,
-split3)."""
+(attention forward and backward, the int8 attention, the LayerNorm-fused
+GEMMs, gn_proj, split3)."""
 
 from __future__ import annotations
 
@@ -79,6 +79,27 @@ def rel_l2_judge(out: torch.Tensor, ref: torch.Tensor, rel_band: float, row_band
 def attention_judge(out: torch.Tensor, ref: torch.Tensor):
     """rel_l2_judge at the attention bands."""
     return rel_l2_judge(out, ref, ATTN_REL_L2_BAND, ATTN_ROW_BAND)
+
+
+# attention_q8 (csrc/attention_q8.cu, "qk8" and "int8") against
+# attention_q8_reference on the same quantized operands, bf16 out. Both
+# compute the same fp32 values up to the summation order of l and of P·V,
+# then round to bf16: an output that lands on the other side of a rounding
+# boundary moves one bf16 ulp (2^-9..2^-7 relative). In "int8" the order of l
+# also moves pn/ps across a half now and then, which flips one quantized
+# probability by one level and moves its row by ps·|v_j|, about 2e-3..3e-3 of
+# the row's norm at chip_smoke.py's Q8_SHAPES. Bands: the relative L2 error
+# of the whole (B, S, H, D) output, and of each query row (its D outputs)
+# against one bf16 ulp. Faults planted in the kernel read above them wherever
+# they change the output (PERF.md §6; emulated on the CPU by
+# tests/test_torch_kernels.py::test_attention_q8_judge_sees_planted_faults).
+Q8_REL_L2_BAND, Q8_ROW_BAND = 2e-3, 2.0 ** -7
+
+
+def attention_q8_judge(out: torch.Tensor, ref: torch.Tensor):
+    """rel_l2_judge at attention_q8's bands, and finite outputs."""
+    ok, text, readings = rel_l2_judge(out, ref, Q8_REL_L2_BAND, Q8_ROW_BAND)
+    return ok and bool(torch.isfinite(out).all()), text, readings
 
 
 # The attention backward (attention_bwd.cu, D <= 160) against

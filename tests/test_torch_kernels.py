@@ -888,3 +888,241 @@ def test_split3_judge_sees_planted_faults(fault, shape, lens, delta):
     ok, text, _ = split3_judge(out, ref)
     changes = not (fault == "pad_key_in" and (lens[2] == 16 or delta == 0.0))
     assert ok == (fault is None or not changes), text
+
+
+# ---- the int8 attention (csrc/attention_q8.cu): admission, layout, arithmetic ----
+def test_q8_shape_error_admits_every_routed_shape():
+    """Every attention spatial_attention routes (S % 256 == 0, S ≤ 4096,
+    D ≤ 256) whose head dim is a multiple of 8 is one the int8 kernel
+    takes; every D % 8 != 0 it routes is refused (no model routes one)."""
+    routed = refused = 0
+    for D in range(1, 265):
+        for S in range(128, 4353, 128):
+            if not attention.spatial_attention_routes(S, S, D):
+                continue
+            if D % 8:
+                refused += 1
+                assert attention.q8_shape_error(S, D) is not None, (S, D)
+            else:
+                routed += 1
+                assert attention.q8_shape_error(S, D) is None, (S, D)
+    assert routed == 32 * 16 and refused == (256 - 32) * 16
+
+
+@pytest.mark.parametrize("S,D,admitted", [
+    (4096, 40, True), (1024, 80, True), (256, 160, True), (768, 256, True), (256, 24, True),
+    (256, 44, False),    # D % 8: TMA's 16-byte strides for v
+    (256, 264, False),   # D > 256
+    (256, 0, False),
+    (320, 40, False),    # S % 256
+    (384, 40, False),
+    (4352, 40, False),   # S > 4096
+    (0, 40, False),
+])
+def test_q8_shape_error_refuses_what_the_kernel_does_not_take(S, D, admitted):
+    assert (attention.q8_shape_error(S, D) is None) == admitted
+
+
+def test_q8_key_placement_round_trips_and_matches_the_a_fragment():
+    """q8_place_keys puts key 2·t + {0, 1, 8, 9}[e] (+16) at position
+    4·t + e (+16) of each 32-key chunk, where the kernel's s8 A fragment of
+    lane t takes it; q8_unplace_keys undoes it; q8_key_position agrees."""
+    x = torch.arange(3 * 96).reshape(3, 96)
+    placed = attention.q8_place_keys(x)
+    assert torch.equal(attention.q8_unplace_keys(placed), x)
+    keys = torch.arange(96)
+    assert torch.equal(placed[:, attention.q8_key_position(keys)], x)
+    for chunk in range(3):
+        for hi in (0, 1):
+            for t in range(4):
+                for e in range(4):
+                    key = 32 * chunk + 16 * hi + 2 * t + (0, 1, 8, 9)[e]
+                    assert placed[0, 32 * chunk + 16 * hi + 4 * t + e] == key
+    assert attention.q8_key_position(37) == int(attention.q8_key_position(torch.tensor(37)))
+
+
+def test_q8_rint_rewrite_and_int_conversion_are_exact():
+    """The kernel's rounding of pn/ps (the low byte of y + 1.5·2²³) against
+    round half to even over every fp32 y in [2⁻³, 128) and the values
+    below; and its int32 → fp32 of the QKᵀ sums exact (|acc| ≤ 127²·256,
+    the most a Dp ≤ 256 product reaches, below 2²⁴), as is the add trick
+    (the bits of acc + 0x4B400000, less 1.5·2²³) measured against it."""
+    acc = np.arange(-127 * 127 * 256, 127 * 127 * 256 + 1, dtype=np.int32)
+    np.testing.assert_array_equal(acc.astype(np.float32).astype(np.int64), acc)
+    conv = (acc + np.int32(0x4B400000)).view(np.float32) - np.float32(12582912.0)
+    np.testing.assert_array_equal(conv, acc.astype(np.float32))
+    magic = np.float32(12582912.0)
+    for e in range(-3, 7):  # each binade [2^e, 2^(e+1)) in full
+        lo = np.float32(2.0 ** e).view(np.uint32)
+        y = np.arange(lo, lo + (1 << 23), dtype=np.uint32).view(np.float32)
+        got = (y + magic).view(np.uint32) & 0xFF
+        np.testing.assert_array_equal(got, np.rint(y).astype(np.uint32))
+    small = np.concatenate([np.float32([0.0, 0.5]),
+                            np.linspace(0, 0.125, 100001, dtype=np.float32)])
+    np.testing.assert_array_equal((small + magic).view(np.uint32) & 0xFF,
+                                  np.rint(small).astype(np.uint32))
+
+
+def _fma32(a, b, c):
+    """fp32 fma(a, b, c), correctly rounded: a·b is exact in fp64; the fp64
+    sum's rounding error (TwoSum) decides the fp32 rounding where the fp64
+    sum falls exactly halfway between two fp32 values."""
+    a, b, c = (np.asarray(t, np.float32).astype(np.float64) for t in (a, b, c))
+    prod = a * b
+    s = prod + c
+    bb = s - prod
+    err = (prod - (s - bb)) + (c - bb)
+    r = s.astype(np.float32)
+    other = np.nextafter(r, np.where(s > r.astype(np.float64), np.inf, -np.inf).astype(np.float32))
+    mid = (r.astype(np.float64) + other.astype(np.float64)) / 2
+    tie = (s == mid) & (other != r)
+    up = np.maximum(r, other)
+    down = np.minimum(r, other)
+    fixed = np.where(err > 0, up, np.where(err < 0, down, r))
+    return np.where(tie, fixed, r).astype(np.float32)
+
+
+def _markstein(x, d):
+    """The kernel's x/d: q0 = x·r with r the correctly rounded 1/d, then
+    q0 + (x − q0·d)·r by two fmas (csrc/attention_q8.cu div_rn)."""
+    x, d = np.asarray(x, np.float32), np.asarray(d, np.float32)
+    r = np.float32(1.0) / d
+    q0 = x * r
+    return _fma32(_fma32(-q0, d, x), r, q0)
+
+
+def test_q8_division_rewrite_equals_ieee_division():
+    """The kernel's two divisions per logit, p/l and pn/ps, by Markstein's
+    correction from one reciprocal a row, against IEEE fp32 division: on
+    every logit of seeded rows as the plain version forms them (random
+    q, k at S = 1024, D = 40, 80, 160), on random (p, l) over the ranges a
+    row can give, and on the tie probe's rows (chip_smoke.q8_tie_probe)."""
+    import chip_smoke
+
+    def check(p, l):
+        p, l = np.asarray(p, np.float32), np.asarray(l, np.float32)
+        pn = p / l
+        np.testing.assert_array_equal(_markstein(p, l), pn)
+        ps = (np.maximum(np.float32(1.0) / l, np.float32(1e-20))
+              * np.float32(1.0 / 127.0)).astype(np.float32)
+        np.testing.assert_array_equal(_markstein(pn, ps), pn / ps)
+        return int(p.size)
+
+    checked = 0
+    for D in (40, 80, 160):
+        rng = _rng(D)
+        q, k, v = (_t(rng.standard_normal((1, 1024, 2, D)).astype(np.float32)) for _ in range(3))
+        qq, sq, kq, sk, _, _ = attention.quantize_qkv(q, k, v, True)
+        c = float(np.float32(D ** -0.5 * attention.LOG2E))
+        acc = (qq.double() @ kq.double().transpose(1, 2)).float()
+        x = acc * (sq[:, :, None] * c) * sk[:, None, :]
+        p = torch.exp2(x - x.amax(-1, keepdim=True))
+        l = p.sum(-1, keepdim=True).expand_as(p)
+        checked += check(p.numpy(), l.numpy())
+    rng = _rng(11)
+    l = np.float32(1.0) + rng.random(1 << 20, dtype=np.float32) * np.float32(4095.0)
+    p = np.exp2(-rng.random(1 << 20, dtype=np.float32) * np.float32(30.0)).astype(np.float32)
+    checked += check(p, l)
+    ops, shape, _, n_ties = chip_smoke.q8_tie_probe(torch.device("cpu"))
+    assert n_ties >= chip_smoke.Q8_PROBE_MIN_TIES
+    qq, sq, kq, sk, _, _ = ops
+    cl = float(torch.tensor(attention.LOG2E, dtype=torch.float32))
+    sk1 = 1.0 + torch.arange(shape[0] * shape[2]).float() / 64.0
+    p1 = torch.exp2((-1.0 * (sq * cl)) * sk1[:, None])
+    l1 = 1.0 + p1
+    checked += check(p1.numpy(), l1.numpy()) + check(np.ones_like(l1.numpy()), l1.numpy())
+    assert checked > 6_000_000
+
+
+def _q8_kernel_emulation(qq, sq, kq, sk, v, sv, scale, shape, fault=None):
+    """attention_q8.cu's arithmetic in plain torch, bf16 (B, S, H, D) out:
+    the plain version's fp32 logits, p and pq, with l summed as the kernel
+    sums it (each lane's keys 8j + 2·t (+1) online over 64-key halves, then
+    the 4 lanes) and P·V accumulated in fp32 over 64-key halves. `fault`
+    plants one of the faults the bands were set against: "unquantized_p"
+    ("int8": pn·v in place of pq·ps·vq), "p_unscaled" ("int8": pq =
+    rint(p/l), without the 1/ps scale), "drop_last_chunk" (keys 96..127 of
+    every 128-key tile left out of P·V), "neighbour_sk" (the next b·h's key
+    scales), "fragment_lane" (each lane's pq meets the keys of the next
+    lane of its quad), "half_away" ("int8": pq rounded half away from zero)."""
+    B, S, H, D = shape
+    pv8 = sv is not None
+    c = float(np.float32(scale * attention.LOG2E))
+    if fault == "neighbour_sk":
+        sk = sk.roll(-1, 0)
+    acc = (qq[..., :D].double() @ kq[..., :D].double().transpose(1, 2)).float()
+    x = acc * (sq[:, :, None] * c) * sk[:, None, :]
+    m = x.amax(-1, keepdim=True)
+    p = torch.exp2(x - m)
+    if pv8:
+        # lane t's keys: 8j + 2t + {0, 1}; online over 64-key halves
+        xt = x.reshape(*x.shape[:2], S // 64, 8, 4, 2).transpose(-2, -3)  # (.., half, lane, j, e)
+        xt = xt.reshape(*x.shape[:2], S // 64, 4, 16)
+        ml = torch.full((*x.shape[:2], 4), -float("inf"))
+        ll = torch.zeros((*x.shape[:2], 4))
+        for hh in range(S // 64):
+            mx = torch.maximum(ml, xt[..., hh, :, :].amax(-1))
+            ll = ll * torch.exp2(ml - mx) + torch.exp2(xt[..., hh, :, :] - mx[..., None]).sum(-1)
+            ml = mx
+        lanes = ll * torch.exp2(ml - m)
+        l = ((lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3]))[..., None]
+        pn = p / l
+        ps = (1.0 / l).clamp_min(1e-20) * (1.0 / 127.0)
+        ratio = pn / ps
+        pq = torch.floor(ratio + 0.5) if fault == "half_away" else torch.round(ratio)
+        if fault == "p_unscaled":
+            pq = torch.round(pn)
+        vq = attention.q8_unplace_keys(v[:, :D, :]).transpose(1, 2).float()  # (BH, S, D)
+        if fault == "unquantized_p":
+            lhs, rhs, post = pn, vq * sv[:, None, :D], None
+        else:
+            lhs, rhs, post = pq, vq, (ps, sv[:, None, :D])
+    else:
+        l = p.sum(-1, keepdim=True)
+        lhs = p.bfloat16().float()
+        rhs = v.permute(0, 2, 1, 3).reshape(B * H, S, D).float()
+        post = None
+    if fault == "fragment_lane":
+        idx = torch.arange(S)
+        idx = idx - idx % 8 + (idx % 8 + 2) % 8
+        rhs = rhs[:, idx]
+    if fault == "drop_last_chunk":
+        lhs = lhs.clone()
+        lhs[..., torch.arange(S) % 128 >= 96] = 0
+    z = torch.zeros(B * H, S, D)
+    for k0 in range(0, S, 64):
+        z = z + lhs[..., k0:k0 + 64] @ rhs[:, k0:k0 + 64]
+    if post is not None:
+        z = z * post[0] * post[1]
+    else:
+        z = z / l
+    return z.bfloat16().reshape(B, H, S, D).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("fault", [None, "unquantized_p", "p_unscaled", "drop_last_chunk",
+                                   "neighbour_sk", "fragment_lane", "half_away"])
+@pytest.mark.parametrize("mode", ["qk8", "int8"])
+@pytest.mark.parametrize("shape", [(1, 512, 2, 40), (1, 256, 2, 80), (2, 256, 1, 160)])
+def test_attention_q8_judge_sees_planted_faults(fault, mode, shape):
+    """chip_smoke.py holds attention_q8 to its plain version with
+    `attention_q8_judge` (relative L2 ≤ Q8_REL_L2_BAND over the output,
+    ≤ Q8_ROW_BAND on its worst query row). With N(0,1) bf16 inputs, the
+    kernel's arithmetic emulated in plain torch passes and every fault that
+    changes the output fails; p's quantization exists only in "int8", and
+    half-away rounding moves only exact ties, which random rows almost
+    never hold: chip_smoke's tie probe catches it
+    (test_chip_smoke_q8_tie_probe_tells_half_even_from_half_away). (PERF.md
+    §6 gives the readings of the same faults planted in the kernel.)"""
+    from psd_tpu_torch.testing import attention_q8_judge
+
+    rng = _rng(909 + sum(shape))
+    q, k, v = (_t(rng.standard_normal(shape).astype(np.float32)).bfloat16() for _ in range(3))
+    pv8 = mode == "int8"
+    ops = attention.quantize_qkv(q, k, v, pv8)
+    scale = shape[-1] ** -0.5
+    ref = attention.attention_q8_reference(*ops, scale, shape, torch.bfloat16)
+    out = _q8_kernel_emulation(*ops, scale, shape, fault)
+    ok, text, _ = attention_q8_judge(out, ref)
+    unseen = (fault is None or fault == "half_away"
+              or (fault in ("unquantized_p", "p_unscaled") and not pv8))
+    assert ok == unseen, text
