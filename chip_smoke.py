@@ -72,15 +72,35 @@ Phases, in order; any failure exits non-zero:
                device time (captured in a CUDA graph, replayed) on the
                kernels, with the LN kernels off and all plain.
   5. serve   — a GenerationServer over the SD-scale DADD at 512², 50 DDIM
-               steps, max_batch 8, steer 1.0 answers 8 requests; images are
-               checked and every serving kernel's launch count must be > 0.
+               steps, max_batch 8, steer 1.0 answers 8 requests by CUDA-graph
+               replay (the default: one captured program a batch, sampler
+               loop and decode); images are checked, every serving kernel
+               launched, and the program's capture launches exactly what a
+               batch does (attention 501, split3 750, ln_proj 1600, ln_geglu
+               800, gn_proj 800; the host counts are the eager warm-up's and
+               the capture's, a replay adds none). Then: the same batch
+               replayed again; 16 requests at pipeline_depth=2, each batch
+               led by its own seed, two batches in flight; every image equal
+               bit for bit to the eager run (core.mode.eager()) of the same
+               requests; one batch with fused=False (two replays, sample then
+               decode_latents) equal to fused=True's; the A/B of graphs
+               against eager in AB_PAIRS alternating pairs (wall, host
+               dispatch, peak memory); each program's warm-up, capture and
+               instantiation seconds; one replay's device time and host
+               launch time against 50 × the eps's device time (phase 4) + the
+               decode; and, in a child process, a capture that fails (a host
+               sync in the VAE) raises, keeps no program and runs nothing
+               eagerly in its place.
   5b. turbo  — the same at the turbo point (TURBO: DPM-Solver++(2M), 25
-               steps, DeepCache stride 5, int8 VAE): images checked, exactly
-               6 full and 19 shallow UNet evaluations, the serving kernels
-               launched; wall time beside phase 5's. Then the int8 against
-               the bf16 VAE decode of the same seeded latents with the same
-               weights (PSNR floor, max abs diff, ms each), and qconv3x3
-               against an exact fp64 conv at one decoder shape.
+               steps, DeepCache stride 5, int8 VAE) by graph replay: images
+               checked and equal to the eager run's, 6 full and 19 shallow
+               UNet evaluations at warm-up and at capture (none at replay, as
+               many eagerly), the capture launching attention 156, split3
+               185, ln_proj 382, ln_geglu 191, gn_proj 191; the A/B of graphs
+               against eager; wall time beside phase 5's. Then the int8
+               against the bf16 VAE decode of the same seeded latents with
+               the same weights (PSNR floor, max abs diff, ms each), and
+               qconv3x3 against an exact fp64 conv at one decoder shape.
   6. train   — the attention backward kernel against autograd through the
                plain version at the training shapes, by relative L2 over
                each of dQ, dK, dV and each of their rows
@@ -99,7 +119,9 @@ Phases, in order; any failure exits non-zero:
 The line before the last is a JSON object with one entry per kernel:
 `launches` counts the launches of the main-path runs (phases 3b, 5, 5b and
 6, each with the counts set to 0 just before it; `launches_by_path` splits
-them),
+them; in phases 5 and 5b the wrappers run, and count, at the eager warm-up
+and at the capture of the batch's program, and `launches_per_replay` gives
+what one replay launches),
 `max_abs_err` is the largest over the kernel's shapes, `ms`, `plain_ms`,
 `library_ms` and `bound_ms` sum one call at each of its main-path shapes
 (attention_bwd's `library_ms` is SDPA's backward alone, on a retained
@@ -110,6 +132,7 @@ The last line is the device JSON. Imports nothing of JAX.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import math
 import re
@@ -260,6 +283,14 @@ TURBO = dict(tome_ratio=0.0, tome_mode="branch",
 TURBO_FULL = sum(1 for i in range(TURBO["steps"])
                  if i % TURBO["encoder_stride"] == 0 or i == TURBO["steps"] - 1)
 TURBO_SHALLOW = TURBO["steps"] - TURBO_FULL
+# what one served batch of 8 at 512² launches (PERF.md §6): the exact path
+# (50 DDIM steps) and the turbo point; a captured program must launch these
+SERVE_LAUNCHES = {"attention": 501, "split3": 750, "ln_proj": 1600, "ln_geglu": 800,
+                  "gn_proj": 800}
+TURBO_LAUNCHES = {"attention": 156, "split3": 185, "ln_proj": 382, "ln_geglu": 191,
+                  "gn_proj": 191}
+# served batches timed with and without graphs, in alternating pairs
+AB_PAIRS = 4
 # int8 vs bf16 VAE decode of the same latents (8, 64, 64, 4), same weights
 # with spread channel gains: PSNR floor in dB, between the sound reading
 # (37.19) and a planted per-tensor weight scale's (36.69; deterministic,
@@ -1025,10 +1056,203 @@ def _gn_proj_ab(run) -> dict:
 
 
 # ---- phase 5 ---------------------------------------------------------------
-def phase_serve(card: str) -> dict:
+class _ServeProbe:
+    """Wraps a GenerationServer's `_dispatch` and `_fulfill` (instance
+    attributes) to record their order and the host seconds of each dispatch
+    (the enqueue, or the replay's copies and launch, of one batch)."""
+
+    def __init__(self, server):
+        self.events, self.dispatch_s = [], []
+        dispatch, fulfill = server._dispatch, server._fulfill
+
+        def timed_dispatch(batch):
+            t0 = time.perf_counter()
+            out = dispatch(batch)
+            self.dispatch_s.append(time.perf_counter() - t0)
+            self.events.append("dispatch")
+            return out
+
+        def logged_fulfill(*args):
+            self.events.append("fulfill")
+            return fulfill(*args)
+
+        server._dispatch, server._fulfill = timed_dispatch, logged_fulfill
+
+
+def _serve(server, requests):
+    """Submit `requests` ((feats, target, source, seed) each) together and
+    wait for every image → (images, host wall seconds)."""
+    t0 = time.perf_counter()
+    futures = [server.submit(*r) for r in requests]
+    images = [f.result(timeout=900) for f in futures]
+    return images, time.perf_counter() - t0
+
+
+def _max_diff(a, b) -> float:
+    import numpy as np
+
+    return max(float(np.abs(x.astype(np.float64) - y).max()) for x, y in zip(a, b))
+
+
+def _programs(model, kind: str):
+    return [p for key, p in model.programs.items() if key[0] == kind]
+
+
+def _replay_ms(prog, n: int = 3) -> dict:
+    """One replay of a captured program: its device time (CUDA events,
+    median of `n` after one) and the host time until `replay()` returns
+    (the graph's launch, median of `n`)."""
+    device = time_ms(prog.graph.replay, n=n, warmup=1)
+    host = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog.graph.replay()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return {"device_ms": device, "host_launch_ms": statistics.median(host)}
+
+
+def _close(server, what: str) -> None:
+    """Close a server and raise if its worker thread did not stop."""
+    server.close()
+    if server._worker.is_alive():
+        raise SystemExit(f"chip_smoke.py: the {what} server worker did not stop")
+
+
+def _graph_eager_ab(make_server, requests, pairs: int):
+    """Served-batch wall times with graphs and eagerly (core.mode.eager()
+    around the server's construction), in `pairs` alternating pairs; also
+    each side's host dispatch seconds and each eager batch's peak memory."""
+    from psd_tpu_torch.core.mode import eager
+
+    servers = {"graphs": make_server()}
+    with eager():
+        servers["eager"] = make_server()
+    probes = {side: _ServeProbe(s) for side, s in servers.items()}
+    walls = {"graphs": [], "eager": []}
+    peak = {"graphs": 0.0, "eager": 0.0}
+    for i in range(pairs):
+        for side in (("graphs", "eager") if i % 2 == 0 else ("eager", "graphs")):
+            torch.cuda.reset_peak_memory_stats()
+            _, wall = _serve(servers[side], requests)
+            walls[side].append(wall)
+            peak[side] = max(peak[side], torch.cuda.max_memory_allocated() / 2**30)
+    for side, s in servers.items():
+        _close(s, f"A/B {side}")
+    return {"wall_s": walls, "dispatch_s": {k: p.dispatch_s for k, p in probes.items()},
+            "peak_gib": peak}
+
+
+def capture_failure_child() -> None:
+    """Run by _check_capture_failure in a child process (a failed capture
+    can leave state in torch's caching allocator, so the parent's memory
+    stays clean). A capture that fails raises, and nothing runs eagerly in
+    its place: the VAE's forward is wrapped with a host sync (`.item()`),
+    which CUDA refuses under stream capture; generate at batch 8, 256², 2
+    steps must raise, keep no program and call the VAE once (the eager
+    warm-up; the capture's call is the one that raised). A second call of
+    the same key raises again without calling the VAE (the failure is
+    recorded, nothing is captured again). Unwrapped, with the record
+    cleared, the same key then captures and replays. Beside it, whether a
+    program's pool is given back (programs dropped, gc, empty_cache) before
+    and after the failure. Prints one JSON line."""
     import numpy as np
 
     from psd_tpu_torch.core.config import load_config
+    from psd_tpu_torch.diffusion.dadd import DADD
+
+    cfg = load_config(ROOT / "configs" / "train_ip.yaml")
+    model = DADD(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    feats = np.random.default_rng(1).standard_normal((8, 257, 1024)).astype(np.float32)
+    cond = model.prepare_inference_cond(np.linspace(0, 3, 8), np.zeros(8), feats)
+    x0 = torch.randn((8, 32, 32, 4), generator=torch.Generator(device="cuda").manual_seed(9),
+                     device="cuda")
+
+    def run(steer):
+        return model.generate(cond, x0=x0, image_size=256, sampling_steps=2, steer_scale=steer)
+
+    def given_back():
+        """GiB reserved with a program, then with it dropped."""
+        held = torch.cuda.memory_reserved() / 2**30
+        model.programs.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        return held, torch.cuda.memory_reserved() / 2**30
+
+    run(0.0)
+    before = given_back()
+    vae, calls = model.vae, []
+    real = vae.forward
+
+    def syncing(z):
+        calls.append(float(z.abs().amax().item()))  # a host sync
+        return real(z)
+
+    vae.forward = syncing
+
+    def raises():
+        try:
+            run(1.0)
+        except RuntimeError as e:
+            return str(e).splitlines()[0][:160]
+        return None
+
+    try:
+        raised = raises()
+        again = raises()
+    finally:
+        del vae.forward
+    kept = len(model.programs)
+    recorded = len(model.failed_captures)
+    model.failed_captures.clear()
+    img = run(1.0)
+    torch.cuda.synchronize()
+    replayed = len(model.programs) == 1 and bool(torch.isfinite(img).all())
+    after = given_back()
+    print(json.dumps({"raised": raised, "raised_again": again, "recorded": recorded,
+                      "kept": kept, "vae_calls": len(calls),
+                      "replayed": replayed, "reserved_gib_before_failure": before,
+                      "reserved_gib_after_failure": after}), flush=True)
+
+
+def _check_capture_failure() -> dict:
+    """capture_failure_child in a child process; raises if the failed
+    capture did not raise, left a program or ran eagerly in its place."""
+    proc = subprocess.run([sys.executable, "-c", "import chip_smoke as c; "
+                           "c.capture_failure_child()"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    try:
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        raise SystemExit(f"chip_smoke.py: the capture-failure child failed (rc "
+                         f"{proc.returncode}): {proc.stderr[-3000:]}")
+    ok = (proc.returncode == 0 and r["raised"] is not None and r["kept"] == 0
+          and r["vae_calls"] == 1 and r["recorded"] == 1
+          and "failed to capture before" in (r["raised_again"] or "") and r["replayed"])
+    log(f"[serve] a capture that fails (a host sync in the VAE's forward; child process): "
+        f"raised {r['raised']!r}; programs kept {r['kept']}; the same key again raised "
+        f"{r['raised_again']!r} without capturing; VAE calls {r['vae_calls']} (the first "
+        f"call's eager warm-up); then, the record cleared, captured and replayed without the "
+        f"sync: {r['replayed']}; GiB reserved with a program / after dropping it: before "
+        f"the failure "
+        f"{r['reserved_gib_before_failure']}, after it {r['reserved_gib_after_failure']} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke.py: a failed capture did not raise, or left a program, "
+                         "or ran eagerly in its place, or was captured again")
+    return r
+
+
+def phase_serve(card: str, unet: dict) -> dict:
+    """The exact path (50 DDIM steps, bf16 VAE) at 512², batch 8, through
+    GenerationServer: by graph replay (the default), against the eager run
+    of the same requests, two batches in flight, fused=False, the A/B of
+    graphs against eager, and a capture that fails."""
+    import numpy as np
+
+    from psd_tpu_torch.core.config import load_config
+    from psd_tpu_torch.core.mode import eager
     from psd_tpu_torch.diffusion.dadd import DADD
     from psd_tpu_torch.ops import kernels
     from psd_tpu_torch.pipelines.serve import GenerationServer
@@ -1040,41 +1264,129 @@ def phase_serve(card: str) -> dict:
     torch.cuda.synchronize()
     log(f"[serve] SD-scale DADD built and initialised in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
-    feats = rng.standard_normal((batch, 257, 1024)).astype(np.float32)
-    targets = np.linspace(0.0, 3.0, batch)
+    feats = rng.standard_normal((2 * batch, 257, 1024)).astype(np.float32)
+    targets = np.tile(np.linspace(0.0, 3.0, batch), 2)
+    # two batches, each led by its own seed
+    requests = [(feats[i], targets[i], 1.0, i if i < batch else 100 + i) for i in range(2 * batch)]
+    first = requests[:batch]
 
-    server = GenerationServer(model, image_size=size, sampling_steps=steps,
-                              steer_scale=1.0, max_batch=batch, max_wait_s=0.5)
+    def make_server(**kw):
+        return GenerationServer(model, image_size=size, sampling_steps=steps, steer_scale=1.0,
+                                max_batch=batch, max_wait_s=0.05, **kw)
+
+    # the main path: one batch through the server, by graph replay
+    server = make_server()
+    probe = _ServeProbe(server)
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    futures = [server.submit(feats[i], targets[i], 1.0, seed=i) for i in range(batch)]
-    images = [f.result(timeout=900) for f in futures]
-    wall = time.perf_counter() - t0
+    images, wall_first = _serve(server, first)
     counts = dict(kernels.launch_counts)
     serve_counts = {k: counts[k] for k in SERVE_KERNELS}
     dims = dict(kernels.attention_head_dims)
-    server.close()
-    if server._worker.is_alive():
-        raise SystemExit("chip_smoke.py: the server worker did not stop")
+    peak_first = torch.cuda.max_memory_allocated() / 2**30
+    (prog,) = _programs(model, "generate")
+    launches = dict(prog.launches)  # its capture's launches: what each replay launches
+    torch.cuda.empty_cache()
+    mem_graph = {"allocated": torch.cuda.memory_allocated() / 2**30,
+                 "reserved": torch.cuda.memory_reserved() / 2**30}
 
+    # the same batch again: a replay, which runs no wrapper
+    torch.cuda.reset_peak_memory_stats()
+    again, wall_replay = _serve(server, first)
+    replay_host = {k: kernels.launch_counts[k] - counts[k] for k in SERVE_KERNELS}
+    peak_replay = torch.cuda.max_memory_allocated() / 2**30
+    # two batches in flight (pipeline_depth=2)
+    probe.events.clear()
+    images16, _ = _serve(server, requests)
+    pipelined = probe.events[:4] == ["dispatch", "dispatch", "fulfill", "fulfill"]
+    _close(server, "graph")
+
+    # the eager run of the same requests
+    with eager():
+        eserver = make_server()
+    torch.cuda.reset_peak_memory_stats()
+    eager16, _ = _serve(eserver, requests)
+    peak_eager = torch.cuda.max_memory_allocated() / 2**30
+    _close(eserver, "eager")
+
+    # fused=False: two replays a batch, sample then decode_latents
+    userver = make_server(fused=False)
+    unfused, _ = _serve(userver, first)
+    _close(userver, "fused=False")
+    (sprog,), (dprog,) = _programs(model, "sample"), _programs(model, "decode")
+
+    diffs = {"replay vs eager": _max_diff(images, eager16[:batch]),
+             "pipelined vs eager": _max_diff(images16, eager16),
+             "replay again": _max_diff(again, images),
+             "fused=False vs fused=True": _max_diff(unfused, images)}
+    expected = {k: SERVE_LAUNCHES[k] for k in SERVE_KERNELS}
     checks = {
-        "shape (512,512,3)": all(im.shape == (size, size, 3) for im in images),
-        "finite": all(np.isfinite(im).all() for im in images),
-        "in [0,1]": all(im.min() >= 0.0 and im.max() <= 1.0 for im in images),
+        "shape (512,512,3)": all(im.shape == (size, size, 3) for im in images16),
+        "finite": all(np.isfinite(im).all() for im in images16),
+        "in [0,1]": all(im.min() >= 0.0 and im.max() <= 1.0 for im in images16),
         "targets differ": not np.allclose(images[0], images[-1], atol=1e-3),
         "all five serving kernels launched": min(serve_counts.values()) > 0,
         "attention saw D=40, 80 (UNet) and 512 (VAE)": all(dims.get(d, 0) > 0
                                                            for d in (40, 80, 512)),
+        # first, again, two pipelined: four replays of one program; the
+        # eager server replays nothing, fused=False one program of each kind
+        "one replay a batch (fused=True)": prog.replays == 4,
+        "two replays a batch (fused=False)": (sprog.replays, dprog.replays) == (1, 1),
+        f"the capture launches {expected}": launches == expected,
+        "host counts = warm-up + capture": serve_counts == {k: 2 * n for k, n in expected.items()},
+        "a replay runs no wrapper": max(replay_host.values()) == 0,
+        "two batches in flight": pipelined,
+        "every image equals the eager run's": max(diffs.values()) == 0.0,
+        "sample + decode launch what generate does":
+            sprog.launches + dprog.launches == prog.launches,
     }
-    log(f"[serve] {batch} requests, {size}px, {steps} DDIM steps, steer 1.0, "
-        f"max_batch {batch}: wall {wall:.3f} s, {batch / wall:.4f} img/s on {card}")
-    log(f"[serve] launches {counts}; attention by head dim {dims}")
+
+    ab = _graph_eager_ab(make_server, first, AB_PAIRS)
+    replay_ms = {"generate": _replay_ms(prog), "sample": _replay_ms(sprog),
+                 "decode": _replay_ms(dprog)}
+    eps_ms, decode_ms = unet["device_ms"]["kernels"], replay_ms["decode"]["device_ms"]
+    try:
+        predicted = f"{steps} x {float(eps_ms):.2f} + {decode_ms:.2f} = " \
+                    f"{steps * float(eps_ms) + decode_ms:.2f} ms"
+    except ValueError:
+        predicted = f"not measured (eps device ms {eps_ms})"
+
+    log(f"[serve] {batch} requests, {size}px, {steps} DDIM steps, steer 1.0, max_batch "
+        f"{batch}, by graph replay: first batch (warm-up {prog.warmup_s:.3f} s + capture "
+        f"{prog.capture_s:.3f} s + instantiation {prog.instantiate_s:.3f} s + replay) wall "
+        f"{wall_first:.3f} s; a replayed batch wall "
+        f"{wall_replay:.3f} s, {batch / wall_replay:.4f} img/s on {card}")
+    log(f"[serve] host launch counts over the first batch {counts} (the eager warm-up and the "
+        f"capture); one replay launches {dict(prog.launches)}; attention by head dim {dims}")
+    log(f"[serve] max abs difference {diffs}; fused=False: sample warm-up "
+        f"{sprog.warmup_s:.3f} s + capture {sprog.capture_s:.3f} s + instantiation "
+        f"{sprog.instantiate_s:.3f} s, decode {dprog.warmup_s:.3f} + {dprog.capture_s:.3f} + "
+        f"{dprog.instantiate_s:.3f} s")
+    log(f"[serve] A/B, {AB_PAIRS} alternating pairs, wall s median [quartiles]: graphs "
+        f"{_q(ab['wall_s']['graphs'])}, eager {_q(ab['wall_s']['eager'])}; host dispatch s: "
+        f"graphs {_q(ab['dispatch_s']['graphs'])}, eager {_q(ab['dispatch_s']['eager'])}; "
+        f"walls {ab['wall_s']}")
+    log("[serve] one replay, device ms (CUDA events) / host ms until replay() returns: "
+        + ", ".join(f"{k} {v['device_ms']:.2f} / {v['host_launch_ms']:.2f}"
+                    for k, v in replay_ms.items())
+        + f"; {steps} x the eps's device time (phase 4) + decode: {predicted}")
+    log(f"[serve] memory GiB: peak allocated over the first graph batch (warm-up + capture + "
+        f"replay) {peak_first:.3f}, over a replayed batch {peak_replay:.3f}, over an eager "
+        f"batch {peak_eager:.3f} (A/B: {ab['peak_gib']}); after capture, allocated "
+        f"{mem_graph['allocated']:.3f}, reserved {mem_graph['reserved']:.3f} (weights and "
+        f"the program's pool)")
     log(f"[serve] checks {checks}")
     if not all(checks.values()):
         raise SystemExit(f"chip_smoke.py: serve checks failed: {checks}")
-    del server, model
+    del server, eserver, userver, prog, sprog, dprog, probe, model
+    gc.collect()  # the probes' wrappers hold their servers in cycles
     torch.cuda.empty_cache()
-    return {"counts": counts, "head_dims": dims, "wall_s": wall, "img_per_s": batch / wall}
+    failure = _check_capture_failure()
+    return {"counts": counts, "head_dims": dims, "replay_launches": launches,
+            "wall_s": wall_replay, "img_per_s": batch / wall_replay, "ab": ab,
+            "replay_ms": replay_ms, "diffs": diffs, "failure": failure,
+            "memory_gib": {"first_peak": peak_first, "replay_peak": peak_replay,
+                           "eager_peak": peak_eager, **mem_graph}}
 
 
 # ---- turbo -------------------------------------------------------------------
@@ -1094,10 +1406,12 @@ def _count_calls(obj, names):
 
 def phase_turbo(card: str, exact: dict) -> dict:
     """The turbo serving point (TURBO): DPM-Solver++(2M) at 25 steps,
-    DeepCache stride 5, the int8 VAE decoder, at 512², batch 8."""
+    DeepCache stride 5, the int8 VAE decoder, at 512², batch 8: by graph
+    replay against the eager run of the same requests, and the A/B."""
     import numpy as np
 
     from psd_tpu_torch.core.config import load_config
+    from psd_tpu_torch.core.mode import eager
     from psd_tpu_torch.diffusion.dadd import DADD
     from psd_tpu_torch.models.vae import VAEConfig
     from psd_tpu_torch.ops import kernels
@@ -1116,44 +1430,89 @@ def phase_turbo(card: str, exact: dict) -> dict:
     rng = np.random.default_rng(0)
     feats = rng.standard_normal((batch, 257, 1024)).astype(np.float32)
     targets = np.linspace(0.0, 3.0, batch)
-    server = GenerationServer(model, image_size=size, sampling_steps=TURBO["steps"],
-                              steer_scale=1.0, max_batch=batch, max_wait_s=0.5,
-                              encoder_stride=TURBO["encoder_stride"],
-                              cache_mode=TURBO["cache_mode"], sampler=TURBO["sampler"])
+    requests = [(feats[i], targets[i], 1.0, i) for i in range(batch)]
+
+    def make_server():
+        return GenerationServer(model, image_size=size, sampling_steps=TURBO["steps"],
+                                steer_scale=1.0, max_batch=batch, max_wait_s=0.05,
+                                encoder_stride=TURBO["encoder_stride"],
+                                cache_mode=TURBO["cache_mode"], sampler=TURBO["sampler"])
+
+    server = make_server()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    futures = [server.submit(feats[i], targets[i], 1.0, seed=i) for i in range(batch)]
-    images = [f.result(timeout=900) for f in futures]
-    wall = time.perf_counter() - t0
+    images, wall_first = _serve(server, requests)
     counts = dict(kernels.launch_counts)
     dims = dict(kernels.attention_head_dims)
-    server.close()
-    if server._worker.is_alive():
-        raise SystemExit("chip_smoke.py: the turbo server worker did not stop")
+    peak_first = torch.cuda.max_memory_allocated() / 2**30
+    calls_capture = dict(calls)
+    (prog,) = _programs(model, "generate")
+    launches = dict(prog.launches)  # its capture's launches: what each replay launches
+    again, wall_replay = _serve(server, requests)
+    calls_replay = {k: calls[k] - calls_capture[k] for k in calls}
+    _close(server, "turbo graph")
+    with eager():
+        eserver = make_server()
+    torch.cuda.reset_peak_memory_stats()
+    eager_images, _ = _serve(eserver, requests)
+    peak_eager = torch.cuda.max_memory_allocated() / 2**30
+    _close(eserver, "turbo eager")
+    calls_eager = {k: calls[k] - calls_capture[k] - calls_replay[k] for k in calls}
+    diffs = {"replay vs eager": _max_diff(images, eager_images),
+             "replay again": _max_diff(again, images)}
+    expected = {k: TURBO_LAUNCHES[k] for k in SERVE_KERNELS}
+    one = {"eps_deep": TURBO_FULL, "eps_shallow": TURBO_SHALLOW}
     checks = {
         "shape (512,512,3)": all(im.shape == (size, size, 3) for im in images),
         "finite": all(np.isfinite(im).all() for im in images),
         "in [0,1]": all(im.min() >= 0.0 and im.max() <= 1.0 for im in images),
         "targets differ": not np.allclose(images[0], images[-1], atol=1e-3),
-        f"{TURBO_FULL} full and {TURBO_SHALLOW} shallow evaluations":
-            calls == {"eps_deep": TURBO_FULL, "eps_shallow": TURBO_SHALLOW},
+        f"{TURBO_FULL} full and {TURBO_SHALLOW} shallow evaluations at warm-up and at "
+        f"capture, none at replay, as many eagerly":
+            calls_capture == {k: 2 * n for k, n in one.items()}
+            and calls_replay == {k: 0 for k in one} and calls_eager == one,
         "all five serving kernels launched": min(counts[k] for k in SERVE_KERNELS) > 0,
         "attention saw D=40, 80 (UNet) and 512 (VAE)": all(dims.get(d, 0) > 0
                                                            for d in (40, 80, 512)),
+        f"the capture launches {expected}": launches == expected,
+        "one replay a batch": prog.replays == 2,
+        "every image equals the eager run's": max(diffs.values()) == 0.0,
     }
-    log(f"[turbo] {batch} requests, {size}px, {TURBO}: wall {wall:.3f} s, "
-        f"{batch / wall:.4f} img/s on {card}; the exact path (50 DDIM steps, bf16 VAE) "
-        f"in this call: wall {exact['wall_s']:.3f} s, {exact['img_per_s']:.4f} img/s")
-    log(f"[turbo] UNet evaluations {calls}; launches {counts}; attention by head dim {dims}")
+    ab = _graph_eager_ab(make_server, requests, AB_PAIRS)
+    replay_ms = _replay_ms(prog)
+    log(f"[turbo] {batch} requests, {size}px, {TURBO}, by graph replay: first batch (warm-up "
+        f"{prog.warmup_s:.3f} s + capture {prog.capture_s:.3f} s + instantiation "
+        f"{prog.instantiate_s:.3f} s + replay) wall "
+        f"{wall_first:.3f} s; a replayed batch wall {wall_replay:.3f} s, "
+        f"{batch / wall_replay:.4f} img/s on {card}; the exact path's replayed batch in this "
+        f"call: wall {exact['wall_s']:.3f} s, {exact['img_per_s']:.4f} img/s")
+    log(f"[turbo] UNet evaluations: warm-up + capture {calls_capture}, replay {calls_replay}, "
+        f"eager {calls_eager}; host launch counts over the first batch {counts}; one replay "
+        f"launches {dict(prog.launches)}; attention by head dim {dims}")
+    log(f"[turbo] max abs difference {diffs}; A/B, {AB_PAIRS} alternating pairs, wall s "
+        f"median [quartiles]: graphs {_q(ab['wall_s']['graphs'])}, eager "
+        f"{_q(ab['wall_s']['eager'])}; host dispatch s: graphs "
+        f"{_q(ab['dispatch_s']['graphs'])}, eager {_q(ab['dispatch_s']['eager'])}; walls "
+        f"{ab['wall_s']}")
+    log(f"[turbo] one replay: device ms (CUDA events) {replay_ms['device_ms']:.2f}, host ms "
+        f"until replay() returns {replay_ms['host_launch_ms']:.2f}; memory GiB: peak "
+        f"allocated over the first graph batch {peak_first:.3f}, over an eager batch "
+        f"{peak_eager:.3f}")
     log(f"[turbo] checks {checks}")
     if not all(checks.values()):
         raise SystemExit(f"chip_smoke.py: turbo checks failed: {checks}")
-    del server
+    del server, eserver, prog
+    model.programs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     vae_ab = phase_vae_ab(model)
     del model
+    gc.collect()
     torch.cuda.empty_cache()
-    return {"counts": counts, "head_dims": dims, "wall_s": wall, "img_per_s": batch / wall,
-            "calls": calls, "vae_ab": vae_ab}
+    return {"counts": counts, "head_dims": dims, "replay_launches": launches,
+            "wall_s": wall_replay, "img_per_s": batch / wall_replay, "calls": calls_eager,
+            "ab": ab, "replay_ms": replay_ms, "diffs": diffs, "vae_ab": vae_ab,
+            "memory_gib": {"first_peak": peak_first, "eager_peak": peak_eager}}
 
 
 def _spread_channel_gains_(vae, gen) -> bool:
@@ -1521,8 +1880,8 @@ def main() -> int:
     results = timed("kernels", phase_kernels)
     timed("q8 kernels", phase_q8_kernels, results)
     op = timed("op", phase_op)
-    timed("unet", phase_unet)
-    served = timed("serve", phase_serve, card)
+    unet = timed("unet", phase_unet)
+    served = timed("serve", phase_serve, card, unet)
     turbo = timed("turbo", phase_turbo, card, served)
     timed("train kernels", phase_train_kernels, results)
     trained = timed("train", phase_train, card)
@@ -1533,8 +1892,13 @@ def main() -> int:
         r = results[name]
         by_path = {path: run["counts"][name] for path, run in
                    (("serve", served), ("turbo", turbo), ("train", trained), ("op", op))}
+        # serve and turbo count host launches (the eager warm-up and the
+        # capture of their program); what each replay launches is apart
+        by_replay = {path: run["replay_launches"].get(name, 0)
+                     for path, run in (("serve", served), ("turbo", turbo))}
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": sum(by_path.values()), "launches_by_path": by_path,
+                 "launches_per_replay": by_replay,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": _bound_by(r),
                  "library_ms": r["library_ms"], "shapes": r["shapes"]}

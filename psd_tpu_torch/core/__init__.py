@@ -8,7 +8,7 @@ from .config import (
     apply_overrides,
     load_config,
 )
-from .mode import disable_kernels, is_training, kernel_disabled, training_mode
+from .mode import disable_kernels, eager, is_eager, is_training, kernel_disabled, training_mode
 
 __all__ = [
     "Config",
@@ -20,6 +20,8 @@ __all__ = [
     "apply_overrides",
     "load_config",
     "disable_kernels",
+    "eager",
+    "is_eager",
     "is_training",
     "kernel_disabled",
     "training_mode",

@@ -18,9 +18,16 @@ trace time to bake them into):
     for an A/B run inside one process (`chip_smoke.py` uses it to hold the
     whole UNet, and the train step, against their plain selves).
 
+  * `eager()` is the counterpart of `jax.disable_jit`: under it
+    `DADD.generate`, `sample` and `decode_latents` run on the card op by op
+    instead of replaying their captured CUDA graphs
+    (`diffusion/graphs.py`); `chip_smoke.py` holds graph replay against it.
+
 `snapshot()` / `restored(snap)` carry the flags into gradient-checkpoint
 recomputation, which runs inside backward, possibly on the autograd
-engine's own thread where these context variables hold their defaults.
+engine's own thread where these context variables hold their defaults. A
+captured graph bakes in the flags it was captured under, so `snapshot()` is
+part of every graph's key (psd_tpu puts `is_training()` in its jit keys).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ _TRAINING: ContextVar[bool] = ContextVar("psd_tpu_torch_training", default=False
 _DISABLED: ContextVar[frozenset] = ContextVar(
     "psd_tpu_torch_disabled_kernels", default=frozenset()
 )
+_EAGER: ContextVar[bool] = ContextVar("psd_tpu_torch_eager", default=False)
 
 
 @contextlib.contextmanager
@@ -75,6 +83,20 @@ def use_kernel(name: str) -> bool:
     if is_training() and name not in TRAINING_KERNELS:
         return False
     return not kernel_disabled(name)
+
+
+@contextlib.contextmanager
+def eager():
+    """Run the entry points op by op on the card, capturing no CUDA graph."""
+    token = _EAGER.set(True)
+    try:
+        yield
+    finally:
+        _EAGER.reset(token)
+
+
+def is_eager() -> bool:
+    return _EAGER.get()
 
 
 def snapshot() -> Tuple[bool, frozenset]:

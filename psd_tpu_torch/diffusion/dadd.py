@@ -21,7 +21,10 @@ fp32. For training every parameter stays an fp32 master weight, cast to the
 compute dtype at use (flax's dtype=bf16, param_dtype=fp32), and no VAE
 decoder is built: batches come pre-encoded, as in psd_tpu's train_loss.
 The entry points run on the card (`device="cuda"`) unless the caller asks
-for the CPU; without a card they raise. The turbo levers are here: the
+for the CPU; without a card they raise. On the card `generate`, `sample`
+and `decode_latents` each replay a CUDA graph captured at the first call
+of its static knobs (`graphs.py`, psd_tpu's jitted programs); on the CPU,
+and under `core.mode.eager()`, they run op by op. The turbo levers are here: the
 DPM-Solver++(2M) sampler, encoder propagation and DeepCache through the
 UNet's phases (`DADDCore.eps_encode/eps_decode/eps_deep/eps_shallow`), and
 the int8 VAE decoder, whose int8 weights are computed once from the fp32
@@ -31,6 +34,8 @@ wait for later slices.
 
 from __future__ import annotations
 
+import functools
+import threading
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -40,11 +45,12 @@ from torch import nn
 from ..conditioning import AdditiveOrdinalEmbedder, FeaturePurifier, ImageProjectionPlus
 from ..convert.from_jax import load_flax_, state_dict_from_flax, vae_decode_tree
 from ..core.config import Config
-from ..core.mode import training_mode
+from ..core.mode import is_eager, training_mode
 from ..models.init import flax_init_
 from ..models.layers import quantize_int8_weights_, store_weights_in_
 from ..models.unet import UNet2DCondition, UNetConfig
 from ..models.vae import VAEConfig, VAEDecode
+from .graphs import CapturedProgram, program_key
 from .sampler import SamplerConfig, cfg_eps_fn, ddim_sample, dpm_sample
 from .schedule import NoiseSchedule
 
@@ -220,6 +226,17 @@ class DADD:
         )
         self.latent_scale = cfg.diffusion.latent_scale
         self.spatial_factor = 2 ** (len(self.vae_cfg.block_out_channels) - 1)
+        # captured programs by key (graphs.program_key), on the card only.
+        # Unbounded: each new key (a steer or guidance value, a batch size)
+        # adds a program whose graph pool holds its activations, and a first
+        # call that warms up and captures; clear it to free the pools.
+        self.programs: Dict[tuple, CapturedProgram] = {}
+        # why each key whose capture failed did (a string, so no traceback
+        # keeps the failed capture's tensors alive): a later call with that
+        # key raises again and does not capture again (torch keeps a failed
+        # capture's pool); clear it to let such a key capture again
+        self.failed_captures: Dict[tuple, str] = {}
+        self._programs_lock = threading.Lock()
 
     def load_flax(self, core_tree, vae_tree=None) -> "DADD":
         """Replace the weights with `psd_tpu` parameter trees (numpy leaves)."""
@@ -328,6 +345,74 @@ class DADD:
                          device=self.device)
         return x0.expand(batch, -1, -1, -1).contiguous() if shared_noise else x0
 
+    def _replay_or_run(self, kind: str, body, inputs, **knobs) -> torch.Tensor:
+        """`body(*inputs)` op by op on the CPU and under `core.mode.eager()`;
+        on the card, a replay of its captured program (`graphs.py`), captured
+        at the first call of its key (`program_key(kind, inputs, **knobs)`).
+        A key whose capture failed raises again, without capturing again."""
+        if self.device.type != "cuda" or is_eager():
+            return body(*inputs)
+        key = program_key(kind, inputs, **knobs)
+        with self._programs_lock:
+            prog = self.programs.get(key)
+            if prog is None:
+                failed = self.failed_captures.get(key)
+                if failed is not None:
+                    raise RuntimeError(f"the {kind} program of this key failed to capture "
+                                       f"before: {failed}")
+                try:
+                    prog = self.programs[key] = CapturedProgram(body, inputs)
+                except Exception as e:
+                    self.failed_captures[key] = f"{type(e).__name__}: {e}"
+                    raise
+        return prog(*inputs)
+
+    def static_knobs(self, sampling_steps, steer_scale, guidance_scale, encoder_stride,
+                     cache_mode, sampler) -> dict:
+        """The sampler's static knobs, as `_sample` takes them and graph keys
+        hold them. steer and guidance are among them: split3's kernel takes δ
+        as a launch argument and the CFG mix a Python float."""
+        if sampler not in SAMPLERS:
+            raise ValueError(f"sampler must be one of {tuple(SAMPLERS)}, got {sampler!r}")
+        return dict(steps=int(sampling_steps or self.cfg.diffusion.sampling_steps),
+                    steer=float(steer_scale), guidance=float(guidance_scale),
+                    encoder_stride=int(encoder_stride), cache_mode=cache_mode,
+                    sampler=sampler)
+
+    def _sample(self, cond, x0, cond_uncond=None, *, steps, steer, guidance,
+                encoder_stride, cache_mode, sampler) -> torch.Tensor:
+        core = self.core
+
+        def raw_eps(x, t, i, embeds):
+            return core.eps(x, t, embeds, steer)
+
+        eps_fn = cfg_eps_fn(raw_eps, cond, cond_uncond, guidance)
+        encode_fn = decode_fn = None
+        if encoder_stride > 1:
+            if cond_uncond is not None:
+                raise ValueError("feature propagation is not supported with dual-pass CFG")
+            if cache_mode == "deep":
+                def encode_fn(x, t, i):
+                    return core.eps_deep(x, t, cond, steer)
+
+                def decode_fn(x, t, i, cache):
+                    return core.eps_shallow(x, t, cond, cache, steer)
+            else:
+                def encode_fn(x, t, i):
+                    return core.eps_encode(x, t, cond, steer)
+
+                def decode_fn(t, i, cache):
+                    return core.eps_decode(t, cond, cache, steer)
+        return SAMPLERS[sampler](
+            eps_fn, x0, self.schedule,
+            SamplerConfig(sampling_steps=steps, encoder_stride=encoder_stride,
+                          cache_mode=cache_mode),
+            encode_fn=encode_fn, decode_fn=decode_fn)
+
+    def _decode(self, latents) -> torch.Tensor:
+        imgs = self.vae(latents / self.latent_scale)
+        return torch.clamp(imgs.float() / 2.0 + 0.5, 0.0, 1.0)
+
     @torch.inference_mode()
     def sample(self, cond, x0: torch.Tensor, sampling_steps: Optional[int] = None,
                steer_scale: float = 0.0, guidance_scale: float = 1.0,
@@ -336,44 +421,19 @@ class DADD:
         """DDIM or DPM-Solver++(2M) (`sampler` "ddim" | "dpm") from the
         initial latents x0 (B, h, w, 4) → scaled latents, fp32.
         `encoder_stride > 1` propagates cached UNet features across non-key
-        steps (`cache_mode` "encoder" | "deep"); not with CFG."""
-        steps = sampling_steps or self.cfg.diffusion.sampling_steps
-        if sampler not in SAMPLERS:
-            raise ValueError(f"sampler must be one of {tuple(SAMPLERS)}, got {sampler!r}")
-        ds = float(steer_scale)
-        core = self.core
-
-        def raw_eps(x, t, i, embeds):
-            return core.eps(x, t, embeds, ds)
-
-        eps_fn = cfg_eps_fn(raw_eps, cond, cond_uncond, guidance_scale)
-        encode_fn = decode_fn = None
-        if encoder_stride > 1:
-            if cond_uncond is not None:
-                raise ValueError("feature propagation is not supported with dual-pass CFG")
-            if cache_mode == "deep":
-                def encode_fn(x, t, i):
-                    return core.eps_deep(x, t, cond, ds)
-
-                def decode_fn(x, t, i, cache):
-                    return core.eps_shallow(x, t, cond, cache, ds)
-            else:
-                def encode_fn(x, t, i):
-                    return core.eps_encode(x, t, cond, ds)
-
-                def decode_fn(t, i, cache):
-                    return core.eps_decode(t, cond, cache, ds)
-        return SAMPLERS[sampler](
-            eps_fn, x0, self.schedule,
-            SamplerConfig(sampling_steps=steps, encoder_stride=encoder_stride,
-                          cache_mode=cache_mode),
-            encode_fn=encode_fn, decode_fn=decode_fn)
+        steps (`cache_mode` "encoder" | "deep"); not with CFG. On the card,
+        one replay of the loop's captured program."""
+        knobs = self.static_knobs(sampling_steps, steer_scale, guidance_scale,
+                                  encoder_stride, cache_mode, sampler)
+        inputs = (cond, x0.to(self.device)) + (() if cond_uncond is None else (cond_uncond,))
+        return self._replay_or_run("sample", functools.partial(self._sample, **knobs), inputs,
+                                   **knobs)
 
     @torch.inference_mode()
     def decode_latents(self, latents) -> torch.Tensor:
-        """Scaled latents → images in [0, 1], fp32."""
-        imgs = self.vae(latents / self.latent_scale)
-        return torch.clamp(imgs.float() / 2.0 + 0.5, 0.0, 1.0)
+        """Scaled latents → images in [0, 1], fp32. On the card, one replay
+        of the decoder's captured program."""
+        return self._replay_or_run("decode", self._decode, (latents,))
 
     @torch.inference_mode()
     def generate(self, cond, x0: Optional[torch.Tensor] = None,
@@ -382,18 +442,27 @@ class DADD:
                  cond_uncond: Optional[torch.Tensor] = None,
                  shared_noise: bool = True, encoder_stride: int = 1,
                  cache_mode: str = "encoder", sampler: str = "ddim") -> torch.Tensor:
-        """Sample + VAE decode → (B, H, W, 3) images in [0, 1].
+        """Sample + VAE decode → (B, H, W, 3) images in [0, 1]; on the card,
+        one replay of one captured program (psd_tpu's one jitted program,
+        `_get_jitted_generate`), whose key holds the batch, image size,
+        steps, sampler, encoder stride, cache mode, CFG, steer, guidance and
+        the mode flags.
 
         The initial latents are `x0` when given (tests pass the noise JAX
         drew), else drawn from `generator` (one latent shared across the
-        batch when `shared_noise`). `sampler`, `encoder_stride` and
-        `cache_mode` as in `sample`; the turbo serving point is
-        sampler="dpm", 25 steps, stride 5, "deep", with an int8 VAE
-        (`VAEConfig(quant="int8")`)."""
+        batch when `shared_noise`), outside the graph either way. `sampler`,
+        `encoder_stride` and `cache_mode` as in `sample`; the turbo serving
+        point is sampler="dpm", 25 steps, stride 5, "deep", with an int8
+        VAE (`VAEConfig(quant="int8")`)."""
         if x0 is None:
             if generator is None:
                 raise ValueError("generate needs x0 or a torch.Generator")
             x0 = self.initial_noise(cond.shape[0], image_size, generator, shared_noise)
-        lat = self.sample(cond, x0.to(self.device), sampling_steps, steer_scale,
-                          guidance_scale, cond_uncond, encoder_stride, cache_mode, sampler)
-        return self.decode_latents(lat)
+        knobs = self.static_knobs(sampling_steps, steer_scale, guidance_scale,
+                                  encoder_stride, cache_mode, sampler)
+
+        def body(*inputs):
+            return self._decode(self._sample(*inputs, **knobs))
+
+        inputs = (cond, x0.to(self.device)) + (() if cond_uncond is None else (cond_uncond,))
+        return self._replay_or_run("generate", body, inputs, **knobs)

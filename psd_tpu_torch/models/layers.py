@@ -38,7 +38,7 @@ from ..ops.geglu import gelu_exact, ln_geglu_fwd, ln_proj_fwd, ln_reference
 from ..ops.gnproj import gn_proj_fwd
 from ..ops.norms import group_norm, group_norm_fold
 from ..ops.quant import qconv3x3, quant_cols
-from ..ops.split3 import split3_attention
+from ..ops.split3 import split3_attention, split3_shape_error
 from ..ops.upconv import conv2d_nhwc, upsample2x_conv3x3
 
 
@@ -258,9 +258,12 @@ def gn_proj_ok(S: int, C: int) -> bool:
     return S % 64 == 0 and C % 64 == 0
 
 
-def split3_kernel_ok(S: int) -> bool:
-    """Shape gate of the split3 kernel (psd_tpu/models/layers.py:449)."""
-    return S >= 256 and S % 128 == 0
+def split3_kernel_ok(B: int, S: int, H: int, D: int, lens) -> bool:
+    """Shape gate of the split3 kernel: psd_tpu's (S >= 256, S % 128 == 0;
+    psd_tpu/models/layers.py:449) where the kernel admits q (B, S, H, D)
+    with banks of `lens` tokens (`split3_shape_error`); a shape it refuses
+    takes the plain path."""
+    return S >= 256 and S % 128 == 0 and split3_shape_error(B, S, H, D, lens) is None
 
 
 class Attention(nn.Module):
@@ -323,7 +326,8 @@ class Attention(nn.Module):
                 (dis_tok, self.to_k_dis), (dis_tok, self.to_v_dis),
                 (delta_tok, self.to_k_dis), (delta_tok, self.to_v_dis)))
             ds = 0.0 if delta_scale is None else float(delta_scale)
-            if split3_kernel_ok(S) and use_kernel("split3"):
+            lens = [b.shape[1] for b in banks[0::2]]
+            if split3_kernel_ok(B, S, self.num_heads, hd, lens) and use_kernel("split3"):
                 z = split3_attention(q.contiguous(), *banks, ds, m.anat_gate, m.dis_gate)
             else:
                 z_anat = dot_product_attention(q, banks[0], banks[1])

@@ -12,7 +12,8 @@ up to 160 (the UNet, D = 40/80) and `csrc/attention_wide.cu` for wider
 heads (the VAE mid block, D = 512); `fwd_shape_error` says which shapes
 they take. `csrc/attention_bwd.cu` is the flash backward (head dims up to
 160, `bwd_shape_error`). Everything shorter takes the plain einsum path, as
-in JAX.
+in JAX, and so does a shape psd_tpu routes but the kernels refuse
+(`kernel_route` consults both).
 
 `attention_fwd` and `attention_bwd` are the kernel wrappers: a CPU tensor
 goes to the plain version; a CUDA tensor launches the kernel or raises.
@@ -65,17 +66,31 @@ def attention_bwd_reference(q, k, v, dout, scale: Optional[float] = None):
         return torch.autograd.grad(out, qkv, dout)
 
 
-def kernel_route(q, k, training: bool = False) -> Optional[str]:
-    """Which TPU kernel's role a shape takes (attention.py:46-67), else None.
+def psd_tpu_route(Sq: int, Sk: int, D: int, training: bool = False) -> Optional[str]:
+    """The TPU kernel whose role a (·, Sq, ·, D) attention against
+    (·, Sk, ·, D) keys takes in psd_tpu (attention.py:46-67), else None.
     In training only the stock flash kernel runs (its backward is fused)."""
-    Sq, D = q.shape[1], q.shape[-1]
-    Sk = k.shape[1]
     if (not training and Sq == Sk and Sq >= 512 and Sq % 256 == 0 and Sq <= 4096
             and D <= 256):
         return "spattn"
     if Sq >= 512 and Sk >= 512 and Sq % 128 == 0 and Sk % 128 == 0:
         return "flash"
     return None
+
+
+def kernel_route(q, k, training: bool = False) -> Optional[str]:
+    """psd_tpu's route (`psd_tpu_route`) where the port's kernels admit the
+    shape (`fwd_shape_error`, and in training `bwd_shape_error` too), else
+    None: a shape they refuse takes the plain path, as psd_tpu's None
+    return does."""
+    Sq, D = q.shape[1], q.shape[-1]
+    Sk = k.shape[1]
+    role = psd_tpu_route(Sq, Sk, D, training)
+    if role is None or fwd_shape_error(Sq, Sk, D) is not None:
+        return None
+    if training and bwd_shape_error(Sq, Sk, D) is not None:
+        return None
+    return role
 
 
 # the forward kernels' tiles (csrc/attention_narrow.cu, attention_wide.cu):

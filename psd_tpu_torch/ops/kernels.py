@@ -14,7 +14,12 @@ shared memory) never runs and would not show up in a later synchronize.
 `launch_counts` holds one plain integer per kernel, bumped by each wrapper
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels. `attention_head_dims` counts the
-attention kernel's launches by head dim (D=512 is the VAE mid-block).
+attention kernel's launches by head dim (D=512 is the VAE mid-block). Under
+CUDA graphs (`diffusion/graphs.py`) the counts are host counts: a wrapper
+runs, and counts, when the body runs eagerly before capture and when its
+launch is captured; a replay runs no wrapper and counts nothing. Each
+captured program keeps the count of its capture, what every replay of it
+launches.
 """
 
 from __future__ import annotations

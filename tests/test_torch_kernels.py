@@ -781,11 +781,11 @@ def test_split3_shape_error_admits_every_routed_shape():
 
     routed = 0
     for S in range(64, 4097, 64):
-        if not split3_kernel_ok(S):
-            continue
         for D in (40, 80, 160):
             for B in (1, 3, 8, 64):
                 for lens in ((16, 16, 16), (1, 4, 15), (4, 16, 7)):
+                    if not split3_kernel_ok(B, S, 8, D, lens):
+                        continue
                     routed += 1
                     assert split3.split3_shape_error(B, S, 8, D, lens) is None, (B, S, D, lens)
     assert routed == 31 * 3 * 4 * 3
