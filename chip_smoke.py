@@ -101,6 +101,25 @@ Phases, in order; any failure exits non-zero:
                against the bf16 VAE decode of the same seeded latents with
                the same weights (PSNR floor, max abs diff, ms each), and
                qconv3x3 against an exact fp64 conv at one decoder shape.
+  5c. infer  — the MES progression CLI (psd_tpu_torch.pipelines.infer.main)
+               on the card, eagerly as the CLI runs: (a) the README's command
+               at 512² (configs/train_ip.yaml, 13 levels, steer 1.0; CLIP
+               ViT-L/14 last_hidden_state → IP-Plus → purifier → split3, 50
+               DDIM steps, bf16 VAE) on a seeded synthetic structure PNG;
+               (b) baseline mode (configs/train.yaml at 256²: CLIP
+               image_embeds → ImageProjection → LEACE → split2, CFG 3.0
+               against the negative AOE at a UNet batch of 26, eta 0.5) with
+               a LEACE npz fitted in the phase. Each run: 13 finite images in
+               [0, 1], the files written, each kernel's launches equal to
+               what the routes give the batch (psd_tpu_torch.testing.
+               route_launches: at batch 13 the LN kernels skip the 16² and 8²
+               levels), the CLIP tower's bf16 features against the same tower
+               in fp32 (CLIP_REL_BAND); in (a) one batch-13 eps on the CLI's
+               conditioning, kernels against all plain (UNET_REL_BAND). Then
+               each kernel against its plain version by its judge at the
+               path's batch-13 and batch-26 shapes (INFER_*; not timed).
+               Printed: the CLI's phase times, its time and main()'s wall
+               with the model's build, peak memory, the card.
   6. train   — the attention backward kernel against autograd through the
                plain version at the training shapes, by relative L2 over
                each of dQ, dK, dV and each of their rows
@@ -117,9 +136,9 @@ Phases, in order; any failure exits non-zero:
                flattened gradient and, on their own, the q/k/v weight
                gradients of the self-attention sites the kernel serves.
 The line before the last is a JSON object with one entry per kernel:
-`launches` counts the launches of the main-path runs (phases 3b, 5, 5b and
-6, each with the counts set to 0 just before it; `launches_by_path` splits
-them; in phases 5 and 5b the wrappers run, and count, at the eager warm-up
+`launches` counts the launches of the main-path runs (phases 3b, 5, 5b, 5c
+and 6, each with the counts set to 0 just before it, 5c before each of its
+two CLI runs; `launches_by_path` splits them; in phases 5 and 5b the wrappers run, and count, at the eager warm-up
 and at the capture of the batch's program, and `launches_per_replay` gives
 what one replay launches),
 `max_abs_err` is the largest over the kernel's shapes, `ms`, `plain_ms`,
@@ -303,6 +322,35 @@ VAE_GAIN_LOG2 = 2.0
 # qconv3x3 on the card (nine int8 GEMMs, int32 sums) against an fp64 conv of
 # the same integer operands, at the decoder's first resblock shape
 QCONV_CHECK_SHAPE, QCONV_REL_BAND = (1, 64, 64, 512), 1e-5
+
+# the infer phase: the MES progression CLI as the README runs it (13 levels,
+# steer 1.0) at the served resolution, then baseline mode with CFG, eta and
+# LEACE at configs/train.yaml's 256²
+INFER_LEVELS = 13
+INFER_RUN_A = ["--config", "configs/train_ip.yaml", "--image-size", "512", "--mes-steps",
+               str(INFER_LEVELS), "--steer-scale", "1.0", "--seed", "0"]
+INFER_RUN_B = ["--config", "configs/train.yaml", "--mes-steps", str(INFER_LEVELS),
+               "--guidance-scale", "3.0", "--eta", "0.5", "--seed", "0"]
+# the CLIP ViT-L/14 tower's bf16 features (the CLI's) against the same tower
+# in fp32 on the same pixels, relative L2 over the whole output: bf16
+# activations and weights through 24 pre-LN layers. On an NVIDIA H100 80GB
+# HBM3 (700 W) the sound tower reads 1.117e-2 (last_hidden_state, run a) and 1.113e-2
+# (image_embeds, run b) on its seeded weights and the synthetic structure
+# image (PERF.md §5, PR 12); the band leaves 2.7x that
+CLIP_REL_BAND = 3e-2
+# LEACE fitted in the phase on seeded image tokens: rows and the 16 × 768
+# tokens the baseline model's ImageProjection gives
+LEACE_FIT_ROWS = 32
+# the kernels' shapes on the infer path that the 512², batch-8 path does not
+# give them (run a: batch 13 at 512²; run b: 26 in the UNet with CFG, 13 in
+# the VAE, at 256²); each kernel is held to its plain version at them,
+# untimed, after the runs' launches are read
+INFER_ATTN_SHAPES = [(13, 4096, 8, 40), (13, 1024, 8, 80), (13, 4096, 1, 512),
+                     (26, 1024, 8, 40), (13, 1024, 1, 512)]
+INFER_SPLIT3_SHAPES = [(13, 4096, 8, 40), (13, 1024, 8, 80), (13, 256, 8, 160)]
+INFER_LN_SHAPES = [(13 * 4096, 320), (13 * 1024, 640), (26 * 1024, 320), (26 * 256, 640)]
+INFER_GN_SHAPES = [(13, 4096, 320), (13, 1024, 640), (13, 256, 1280), (13, 64, 1280),
+                   (26, 1024, 320), (26, 256, 640), (26, 64, 1280)]
 
 # ln_gemm_kernel<Kind> in ln_gemm_sm90.cuh, by the enum's value (gn: gn_proj)
 LN_KINDS = ("proj1", "proj3", "geglu", "gn")
@@ -1650,6 +1698,219 @@ def _check_attention_bwd(q, k, v, dout, label: str):
     return err, readings
 
 
+# ---- infer -------------------------------------------------------------------
+def _clip_rel_l2(model, clip_img, feats) -> float:
+    """The CLI's bf16 CLIP features against the same tower in fp32 (the
+    same fp32 parameters, fp32 compute) on the same pixels: relative L2."""
+    import dataclasses
+
+    from psd_tpu_torch.models.clip import CLIPVisionTower
+
+    with torch.device("cuda"):
+        tower = CLIPVisionTower(dataclasses.replace(model.clip_cfg, dtype=torch.float32)).eval()
+    tower.load_state_dict(model.clip.state_dict())
+    x = torch.as_tensor(clip_img, device="cuda")
+    with torch.inference_mode():
+        ref = (tower.last_hidden_state(x) if model.core_cfg.use_image_projection_plus
+               else tower.image_embeds(x))
+    return ((feats[:1].float() - ref).norm() / ref.norm()).item()
+
+
+def _infer_run(name: str, argv, out_dir: Path, card: str, structure: Path) -> dict:
+    """One CLI run with the launch counts set to 0 just before it; checks
+    its images, files and launches (those the routes give its batch)."""
+    import numpy as np
+
+    from psd_tpu_torch.ops import kernels
+    from psd_tpu_torch.pipelines import infer
+    from psd_tpu_torch.testing import route_launches
+
+    argv = [str(ROOT / a) if a.startswith("configs/") else a for a in argv]
+    argv += ["--structure-image", str(structure), "--output-dir", str(out_dir)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = infer.main(argv)
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launch_counts)
+    dims = dict(kernels.attention_head_dims)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model, images = out["model"], out["images"]
+    size = images.shape[1]
+    do_cfg = out["uncond"] is not None
+    args = infer.build_argparser().parse_args(argv)
+    expected = route_launches(model.core_cfg, model.vae_cfg, INFER_LEVELS, size,
+                              args.sampling_steps or model.cfg.diffusion.sampling_steps,
+                              cfg_pass=do_cfg)
+    clip_img, _ = infer.load_structure_image(structure, size, model.clip_cfg.image_size)
+    feats = model.encode_image_clip(clip_img)
+    clip_rel = _clip_rel_l2(model, clip_img, feats)
+    names = sorted(p.name for p in out_dir.iterdir())
+    checks = {
+        f"{INFER_LEVELS} images of ({size},{size},3)": images.shape == (INFER_LEVELS, size, size, 3),
+        "finite": bool(np.isfinite(images).all()),
+        "in [0,1]": bool(images.min() >= 0.0 and images.max() <= 1.0),
+        "levels differ": not np.allclose(images[0], images[-1], atol=1e-3),
+        "files written": names == sorted([Path(p).name for p in out["paths"]]
+                                         + ["progression_grid.png", "structure_reference.png"]),
+        f"launches {expected} (the routes at batch {INFER_LEVELS}"
+        f"{', x2 in the UNet for CFG' if do_cfg else ''})":
+            {k: counts[k] for k in expected} == expected,
+        f"CLIP bf16 vs fp32 rel L2 <= {CLIP_REL_BAND:g}": clip_rel <= CLIP_REL_BAND,
+    }
+    log(f"[infer] run {name}: {' '.join(argv[:-4])}: phases (s) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out["phases"].items())
+        + f"; the CLI's time {out['seconds']:.3f} s ({INFER_LEVELS / out['seconds']:.4f} img/s), "
+        f"main() wall with the model's build {wall:.3f} s; peak allocated "
+        f"{peak:.3f} GiB; on {card}")
+    log(f"[infer] run {name}: launches {({k: counts[k] for k in expected})}, attention by head "
+        f"dim {dims}; CLIP ({'last_hidden_state' if feats.ndim == 3 else 'image_embeds'}) "
+        f"bf16 vs fp32 rel L2 {clip_rel:.3e}")
+    return {"out": out, "counts": counts, "head_dims": dims, "checks": checks,
+            "clip_rel_l2": clip_rel, "wall_s": wall, "peak_gib": peak}
+
+
+def _check_infer_shapes() -> None:
+    """Each kernel of the infer path against its plain version at the
+    INFER_* shapes, by its judge (not timed, not counted: the runs' counts
+    are read before)."""
+    from psd_tpu_torch.ops import attention, split3
+    from psd_tpu_torch.testing import attention_judge, split3_judge
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    checks = []
+    for shape in INFER_ATTN_SHAPES:
+        q, k, v = randn(*shape), randn(*shape), randn(*shape)
+        checks.append(("attention", shape, attention_judge(
+            attention.attention_fwd(q, k, v), attention.attention_reference(q, k, v))))
+        del q, k, v
+        torch.cuda.empty_cache()
+    for (B, S, H, D) in INFER_SPLIT3_SHAPES:
+        q, banks = randn(B, S, H, D), [randn(B, 16, H, D) for _ in range(6)]
+        checks.append(("split3", (B, S, H, D), split3_judge(
+            split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9),
+            split3.split3_reference(q, *banks, 1.0, 0.1, 0.9))))
+    for name, shape, (ok, text, _) in checks:
+        log(f"[infer] {name} {shape}: {text} {'ok' if ok else 'FAIL'} (not timed)")
+        if not ok:
+            raise SystemExit(f"chip_smoke.py: {name} {shape} disagrees with its plain version")
+    for M, C in INFER_LN_SHAPES:
+        _check_ln_edge(randn, M, C, C, 4 * C, 0.0)
+    for B, S, C in INFER_GN_SHAPES:
+        _check_gn_edge(randn, B, S, C, C, 0.0)
+    torch.cuda.empty_cache()
+
+
+def _generate_device_time(model, cond) -> tuple:
+    """Run (a)'s generate once more as the CLI runs it (eagerly, on its
+    conditioning and initial latent) under torch.profiler's CUDA activity:
+    the device's busy time (ms, the union of its activities' intervals),
+    its activities (kernels, copies, fills) and the profiled wall (ms). The
+    raw events are read, not torch's per-op tables, whose build takes a
+    minute at this generate's 150k kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from psd_tpu_torch.core.mode import eager
+    from psd_tpu_torch.pipelines.infer import initial_draws
+
+    steps = model.cfg.diffusion.sampling_steps
+    x0, _ = initial_draws(model, INFER_LEVELS, 512, steps, 0.0, 0)
+    torch.cuda.synchronize()
+    with eager(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.generate(cond, x0=x0, image_size=512, sampling_steps=steps, steer_scale=1.0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation())
+    busy_ns, end = 0, 0
+    for start, stop in spans:
+        busy_ns += max(0, stop - max(start, end))
+        end = max(end, stop)
+    return busy_ns / 1e6, len(spans), wall_ms
+
+
+def phase_infer(card: str) -> dict:
+    """The MES progression CLI (psd_tpu_torch.pipelines.infer.main) on the
+    card: run (a) the README's command at 512² (routing gates, 13 levels,
+    steer 1.0) and one batch-13 UNet eps on its conditioning, kernels
+    against all plain; run (b) baseline mode at 256² with CFG 3.0, eta 0.5
+    and a LEACE npz fitted here."""
+    import numpy as np
+    from PIL import Image
+
+    from psd_tpu_torch.conditioning.leace import fit_leace, save_leace
+    from psd_tpu_torch.core.mode import KERNELS, disable_kernels
+
+    work = ROOT / "build" / "psd_tpu_torch" / "infer"
+    work.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    structure = work / "structure.png"
+    Image.fromarray(rng.integers(0, 256, (512, 512, 3), np.uint8)).save(structure)
+
+    a = _infer_run("a", INFER_RUN_A, work / "a", card, structure)
+    model, cond = a["out"]["model"], a["out"]["cond"]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((INFER_LEVELS, 64, 64, 4), generator=g, device="cuda")
+    t = torch.full((INFER_LEVELS,), 501, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        eps_k = model.core.eps(x, t, cond, 1.0)
+        with disable_kernels(*KERNELS):
+            eps_p = model.core.eps(x, t, cond, 1.0)
+    eps_rel = ((eps_k - eps_p).norm() / eps_p.norm()).item()
+    a["checks"][f"batch-{INFER_LEVELS} eps kernels vs plain rel L2 <= {UNET_REL_BAND:g}"] = (
+        bool(torch.isfinite(eps_k).all()) and eps_rel <= UNET_REL_BAND)
+    log(f"[infer] run a: one UNet eps at batch {INFER_LEVELS} on the CLI's conditioning "
+        f"{tuple(cond.shape)}, delta 1.0: rel L2 kernels vs plain {eps_rel:.3e}")
+    del eps_k, eps_p
+    dev_ms, n_launched, prof_ms = _generate_device_time(model, cond)
+    gen_ms = a["out"]["phases"]["generate"] * 1e3
+    a.update(generate_device_ms=dev_ms, generate_wall_ms=gen_ms, generate_activities=n_launched)
+    log(f"[infer] run a: its generate again under torch.profiler (eager, as the CLI): device "
+        f"busy {dev_ms:.3f} ms in {n_launched} device activities, profiled wall "
+        f"{prof_ms:.3f} ms; the CLI's unprofiled generate phase {gen_ms:.3f} ms, so the device "
+        + (f"idles {1.0 - dev_ms / gen_ms:.4f} of it" if dev_ms > 0 else
+           "time is not measured (the profiler saw none)") + f"; on {card}")
+    del model, cond
+    a.pop("out")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # LEACE over the baseline model's projected image tokens (16 x 768)
+    t0 = time.perf_counter()
+    labels = np.arange(LEACE_FIT_ROWS) % 4
+    tokens = (rng.standard_normal((LEACE_FIT_ROWS, 16, 768)) + 0.1 * labels[:, None, None])
+    leace = fit_leace(tokens.astype(np.float32), labels)
+    save_leace(leace, work / "leace.npz")
+    fit_s = time.perf_counter() - t0
+    b = _infer_run("b", INFER_RUN_B + ["--leace", str(work / "leace.npz")], work / "b", card,
+                   structure)
+    log(f"[infer] run b: LEACE fitted and saved in {fit_s:.3f} s (rows {LEACE_FIT_ROWS}, "
+        f"stats {leace['stats']}); CFG batch in the UNet "
+        f"{2 * INFER_LEVELS if b['out']['uncond'] is not None else INFER_LEVELS}")
+    b.pop("out")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check_infer_shapes()
+    checks = {f"{run} {k}": v for run, r in (("a", a), ("b", b)) for k, v in r["checks"].items()}
+    log(f"[infer] checks {checks}")
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke.py: infer checks failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    counts = {k: a["counts"][k] + b["counts"][k] for k in a["counts"]}
+    head_dims = {d: a["head_dims"].get(d, 0) + b["head_dims"].get(d, 0)
+                 for d in set(a["head_dims"]) | set(b["head_dims"])}
+    return {"counts": counts, "head_dims": head_dims, "eps_rel_l2": eps_rel,
+            "runs": {"a": a, "b": b}}
+
+
 def phase_train_kernels(results: dict) -> None:
     """The attention backward kernel and split3's autograd.Function at the
     training shapes, against autograd through their plain versions; the
@@ -1883,6 +2144,7 @@ def main() -> int:
     unet = timed("unet", phase_unet)
     served = timed("serve", phase_serve, card, unet)
     turbo = timed("turbo", phase_turbo, card, served)
+    inferred = timed("infer", phase_infer, card)
     timed("train kernels", phase_train_kernels, results)
     trained = timed("train", phase_train, card)
     log(f"[done] seconds per phase {seconds}, {sum(seconds.values()):.1f} s in all")
@@ -1891,7 +2153,8 @@ def main() -> int:
     for name, (replaces, source) in KERNELS.items():
         r = results[name]
         by_path = {path: run["counts"][name] for path, run in
-                   (("serve", served), ("turbo", turbo), ("train", trained), ("op", op))}
+                   (("serve", served), ("turbo", turbo), ("infer", inferred),
+                    ("train", trained), ("op", op))}
         # serve and turbo count host launches (the eager warm-up and the
         # capture of their program); what each replay launches is apart
         by_replay = {path: run["replay_launches"].get(name, 0)
@@ -1914,7 +2177,8 @@ def main() -> int:
                 entry["ptxas"] = ptxas
             entry["launches_by_head_dim"] = {
                 path: run["head_dims"] for path, run in
-                (("serve", served), ("turbo", turbo), ("train", trained))}
+                (("serve", served), ("turbo", turbo), ("infer", inferred),
+                 ("train", trained))}
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,6 @@
-"""Additive ordinal embedder (AOE).
+"""Ordinal embedders: the additive (AOE) and the basic (BOE).
 
-Counterpart of `psd_tpu/conditioning/ordinal.py::AdditiveOrdinalEmbedder`
+Counterpart of `psd_tpu/conditioning/ordinal.py`. AdditiveOrdinalEmbedder
 (inference and training):
   * class table E[k] = base + cumsum(deltas)[:k];
   * continuous labels interpolate linearly between rows, clamped to [0, K−1];
@@ -13,7 +13,10 @@ Counterpart of `psd_tpu/conditioning/ordinal.py::AdditiveOrdinalEmbedder`
     (`psd_tpu/conditioning/ordinal.py:106-109`). The caller draws the N(0, 1)
     values from its torch.Generator and passes them in, so a test can hand
     the port the values JAX drew.
-BOE waits.
+BasicOrdinalEmbedder: a learnable (K, D) class table, interpolated the same
+way, (B,) → (B, D), with the same training noise. As in psd_tpu it has no
+`negative` and no `ordinal_delta`, so classifier-free guidance and routing
+gates need the AOE (`DADDCore.prepare_conditioning` raises for either).
 """
 
 from __future__ import annotations
@@ -87,3 +90,31 @@ class AdditiveOrdinalEmbedder(nn.Module):
         table = self.class_table()
         return (self._project(interp_table(table, target_labels))
                 - self._project(interp_table(table, source_labels)))
+
+
+class BasicOrdinalEmbedder(nn.Module):
+    """BOE (psd_tpu/conditioning/ordinal.py:143-178): table interpolation,
+    (B,) → (B, D) fp32; `noise` (B, D) N(0, 1), in training only, is added
+    at std `NOISE_STD`."""
+
+    NOISE_STD = 0.005
+
+    def __init__(self, num_classes: int = 4, embedding_dim: int = 768, init_std: float = 0.02):
+        super().__init__()
+        if num_classes < 2:
+            raise ValueError("num_classes must be >= 2 for ordinal modeling.")
+        self.init_std = init_std
+        self.table = nn.Parameter(torch.zeros(num_classes, embedding_dim))
+        self.null_embedding = nn.Parameter(torch.zeros(1, embedding_dim))
+
+    @torch.no_grad()
+    def reset_flax_(self, generator: torch.Generator):
+        """The flax init: table ~ N(0, init_std); null zero."""
+        self.table.normal_(0.0, self.init_std, generator=generator)
+        self.null_embedding.zero_()
+
+    def forward(self, labels: torch.Tensor, noise=None) -> torch.Tensor:
+        out = interp_table(self.table, labels)
+        if noise is not None:
+            out = out + self.NOISE_STD * noise
+        return out

@@ -1,9 +1,12 @@
-"""IP-Adapter Plus image projection (Perceiver resampler).
+"""IP-Adapter image projections.
 
-Counterpart of `psd_tpu/conditioning/projection.py::ImageProjectionPlus`:
-learnable latent queries, `depth` × {LN → MHA(q=latents, kv=patches) →
-residual, LN → FF(4×, GELU) → residual}, LayerNorm out. The key/value
-patches are not normalized. The plain ImageProjection waits.
+Counterpart of `psd_tpu/conditioning/projection.py`, fp32:
+  * ImageProjection: Linear(clip_embedding_dim → D·N) → N tokens →
+    LayerNorm(D), from CLIP's pooled `image_embeds`;
+  * ImageProjectionPlus (Perceiver resampler): learnable latent queries,
+    `depth` × {LN → MHA(q=latents, kv=patches) → residual, LN → FF(4×,
+    GELU) → residual}, LayerNorm out, from CLIP's `last_hidden_state`. The
+    key/value patches are not normalized.
 """
 
 from __future__ import annotations
@@ -13,6 +16,20 @@ from torch import nn
 
 from ..ops.geglu import gelu_exact
 from .purifier import MultiheadAttention, layer_norm
+
+
+class ImageProjection(nn.Module):
+    def __init__(self, clip_embedding_dim: int = 768, cross_attention_dim: int = 768,
+                 num_tokens: int = 4):
+        super().__init__()
+        self.num_tokens, self.dim = num_tokens, cross_attention_dim
+        self.projection = nn.Linear(clip_embedding_dim, cross_attention_dim * num_tokens)
+        self.norm = nn.LayerNorm(cross_attention_dim, eps=1e-5)
+
+    def forward(self, image_embeds):
+        """(B, clip_embedding_dim) → (B, N, D)."""
+        h = self.projection(image_embeds).reshape(-1, self.num_tokens, self.dim)
+        return layer_norm(h, self.norm)
 
 
 class ImageProjectionPlus(nn.Module):

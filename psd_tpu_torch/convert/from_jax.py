@@ -9,7 +9,10 @@ names, so the walk is mechanical:
   * Conv `kernel` HWIO        → Conv2d `weight` OIHW;
   * LayerNorm/GroupNorm `scale` → `weight`;
   * `bias` and free parameters (`base`, `deltas`, `null_embedding`,
-    `latents`) keep their name and shape.
+    `latents`, the BOE's `table`, CLIP's `class_embedding` and
+    `position_embedding`) keep their name and shape.
+
+The CLIP tower's patch embedding is a Conv (HWIO → OIHW) like any other.
 
 Every leaf must land on a port parameter of the same shape and every port
 parameter must be filled, or the bridge raises. `to_flax_tree` walks the

@@ -4,9 +4,10 @@ decode, and the training loss.
 Counterpart of `psd_tpu/diffusion/dadd.py`:
   * `DADDCore` — one module over the UNet, the ordinal embedder, the image
     projection and the purifier (the JAX package's single trainable tree).
-  * `DADD` — owns the core, the VAE decoder and the schedule;
-    `prepare_inference_cond` and `generate` are the serving path,
-    `train_loss` the training objective (`DADD(..., for_training=True)`).
+  * `DADD` — owns the core, the VAE decoder, the CLIP vision tower and the
+    schedule; `encode_image_clip`, `prepare_inference_cond` and `generate`
+    are the serving path, `train_loss` the training objective
+    (`DADD(..., for_training=True)`).
 
 Conditioning layouts:
   routing gates ON : [source AOE (N) | purified image (N) | delta (N)]
@@ -14,12 +15,16 @@ Conditioning layouts:
 
 In PyTorch's idiom the weights live in the modules, so the methods take no
 parameter trees: `DADD(...)` initialises them from a seed (flax-style) and
-`load_flax(core_tree, vae_tree)` replaces them with bridged JAX parameters.
+`load_flax(core_tree, vae_tree, clip_tree)` replaces them with bridged JAX
+parameters.
 For serving, the UNet's and decoder's matmul/conv weights are stored in the
 compute dtype (`models.layers.store_weights_in_`); everything else stays
-fp32. For training every parameter stays an fp32 master weight, cast to the
-compute dtype at use (flax's dtype=bf16, param_dtype=fp32), and no VAE
-decoder is built: batches come pre-encoded, as in psd_tpu's train_loss.
+fp32, the CLIP tower's too (psd_tpu's frozen tree is fp32; it runs once a
+request). The CLIP tower is built at its first use (`DADD.clip`), so a
+model that is handed CLIP features never holds one. For training every parameter stays an fp32 master weight, cast to
+the compute dtype at use (flax's dtype=bf16, param_dtype=fp32), and neither
+the VAE decoder nor the CLIP tower is built: batches come pre-encoded, as in
+psd_tpu's train_loss.
 The entry points run on the card (`device="cuda"`) unless the caller asks
 for the CPU; without a card they raise. On the card `generate`, `sample`
 and `decode_latents` each replay a CUDA graph captured at the first call
@@ -28,13 +33,15 @@ and under `core.mode.eager()`, they run op by op. The turbo levers are here: the
 DPM-Solver++(2M) sampler, encoder propagation and DeepCache through the
 UNet's phases (`DADDCore.eps_encode/eps_decode/eps_deep/eps_shallow`), and
 the int8 VAE decoder, whose int8 weights are computed once from the fp32
-values (at init and in `load_flax`). CLIP, LEACE, the VAE encoder and ToMe
-wait for later slices.
+values (at init and in `load_flax`). Baseline mode is here too: the BOE, the
+plain ImageProjection from CLIP's pooled embedding, split2 routing, LEACE
+erasure of the projected image tokens and eta-stochastic DDIM, whose
+per-step noise is drawn outside the graph like the initial latents. The
+VAE encoder and ToMe wait for later slices.
 """
 
 from __future__ import annotations
 
-import functools
 import threading
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -42,10 +49,12 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from ..conditioning import AdditiveOrdinalEmbedder, FeaturePurifier, ImageProjectionPlus
+from ..conditioning import (AdditiveOrdinalEmbedder, BasicOrdinalEmbedder, FeaturePurifier,
+                            ImageProjection, ImageProjectionPlus, apply_leace)
 from ..convert.from_jax import load_flax_, state_dict_from_flax, vae_decode_tree
 from ..core.config import Config
 from ..core.mode import is_eager, training_mode
+from ..models.clip import CLIPVisionConfig, CLIPVisionTower, clip_vit_l14_config
 from ..models.init import flax_init_
 from ..models.layers import quantize_int8_weights_, store_weights_in_
 from ..models.unet import UNet2DCondition, UNetConfig
@@ -67,50 +76,77 @@ class DADDCoreConfig:
     num_aoe_tokens: int = 16
     num_image_tokens: int = 16
     aoe_delta_scale: float = 0.05
-    embedder_type: str = "aoe"
+    embedder_type: str = "aoe"  # "aoe" | "boe"
     use_image_projection_plus: bool = True
     use_feature_purifier: bool = True
     use_routing_gates: bool = True
     purifier_num_heads: int = 8
     purifier_ff_mult: int = 2
     clip_hidden_dim: int = 1024
+    clip_projection_dim: int = 768
     use_image_conditioning: bool = True
 
 
 class DADDCore(nn.Module):
     def __init__(self, cfg: DADDCoreConfig):
         super().__init__()
-        if cfg.embedder_type != "aoe":
-            raise NotImplementedError("only the AOE ordinal embedder is ported")
-        if cfg.use_image_conditioning and not cfg.use_image_projection_plus:
-            raise NotImplementedError("only the IP-Plus image projection is ported")
+        if cfg.embedder_type not in ("aoe", "boe"):
+            raise ValueError(f"embedder_type must be 'aoe' or 'boe', got {cfg.embedder_type!r}")
         self.cfg = cfg
         self.unet = UNet2DCondition(cfg.unet)
-        self.ordinal_embedder = AdditiveOrdinalEmbedder(
-            cfg.num_classes, cfg.embedding_dim, delta_scale=cfg.aoe_delta_scale,
-            num_tokens=cfg.num_aoe_tokens)
+        if cfg.embedder_type == "aoe":
+            self.ordinal_embedder = AdditiveOrdinalEmbedder(
+                cfg.num_classes, cfg.embedding_dim, delta_scale=cfg.aoe_delta_scale,
+                num_tokens=cfg.num_aoe_tokens)
+        else:
+            self.ordinal_embedder = BasicOrdinalEmbedder(cfg.num_classes, cfg.embedding_dim)
         if cfg.use_image_conditioning:
-            self.image_projection = ImageProjectionPlus(
-                cfg.clip_hidden_dim, cfg.conditioning_dim, cfg.num_image_tokens)
+            if cfg.use_image_projection_plus:
+                self.image_projection = ImageProjectionPlus(
+                    cfg.clip_hidden_dim, cfg.conditioning_dim, cfg.num_image_tokens)
+            else:
+                self.image_projection = ImageProjection(
+                    cfg.clip_projection_dim, cfg.conditioning_dim, cfg.num_image_tokens)
             if cfg.use_feature_purifier:
                 self.feature_purifier = FeaturePurifier(
                     cfg.conditioning_dim, cfg.purifier_num_heads, cfg.purifier_ff_mult)
 
+    def embed_ordinal(self, labels, noise=None):
+        """(B,) labels → (B, T, D) tokens (the BOE's one (B, D) row as T = 1)."""
+        out = self.ordinal_embedder(labels, noise)
+        return out[:, None, :] if out.ndim == 2 else out
+
+    def _aoe(self, what: str) -> AdditiveOrdinalEmbedder:
+        """The AOE, for what only it has (psd_tpu's BOE lacks the method, so
+        psd_tpu fails at the same call)."""
+        if not isinstance(self.ordinal_embedder, AdditiveOrdinalEmbedder):
+            raise ValueError(f"{what} needs the AOE: the BOE (embedder_type 'boe') has no "
+                             f"negative embedding and no ordinal delta")
+        return self.ordinal_embedder
+
     def prepare_conditioning(self, labels, clip_feats, source_labels=None,
                              zero_aoe: bool = False, image_scale: float = 1.0,
                              drop_image_mask: Optional[torch.Tensor] = None,
-                             aoe_noise: Optional[torch.Tensor] = None):
+                             aoe_noise: Optional[torch.Tensor] = None,
+                             leace: Optional[Dict[str, torch.Tensor]] = None):
         """`aoe_noise` (2, B, D) N(0, 1): training's embedder noise for the
-        target and the source AOE, in the order psd_tpu draws them."""
+        target and the source embedding, in the order psd_tpu draws them.
+        `leace` ({"P_null", "mu"}) erases the disease directions from the
+        projected image tokens, before the purifier."""
         c = self.cfg
-        emb = self.ordinal_embedder
         src = labels if source_labels is None else source_labels
         n_tgt, n_src = (None, None) if aoe_noise is None else aoe_noise
-        target_aoe = emb.negative(labels, n_tgt) if zero_aoe else emb(labels, n_tgt)
+        if zero_aoe:
+            target_aoe = self._aoe("zero_aoe (the CFG pass's negative embedding)").negative(
+                labels, n_tgt)
+        else:
+            target_aoe = self.embed_ordinal(labels, n_tgt)
         if not c.use_image_conditioning or clip_feats is None:
             return target_aoe
-        source_aoe = emb(src, n_src)
+        source_aoe = self.embed_ordinal(src, n_src)
         image_embeds = self.image_projection(clip_feats)
+        if leace is not None:
+            image_embeds = apply_leace(image_embeds, leace)
         if c.use_feature_purifier:
             image_embeds = self.feature_purifier(image_embeds, source_aoe)
         image_embeds = image_embeds * image_scale
@@ -118,7 +154,7 @@ class DADDCore(nn.Module):
             image_embeds = torch.where(drop_image_mask[:, None, None],
                                        torch.zeros_like(image_embeds), image_embeds)
         if c.use_routing_gates:
-            delta = emb.ordinal_delta(src, labels)
+            delta = self._aoe("routing gates (the delta tokens)").ordinal_delta(src, labels)
             return torch.cat([source_aoe, image_embeds, delta], dim=1)
         return torch.cat([target_aoe, image_embeds], dim=1)
 
@@ -144,11 +180,10 @@ class DADDCore(nn.Module):
 
 
 def core_config_from(cfg: Config, dtype=torch.bfloat16) -> DADDCoreConfig:
-    """DADDCoreConfig from a reference-format Config (routing gates → split3;
-    gradient checkpointing from `training.gradient_checkpointing`)."""
+    """DADDCoreConfig from a reference-format Config (routing gates → split3,
+    else split2; gradient checkpointing from
+    `training.gradient_checkpointing`)."""
     m = cfg.model
-    if not m.use_routing_gates:
-        raise NotImplementedError("split2 routing (use_routing_gates=false) is not ported")
     unet = UNetConfig(
         in_channels=m.latent_channels,
         out_channels=m.latent_channels,
@@ -156,7 +191,7 @@ def core_config_from(cfg: Config, dtype=torch.bfloat16) -> DADDCoreConfig:
         layers_per_block=2,
         num_heads=m.attention_heads,
         cross_attention_dim=m.conditioning_dim,
-        attn_mode="split3",
+        attn_mode="split3" if m.use_routing_gates else "split2",
         num_aoe_tokens=m.num_aoe_tokens,
         num_image_tokens=m.num_image_tokens,
         num_delta_tokens=m.num_aoe_tokens,
@@ -195,19 +230,25 @@ def resolve_device(device) -> torch.device:
 class DADD:
     """Orchestrator: core + VAE decoder + schedule on one device.
 
-    `for_training=True` keeps fp32 master weights and builds no decoder."""
+    `for_training=True` keeps fp32 master weights and has neither the
+    decoder nor the CLIP tower."""
 
     def __init__(self, cfg: Config, core_cfg: Optional[DADDCoreConfig] = None,
-                 vae_cfg: Optional[VAEConfig] = None, dtype=torch.bfloat16,
-                 device="cuda", seed: Optional[int] = 0, for_training: bool = False):
+                 vae_cfg: Optional[VAEConfig] = None, clip_cfg: Optional[CLIPVisionConfig] = None,
+                 dtype=torch.bfloat16, device="cuda", seed: Optional[int] = 0,
+                 for_training: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.seed = seed
         self.for_training = for_training
         self.core_cfg = core_cfg or core_config_from(cfg, dtype=dtype)
         self.vae_cfg = vae_cfg or VAEConfig(dtype=dtype)
+        self.clip_cfg = clip_cfg or clip_vit_l14_config(dtype=dtype)
         with self.device:
             self.core = DADDCore(self.core_cfg).train(for_training)
             self.vae = None if for_training else VAEDecode(self.vae_cfg).eval()
+        self._clip: Optional[CLIPVisionTower] = None
+        self._clip_lock = threading.Lock()
         if seed is not None and self.device.type != "meta":
             gen = torch.Generator(device=self.device).manual_seed(seed)
             flax_init_(self.core, gen)
@@ -238,14 +279,38 @@ class DADD:
         self.failed_captures: Dict[tuple, str] = {}
         self._programs_lock = threading.Lock()
 
-    def load_flax(self, core_tree, vae_tree=None) -> "DADD":
-        """Replace the weights with `psd_tpu` parameter trees (numpy leaves)."""
+    def load_flax(self, core_tree, vae_tree=None, clip_tree=None) -> "DADD":
+        """Replace the weights with `psd_tpu` parameter trees (numpy leaves).
+        A serving model needs `vae_tree`; without `clip_tree` its CLIP tower
+        keeps the weights it has (callers that pass CLIP features)."""
         load_flax_(self.core, core_tree)
         if self.vae is not None:
             sd = state_dict_from_flax(vae_decode_tree(vae_tree), self.vae)
             quantize_int8_weights_(self.vae, sd)  # from the fp32 arrays, as psd_tpu
             self.vae.load_state_dict(sd, strict=True)
+        if clip_tree is not None:
+            load_flax_(self._clip_tower(init=False), clip_tree)
         return self
+
+    @property
+    def clip(self) -> CLIPVisionTower:
+        """The frozen CLIP vision tower, built at its first use; its weights
+        come from a generator of its own, seeded `seed + 3` (psd_tpu's
+        pipelines seed CLIP's init so), or from `load_flax`."""
+        return self._clip_tower(init=True)
+
+    def _clip_tower(self, init: bool) -> CLIPVisionTower:
+        if self.for_training:
+            raise ValueError("a model built with for_training=True holds no CLIP tower")
+        with self._clip_lock:
+            if self._clip is None:
+                with self.device:
+                    tower = CLIPVisionTower(self.clip_cfg).eval()
+                if init and self.seed is not None and self.device.type != "meta":
+                    gen = torch.Generator(device=self.device).manual_seed(self.seed + 3)
+                    flax_init_(tower, gen)
+                self._clip = tower
+        return self._clip
 
     def _t(self, a, dtype=torch.float32):
         return torch.as_tensor(a, dtype=dtype).to(self.device)
@@ -326,15 +391,31 @@ class DADD:
         return loss, metrics
 
     @torch.inference_mode()
+    def encode_image_clip(self, clip_images) -> torch.Tensor:
+        """CLIP-preprocessed (B, 224, 224, 3) pixels → the image projection's
+        input, fp32: `last_hidden_state` for IP-Plus, else `image_embeds`
+        (psd_tpu/diffusion/dadd.py:313-324)."""
+        x = self._t(clip_images)
+        if self.core_cfg.use_image_projection_plus:
+            return self.clip.last_hidden_state(x).float()
+        return self.clip.image_embeds(x).float()
+
+    @torch.inference_mode()
     def prepare_inference_cond(self, target_labels, source_labels, clip_feats,
                                image_scale: float = 1.0, zero_aoe: bool = False,
-                               zero_image: bool = False) -> torch.Tensor:
-        """(B,) target and source labels, CLIP features → (B, 3N, D) fp32."""
+                               zero_image: bool = False,
+                               leace: Optional[Dict] = None) -> torch.Tensor:
+        """(B,) target and source labels, CLIP features → (B, 3N, D) fp32
+        ((B, 2N, D) without routing gates). `leace`, a `load_leace` dict,
+        erases the disease directions after the projection and before the
+        purifier (psd_tpu/diffusion/dadd.py:144-147)."""
         tgt = self._t(target_labels)
         mask = torch.ones(tgt.shape[0], dtype=torch.bool, device=self.device) if zero_image else None
+        if leace is not None:
+            leace = {"P_null": self._t(leace["P_null"]), "mu": self._t(leace["mu"])}
         return self.core.prepare_conditioning(
             tgt, self._t(clip_feats), self._t(source_labels), zero_aoe=zero_aoe,
-            image_scale=image_scale, drop_image_mask=mask)
+            image_scale=image_scale, drop_image_mask=mask, leace=leace)
 
     def initial_noise(self, batch: int, image_size: int, generator: torch.Generator,
                       shared_noise: bool = True) -> torch.Tensor:
@@ -368,19 +449,35 @@ class DADD:
         return prog(*inputs)
 
     def static_knobs(self, sampling_steps, steer_scale, guidance_scale, encoder_stride,
-                     cache_mode, sampler) -> dict:
+                     cache_mode, sampler, eta: float = 0.0) -> dict:
         """The sampler's static knobs, as `_sample` takes them and graph keys
         hold them. steer and guidance are among them: split3's kernel takes δ
-        as a launch argument and the CFG mix a Python float."""
+        as a launch argument and the CFG mix a Python float. eta is DDIM's;
+        DPM-Solver++ ignores it, as in psd_tpu, so it reads 0 there."""
         if sampler not in SAMPLERS:
             raise ValueError(f"sampler must be one of {tuple(SAMPLERS)}, got {sampler!r}")
         return dict(steps=int(sampling_steps or self.cfg.diffusion.sampling_steps),
                     steer=float(steer_scale), guidance=float(guidance_scale),
                     encoder_stride=int(encoder_stride), cache_mode=cache_mode,
-                    sampler=sampler)
+                    sampler=sampler, eta=float(eta) if sampler == "ddim" else 0.0)
 
-    def _sample(self, cond, x0, cond_uncond=None, *, steps, steer, guidance,
-                encoder_stride, cache_mode, sampler) -> torch.Tensor:
+    def _sample_program(self, cond, x0, cond_uncond, eta_noise, knobs):
+        """A program's inputs, (cond, x0[, cond_uncond][, eta_noise]), each
+        optional one there when given (eta_noise when eta > 0), and `_sample`
+        on inputs of that layout."""
+        if knobs["eta"] > 0 and eta_noise is None:
+            raise ValueError("eta > 0 needs eta_noise (steps, B, h, w, C)")
+        named = dict(cond=cond, x0=x0.to(self.device), cond_uncond=cond_uncond,
+                     eta_noise=eta_noise.to(self.device) if knobs["eta"] > 0 else None)
+        names = tuple(k for k, v in named.items() if v is not None)
+
+        def run(*inputs):
+            return self._sample(**dict(zip(names, inputs)), **knobs)
+
+        return tuple(named[k] for k in names), run
+
+    def _sample(self, cond, x0, cond_uncond=None, eta_noise=None, *, steps, steer, guidance,
+                eta, encoder_stride, cache_mode, sampler) -> torch.Tensor:
         core = self.core
 
         def raw_eps(x, t, i, embeds):
@@ -403,11 +500,11 @@ class DADD:
 
                 def decode_fn(t, i, cache):
                     return core.eps_decode(t, cond, cache, steer)
-        return SAMPLERS[sampler](
-            eps_fn, x0, self.schedule,
-            SamplerConfig(sampling_steps=steps, encoder_stride=encoder_stride,
-                          cache_mode=cache_mode),
-            encode_fn=encode_fn, decode_fn=decode_fn)
+        scfg = SamplerConfig(sampling_steps=steps, eta=eta, encoder_stride=encoder_stride,
+                             cache_mode=cache_mode)
+        kw = dict(eta_noise=eta_noise) if sampler == "ddim" else {}
+        return SAMPLERS[sampler](eps_fn, x0, self.schedule, scfg, encode_fn=encode_fn,
+                                 decode_fn=decode_fn, **kw)
 
     def _decode(self, latents) -> torch.Tensor:
         imgs = self.vae(latents / self.latent_scale)
@@ -417,17 +514,18 @@ class DADD:
     def sample(self, cond, x0: torch.Tensor, sampling_steps: Optional[int] = None,
                steer_scale: float = 0.0, guidance_scale: float = 1.0,
                cond_uncond: Optional[torch.Tensor] = None, encoder_stride: int = 1,
-               cache_mode: str = "encoder", sampler: str = "ddim") -> torch.Tensor:
+               cache_mode: str = "encoder", sampler: str = "ddim", eta: float = 0.0,
+               eta_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """DDIM or DPM-Solver++(2M) (`sampler` "ddim" | "dpm") from the
         initial latents x0 (B, h, w, 4) → scaled latents, fp32.
         `encoder_stride > 1` propagates cached UNet features across non-key
-        steps (`cache_mode` "encoder" | "deep"); not with CFG. On the card,
+        steps (`cache_mode` "encoder" | "deep"); not with CFG. DDIM with
+        `eta > 0` adds `eta_noise` (steps, B, h, w, 4) a step. On the card,
         one replay of the loop's captured program."""
         knobs = self.static_knobs(sampling_steps, steer_scale, guidance_scale,
-                                  encoder_stride, cache_mode, sampler)
-        inputs = (cond, x0.to(self.device)) + (() if cond_uncond is None else (cond_uncond,))
-        return self._replay_or_run("sample", functools.partial(self._sample, **knobs), inputs,
-                                   **knobs)
+                                  encoder_stride, cache_mode, sampler, eta)
+        inputs, run = self._sample_program(cond, x0, cond_uncond, eta_noise, knobs)
+        return self._replay_or_run("sample", run, inputs, **knobs)
 
     @torch.inference_mode()
     def decode_latents(self, latents) -> torch.Tensor:
@@ -441,28 +539,33 @@ class DADD:
                  sampling_steps: Optional[int] = None, steer_scale: float = 0.0, guidance_scale: float = 1.0,
                  cond_uncond: Optional[torch.Tensor] = None,
                  shared_noise: bool = True, encoder_stride: int = 1,
-                 cache_mode: str = "encoder", sampler: str = "ddim") -> torch.Tensor:
+                 cache_mode: str = "encoder", sampler: str = "ddim", eta: float = 0.0,
+                 eta_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Sample + VAE decode → (B, H, W, 3) images in [0, 1]; on the card,
         one replay of one captured program (psd_tpu's one jitted program,
         `_get_jitted_generate`), whose key holds the batch, image size,
-        steps, sampler, encoder stride, cache mode, CFG, steer, guidance and
-        the mode flags.
+        steps, sampler, encoder stride, cache mode, CFG, steer, guidance,
+        eta and the mode flags.
 
         The initial latents are `x0` when given (tests pass the noise JAX
         drew), else drawn from `generator` (one latent shared across the
-        batch when `shared_noise`), outside the graph either way. `sampler`,
-        `encoder_stride` and `cache_mode` as in `sample`; the turbo serving
-        point is sampler="dpm", 25 steps, stride 5, "deep", with an int8
-        VAE (`VAEConfig(quant="int8")`)."""
-        if x0 is None:
-            if generator is None:
-                raise ValueError("generate needs x0 or a torch.Generator")
-            x0 = self.initial_noise(cond.shape[0], image_size, generator, shared_noise)
+        batch when `shared_noise`), outside the graph either way; so is
+        DDIM's eta noise, `eta_noise` (steps, B, h, w, 4) when given, else
+        drawn from `generator` after x0. `sampler`, `encoder_stride` and
+        `cache_mode` as in `sample`; the turbo serving point is
+        sampler="dpm", 25 steps, stride 5, "deep", with an int8 VAE
+        (`VAEConfig(quant="int8")`)."""
         knobs = self.static_knobs(sampling_steps, steer_scale, guidance_scale,
-                                  encoder_stride, cache_mode, sampler)
+                                  encoder_stride, cache_mode, sampler, eta)
+        if x0 is None or (knobs["eta"] > 0 and eta_noise is None):
+            if generator is None:
+                raise ValueError("generate needs x0 (and eta_noise when eta > 0) or a "
+                                 "torch.Generator")
+            if x0 is None:
+                x0 = self.initial_noise(cond.shape[0], image_size, generator, shared_noise)
+            if knobs["eta"] > 0 and eta_noise is None:
+                eta_noise = torch.randn((knobs["steps"],) + tuple(x0.shape), generator=generator,
+                                        dtype=torch.float32, device=self.device)
 
-        def body(*inputs):
-            return self._decode(self._sample(*inputs, **knobs))
-
-        inputs = (cond, x0.to(self.device)) + (() if cond_uncond is None else (cond_uncond,))
-        return self._replay_or_run("generate", body, inputs, **knobs)
+        inputs, run = self._sample_program(cond, x0, cond_uncond, eta_noise, knobs)
+        return self._replay_or_run("generate", lambda *a: self._decode(run(*a)), inputs, **knobs)

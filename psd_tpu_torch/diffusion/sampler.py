@@ -8,8 +8,13 @@ coefficients are host numpy fp32 scalars), and a key step is a Python
 branch rather than `lax.cond`.
 
 State stays fp32 whatever the model's compute dtype: x0-prediction clamped
-to ±x0_clip; the last step returns x0_pred. DDIM is the deterministic
-(eta = 0) update, the serving path's; the eta-stochastic update waits.
+to ±x0_clip; the last step returns x0_pred. DDIM takes the deterministic
+(eta = 0) update, the serving path's, or the eta-stochastic one
+(psd_tpu/diffusion/sampler.py:136-146). Its per-step noise is an input,
+`eta_noise` (steps, B, H, W, C) fp32, drawn by the caller outside the loop
+as the initial latents are (tests hand it JAX's draws, one
+`jax.random.normal` per key of `jax.random.split(eta_key, steps)`); the last
+step's is drawn and not used, as in psd_tpu.
 
 Feature propagation (`encoder_stride > 1`): a step is a key step when
 `i % stride == 0` or it is the last step. With `cache_mode="encoder"` a key
@@ -38,6 +43,7 @@ CACHE_MODES = ("encoder", "deep")
 @dataclass(frozen=True)
 class SamplerConfig:
     sampling_steps: int = 50
+    eta: float = 0.0
     x0_clip: float = 4.0
     # re-run the UNet encoder (or the deep branch) every `encoder_stride`-th
     # step only; 1 = exact reference math
@@ -86,13 +92,19 @@ def ddim_sample(
     cfg: SamplerConfig,
     encode_fn=None,
     decode_fn=None,
+    eta_noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Run DDIM from x_init (B, H, W, C); returns fp32 x0 of the last step."""
+    """Run DDIM from x_init (B, H, W, C); returns fp32 x0 of the last step.
+    `eta_noise` (steps, B, H, W, C) is required when cfg.eta > 0."""
     steps = cfg.sampling_steps
     ts = ddim_timesteps(schedule.num_train_timesteps, steps)
     acp = schedule.alphas_cumprod  # fp32 numpy
     one = np.float32(1.0)
     step_eps = _propagating_eps(eps_fn, cfg, encode_fn, decode_fn)
+    if cfg.eta > 0.0 and (eta_noise is None
+                          or tuple(eta_noise.shape) != (steps,) + tuple(x_init.shape)):
+        raise ValueError(f"eta > 0 needs eta_noise of shape {(steps,) + tuple(x_init.shape)}, "
+                         f"got {None if eta_noise is None else tuple(eta_noise.shape)}")
 
     x = x_init.float()
     batch = x.shape[0]
@@ -109,7 +121,14 @@ def ddim_sample(
             return x0
 
         a_prev = acp[t_prev]
-        x = _f32(np.sqrt(a_prev)) * x0 + _f32(np.sqrt(one - a_prev)) * eps
+        if cfg.eta == 0.0:
+            x = _f32(np.sqrt(a_prev)) * x0 + _f32(np.sqrt(one - a_prev)) * eps
+        else:
+            sigma = np.float32(cfg.eta) * np.sqrt((one - a_prev) / (one - a_t)
+                                                  * (one - a_t / a_prev))
+            dir_coef = np.sqrt(np.maximum(one - a_prev - sigma * sigma, np.float32(0.0)))
+            x = (_f32(np.sqrt(a_prev)) * x0 + _f32(dir_coef) * eps
+                 + _f32(sigma) * eta_noise[i])
     return x
 
 

@@ -1,8 +1,13 @@
+from .clip import CLIPVisionConfig, CLIPVisionTower, clip_vit_l14_config, tiny_clip_config
 from .layers import CrossAttnMode, timestep_embedding
 from .unet import UNet2DCondition, UNetConfig, sd14_unet_config, tiny_unet_config
 from .vae import VAEConfig, VAEDecode, sd_vae_config, tiny_vae_config
 
 __all__ = [
+    "CLIPVisionConfig",
+    "CLIPVisionTower",
+    "clip_vit_l14_config",
+    "tiny_clip_config",
     "CrossAttnMode",
     "timestep_embedding",
     "UNet2DCondition",

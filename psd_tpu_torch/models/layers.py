@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.mode import is_training, use_kernel
-from ..ops.attention import dot_product_attention
+from ..ops.attention import attention_probs, dot_product_attention
 from ..ops.geglu import gelu_exact, ln_geglu_fwd, ln_proj_fwd, ln_reference
 from ..ops.gnproj import gn_proj_fwd
 from ..ops.norms import group_norm, group_norm_fold
@@ -233,10 +233,13 @@ class Upsample2D(nn.Module):
 class CrossAttnMode:
     """Static routing of one cross-attention site (psd_tpu CrossAttnMode).
 
-    "plain": K/V over the whole conditioning sequence. "split3": anat K/V
-    from to_k/to_v over tokens [N_aoe : N_aoe+N_img]; dis and delta K/V from
-    to_k_dis/to_v_dis over [:N_aoe] and [-N_delta:]; combined
-    anat_gate·z_anat + dis_gate·z_dis + δ·z_delta. ("split2" waits.)
+    "plain": K/V over the whole conditioning sequence. "split2": the same
+    K/V over [AOE | image] with fp32 probabilities before P·V (psd_tpu's
+    post-softmax token rescale is left out: no config sets a factor other
+    than 1, at which it is the identity). "split3": anat K/V from to_k/to_v over tokens
+    [N_aoe : N_aoe+N_img]; dis and delta K/V from to_k_dis/to_v_dis over
+    [:N_aoe] and [-N_delta:]; combined anat_gate·z_anat + dis_gate·z_dis +
+    δ·z_delta.
     """
 
     kind: str = "plain"
@@ -276,8 +279,8 @@ class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, context_dim: Optional[int] = None,
                  mode: CrossAttnMode = CrossAttnMode(), dtype=torch.bfloat16):
         super().__init__()
-        if mode.kind not in ("plain", "split3"):
-            raise NotImplementedError(f"attention mode {mode.kind!r} is not ported")
+        if mode.kind not in ("plain", "split2", "split3"):
+            raise ValueError(f"attention mode {mode.kind!r} is not one of plain, split2, split3")
         self.dtype = dtype
         self.num_heads = num_heads
         self.is_cross = context_dim is not None
@@ -334,11 +337,20 @@ class Attention(nn.Module):
                 z_dis = dot_product_attention(q, banks[2], banks[3])
                 z_delta = dot_product_attention(q, banks[4], banks[5])
                 z = m.anat_gate * z_anat + m.dis_gate * z_dis + ds * z_delta
+        elif self.mode.kind == "split2":
+            z = split2_attention(q, heads(linear(context, self.to_k, dt)),
+                                 heads(linear(context, self.to_v, dt)))
         else:
             ctx = context.to(dt)
             z = dot_product_attention(q, heads(linear(ctx, self.to_k, dt)),
                                       heads(linear(ctx, self.to_v, dt)))
         return linear(z.reshape(B, S, C), self.to_out_0, dt)
+
+
+def split2_attention(q, k, v):
+    """The split2 site's attention (psd_tpu/models/layers.py:475-490 at its
+    scales of 1): fp32 probabilities, then P·V with P cast to v's dtype."""
+    return torch.einsum("bhqk,bkhd->bqhd", attention_probs(q, k).to(v.dtype), v)
 
 
 class GEGLUFeedForward(nn.Module):

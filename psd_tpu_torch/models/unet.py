@@ -52,7 +52,7 @@ class UNetConfig:
     num_heads: int = 8
     cross_attention_dim: int = 768
     transformer_depth: int = 1
-    attn_mode: str = "plain"  # "plain" | "split3"
+    attn_mode: str = "plain"  # "plain" | "split2" | "split3"
     num_aoe_tokens: int = 16
     num_image_tokens: int = 16
     num_delta_tokens: int = 16
@@ -90,14 +90,38 @@ class UNetConfig:
                 anat_gate=gates[0],
                 dis_gate=gates[1],
             )
+        if self.attn_mode == "split2":
+            return CrossAttnMode(kind="split2", num_aoe_tokens=self.num_aoe_tokens,
+                                 num_image_tokens=self.num_image_tokens)
         if self.attn_mode != "plain":
-            raise NotImplementedError(f"attn_mode {self.attn_mode!r} is not ported")
+            raise ValueError(f"attn_mode {self.attn_mode!r} is not one of plain, split2, split3")
         return CrossAttnMode(kind="plain")
 
     @property
     def has_cross_attn(self) -> Tuple[bool, ...]:
         n = len(self.block_out_channels)
         return tuple(i < n - 1 for i in range(n))
+
+    def transformer_sites(self, shallow: bool = False):
+        """(module name, level, channels, cross-attention mode) of each
+        Transformer2D, in the order a forward runs them; level i works at
+        the latents' size / 2**i. `shallow`: those of DeepCache's shallow
+        phase (down block 0 and the last up block). The model builds its
+        Transformer2Ds from this list."""
+        n, chans = len(self.block_out_channels), self.block_out_channels
+        sites = []
+        for i in ((0,) if shallow else range(n)):
+            if self.has_cross_attn[i]:
+                sites += [(f"down_blocks_{i}_attentions_{j}", i, chans[i],
+                           self.attn_mode_for("down", i)) for j in range(self.layers_per_block)]
+        if not shallow:
+            sites.append(("mid_block_attentions_0", n - 1, chans[-1], self.attn_mode_for("mid")))
+        rev_attn = tuple(reversed(self.has_cross_attn))
+        for i in ((n - 1,) if shallow else range(n)):
+            if rev_attn[i]:
+                sites += [(f"up_blocks_{i}_attentions_{j}", n - 1 - i, chans[n - 1 - i],
+                           self.attn_mode_for("up", i)) for j in range(self.layers_per_block + 1)]
+        return sites
 
 
 class UNet2DCondition(nn.Module):
@@ -109,9 +133,13 @@ class UNet2DCondition(nn.Module):
         temb_dim = ch0 * 4
         n = len(cfg.block_out_channels)
 
-        def attn(ch, mode):
-            return Transformer2D(ch, cfg.num_heads, cfg.cross_attention_dim,
-                                 cfg.transformer_depth, mode, dtype=dt)
+        sites = {name: (ch, m) for name, _, ch, m in cfg.transformer_sites()}
+
+        def attn(name):
+            if name in sites:
+                ch, m = sites[name]
+                self.add_module(name, Transformer2D(ch, cfg.num_heads, cfg.cross_attention_dim,
+                                                    cfg.transformer_depth, m, dtype=dt))
 
         self.time_embedding = TimestepEmbedding(ch0, temb_dim, dtype=dt)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
@@ -123,9 +151,7 @@ class UNet2DCondition(nn.Module):
                 self.add_module(f"down_blocks_{i}_resnets_{j}",
                                 ResnetBlock2D(h_ch, out_ch, temb_dim, dtype=dt))
                 h_ch = out_ch
-                if cfg.has_cross_attn[i]:
-                    self.add_module(f"down_blocks_{i}_attentions_{j}",
-                                    attn(out_ch, cfg.attn_mode_for("down", i)))
+                attn(f"down_blocks_{i}_attentions_{j}")
                 skip_ch.append(out_ch)
             if i < n - 1:
                 self.add_module(f"down_blocks_{i}_downsamplers_0",
@@ -134,19 +160,16 @@ class UNet2DCondition(nn.Module):
 
         mid = cfg.block_out_channels[-1]
         self.mid_block_resnets_0 = ResnetBlock2D(mid, mid, temb_dim, dtype=dt)
-        self.mid_block_attentions_0 = attn(mid, cfg.attn_mode_for("mid"))
+        attn("mid_block_attentions_0")
         self.mid_block_resnets_1 = ResnetBlock2D(mid, mid, temb_dim, dtype=dt)
 
         rev = tuple(reversed(cfg.block_out_channels))
-        rev_attn = tuple(reversed(cfg.has_cross_attn))
         for i, out_ch in enumerate(rev):
             for j in range(cfg.layers_per_block + 1):
                 self.add_module(f"up_blocks_{i}_resnets_{j}",
                                 ResnetBlock2D(h_ch + skip_ch.pop(), out_ch, temb_dim, dtype=dt))
                 h_ch = out_ch
-                if rev_attn[i]:
-                    self.add_module(f"up_blocks_{i}_attentions_{j}",
-                                    attn(out_ch, cfg.attn_mode_for("up", i)))
+                attn(f"up_blocks_{i}_attentions_{j}")
             if i < n - 1:
                 self.add_module(f"up_blocks_{i}_upsamplers_0", Upsample2D(out_ch, dtype=dt))
 

@@ -51,6 +51,14 @@ def attention_reference(q, k, v, scale: Optional[float] = None):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
 
 
+def attention_probs(q, k, scale: Optional[float] = None):
+    """softmax(q·kᵀ·scale), (B, H, Sq, Sk) fp32: the split2 cross-attention
+    site's probabilities (psd_tpu/ops/attention.py:70-76)."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    return torch.softmax(logits * scale, dim=-1)
+
+
 def lse_reference(q, k, scale: float):
     """Per-row log-sum-exp of the scaled logits in log2 units, (B, H, Sq) fp32
     (the forward kernel's second output)."""

@@ -1,27 +1,40 @@
 """Helpers shared by the tests and chip_smoke.py: the tiny full-stack
 factory (the same shapes as `psd_tpu.testing.tiny_dadd()`: split3 routing,
-AOE, IP-Plus, purifier; fp32, seeded flax-style init), and the judges that
+AOE, IP-Plus, purifier; fp32, seeded flax-style init), the kernel launches
+the routes give a generate call (`route_launches`), and the judges that
 hold a kernel's output to its plain version by relative L2 error
 (attention forward and backward, the int8 attention, the LayerNorm-fused
 GEMMs, gn_proj, split3)."""
 
 from __future__ import annotations
 
+import functools
+from collections import Counter
+from typing import Dict
+
 import torch
 
 from .core.config import Config
 from .diffusion.dadd import DADD, DADDCoreConfig
+from .models.layers import gn_proj_ok, ln_fused_ok, split3_kernel_ok
+from .models.clip import tiny_clip_config
 from .models.unet import tiny_unet_config
-from .models.vae import tiny_vae_config
+from .models.vae import VAEConfig, tiny_vae_config
+from .ops.attention import kernel_route
 
 
-def tiny_dadd(device="cpu", seed=0, for_training=False, **unet_overrides) -> DADD:
+def tiny_dadd(device="cpu", seed=0, for_training=False, routing=True, purifier=True, plus=True,
+              embedder="aoe", **unet_overrides) -> DADD:
+    """The tiny DADD of `psd_tpu.testing.tiny_dadd(routing, purifier, plus)`:
+    split3 routing with routing gates, else split2; the purifier; IP-Plus,
+    else the plain ImageProjection; `embedder` "aoe" or "boe"."""
     cfg = Config()
     cfg.dataset.image_size = 32
     cfg.diffusion.sampling_steps = 4
+    cfg.model.use_routing_gates = routing
     core_cfg = DADDCoreConfig(
         unet=tiny_unet_config(
-            attn_mode="split3",
+            attn_mode="split3" if routing else "split2",
             num_aoe_tokens=4,
             num_image_tokens=4,
             num_delta_tokens=4,
@@ -32,14 +45,59 @@ def tiny_dadd(device="cpu", seed=0, for_training=False, **unet_overrides) -> DAD
         num_classes=4,
         num_aoe_tokens=4,
         num_image_tokens=4,
-        use_image_projection_plus=True,
-        use_feature_purifier=True,
-        use_routing_gates=True,
+        embedder_type=embedder,
+        use_image_projection_plus=plus,
+        use_feature_purifier=purifier,
+        use_routing_gates=routing,
         purifier_num_heads=2,
         clip_hidden_dim=32,
+        clip_projection_dim=16,
     )
-    return DADD(cfg, core_cfg=core_cfg, vae_cfg=tiny_vae_config(), dtype=torch.float32,
-                device=device, seed=seed, for_training=for_training)
+    return DADD(cfg, core_cfg=core_cfg, vae_cfg=tiny_vae_config(), clip_cfg=tiny_clip_config(),
+                dtype=torch.float32, device=device, seed=seed, for_training=for_training)
+
+
+def route_launches(core_cfg: DADDCoreConfig, vae_cfg: VAEConfig, batch: int, image_size: int,
+                   full_steps: int, shallow_steps: int = 0, cfg_pass: bool = False) -> Dict[str, int]:
+    """The hand-written kernels one generate call launches, from the routes'
+    own gates (`ln_fused_ok`, `gn_proj_ok`, `split3_kernel_ok`,
+    `kernel_route`) at its shapes: `full_steps` full UNet evaluations and
+    `shallow_steps` DeepCache shallow ones at `batch` (twice that with
+    `cfg_pass`, CFG's one call over [cond | uncond]), then the VAE decode at
+    `batch`. Inference mode, every kernel on."""
+    u = core_cfg.unet
+    lat = image_size // 2 ** (len(vae_cfg.block_out_channels) - 1)
+    B = batch * (2 if cfg_pass else 1)
+    n_ctx = core_cfg.num_aoe_tokens + core_cfg.num_image_tokens + (
+        u.num_delta_tokens if u.attn_mode == "split3" else 0)
+    meta = functools.partial(torch.empty, device="meta")
+
+    def per_eval(shallow: bool) -> Counter:
+        c = Counter()
+        for _, level, C, mode in u.transformer_sites(shallow):
+            S = (lat >> level) ** 2
+            H, D = u.num_heads, C // u.num_heads
+            q = meta((B, S, H, D))
+            c["gn_proj"] += gn_proj_ok(S, C)
+            if ln_fused_ok(meta((B, S, C))):
+                c["ln_proj"] += 2  # attn1's q/k/v, attn2's q
+                c["ln_geglu"] += 1
+            c["attention"] += kernel_route(q, q) is not None
+            if mode.kind == "split3":
+                lens = [mode.num_image_tokens, mode.num_aoe_tokens, mode.num_delta_tokens]
+                c["split3"] += split3_kernel_ok(B, S, H, D, lens)
+            else:
+                c["attention"] += kernel_route(q, meta((B, n_ctx, H, D))) is not None
+        return c
+
+    total = Counter()
+    for shallow, times in ((False, full_steps), (True, shallow_steps)):
+        for k, v in per_eval(shallow).items():
+            total[k] += v * times
+    C = vae_cfg.block_out_channels[-1]  # the decoder's single-head mid-block attention
+    vae_q = meta((batch, lat * lat, 1, C))
+    total["attention"] += kernel_route(vae_q, vae_q) is not None
+    return {k: total[k] for k in ("attention", "split3", "ln_proj", "ln_geglu", "gn_proj")}
 
 
 # The attention forward (attention_narrow.cu at D <= 160, the UNet's 40 and
