@@ -135,10 +135,32 @@ Phases, in order; any failure exits non-zero:
                held against the plain versions with the same draws, the
                flattened gradient and, on their own, the q/k/v weight
                gradients of the self-attention sites the kernel serves.
+  6b. train_cli — the training CLI (psd_tpu_torch.pipelines.train.main,
+               in-process) on a seeded synthetic tree of 128 train and 32
+               val PNGs of 288 × 352 in four class directories, at
+               configs/train_ip.yaml's full width (256², batch 64, fp32
+               masters): run 1 takes two steps from the PNGs (the LIMUC
+               loader, the frozen VAE encoder and CLIP encode of each
+               batch), saves the epoch's checkpoint and validates on the
+               EMA (the val loss over one batch, a 4-level grid of 10
+               steps); run 2 resumes from "last" for a third step (the
+               restored parameters, moments, counts, EMA and generator held
+               to the files bit for bit, as the saved state was to run 1's)
+               and saves it; run 3 is the infer CLI on the checkpoint's EMA
+               at 256². Each run's launches, counted from 0, equal phase
+               6's per step for each step, one attention launch at D = 512
+               for each encoded batch, `route_launches` of the val loss's
+               batch-64 forward (no decode) and of the grid (batch 4, 10
+               steps, its decode); then each kernel against its plain
+               version by its judge at this path's new shapes (TRAIN_CLI_*,
+               not timed). Prints each step's phases (data, encode,
+               train_step), the logged img/s beside phase 6's, each save's
+               and the restore's GB and seconds, free disk, peak memory,
+               the card. Its files are deleted at the end.
 The line before the last is a JSON object with one entry per kernel:
-`launches` counts the launches of the main-path runs (phases 3b, 5, 5b, 5c
-and 6, each with the counts set to 0 just before it, 5c before each of its
-two CLI runs; `launches_by_path` splits them; in phases 5 and 5b the wrappers run, and count, at the eager warm-up
+`launches` counts the launches of the main-path runs (phases 3b, 5, 5b, 5c,
+6 and 6b, each with the counts set to 0 just before it, 5c before each of
+its two CLI runs, 6b before each of its three; `launches_by_path` splits them; in phases 5 and 5b the wrappers run, and count, at the eager warm-up
 and at the capture of the batch's program, and `launches_per_replay` gives
 what one replay launches),
 `max_abs_err` is the largest over the kernel's shapes, `ms`, `plain_ms`,
@@ -351,6 +373,32 @@ INFER_SPLIT3_SHAPES = [(13, 4096, 8, 40), (13, 1024, 8, 80), (13, 256, 8, 160)]
 INFER_LN_SHAPES = [(13 * 4096, 320), (13 * 1024, 640), (26 * 1024, 320), (26 * 256, 640)]
 INFER_GN_SHAPES = [(13, 4096, 320), (13, 1024, 640), (13, 256, 1280), (13, 64, 1280),
                    (26, 1024, 320), (26, 256, 640), (26, 64, 1280)]
+
+# the train CLI phase: a seeded synthetic LIMUC-style tree (four class
+# directories of RGB PNGs larger than the 224 center crop), then
+# psd_tpu_torch.pipelines.train.main on configs/train_ip.yaml (256², batch
+# 64, full width): two steps (one epoch, a checkpoint, one EMA-swapped
+# validation: the val loss over one batch, a 4-level grid of 10 steps), a
+# resume from "last" for a third step, and the infer CLI on its EMA
+TRAIN_CLI_IMAGES = {"train": 128, "val": 32}
+TRAIN_CLI_HW = (288, 352)
+TRAIN_CLI_ARGS = ["training.update_starting_at_step=0", "training.log_every_n_steps=1",
+                  "training.val_max_batches=1", "training.val_progression_levels=4",
+                  "training.val_sampling_steps=10"]
+TRAIN_CLI_GRID = 4
+TRAIN_CLI_INFER = ["--image-size", "256", "--mes-steps", str(TRAIN_CLI_GRID),
+                   "--sampling-steps", "10", "--seed", "0"]
+# the kernels' shapes on this path that no earlier phase gives them: the
+# encoder's (and the grid decoder's) mid-block attention, and the serving
+# kernels in the val loss's batch-64 forward and the grid's batch-4 UNet on
+# fp32 masters (held to their plain versions by their judges, not timed)
+TRAIN_CLI_ATTN_SHAPES = [(64, 1024, 1, 512), (4, 1024, 1, 512)]
+TRAIN_CLI_SPLIT3_SHAPES = [(64, 1024, 8, 40), (64, 256, 8, 80), (4, 1024, 8, 40),
+                           (4, 256, 8, 80)]
+TRAIN_CLI_LN_SHAPES = [(64 * 1024, 320), (64 * 256, 640), (64 * 64, 1280), (64 * 16, 1280),
+                       (4 * 1024, 320), (4 * 256, 640)]
+TRAIN_CLI_GN_SHAPES = [(64, 1024, 320), (64, 256, 640), (64, 64, 1280), (4, 1024, 320),
+                       (4, 256, 640), (4, 64, 1280)]
 
 # ln_gemm_kernel<Kind> in ln_gemm_sm90.cuh, by the enum's value (gn: gn_proj)
 LN_KINDS = ("proj1", "proj3", "geglu", "gn")
@@ -2003,7 +2051,7 @@ def phase_train_kernels(results: dict) -> None:
 def phase_train(card: str) -> dict:
     """3 SD-scale train steps, then kernels vs plain on one loss + backward."""
     from psd_tpu_torch.core.config import load_config
-    from psd_tpu_torch.core.mode import TRAINING_KERNELS, disable_kernels
+    from psd_tpu_torch.core.mode import TRAINING_KERNELS, disable_kernels, training_mode
     from psd_tpu_torch.diffusion.dadd import DADD
     from psd_tpu_torch.ops import kernels
     from psd_tpu_torch.train import create_train_state, make_train_step
@@ -2082,8 +2130,9 @@ def phase_train(card: str) -> dict:
     def loss_and_grad():
         for p in params:
             p.grad = None
-        loss, _ = model.train_loss(batch, draws=draws)
-        loss.backward()
+        with training_mode():  # as the train step enters it
+            loss, _ = model.train_loss(batch, draws=draws)
+            loss.backward()
         flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).flatten()
                           for p in params])
         for p in params:
@@ -2120,11 +2169,316 @@ def phase_train(card: str) -> dict:
     if not ok:
         raise SystemExit("chip_smoke.py: the train step on the kernels disagrees with the plain "
                          "versions")
-    del grad_k, grad_p, model, state, step
+    del grad_k, grad_p
+
+    # outside training mode the serving kernels have no backward: a loss
+    # that wants gradients there is refused, not differentiated short
+    try:
+        model.train_loss(batch, draws=draws)
+        refusal = ""
+    except RuntimeError as e:
+        refusal = str(e)
+    refused = "training_mode" in refusal
+    log(f"[train] train_loss with gradients outside training mode: "
+        f"{'refused' if refused else 'NOT refused'} ({refusal or 'no error'})")
+    if not refused:
+        raise SystemExit("chip_smoke.py: train_loss outside training mode was differentiable "
+                         "through a forward-only kernel")
+    del model, state, step
     torch.cuda.empty_cache()
     return {"counts": counts, "head_dims": dims, "step_s": step_s, "img_per_s": B / step_s,
             "peak_gb": peak_gb,
             "rel_loss": rel_loss, "rel_grad": rel_grad, "rel_attn1_leaf": rel_leaf}
+
+
+# ---- train CLI -----------------------------------------------------------------
+def _write_tree(root: Path) -> None:
+    """The seeded synthetic tree: smooth random RGB PNGs of TRAIN_CLI_HW,
+    split evenly over four class directories."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    H, W = TRAIN_CLI_HW
+    for split, n in TRAIN_CLI_IMAGES.items():
+        for c in range(4):
+            (root / split / f"Mayo_{c}").mkdir(parents=True)
+            for i in range(n // 4):
+                small = rng.integers(0, 256, (H // 16, W // 16, 3), dtype=np.uint8)
+                img = Image.fromarray(small).resize((W, H), Image.BICUBIC)
+                img.save(root / split / f"Mayo_{c}" / f"im{i:03d}.png")
+
+
+def _differs_from_saved(state, directory: Path) -> list:
+    """The parts of `state` (a host snapshot of it, as a save takes one) that
+    differ from the step directory's files: [] when all are equal bit for bit."""
+    from psd_tpu_torch.train import checkpoint
+
+    snap = checkpoint.snapshot(state)
+    bad = []
+
+    def same(a, b, where):
+        if isinstance(a, torch.Tensor):
+            if not (isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)):
+                bad.append(where)
+        elif isinstance(a, dict):
+            if not isinstance(b, dict) or a.keys() != b.keys():
+                bad.append(where)
+            else:
+                for k in a:
+                    same(a[k], b[k], f"{where}/{k}")
+        elif a != b:
+            bad.append(where)
+
+    for name, part in snap.items():
+        path = directory / name
+        saved = (json.loads(path.read_text()) if name.endswith(".json") else
+                 torch.load(path, map_location="cpu", weights_only=True, mmap=True))
+        same(part, saved, name)
+    return bad
+
+
+def _check_train_cli_shapes() -> None:
+    """Each kernel of the train CLI path against its plain version by its
+    judge at TRAIN_CLI_* (not timed, not counted: the runs' counts are read
+    before)."""
+    from psd_tpu_torch.ops import attention, split3
+    from psd_tpu_torch.testing import attention_judge, split3_judge
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    checks = []
+    for shape in TRAIN_CLI_ATTN_SHAPES:
+        q, k, v = randn(*shape), randn(*shape), randn(*shape)
+        checks.append(("attention", shape, attention_judge(
+            attention.attention_fwd(q, k, v), attention.attention_reference(q, k, v))))
+        del q, k, v
+    for (B, S, H, D) in TRAIN_CLI_SPLIT3_SHAPES:
+        q, banks = randn(B, S, H, D), [randn(B, 16, H, D) for _ in range(6)]
+        checks.append(("split3", (B, S, H, D), split3_judge(
+            split3.split3_fwd(q, *banks, 0.0, 0.1, 0.9),
+            split3.split3_reference(q, *banks, 0.0, 0.1, 0.9))))
+    for name, shape, (ok, text, _) in checks:
+        log(f"[train_cli] {name} {shape}: {text} {'ok' if ok else 'FAIL'} (not timed)")
+        if not ok:
+            raise SystemExit(f"chip_smoke.py: {name} {shape} disagrees with its plain version")
+    for M, C in TRAIN_CLI_LN_SHAPES:
+        _check_ln_edge(randn, M, C, C, 4 * C, 0.0)
+    for B, S, C in TRAIN_CLI_GN_SHAPES:
+        _check_gn_edge(randn, B, S, C, C, 0.0)
+    torch.cuda.empty_cache()
+
+
+def _counted(fn, *args):
+    """fn(*args) with the launch counts set to 0 just before it; → (its
+    result, the counts, attention's counts by head dim, wall seconds)."""
+    from psd_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, dict(kernels.launch_counts), dict(kernels.attention_head_dims), wall
+
+
+def phase_train_cli(card: str, trained: dict) -> dict:
+    """The training CLI on the card (psd_tpu_torch.pipelines.train.main,
+    in-process) on a synthetic PNG tree at configs/train_ip.yaml's full
+    width: two steps at 256², batch 64, with a checkpoint and an
+    EMA-swapped validation; a resume from "last" for one more step, the
+    restored state checked against the files bit for bit; the infer CLI on
+    the checkpoint's EMA. Each run's launches against the routes' counts
+    and phase 6's per step."""
+    import shutil
+
+    import numpy as np
+
+    from psd_tpu_torch.core.config import load_config
+    from psd_tpu_torch.pipelines import infer, train
+    from psd_tpu_torch.testing import route_launches
+
+    work = ROOT / "build" / "psd_tpu_torch" / "train_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    _write_tree(work / "data")
+    tree_s = time.perf_counter() - t0
+    free_gb = shutil.disk_usage(work).free / 1e9
+    log(f"[train_cli] synthetic tree: {TRAIN_CLI_IMAGES} PNGs of {TRAIN_CLI_HW} in 4 classes "
+        f"written in {tree_s:.2f} s; free disk at {work}: {free_gb:.1f} GB")
+    cfg_path = ROOT / "configs" / "train_ip.yaml"
+    cfg = load_config(cfg_path, TRAIN_CLI_ARGS)
+    B, size = cfg.dataset.batch_size, cfg.dataset.image_size
+    out_dir = work / "run"
+    argv = ["--config", str(cfg_path), f"dataset.dataset_path={work / 'data'}", *TRAIN_CLI_ARGS,
+            "--output-dir", str(out_dir)]
+    per_step = {}
+    for k, v in trained["counts"].items():
+        if v % TRAIN_STEPS:
+            raise SystemExit(f"chip_smoke.py: phase 6 launched {k} {v} times in {TRAIN_STEPS} "
+                             "steps, not the same each step")
+        per_step[k] = v // TRAIN_STEPS
+
+    # run 1: two steps, the epoch's checkpoint and validation; watch three
+    # parameters from the state's creation
+    watched = {}
+    make_state = train.create_train_state
+
+    def watching(model, **kw):
+        state, tx = make_state(model, **kw)
+        named = dict(model.core.named_parameters())
+        for n in ("unet.conv_in.weight", "image_projection.latents",
+                  "unet.down_blocks_0_attentions_0.transformer_blocks_0.attn1.to_q.weight"):
+            watched[n] = named[n].detach().clone()
+        return state, tx
+
+    torch.cuda.reset_peak_memory_stats()
+    train.create_train_state = watching
+    try:
+        r1, counts1, dims1, wall1 = _counted(train.main, argv + ["--max-steps", "2"])
+    finally:
+        train.create_train_state = make_state
+    peak1 = torch.cuda.max_memory_allocated() / 2**30
+    state, save1, laps1 = r1["state"], r1["checkpoints"].last_save, r1["laps"]
+    records = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+    steps = [r for r in records if "loss" in r]
+    val = [r for r in records if "val/loss" in r]
+    named = dict(state.model.core.named_parameters())
+    moved = all(not torch.equal(w, named[n].detach()) for n, w in watched.items())
+    tcfg = cfg.training
+
+    def ema_gate(n):  # the EMA updates of n steps
+        return sum(1 for i in range(n) if i >= tcfg.update_starting_at_step and
+                   (i - tcfg.update_starting_at_step) % tcfg.update_every_n_steps == 0)
+
+    ema1 = state.ema.count
+    t0 = time.perf_counter()
+    saved_diff = _differs_from_saved(state, out_dir / "checkpoints" / "2")
+    cmp_s = time.perf_counter() - t0
+    core_cfg, vae_cfg = state.model.core_cfg, state.model.vae_cfg
+    del state, named, r1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # run 2: resume from "last" for a third step; the restored state is held
+    # to the files just after the restore, before the step
+    restored = {}
+    restore = train.restore_into
+
+    def checked(state, directory):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state = restore(state, directory)
+        torch.cuda.synchronize()
+        restored.update(dir=directory, seconds=time.perf_counter() - t,
+                        bytes=sum(p.stat().st_size for p in directory.iterdir()),
+                        diff=_differs_from_saved(state, directory))
+        return state
+
+    # its phases each end with a synchronize, as under the CLI's --profile
+    # (without its trace): run 1's are the host's alone
+    timer = train.PhaseTimer
+    train.restore_into = checked
+    train.PhaseTimer = lambda device, sync: timer(device, sync=True)
+    try:
+        r2, counts2, dims2, wall2 = _counted(
+            train.main, argv + ["training.resume_checkpoint=last", "--max-steps", "3"])
+    finally:
+        train.restore_into, train.PhaseTimer = restore, timer
+    save2, laps2 = r2["checkpoints"].last_save, r2["laps"]
+    step2, ema2 = r2["state"].step, r2["state"].ema.count
+    del r2
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpts = sorted(p.name for p in (out_dir / "checkpoints").iterdir())
+    records = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+    steps_all = [r for r in records if "loss" in r]
+
+    # run 3: the infer CLI on the checkpoint's EMA
+    png = sorted((work / "data" / "val" / "Mayo_2").iterdir())[0]
+    r3, counts3, dims3, wall3 = _counted(infer.main, [
+        "--config", str(cfg_path), "--structure-image", str(png), "--checkpoint",
+        str(out_dir / "checkpoints"), "--ema", "--output-dir", str(work / "infer"),
+        *TRAIN_CLI_INFER])
+    images = r3["images"]
+    del r3
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    enc = {"attention": 1}  # the encoder's mid block, one launch a batch
+    val_fwd = route_launches(core_cfg, vae_cfg, B, size, 1, decode=False)
+    grid = route_launches(core_cfg, vae_cfg, TRAIN_CLI_GRID, size, tcfg.val_sampling_steps)
+
+    def expect(**parts):
+        return {k: sum(n * part.get(k, 0) for part, n in parts.values())
+                for k in counts1}
+
+    want1 = expect(steps=(per_step, 2), encodes=(enc, 3), val=(val_fwd, 1), grid=(grid, 1))
+    want2 = expect(steps=(per_step, 1), encodes=(enc, 1))
+    want3 = expect(grid=(grid, 1))
+    checks = {
+        "losses and grad norms finite": len(steps_all) == 3 and all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in steps_all),
+        "params changed": moved,
+        f"EMA count {ema_gate(2)} (its gate), validation on the EMA": ema1 == ema_gate(2)
+            and len(val) == 1 and val[0]["val/ema_swapped"] is True,
+        "val loss finite, grid on disk": len(val) == 1 and math.isfinite(val[0]["val/loss"])
+            and Path(val[0]["val/progression_png"]).exists(),
+        "saved state equal to the run's, bit for bit": saved_diff == [],
+        "restored state equal to the files, bit for bit": restored.get("diff") == [],
+        "resumed at step 2, ended at 3": restored.get("dir") == out_dir / "checkpoints" / "2"
+            and step2 == 3 and [r["step"] for r in steps_all] == [1, 2, 3],
+        "checkpoints 2 and 3 on disk": ckpts == ["2", "3"],
+        f"EMA count after the resume {ema_gate(3)}": ema2 == ema_gate(3),
+        "infer images finite in [0,1]": images.shape == (TRAIN_CLI_GRID, size, size, 3)
+            and bool(np.isfinite(images).all()) and images.min() >= 0.0 and images.max() <= 1.0,
+        f"run 1 launches {want1}": counts1 == want1,
+        f"run 2 launches {want2}": counts2 == want2,
+        f"run 3 launches {want3}": counts3 == want3,
+        "D=512 launches: 3 encodes + 1 grid decode, 1 encode, 1 decode": (
+            dims1.get(512), dims2.get(512), dims3.get(512)) == (4, 1, 1),
+    }
+    steady = steps[1]["img_per_sec"] if len(steps) > 1 else float("nan")
+
+    def laps_text(laps):
+        return "; ".join(f"{k} {[round(x, 4) for x in laps.get(k, [])]} s"
+                         for k in ("data", "encode", "train_step", "checkpoint", "validation"))
+
+    log(f"[train_cli] run 1 ({B} PNGs a batch at {size}², 2 steps): main() wall {wall1:.3f} s "
+        f"with the model's build; phases as the CLI times them (no sync: host time), each "
+        f"call: {laps_text(laps1)}; steady "
+        f"{steady:.2f} img/s (the logged step 2) against phase 6's {trained['img_per_s']:.2f} "
+        f"img/s; peak allocated {peak1:.2f} GiB; on {card}")
+    log(f"[train_cli] run 2 (resume from \"last\", 1 step): main() wall {wall2:.3f} s; phases, "
+        f"each ending with a synchronize (--profile's timing), each call: {laps_text(laps2)}")
+    for name, (nbytes, secs) in (("step 2 (run 1)", save1), ("step 3 (run 2)", save2)):
+        log(f"[train_cli] save of {name}: {nbytes / 1e9:.3f} GB written in {secs:.3f} s "
+            f"({nbytes / 1e9 / secs:.3f} GB/s, the background write; the host snapshot is the "
+            f"checkpoint phase above)")
+    log(f"[train_cli] restore of step 2: {restored['bytes'] / 1e9:.3f} GB read in "
+        f"{restored['seconds']:.3f} s ({restored['bytes'] / 1e9 / restored['seconds']:.3f} GB/s); "
+        f"the saved state against the run's in {cmp_s:.3f} s; free disk with checkpoints "
+        f"{ckpts} on disk: {shutil.disk_usage(work).free / 1e9:.1f} GB")
+    log(f"[train_cli] run 3 (infer --checkpoint --ema, {TRAIN_CLI_GRID} levels, 10 steps): "
+        f"main() wall {wall3:.3f} s")
+    log(f"[train_cli] launches: run 1 {counts1}, by head dim {dims1}; run 2 {counts2}, by head "
+        f"dim {dims2}; run 3 {counts3}, by head dim {dims3}")
+    shutil.rmtree(work, ignore_errors=True)
+    _check_train_cli_shapes()
+    log(f"[train_cli] checks {checks}")
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke.py: train CLI checks failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    counts = {k: counts1[k] + counts2[k] + counts3[k] for k in counts1}
+    head_dims = {d: dims1.get(d, 0) + dims2.get(d, 0) + dims3.get(d, 0)
+                 for d in set(dims1) | set(dims2) | set(dims3)}
+    return {"counts": counts, "head_dims": head_dims, "img_per_s": steady,
+            "saves": [save1, save2], "restore": (restored["bytes"], restored["seconds"])}
 
 
 def main() -> int:
@@ -2147,6 +2501,7 @@ def main() -> int:
     inferred = timed("infer", phase_infer, card)
     timed("train kernels", phase_train_kernels, results)
     trained = timed("train", phase_train, card)
+    train_cli = timed("train cli", phase_train_cli, card, trained)
     log(f"[done] seconds per phase {seconds}, {sum(seconds.values()):.1f} s in all")
 
     entries = []
@@ -2154,7 +2509,7 @@ def main() -> int:
         r = results[name]
         by_path = {path: run["counts"][name] for path, run in
                    (("serve", served), ("turbo", turbo), ("infer", inferred),
-                    ("train", trained), ("op", op))}
+                    ("train", trained), ("train_cli", train_cli), ("op", op))}
         # serve and turbo count host launches (the eager warm-up and the
         # capture of their program); what each replay launches is apart
         by_replay = {path: run["replay_launches"].get(name, 0)
@@ -2178,7 +2533,7 @@ def main() -> int:
             entry["launches_by_head_dim"] = {
                 path: run["head_dims"] for path, run in
                 (("serve", served), ("turbo", turbo), ("infer", inferred),
-                 ("train", trained))}
+                 ("train", trained), ("train_cli", train_cli))}
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,6 +8,8 @@ Counterpart of `psd_tpu/conditioning/ordinal.py`. AdditiveOrdinalEmbedder
   * `negative`: the smooth negative embedding at clamp(1−y, 0, 1);
   * `ordinal_delta`: proj(E[target]) − proj(E[source]), exactly zero when
     the labels are equal;
+  * `embedding_stats`: the class table's and the deltas' statistics, which
+    the training CLI logs;
   * in training, Gaussian regularization noise of std `NOISE_STD` = 0.005
     on the interpolated embedding before the projector
     (`psd_tpu/conditioning/ordinal.py:106-109`). The caller draws the N(0, 1)
@@ -90,6 +92,23 @@ class AdditiveOrdinalEmbedder(nn.Module):
         table = self.class_table()
         return (self._project(interp_table(table, target_labels))
                 - self._project(interp_table(table, source_labels)))
+
+    @torch.no_grad()
+    def embedding_stats(self) -> dict:
+        """The table's mean, std, min, max and mean row norm, the base's
+        norm and the deltas' mean and std (population std, as jnp's), 0-d
+        fp32 tensors keyed as psd_tpu logs them."""
+        table = self.class_table()
+        return {
+            "embed/mean": table.mean(),
+            "embed/std": table.std(unbiased=False),
+            "embed/min": table.min(),
+            "embed/max": table.max(),
+            "embed/norm": torch.linalg.vector_norm(table, dim=-1).mean(),
+            "embed/base_norm": torch.linalg.vector_norm(self.base),
+            "embed/delta_mean": self.deltas.mean(),
+            "embed/delta_std": self.deltas.std(unbiased=False),
+        }
 
 
 class BasicOrdinalEmbedder(nn.Module):

@@ -15,11 +15,13 @@ names, so the walk is mechanical:
 The CLIP tower's patch embedding is a Conv (HWIO → OIHW) like any other.
 
 Every leaf must land on a port parameter of the same shape and every port
-parameter must be filled, or the bridge raises. `to_flax_tree` walks the
-other way, from port tensors into the layout of a given flax tree (the
-train-step tests hold post-step parameters and the EMA against psd_tpu's). Real checkpoints reach this
-through the one name map that exists: diffusers → `psd_tpu/convert/sd.py`
-(`scripts/port_weights.py`) → npz → here.
+parameter must be filled, or the bridge raises. A training model's VAE
+(`AutoencoderKL`) takes the whole VAE tree; a serving model's decoder its
+decode half (`vae_decode_tree`). `to_flax_tree` walks the other way, from
+port tensors into the layout of a given flax tree (the train-step tests
+hold post-step parameters and the EMA against psd_tpu's). Real checkpoints reach this through the one name map that exists:
+diffusers → `psd_tpu/convert/sd.py` (`scripts/port_weights.py`) → npz
+(`convert/npz.py`) → here.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-# the VAE subtrees the decode-only port holds (the encoder waits for training)
+# the VAE subtrees a serving model's decoder holds
 VAE_DECODE_KEYS = ("decoder", "post_quant_conv")
 
 
@@ -113,3 +115,4 @@ def to_flax_tree(tensors: Mapping[str, torch.Tensor], like: Mapping) -> Dict:
         return out
 
     return walk(_unwrap(like), ())
+

@@ -21,10 +21,15 @@ For serving, the UNet's and decoder's matmul/conv weights are stored in the
 compute dtype (`models.layers.store_weights_in_`); everything else stays
 fp32, the CLIP tower's too (psd_tpu's frozen tree is fp32; it runs once a
 request). The CLIP tower is built at its first use (`DADD.clip`), so a
-model that is handed CLIP features never holds one. For training every parameter stays an fp32 master weight, cast to
-the compute dtype at use (flax's dtype=bf16, param_dtype=fp32), and neither
-the VAE decoder nor the CLIP tower is built: batches come pre-encoded, as in
-psd_tpu's train_loss.
+model that is handed CLIP features never holds one. For training every
+core parameter stays an fp32 master weight, cast to the compute dtype at
+use (flax's dtype=bf16, param_dtype=fp32); the frozen VAE (encoder and
+decoder, `AutoencoderKL`) and the CLIP tower are built at their first use,
+so a train step handed encoded batches holds neither. `encode_latents`
+turns images into the scaled latents `train_loss` takes.
+`train_loss` runs in whichever kernel mode its caller is in: the train
+step enters `core.mode.training_mode()`, a validation loss runs outside
+it on the serving kernels, as psd_tpu's jitted val loss does.
 The entry points run on the card (`device="cuda"`) unless the caller asks
 for the CPU; without a card they raise. On the card `generate`, `sample`
 and `decode_latents` each replay a CUDA graph captured at the first call
@@ -36,8 +41,8 @@ the int8 VAE decoder, whose int8 weights are computed once from the fp32
 values (at init and in `load_flax`). Baseline mode is here too: the BOE, the
 plain ImageProjection from CLIP's pooled embedding, split2 routing, LEACE
 erasure of the projected image tokens and eta-stochastic DDIM, whose
-per-step noise is drawn outside the graph like the initial latents. The
-VAE encoder and ToMe wait for later slices.
+per-step noise is drawn outside the graph like the initial latents. ToMe
+waits for a later slice.
 """
 
 from __future__ import annotations
@@ -53,12 +58,12 @@ from ..conditioning import (AdditiveOrdinalEmbedder, BasicOrdinalEmbedder, Featu
                             ImageProjection, ImageProjectionPlus, apply_leace)
 from ..convert.from_jax import load_flax_, state_dict_from_flax, vae_decode_tree
 from ..core.config import Config
-from ..core.mode import is_eager, training_mode
+from ..core.mode import is_eager
 from ..models.clip import CLIPVisionConfig, CLIPVisionTower, clip_vit_l14_config
 from ..models.init import flax_init_
 from ..models.layers import quantize_int8_weights_, store_weights_in_
 from ..models.unet import UNet2DCondition, UNetConfig
-from ..models.vae import VAEConfig, VAEDecode
+from ..models.vae import AutoencoderKL, VAEConfig, VAEDecode, sample_gaussian
 from .graphs import CapturedProgram, program_key
 from .sampler import SamplerConfig, cfg_eps_fn, ddim_sample, dpm_sample
 from .schedule import NoiseSchedule
@@ -228,10 +233,10 @@ def resolve_device(device) -> torch.device:
 
 
 class DADD:
-    """Orchestrator: core + VAE decoder + schedule on one device.
+    """Orchestrator: core + VAE + schedule on one device.
 
-    `for_training=True` keeps fp32 master weights and has neither the
-    decoder nor the CLIP tower."""
+    `for_training=True` keeps fp32 master weights and builds the frozen VAE
+    (encoder and decoder) and the CLIP tower at their first use."""
 
     def __init__(self, cfg: Config, core_cfg: Optional[DADDCoreConfig] = None,
                  vae_cfg: Optional[VAEConfig] = None, clip_cfg: Optional[CLIPVisionConfig] = None,
@@ -246,14 +251,14 @@ class DADD:
         self.clip_cfg = clip_cfg or clip_vit_l14_config(dtype=dtype)
         with self.device:
             self.core = DADDCore(self.core_cfg).train(for_training)
-            self.vae = None if for_training else VAEDecode(self.vae_cfg).eval()
+            self._vae = None if for_training else VAEDecode(self.vae_cfg).eval()
         self._clip: Optional[CLIPVisionTower] = None
-        self._clip_lock = threading.Lock()
+        self._frozen_lock = threading.Lock()
         if seed is not None and self.device.type != "meta":
             gen = torch.Generator(device=self.device).manual_seed(seed)
             flax_init_(self.core, gen)
-            if self.vae is not None:
-                flax_init_(self.vae, gen)
+            if self._vae is not None:
+                flax_init_(self._vae, gen)
         if not for_training:
             # the int8 decoder weights come from the fp32 values, before the cast
             quantize_int8_weights_(self.vae)
@@ -279,18 +284,43 @@ class DADD:
         self.failed_captures: Dict[tuple, str] = {}
         self._programs_lock = threading.Lock()
 
-    def load_flax(self, core_tree, vae_tree=None, clip_tree=None) -> "DADD":
-        """Replace the weights with `psd_tpu` parameter trees (numpy leaves).
-        A serving model needs `vae_tree`; without `clip_tree` its CLIP tower
-        keeps the weights it has (callers that pass CLIP features)."""
-        load_flax_(self.core, core_tree)
-        if self.vae is not None:
-            sd = state_dict_from_flax(vae_decode_tree(vae_tree), self.vae)
-            quantize_int8_weights_(self.vae, sd)  # from the fp32 arrays, as psd_tpu
-            self.vae.load_state_dict(sd, strict=True)
+    def load_flax(self, core_tree=None, vae_tree=None, clip_tree=None) -> "DADD":
+        """Replace the weights with `psd_tpu` parameter trees (numpy leaves);
+        a part whose tree is None keeps the weights it has. A serving model
+        takes the decode half of `vae_tree`, a training model all of it."""
+        if core_tree is not None:
+            load_flax_(self.core, core_tree)
+        if vae_tree is not None:
+            if self.for_training:
+                load_flax_(self._frozen_vae(init=False), vae_tree)
+            else:
+                sd = state_dict_from_flax(vae_decode_tree(vae_tree), self._vae)
+                quantize_int8_weights_(self._vae, sd)  # from the fp32 arrays, as psd_tpu
+                self._vae.load_state_dict(sd, strict=True)
         if clip_tree is not None:
             load_flax_(self._clip_tower(init=False), clip_tree)
         return self
+
+    @property
+    def vae(self) -> VAEDecode:
+        """A serving model's decoder (built with the model), or a training
+        model's frozen `AutoencoderKL`, built at its first use (its weights
+        from a generator of its own seeded `seed + 1`, as psd_tpu's
+        pipelines seed the VAE's init, or from `load_flax`). Calling it
+        decodes."""
+        return self._vae if self._vae is not None else self._frozen_vae(init=True)
+
+    def _frozen_vae(self, init: bool) -> AutoencoderKL:
+        with self._frozen_lock:
+            if self._vae is None:
+                with self.device:
+                    vae = AutoencoderKL(self.vae_cfg).eval().requires_grad_(False)
+                if init and self.seed is not None and self.device.type != "meta":
+                    flax_init_(vae, torch.Generator(device=self.device).manual_seed(self.seed + 1))
+                store_weights_in_(vae.encoder, self.vae_cfg.dtype)
+                store_weights_in_(vae.decoder, self.vae_cfg.dtype)
+                self._vae = vae
+        return self._vae
 
     @property
     def clip(self) -> CLIPVisionTower:
@@ -300,12 +330,10 @@ class DADD:
         return self._clip_tower(init=True)
 
     def _clip_tower(self, init: bool) -> CLIPVisionTower:
-        if self.for_training:
-            raise ValueError("a model built with for_training=True holds no CLIP tower")
-        with self._clip_lock:
+        with self._frozen_lock:
             if self._clip is None:
                 with self.device:
-                    tower = CLIPVisionTower(self.clip_cfg).eval()
+                    tower = CLIPVisionTower(self.clip_cfg).eval().requires_grad_(False)
                 if init and self.seed is not None and self.device.type != "meta":
                     gen = torch.Generator(device=self.device).manual_seed(self.seed + 3)
                     flax_init_(tower, gen)
@@ -346,9 +374,12 @@ class DADD:
 
         `batch`: pre-encoded scaled latents (B, h, w, 4), labels (B,) and
         optionally clip_feats. The random numbers come from `draws` when
-        given (tests hand it JAX's), else from `generator`. Runs in
-        training mode (core/mode.py), so every kernel it reaches has a
-        backward."""
+        given (tests hand it JAX's), else from `generator`. The kernels are
+        those of the caller's mode: the train step enters training mode
+        (core/mode.py), where every kernel it reaches has a backward; a
+        validation loss under no_grad outside it takes the serving kernels,
+        as psd_tpu's does. With gradients wanted outside the mode, the
+        forward-only kernels raise on the card (`kernels.require_no_grad`)."""
         if not self.for_training:
             raise ValueError("train_loss needs fp32 master weights: build the model with "
                              "DADD(..., for_training=True)")
@@ -371,10 +402,9 @@ class DADD:
         noisy = self.schedule.q_sample(latents, t, q_noise)
         drop_mask = None if clip_feats is None else draws["drop_mask"]
 
-        with training_mode():
-            cond = self.core.prepare_conditioning(labels, clip_feats, drop_image_mask=drop_mask,
-                                                  aoe_noise=draws["aoe_noise"])
-            eps_pred = self.core.eps(noisy, t, cond, 0.0)
+        cond = self.core.prepare_conditioning(labels, clip_feats, drop_image_mask=drop_mask,
+                                              aoe_noise=draws["aoe_noise"])
+        eps_pred = self.core.eps(noisy, t, cond, 0.0)
         per_sample = ((eps_pred.float() - noise) ** 2).mean(dim=(1, 2, 3))
         if tcfg.use_min_snr_weighting:
             w = self.schedule.min_snr_weight(t, dcfg.min_snr_gamma)
@@ -389,6 +419,24 @@ class DADD:
         if drop_mask is not None:
             metrics["cfg_drop_rate"] = drop_mask.float().mean()
         return loss, metrics
+
+    @torch.no_grad()
+    def encode_latents(self, images, generator: Optional[torch.Generator] = None,
+                       noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Images (B, H, W, 3) in [−1, 1] → a draw of the VAE's posterior ×
+        `latent_scale`, (B, H/8, W/8, 4) fp32 (psd_tpu/diffusion/dadd.py:
+        326-334). The N(0, 1) draw is `noise` when given (tests hand it
+        JAX's), else drawn from `generator`. Outside training mode, so the
+        encoder's mid-block attention takes the serving kernel route."""
+        if not hasattr(self.vae, "encoder"):
+            raise ValueError("encode_latents needs the VAE encoder, which a serving model does "
+                             "not hold: build the model with DADD(..., for_training=True)")
+        mean, logvar = self.vae.encode(self._t(images))
+        if noise is None:
+            if generator is None:
+                raise ValueError("encode_latents needs noise or a torch.Generator")
+            noise = torch.randn(mean.shape, generator=generator, device=self.device)
+        return sample_gaussian(mean, logvar, self._t(noise)) * self.latent_scale
 
     @torch.inference_mode()
     def encode_image_clip(self, clip_images) -> torch.Tensor:

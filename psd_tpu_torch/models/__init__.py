@@ -1,7 +1,8 @@
 from .clip import CLIPVisionConfig, CLIPVisionTower, clip_vit_l14_config, tiny_clip_config
 from .layers import CrossAttnMode, timestep_embedding
 from .unet import UNet2DCondition, UNetConfig, sd14_unet_config, tiny_unet_config
-from .vae import VAEConfig, VAEDecode, sd_vae_config, tiny_vae_config
+from .vae import (AutoencoderKL, VAEConfig, VAEDecode, sample_gaussian, sd_vae_config,
+                  tiny_vae_config)
 
 __all__ = [
     "CLIPVisionConfig",
@@ -14,8 +15,10 @@ __all__ = [
     "UNetConfig",
     "sd14_unet_config",
     "tiny_unet_config",
+    "AutoencoderKL",
     "VAEConfig",
     "VAEDecode",
+    "sample_gaussian",
     "sd_vae_config",
     "tiny_vae_config",
 ]

@@ -1,11 +1,14 @@
-"""AutoencoderKL decoder (SD VAE), NHWC: `post_quant_conv` then `Decoder`.
+"""AutoencoderKL (SD VAE), NHWC.
 
-Counterpart of the decode half of `psd_tpu/models/vae.py`. The mid-block
-attention is single-head with D = C = 512 over 4096 tokens at 512²; in
-`psd_tpu` it falls off `spattn` (D > 256) onto the stock flash kernel, and
-here it takes the attention kernel in its flash role. `VAEConfig.quant =
-"int8"` is the turbo decoder: W8A8 resblock convs (`models/layers.py`).
-The encoder waits for training.
+Counterpart of `psd_tpu/models/vae.py`. `VAEDecode` is the decode half
+(`post_quant_conv` then `Decoder`), which a serving model holds;
+`AutoencoderKL` adds the `Encoder` and `quant_conv` (images in [−1, 1] →
+the diagonal Gaussian's mean and logvar), which training encodes its
+batches with. The mid-block attention is single-head with D = C = 512 over
+the latent's tokens (4096 at 512², 1024 at 256²); in `psd_tpu` it falls off
+`spattn` (D > 256) onto the stock flash kernel, and here it takes the
+attention kernel in its flash role. `VAEConfig.quant = "int8"` is the turbo
+decoder: W8A8 resblock convs (`models/layers.py`).
 """
 
 from __future__ import annotations
@@ -18,11 +21,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..ops.upconv import conv2d_nhwc
 from .layers import ResnetBlock2D, Upsample2D, conv, final_conv, gn, linear
 
 
 @dataclass(frozen=True)
 class VAEConfig:
+    in_channels: int = 3
     out_channels: int = 3
     latent_channels: int = 4
     block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
@@ -68,6 +73,45 @@ class VAEMidBlock(nn.Module):
 
     def forward(self, h):
         return self.resnets_1(self.attentions_0(self.resnets_0(h)))
+
+
+class Encoder(nn.Module):
+    """conv_in → down blocks (resnets, then a stride-2 conv after diffusers'
+    asymmetric (0, 1) pad) → mid block → GN → SiLU → conv_out (2 × latent
+    channels: mean and logvar)."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.config = cfg
+        dt, chs = cfg.dtype, cfg.block_out_channels
+        self.conv_in = nn.Conv2d(cfg.in_channels, chs[0], 3, padding=1)
+        h_ch = chs[0]
+        for i, ch in enumerate(chs):
+            for j in range(cfg.layers_per_block):
+                self.add_module(f"down_blocks_{i}_resnets_{j}", ResnetBlock2D(
+                    h_ch, ch, eps=1e-6, groups=cfg.norm_groups, dtype=dt))
+                h_ch = ch
+            if i < len(chs) - 1:
+                self.add_module(f"down_blocks_{i}_downsamplers_0", nn.Conv2d(ch, ch, 3, stride=2))
+        self.mid_block = VAEMidBlock(chs[-1], cfg.norm_groups, dtype=dt)
+        self.conv_norm_out = nn.GroupNorm(cfg.norm_groups, chs[-1], eps=1e-6)
+        self.conv_out = nn.Conv2d(chs[-1], 2 * cfg.latent_channels, 3, padding=1)
+
+    def forward(self, x):
+        cfg = self.config
+        dt, m = cfg.dtype, self._modules
+        n = len(cfg.block_out_channels)
+        h = conv(x, self.conv_in, dt)
+        for i in range(n):
+            for j in range(cfg.layers_per_block):
+                h = m[f"down_blocks_{i}_resnets_{j}"](h)
+            if i < n - 1:
+                down = m[f"down_blocks_{i}_downsamplers_0"]
+                # (0, 1) on H and W, then a VALID stride-2 conv (psd_tpu/models/vae.py:113-116)
+                h = conv2d_nhwc(F.pad(h.to(dt), (0, 0, 0, 1, 0, 1)), down.weight.to(dt),
+                                down.bias.to(dt), stride=2, padding=0)
+        h = F.silu(gn(self.mid_block(h), self.conv_norm_out))
+        return final_conv(h, self.conv_out, dt)
 
 
 class Decoder(nn.Module):
@@ -117,6 +161,30 @@ class VAEDecode(nn.Module):
     def forward(self, z):
         # post_quant_conv runs in fp32, as in psd_tpu
         return self.decoder(conv(z.float(), self.post_quant_conv, torch.float32))
+
+
+class AutoencoderKL(VAEDecode):
+    """The whole VAE under psd_tpu's names (`encoder`, `quant_conv`,
+    `decoder`, `post_quant_conv`): `encode` x (B, H, W, 3) in [−1, 1] →
+    (mean, logvar), each (B, H/8, W/8, 4) fp32; calling it decodes, as
+    `VAEDecode` does."""
+
+    def __init__(self, cfg: VAEConfig = VAEConfig()):
+        super().__init__(cfg)
+        self.encoder = Encoder(cfg)
+        self.quant_conv = nn.Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
+
+    def encode(self, x):
+        # quant_conv runs in fp32, as in psd_tpu
+        moments = conv(self.encoder(x).float(), self.quant_conv, torch.float32)
+        mean, logvar = moments.chunk(2, dim=-1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
+
+def sample_gaussian(mean, logvar, noise):
+    """A draw of the diagonal Gaussian from `noise` ~ N(0, 1) of mean's shape
+    (the caller draws it; psd_tpu draws it from a key)."""
+    return mean + torch.exp(0.5 * logvar) * noise
 
 
 def sd_vae_config(**overrides) -> VAEConfig:

@@ -145,6 +145,7 @@ def attention_fwd(q, k, v, scale: Optional[float] = None, return_lse: bool = Fal
         return (out, lse_reference(q, k, scale)) if return_lse else out
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
+    kernels.require_no_grad("attention_fwd", q, k, v)
     kernels.require_cuda_bf16("attention_fwd", q, k, v)
     kernels.require(k.shape == (B, Sk, H, D) and v.shape == k.shape,
                     f"attention_fwd: k/v shape {tuple(k.shape)}/{tuple(v.shape)}")
@@ -362,6 +363,7 @@ def attention_q8(qq, sq, kq, sk, v, sv, scale: float, shape, out_dtype=None):
     on CPU. Returns (B, S, H, D)."""
     if not qq.is_cuda:
         return attention_q8_reference(qq, sq, kq, sk, v, sv, scale, shape, out_dtype)
+    kernels.require_no_grad("attention_q8", qq, sq, kq, sk, v, *(() if sv is None else (sv,)))
     B, S, H, D = shape
     Dp = _padded_dim(D)
     BH, pv8 = B * H, sv is not None

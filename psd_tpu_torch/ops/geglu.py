@@ -78,6 +78,7 @@ def ln_proj_fwd(x, ln_scale, ln_bias, ws, eps: float = 1e-5):
     """LN + 1 or 3 bias-free projections of the same rows; kernel on CUDA."""
     if not x.is_cuda:
         return ln_proj_reference(x, ln_scale, ln_bias, ws, eps)
+    kernels.require_no_grad("ln_proj_fwd", x, ln_scale, ln_bias, *ws)
     _check_ln("ln_proj_fwd", x, ln_scale, ln_bias)
     M, C = x.shape
     kernels.require(len(ws) in (1, 3), "ln_proj_fwd: 1 or 3 projections")
@@ -102,6 +103,7 @@ def ln_geglu_fwd(x, ln_scale, ln_bias, w0, b0, eps: float = 1e-5):
     """LN → GEGLU projection → h·gelu(g), (M, C) → (M, N); kernel on CUDA."""
     if not x.is_cuda:
         return ln_geglu_reference(x, ln_scale, ln_bias, w0, b0, eps)
+    kernels.require_no_grad("ln_geglu_fwd", x, ln_scale, ln_bias, w0, b0)
     _check_ln("ln_geglu_fwd", x, ln_scale, ln_bias)
     M, C = x.shape
     kernels.require_cuda_bf16("ln_geglu_fwd", w0)

@@ -52,6 +52,7 @@ def gn_proj_fwd(x, w, b, weight, bias):
     """GroupNorm affine + projection; kernel on CUDA, plain version on CPU."""
     if not x.is_cuda:
         return gn_proj_reference(x, w, b, weight, bias)
+    kernels.require_no_grad("gn_proj_fwd", x, w, b, weight, bias)
     kernels.require_cuda_bf16("gn_proj_fwd", x, weight)
     kernels.require(x.ndim == 3, "gn_proj_fwd: x must be (B, S, C)")
     B, S, C = x.shape

@@ -180,6 +180,15 @@ def require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """A forward-only kernel (it fills `torch.empty` through `data_ptr`, with
+    no autograd node) refuses an input that wants a gradient, which it would
+    otherwise drop without a word. Training mode routes around such kernels."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward, but an input requires grad: differentiate "
+                           "inside core.mode.training_mode(), as the train step does")
+
+
 def require_cuda_bf16(name: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     for t in tensors:

@@ -124,6 +124,7 @@ def split3_fwd(q, k_anat, v_anat, k_dis, v_dis, k_delta, v_delta,
     if not q.is_cuda:
         return split3_reference(q, *banks, delta_scale, anat_gate, dis_gate, scale)
     B, S, H, D = q.shape
+    kernels.require_no_grad("split3_fwd", q, *banks)
     kernels.require_cuda_bf16("split3_fwd", q, *banks)
     for kb, vb in zip(banks[0::2], banks[1::2]):
         kernels.require(kb.shape == vb.shape and kb.shape[0] == B

@@ -1,5 +1,5 @@
 """Shared pipeline helpers: model building (with the tiny smoke model), the
-turbo and profile flags.
+`--device` flag's device, the turbo and profile flags, and `pad_batch`.
 
 Counterpart of `psd_tpu/pipelines/common.py`. The turbo flags the port
 serves (`--sampler dpm`, `--encoder-stride`, `--cache-mode`, `--vae-quant
@@ -9,10 +9,11 @@ int8`) work; ToMe is not ported (ROADMAP.md Queue 1 item 7), so
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.config import Config
-from ..diffusion.dadd import DADD, DADDCoreConfig, core_config_from
+from ..diffusion.dadd import DADD, DADDCoreConfig, core_config_from, resolve_device
 from ..models.clip import tiny_clip_config
 from ..models.unet import tiny_unet_config
 from ..models.vae import VAEConfig, tiny_vae_config
@@ -20,9 +21,10 @@ from ..models.vae import VAEConfig, tiny_vae_config
 
 def build_model(cfg: Config, dtype_str: str = "bf16", tome_ratio: float = 0.0,
                 tome_mode: str = "branch", vae_quant: str = "none", device="cuda",
-                seed: int = 0) -> DADD:
+                seed: int = 0, for_training: bool = False) -> DADD:
     """The DADD a config describes, its weights drawn from `seed`; the tiny
-    UNet/VAE/CLIP in fp32 when the config sets `model.tiny` (tests, CI)."""
+    UNet/VAE/CLIP in fp32 when the config sets `model.tiny` (tests, CI);
+    with fp32 master weights for `for_training`."""
     if tome_ratio > 0:
         raise NotImplementedError(
             f"--tome-ratio {tome_ratio}: ToMe token merging is not ported "
@@ -44,12 +46,29 @@ def build_model(cfg: Config, dtype_str: str = "bf16", tome_ratio: float = 0.0,
             clip_projection_dim=16,
         )
         return DADD(cfg, core_cfg=core_cfg, vae_cfg=tiny_vae_config(),
-                    clip_cfg=tiny_clip_config(), dtype=torch.float32, device=device, seed=seed)
+                    clip_cfg=tiny_clip_config(), dtype=torch.float32, device=device, seed=seed,
+                    for_training=for_training)
     dtype = torch.bfloat16 if dtype_str == "bf16" else torch.float32
     core_cfg = core_config_from(cfg, dtype=dtype)
     # the CLIP tower computes in bf16 whatever `dtype_str` says, as psd_tpu's
     return DADD(cfg, core_cfg=core_cfg, vae_cfg=VAEConfig(dtype=dtype, quant=vae_quant),
-                device=device, seed=seed)
+                device=device, seed=seed, for_training=for_training)
+
+
+def cli_device(name: str) -> torch.device:
+    """--device → the device: 'auto' and 'cuda' are the card, which must
+    exist; only 'cpu' is the CPU."""
+    dev = resolve_device("cuda" if name == "auto" else name)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"--device must be cuda, cuda:N, auto or cpu, got {name!r}")
+    return dev
+
+
+def add_device_arg(p):
+    p.add_argument("--device", type=str, default="cuda",
+                   help="'cuda' (default; 'auto' is the same) or 'cuda:N' runs on the card "
+                        "and fails without one; 'cpu' runs on the CPU")
+    return p
 
 
 def add_turbo_args(p):
@@ -81,3 +100,16 @@ def add_profile_arg(p):
                    help="write a torch.profiler Chrome trace to <output-dir>/trace and "
                         "print a per-phase timing report at exit")
     return p
+
+
+def pad_batch(arrays, full: int):
+    """Pad the leading dim of each array to `full` by repeating its last
+    element, so a ragged last batch runs at the batch size the rest ran at;
+    callers slice outputs back to the real count. → (padded arrays, n_real)."""
+    n_real = len(arrays[0])
+    if n_real == full:
+        return arrays, n_real
+    if not 0 < n_real < full:
+        raise ValueError(f"pad_batch: {n_real} items do not pad to {full}")
+    return [np.concatenate([a, np.repeat(a[-1:], full - n_real, axis=0)], axis=0)
+            for a in map(np.asarray, arrays)], n_real

@@ -15,12 +15,15 @@ each level, `progression_grid.png` and `structure_reference.png` under
 
   * Device: `--device cuda` (the default; "auto" is the same) runs on the
     card and raises without one; only `--device cpu` runs on the CPU.
-  * Weights: drawn from `--seed` (psd_tpu's smoke mode without
-    `--checkpoint`). `--checkpoint` and `--ema` raise until the port can
-    read checkpoints (ROADMAP.md Queue 1 item 5).
+  * Weights: drawn from `--seed` (psd_tpu's smoke mode), and with
+    `--checkpoint` (a checkpoint root, its latest step, or a step's
+    directory; `train/checkpoint.py`) the UNet and conditioning from its
+    parameters, or its EMA with `--ema`, and the VAE and CLIP from
+    `<checkpoint>/frozen/{vae,clip}.npz` where they exist (psd_tpu's npz,
+    `convert/npz.py`). `--ema` without `--checkpoint` raises.
   * The CLIP preprocessing is `CLIPImageProcessor`'s (shortest edge 224,
-    bicubic, center crop, 1/255, CLIP mean and std) in PIL and numpy, so the
-    port needs no `transformers`.
+    bicubic, center crop, 1/255, CLIP mean and std) in PIL and numpy
+    (`data/preprocess.py`), so the port needs no `transformers`.
   * One generate call a run, so it runs op by op (`core.mode.eager()`): a
     captured program's first call costs more than it saves once.
   * The initial latents and DDIM's eta noise come from a torch.Generator
@@ -39,23 +42,22 @@ import torch
 from PIL import Image
 
 from ..conditioning.leace import load_leace
+from ..convert.npz import load_params_npz
 from ..core.config import Config, load_config
 from ..core.mode import eager
-from ..diffusion.dadd import DADD, resolve_device
+from ..data.preprocess import clip_preprocess
+from ..diffusion.dadd import DADD
+from ..train.checkpoint import load_weights
 from ..utils.image_io import progression_grid, save_image, save_sequence
 from ..utils.profiling import PhaseTimer, trace_if
-from .common import add_profile_arg, add_turbo_args, build_model
-
-# OpenAI CLIP's pixel statistics (CLIPImageProcessor's defaults)
-CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
-CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+from .common import add_device_arg, add_profile_arg, add_turbo_args, build_model, cli_device
 
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="DADD MES progression inference (GPU)")
     p.add_argument("--config", type=str, default=None, help="training YAML config")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="checkpoint dir; not readable by the port yet (raises). "
+                   help="checkpoint dir (a root: its latest step; or a step's dir). "
                         "Without it the weights are drawn from --seed (smoke mode)")
     p.add_argument("--structure-image", type=str, required=True)
     p.add_argument("--source-label", type=float, default=0.0)
@@ -72,40 +74,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--zero-image", action="store_true")
     p.add_argument("--leace", type=str, default=None, help=".npz LEACE projection")
     p.add_argument("--ema", action="store_true",
-                   help="sample with EMA weights (needs --checkpoint; raises)")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="'cuda' (default; 'auto' is the same) or 'cuda:N' runs on the card "
-                        "and fails without one; 'cpu' runs on the CPU")
+                   help="sample with the checkpoint's EMA weights (needs --checkpoint)")
+    add_device_arg(p)
     p.add_argument("--output-dir", type=str, default="outputs/progression")
     p.add_argument("--dtype", type=str, default="bf16", choices=["bf16", "fp32"])
     add_turbo_args(p)
     add_profile_arg(p)
     return p
-
-
-def cli_device(name: str) -> torch.device:
-    """--device → the device: 'auto' and 'cuda' are the card, which must
-    exist; only 'cpu' is the CPU."""
-    dev = resolve_device("cuda" if name == "auto" else name)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"--device must be cuda, cuda:N, auto or cpu, got {name!r}")
-    return dev
-
-
-def clip_preprocess(image: Image.Image, size: int = 224) -> np.ndarray:
-    """`CLIPImageProcessor(size={"shortest_edge": size}, crop_size=size)` on a
-    PIL image, in PIL and numpy → (size, size, 3) float32: the shorter edge
-    resized to `size` (bicubic, the longer int(size·long/short)), the
-    center crop, ·1/255 (in float64, then float32), (x − mean)/std."""
-    image = image.convert("RGB")
-    w, h = image.size
-    long = int(size * max(w, h) / min(w, h))
-    new_w, new_h = (size, long) if w <= h else (long, size)
-    arr = np.asarray(image.resize((new_w, new_h), Image.BICUBIC))
-    top, left = (new_h - size) // 2, (new_w - size) // 2
-    arr = arr[top:top + size, left:left + size]
-    x = (arr.astype(np.float64) * (1 / 255)).astype(np.float32)
-    return (x - np.asarray(CLIP_MEAN, np.float32)) / np.asarray(CLIP_STD, np.float32)
 
 
 def load_structure_image(path, target_size: int, clip_size: int = 224):
@@ -118,13 +93,18 @@ def load_structure_image(path, target_size: int, clip_size: int = 224):
 
 
 def load_params(model: DADD, checkpoint: Optional[str], use_ema: bool = False) -> DADD:
-    """The model's weights: those drawn from the seed, the CLIP tower's
-    built here (`DADD.clip`), outside the timed phases. Checkpoints (and
-    their EMA) wait for the port's checkpoint format."""
-    if checkpoint or use_ema:
-        raise NotImplementedError(
-            "--checkpoint/--ema: the port cannot read checkpoints yet (ROADMAP.md Queue 1 "
-            "item 5, training from images); run without them for seeded random weights")
+    """The model's weights: those drawn from the seed, or the checkpoint's
+    parameters (its EMA with `use_ema`) and its `frozen/{vae,clip}.npz`
+    where present (psd_tpu/pipelines/infer.py:94-139). The CLIP tower is
+    built here (`DADD.clip`), outside the timed phases."""
+    if use_ema and not checkpoint:
+        raise ValueError("--ema needs --checkpoint: the EMA weights come from a checkpoint")
+    if checkpoint:
+        model.core.load_state_dict(load_weights(checkpoint, ema=use_ema), strict=True)
+        frozen = Path(checkpoint) / "frozen"
+        trees = {part: load_params_npz(frozen / f"{part}.npz") for part in ("vae", "clip")
+                 if (frozen / f"{part}.npz").exists()}
+        model.load_flax(vae_tree=trees.get("vae"), clip_tree=trees.get("clip"))
     _ = model.clip  # built and seeded here, outside the timed phases
     return model
 

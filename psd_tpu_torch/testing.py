@@ -58,13 +58,15 @@ def tiny_dadd(device="cpu", seed=0, for_training=False, routing=True, purifier=T
 
 
 def route_launches(core_cfg: DADDCoreConfig, vae_cfg: VAEConfig, batch: int, image_size: int,
-                   full_steps: int, shallow_steps: int = 0, cfg_pass: bool = False) -> Dict[str, int]:
+                   full_steps: int, shallow_steps: int = 0, cfg_pass: bool = False,
+                   decode: bool = True) -> Dict[str, int]:
     """The hand-written kernels one generate call launches, from the routes'
     own gates (`ln_fused_ok`, `gn_proj_ok`, `split3_kernel_ok`,
     `kernel_route`) at its shapes: `full_steps` full UNet evaluations and
     `shallow_steps` DeepCache shallow ones at `batch` (twice that with
-    `cfg_pass`, CFG's one call over [cond | uncond]), then the VAE decode at
-    `batch`. Inference mode, every kernel on."""
+    `cfg_pass`, CFG's one call over [cond | uncond]), then, with `decode`,
+    the VAE decode at `batch`. Inference mode, every kernel on. One
+    evaluation without the decode is a validation loss's forward."""
     u = core_cfg.unet
     lat = image_size // 2 ** (len(vae_cfg.block_out_channels) - 1)
     B = batch * (2 if cfg_pass else 1)
@@ -94,9 +96,10 @@ def route_launches(core_cfg: DADDCoreConfig, vae_cfg: VAEConfig, batch: int, ima
     for shallow, times in ((False, full_steps), (True, shallow_steps)):
         for k, v in per_eval(shallow).items():
             total[k] += v * times
-    C = vae_cfg.block_out_channels[-1]  # the decoder's single-head mid-block attention
-    vae_q = meta((batch, lat * lat, 1, C))
-    total["attention"] += kernel_route(vae_q, vae_q) is not None
+    if decode:
+        C = vae_cfg.block_out_channels[-1]  # the decoder's single-head mid-block attention
+        vae_q = meta((batch, lat * lat, 1, C))
+        total["attention"] += kernel_route(vae_q, vae_q) is not None
     return {k: total[k] for k in ("attention", "split3", "ln_proj", "ln_geglu", "gn_proj")}
 
 

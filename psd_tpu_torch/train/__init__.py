@@ -1,4 +1,5 @@
-from .ema import EMAState, ema_init, ema_update
+from .checkpoint import CheckpointManager, load_weights, resolve_resume_path
+from .ema import EMAState, ema_init, ema_update, swapped_in
 from .optim import (
     Optimizer,
     OptState,
@@ -11,9 +12,13 @@ from .optim import (
 from .trainer import TrainState, create_train_state, make_train_step
 
 __all__ = [
+    "CheckpointManager",
+    "load_weights",
+    "resolve_resume_path",
     "EMAState",
     "ema_init",
     "ema_update",
+    "swapped_in",
     "Optimizer",
     "OptState",
     "build_optimizer",

@@ -3,7 +3,9 @@
 Counterpart of `psd_tpu/train/trainer.py` (`TrainState`,
 `create_train_state`, `make_train_step`) without the mesh: one card, no
 data parallelism (torch.distributed waits). One step is `DADD.train_loss`
-(in training mode) → backward → gradient norm → clip + AdamW (+ gradient
+in training mode (`core.mode.training_mode()`, entered here as psd_tpu's
+step enters it, so a validation loss outside a step keeps the serving
+kernels) → backward → gradient norm → clip + AdamW (+ gradient
 accumulation) → EMA, exactly the JAX step's order. The state is updated in
 place and returned.
 """
@@ -15,6 +17,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..core.mode import training_mode
 from ..diffusion.dadd import DADD
 from .ema import EMAState, ema_init, ema_update
 from .optim import Optimizer, OptState, build_optimizer, global_norm
@@ -56,8 +59,9 @@ def make_train_step(dadd: DADD, tx: Optimizer):
         `draws` overrides the generator's random numbers (tests)."""
         for p in params:
             p.grad = None
-        loss, metrics = dadd.train_loss(batch, generator=state.generator, draws=draws)
-        loss.backward()
+        with training_mode():
+            loss, metrics = dadd.train_loss(batch, generator=state.generator, draws=draws)
+            loss.backward()
         # a parameter the loss does not reach gets a zero gradient, as under
         # jax.grad (AdamW then still applies its weight decay)
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]

@@ -9,8 +9,10 @@ Counterpart of `psd_tpu/utils/profiling.py`, on `torch.profiler` in place of
             ...
     print(timer.report())
 
-A phase on the card ends with `torch.cuda.synchronize`, so its wall time
-holds the device work it enqueued. The trace is a Chrome trace
+A phase on the card ends with `torch.cuda.synchronize` (unless the timer
+is built with `sync=False`), so its wall time holds the device work it
+enqueued. Without the sync a phase's time is the host's alone, and the
+device work it enqueued lands in whichever later phase waits for it. The trace is a Chrome trace
 (`trace.json`, readable in Perfetto or chrome://tracing), of the host and,
 on the card, of the device.
 """
@@ -21,7 +23,7 @@ import contextlib
 import time
 from collections import defaultdict
 from pathlib import Path
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List
 
 import torch
 
@@ -51,22 +53,26 @@ def annotate(name: str):
 
 class PhaseTimer:
     """Wall-clock seconds by phase; on a CUDA `device` each phase ends with a
-    synchronize of that device."""
+    synchronize of that device when `sync`."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cpu", sync: bool = True):
         self.device = torch.device(device)
+        self.sync = sync
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
+        self.laps: Dict[str, List[float]] = defaultdict(list)  # each call's seconds
 
     @contextlib.contextmanager
     def phase(self, name: str) -> Iterator[None]:
         t0 = time.perf_counter()
         with annotate(name):
             yield
-        if self.device.type == "cuda":
+        if self.sync and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.totals[name] += time.perf_counter() - t0
+        lap = time.perf_counter() - t0
+        self.totals[name] += lap
         self.counts[name] += 1
+        self.laps[name].append(lap)
 
     def report(self) -> str:
         lines = []

@@ -241,8 +241,13 @@ def test_clip_tower_built_at_first_use_from_its_seed():
         assert ka == kb and torch.equal(va, vb)
     assert a.clip is a.clip
     assert not torch.equal(tiny_dadd(seed=4).clip.position_embedding, a.clip.position_embedding)
-    with pytest.raises(ValueError, match="for_training"):
-        tiny_dadd(for_training=True).encode_image_clip(np.zeros((1, 32, 32, 3), np.float32))
+    # a training model builds the same tower at its first use (the CLI encodes batches)
+    t = tiny_dadd(for_training=True, seed=3)
+    assert t._clip is None
+    t.encode_image_clip(np.zeros((1, 32, 32, 3), np.float32))
+    for (ka, va), (kt, vt) in zip(a.clip.state_dict().items(), t.clip.state_dict().items()):
+        assert ka == kt and torch.equal(va, vt)
+    assert not any(p.requires_grad for p in t.clip.parameters())
 
 
 def test_boe_conditioning_matches_psd_tpu_and_refuses_what_it_lacks():
@@ -397,8 +402,8 @@ def _tiny_argv(structure, tmp_path, *extra):
 
 
 @pytest.mark.parametrize("extra,error", [
-    (["--checkpoint", "ckpt"], NotImplementedError),
-    (["--ema"], NotImplementedError),
+    (["--checkpoint", "ckpt"], FileNotFoundError),  # a checkpoint that does not exist
+    (["--ema"], ValueError),  # EMA weights without a checkpoint to take them from
     (["--tome-ratio", "0.5"], NotImplementedError),
 ], ids=["checkpoint", "ema", "tome"])
 def test_cli_refuses_what_the_port_lacks(structure, tmp_path, extra, error):

@@ -231,8 +231,9 @@ def test_gradient_checkpointing_is_the_same_math():
     for remat in (False, True):
         model = tiny_dadd(for_training=True, seed=3, remat=remat)
         draws = model.sample_draws((2, 8, 8, 4), torch.Generator().manual_seed(0))
-        loss, _ = model.train_loss(batch, draws=draws)
-        loss.backward()
+        with training_mode():
+            loss, _ = model.train_loss(batch, draws=draws)
+            loss.backward()
         out.append((loss.item(), [p.grad.clone() for p in model.core.unet.parameters()]))
     assert out[0][0] == out[1][0]
     for a, b in zip(out[0][1], out[1][1]):

@@ -27,6 +27,7 @@ from psd_tpu.train import ema_init as jax_ema_init
 from psd_tpu.train import make_train_step as jax_make_train_step
 from psd_tpu.train.trainer import TrainState as JaxTrainState
 from psd_tpu_torch.convert.from_jax import to_flax_tree
+from psd_tpu_torch.core.mode import training_mode
 from psd_tpu_torch.train import create_train_state, make_train_step
 
 # the train-step settings both sides take: the EMA updates at step 0 (its
@@ -49,13 +50,13 @@ def configure(*cfgs):
             setattr(getattr(cfg, section), name, value)
 
 
-def jax_draws(model, key, batch):
-    """The draws of psd_tpu's train_loss at step 0, as numpy arrays."""
+def jax_draws(model, key, batch, step: int = 0):
+    """The draws of psd_tpu's train_loss at `step`, as numpy arrays."""
     tcfg = model.cfg.training
     latents = batch["latents"]
     B = latents.shape[0]
     r_noise, r_t, r_drop, r_embed, r_offset, r_perturb = jax.random.split(
-        jax.random.fold_in(key, 0), 6)
+        jax.random.fold_in(key, step), 6)
     draws = {
         "noise": jax.random.normal(r_noise, latents.shape, jnp.float32),
         "offset_noise": jax.random.normal(r_offset, (B, 1, 1, latents.shape[-1]), jnp.float32),
@@ -121,8 +122,10 @@ def step_pair(jax_model, port, batch, key=jax.random.PRNGKey(3)):
 
     # the port's raw gradients (the step clips them in place)
     named = dict(port.core.named_parameters())
-    loss, _ = port.train_loss(tbatch, draws=tdraws)
-    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()), allow_unused=True)))
+    with training_mode():
+        loss, _ = port.train_loss(tbatch, draws=tdraws)
+        grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()),
+                                                    allow_unused=True)))
     grads = {k: torch.zeros_like(named[k]) if g is None else g for k, g in grads.items()}
 
     tstate, tx_p = create_train_state(port, steps_per_epoch=10)
