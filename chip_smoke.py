@@ -156,11 +156,35 @@ Phases, in order; any failure exits non-zero:
                not timed). Prints each step's phases (data, encode,
                train_step), the logged img/s beside phase 6's, each save's
                and the restore's GB and seconds, free disk, peak memory,
-               the card. Its files are deleted at the end.
+               the card. Its tree and checkpoint stay for phase 6c.
+  6c. product_loop — psd_tpu's product loop (tests/test_product_loop.py) at
+               full width on phase 6b's checkpoint and PNG tree, each CLI
+               in-process: the augment factory (configs/train_ip.yaml at
+               256², 12 images a UNet batch, 10 steps, the checkpoint's EMA)
+               over 127 train PNGs, 381 images in 32 replays of one captured
+               program (the last padded), with the split copies; the
+               evaluation sweep (two scales, the val split, 4 images a
+               class, random Inception and VGG); the classifier
+               (configs/train_classifier.yaml: ResNet-18 at 224², batch 32)
+               for 2 epochs on the synthetic-only split, judged on the 32
+               real val PNGs. Checks: each generate's launches equal to
+               route_launches at batch 12 (twice: warm-up and capture; none
+               at replay), the first replayed augment batch equal bit for
+               bit to an eager generate of its inputs, the generated files'
+               layout and counts against MESClassificationDataset's filter
+               and balancing, finite metrics, the confusion matrix summing
+               to the real val count; Inception, VGG and CLIP features in
+               bf16 on the card against fp32 on the CPU of the same weights
+               (BACKBONE_REL_BANDS), and planted faults above them; each
+               kernel against its plain version at the path's batch-12
+               shapes (LOOP_*, not timed). Prints augment's img/s,
+               evaluate's generate and metrics phases, each scale's freed
+               pool and the eager alternative's time and peak, classify's
+               step time, each peak memory. Deletes phase 6b's files.
 The line before the last is a JSON object with one entry per kernel:
 `launches` counts the launches of the main-path runs (phases 3b, 5, 5b, 5c,
-6 and 6b, each with the counts set to 0 just before it, 5c before each of
-its two CLI runs, 6b before each of its three; `launches_by_path` splits them; in phases 5 and 5b the wrappers run, and count, at the eager warm-up
+6, 6b and 6c, each with the counts set to 0 just before it, 5c before each of
+its two CLI runs, 6b before each of its three, 6c before each of its three; `launches_by_path` splits them; in phases 5 and 5b the wrappers run, and count, at the eager warm-up
 and at the capture of the batch's program, and `launches_per_replay` gives
 what one replay launches),
 `max_abs_err` is the largest over the kernel's shapes, `ms`, `plain_ms`,
@@ -399,6 +423,44 @@ TRAIN_CLI_LN_SHAPES = [(64 * 1024, 320), (64 * 256, 640), (64 * 64, 1280), (64 *
                        (4 * 1024, 320), (4 * 256, 640)]
 TRAIN_CLI_GN_SHAPES = [(64, 1024, 320), (64, 256, 640), (64, 64, 1280), (4, 1024, 320),
                        (4, 256, 640), (4, 64, 1280)]
+
+# the product-loop phase: psd_tpu's tests/test_product_loop.py chain at full
+# width on phase 6b's checkpoint and PNG tree, cut in depth only. The augment
+# factory (configs/train_ip.yaml at 256², --batch-images 4: 12 images a UNet
+# batch, 10 DDIM steps) over 127 of the 128 train PNGs: 381 jobs, 32 replays
+# of one program, the last padded from 9; the evaluation sweep over two
+# scales on the val split (4 images a class: 4 replays a scale, random
+# backbones: no Inception or VGG weights in the repo); the classifier
+# (configs/train_classifier.yaml: ResNet-18 at 224², batch 32, AdamW, label
+# smoothing 0.1, clip 1.0) for 2 epochs on the synthetic-only train split
+# (380 images after balancing: 11 optimizer steps an epoch), judged on the 32
+# real val PNGs
+LOOP_BATCH, LOOP_STEPS, LOOP_SCALES = 12, 10, (1.0, 2.0)
+LOOP_AUGMENT = ["--batch-images", "4", "--sampling-steps", str(LOOP_STEPS), "--max-images", "127",
+                "--copy-splits", "--seed", "0", "--ema"]
+LOOP_EVALUATE = ["--split", "val", "--scales", *map(str, LOOP_SCALES), "--batch-images", "4",
+                 "--sampling-steps", str(LOOP_STEPS), "--max-per-class", "4",
+                 "--num-eval-seeds", "2", "--allow-random-backbones", "--seed", "0"]
+LOOP_CLASSIFY = ["--config", "configs/train_classifier.yaml", "--epochs", "2",
+                 "--save-top-k", "1"]
+# the metric backbones' bf16 features on the card (evaluate's FeatureBank)
+# against the same weights in fp32 on the CPU, relative L2 over the features
+# of 2 real and 2 generated images. On an NVIDIA H100 80GB HBM3 (700 W) the
+# sound backbones read 1.100e-2 (Inception), 8.31e-3 (VGG) and 1.173e-2
+# (CLIP), and planted faults 0.1119 (Inception's branch pools counting the
+# padding) and 2.526e-2 (VGG's 256² → 224² shrink without antialiasing)
+# (PERF.md §6); each band sits between the two. CLIP's is the infer phase's
+# CLIP_REL_BAND; its planted fault, the images' channels reversed, reads
+# 0.6028. The processor's bytes rounded instead of truncated read 1.407e-2,
+# inside bf16's noise: phase 6c holds those bytes to transformers' truncation
+# byte for byte, as tests/test_torch_evaluate.py does on the CPU
+BACKBONE_REL_BANDS = {"inception": 3e-2, "vgg": 1.5e-2, "clip": CLIP_REL_BAND}
+# the kernels' shapes on this path that no earlier phase gives them (batch 12
+# at 256²), held to their plain versions by their judges, not timed
+LOOP_ATTN_SHAPES = [(12, 1024, 8, 40), (12, 1024, 1, 512)]
+LOOP_SPLIT3_SHAPES = [(12, 1024, 8, 40), (12, 256, 8, 80)]
+LOOP_LN_SHAPES = [(12 * 1024, 320), (12 * 256, 640), (12 * 64, 1280)]
+LOOP_GN_SHAPES = [(12, 1024, 320), (12, 256, 640), (12, 64, 1280)]
 
 # ln_gemm_kernel<Kind> in ln_gemm_sm90.cuh, by the enum's value (gn: gn_proj)
 LN_KINDS = ("proj1", "proj3", "geglu", "gn")
@@ -2294,7 +2356,8 @@ def phase_train_cli(card: str, trained: dict) -> dict:
     EMA-swapped validation; a resume from "last" for one more step, the
     restored state checked against the files bit for bit; the infer CLI on
     the checkpoint's EMA. Each run's launches against the routes' counts
-    and phase 6's per step."""
+    and phase 6's per step. Its tree and checkpoints stay for the product-loop
+    phase, which deletes them."""
     import shutil
 
     import numpy as np
@@ -2468,7 +2531,6 @@ def phase_train_cli(card: str, trained: dict) -> dict:
         f"main() wall {wall3:.3f} s")
     log(f"[train_cli] launches: run 1 {counts1}, by head dim {dims1}; run 2 {counts2}, by head "
         f"dim {dims2}; run 3 {counts3}, by head dim {dims3}")
-    shutil.rmtree(work, ignore_errors=True)
     _check_train_cli_shapes()
     log(f"[train_cli] checks {checks}")
     if not all(checks.values()):
@@ -2478,7 +2540,349 @@ def phase_train_cli(card: str, trained: dict) -> dict:
     head_dims = {d: dims1.get(d, 0) + dims2.get(d, 0) + dims3.get(d, 0)
                  for d in set(dims1) | set(dims2) | set(dims3)}
     return {"counts": counts, "head_dims": head_dims, "img_per_s": steady,
-            "saves": [save1, save2], "restore": (restored["bytes"], restored["seconds"])}
+            "saves": [save1, save2], "restore": (restored["bytes"], restored["seconds"]),
+            "work": work}
+
+
+def _check_loop_shapes() -> None:
+    """Each kernel of the product loop's generate against its plain version
+    by its judge at LOOP_* (batch 12 at 256²; not timed, not counted)."""
+    from psd_tpu_torch.ops import attention, split3
+    from psd_tpu_torch.testing import attention_judge, split3_judge
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    checks = []
+    for shape in LOOP_ATTN_SHAPES:
+        q, k, v = randn(*shape), randn(*shape), randn(*shape)
+        checks.append(("attention", shape, attention_judge(
+            attention.attention_fwd(q, k, v), attention.attention_reference(q, k, v))))
+    for (B, S, H, D) in LOOP_SPLIT3_SHAPES:
+        q, banks = randn(B, S, H, D), [randn(B, 16, H, D) for _ in range(6)]
+        checks.append(("split3", (B, S, H, D), split3_judge(
+            split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9),
+            split3.split3_reference(q, *banks, 1.0, 0.1, 0.9))))
+    for name, shape, (ok, text, _) in checks:
+        log(f"[loop] {name} {shape}: {text} {'ok' if ok else 'FAIL'} (not timed)")
+        if not ok:
+            raise SystemExit(f"chip_smoke.py: {name} {shape} disagrees with its plain version")
+    for M, C in LOOP_LN_SHAPES:
+        _check_ln_edge(randn, M, C, C, 4 * C, 0.0)
+    for B, S, C in LOOP_GN_SHAPES:
+        _check_gn_edge(randn, B, S, C, C, 0.0)
+    torch.cuda.empty_cache()
+
+
+def _backbone_features(bank, images, faults=()) -> dict:
+    """The FeatureBank's three features of `images`, with the planted
+    `faults` ("pool_pad": Inception's branch pools counting the padding;
+    "no_antialias": VGG's 256² → 224² shrink without antialiasing; "bgr":
+    CLIP given the images' channels reversed; "round_bytes": the CLIP
+    processor's bytes rounded, not truncated)."""
+    import contextlib
+    from unittest import mock
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from psd_tpu_torch.data import preprocess
+    from psd_tpu_torch.models import inception
+    from psd_tpu_torch.pipelines import evaluate
+
+    with contextlib.ExitStack() as stack:
+        if "pool_pad" in faults:
+            stack.enter_context(mock.patch.object(
+                inception, "_avg_pool_3x3_same",
+                lambda x: F.avg_pool2d(x, 3, stride=1, padding=1, count_include_pad=True)))
+        if "no_antialias" in faults:
+            def plain(x, h, w):
+                y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(h, w), mode="bilinear",
+                                  align_corners=False)
+                return y.permute(0, 2, 3, 1).to(x.dtype)
+            stack.enter_context(mock.patch.object(evaluate, "resize_bilinear", plain))
+        if "round_bytes" in faults:
+            def rounded(image):
+                image = np.asarray(image)
+                return np.rint(image.astype(np.float64) * 255).astype(np.uint8), True
+            stack.enter_context(mock.patch.object(preprocess, "processor_uint8", rounded))
+        return {"inception": bank.inception(images), "vgg": bank.vgg(images),
+                "clip": bank.clip(images[..., ::-1] if "bgr" in faults else images)}
+
+
+def _cpu_backbone_features(bank, images) -> dict:
+    """The same three features from the same fp32 weights on the CPU, in
+    fp32 (the reference the card's bf16 features are held to)."""
+    import dataclasses
+
+    import numpy as np
+
+    from psd_tpu_torch.data.preprocess import clip_preprocess_float
+    from psd_tpu_torch.metrics.cmmd import l2_normalize
+    from psd_tpu_torch.models.clip import CLIPVisionTower
+    from psd_tpu_torch.models.inception import InceptionV3Features, inception_preprocess
+    from psd_tpu_torch.models.resize import resize_bilinear
+    from psd_tpu_torch.models.vgg import VGG16Features, imagenet_normalize
+
+    x = torch.as_tensor(np.asarray(images), dtype=torch.float32)
+    out = {}
+    with torch.inference_mode():
+        for name, cls in (("inception", InceptionV3Features), ("vgg", VGG16Features)):
+            net = cls(torch.float32).eval()
+            net.load_state_dict({k: v.cpu() for k, v in bank._nets[name].state_dict().items()})
+            out[name] = (net(inception_preprocess(x)) if name == "inception" else
+                         net(imagenet_normalize(resize_bilinear(x, 224, 224))))
+        model = bank.model
+        tower = CLIPVisionTower(dataclasses.replace(model.clip_cfg, dtype=torch.float32)).eval()
+        tower.load_state_dict({k: v.cpu() for k, v in model.clip.state_dict().items()})
+        pre = np.stack([clip_preprocess_float(im, model.clip_cfg.image_size) for im in images])
+        out["clip"] = l2_normalize(tower.image_embeds(torch.from_numpy(pre)).float())
+    return out
+
+
+def phase_product_loop(card: str, cli: dict) -> dict:
+    """psd_tpu's product loop (tests/test_product_loop.py) on the card at
+    full width, on phase 6b's checkpoint and PNG tree: the augment factory
+    (python -m psd_tpu_torch.pipelines.augment, in-process) writes the
+    synthetic train split; the evaluation sweep scores two scales on the
+    val split; the classifier trains on the synthetic-only split and is
+    judged on the real val images. Each generate's launches against the
+    routes' at batch 12; the first replayed augment batch against an eager
+    generate of its inputs, bit for bit; the backbones' bf16 features
+    against fp32 on the CPU (CLIP's band proves the plumbing only: bytes
+    rounded instead of truncated read inside it); the CLIP processor's
+    bytes of these images against transformers' truncation, byte for byte;
+    the files against the classifier dataset's filter."""
+    import shutil
+    from statistics import median
+    from unittest import mock
+
+    import numpy as np
+
+    from psd_tpu_torch.core.config import load_config
+    from psd_tpu_torch.core.mode import eager
+    from psd_tpu_torch.data.classification import MESClassificationDataset
+    from psd_tpu_torch.data.preprocess import processor_uint8
+    from psd_tpu_torch.diffusion.dadd import DADD
+    from psd_tpu_torch.pipelines import augment, classify, evaluate
+    from psd_tpu_torch.testing import route_launches
+
+    work = cli["work"]
+    data, ckpts = work / "data", work / "run" / "checkpoints"
+    for step in sorted(p.name for p in ckpts.iterdir())[:-1]:
+        shutil.rmtree(ckpts / step)  # the newest alone, for disk
+    synth, cfg_path = work / "synthetic", ROOT / "configs" / "train_ip.yaml"
+    size = load_config(cfg_path).dataset.image_size
+    n_train = {c.name: len(list(c.iterdir())) for c in sorted((data / "train").iterdir())}
+    n_val = sum(1 for _ in (data / "val").glob("*/*.png"))
+
+    # augment: record the first batch's inputs and output for the eager check
+    first = {}
+    generate = evaluate.DADD.generate
+
+    def recording(model, cond, **kw):
+        out = generate(model, cond, **kw)
+        if not first:
+            first.update(cond=cond.clone(), kw={k: (v.clone() if torch.is_tensor(v) else v)
+                                                for k, v in kw.items()}, out=out.clone())
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(evaluate.DADD, "generate", recording):
+        aug, counts_a, dims_a, wall_a = _counted(augment.main, [
+            "--config", str(cfg_path), "--checkpoint", str(ckpts), "--data-dir", str(data),
+            "--output-dir", str(synth), *LOOP_AUGMENT])
+    peak_a = torch.cuda.max_memory_allocated() / 2**30
+    model = aug["model"]
+    progs = list(model.programs.values())
+    with eager():
+        again = model.generate(first["cond"], **first["kw"])
+    replay_eq = bool(torch.equal(again, first["out"]))
+    core_cfg, vae_cfg = model.core_cfg, model.vae_cfg
+    per_batch = route_launches(core_cfg, vae_cfg, LOOP_BATCH, size, LOOP_STEPS)
+    laps = aug["batch_seconds"]
+    steady = sum(laps[1:]) / max(len(laps) - 1, 1)
+    fakes = first["out"][:2].float().cpu().numpy()  # generated, float in [0, 1]
+    del model, aug, again, progs[1:]
+    prog = progs[0] if progs else None
+    prog_info = (dict(warmup_s=prog.warmup_s, capture_s=prog.capture_s,
+                      instantiate_s=prog.instantiate_s, launches=dict(prog.launches),
+                      replays=prog.replays) if prog else None)
+    del progs, prog
+    first.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen_files = sorted(synth.glob("train/*/generated_*.bmp"))
+    idx_to_cls = sorted(n_train)
+    want_per_cls = {c: sum(n_train.values()) - 1 - n_train[c] + (c == idx_to_cls[-1])
+                    for c in idx_to_cls}
+    got_per_cls = {c: len(list((synth / "train" / c).glob("generated_*.bmp"))) for c in idx_to_cls}
+
+    # evaluate: the timer's phases, the model, and each scale's pool when dropped
+    timers, models, pools = [], [], []
+    make_timer, model_for, drop = evaluate.PhaseTimer, evaluate.model_for, DADD.drop_programs
+
+    def timer(device):
+        timers.append(make_timer(device))
+        return timers[-1]
+
+    def building(*a):
+        models.append(model_for(*a))
+        return models[-1]
+
+    def dropping(model):
+        before = torch.cuda.memory_reserved()
+        drop(model)
+        pools.append((before - torch.cuda.memory_reserved()) / 2**30)
+
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.multiple(evaluate, PhaseTimer=timer, model_for=building), \
+            mock.patch.object(DADD, "drop_programs", dropping):
+        results, counts_e, dims_e, wall_e = _counted(evaluate.main, [
+            "--config", str(cfg_path), "--checkpoints", str(ckpts), "--data-dir", str(data),
+            "--output-dir", str(work / "eval"), *LOOP_EVALUATE])
+    peak_e = torch.cuda.max_memory_allocated() / 2**30
+    laps_e = {k: [round(x, 4) for x in v] for k, v in timers[0].laps.items()}
+    metrics_ok = all(np.isfinite(v) for r in results for v in
+                     [*r.overall.values(), *(x for c in r.per_class.values() for x in c.values())])
+
+    # the scale-sweep memory rule's alternative: scale 1's images eagerly
+    model = models[0]
+    ds = evaluate.LIMUCDataset(data / "val", image_size=size, return_clip=True,
+                               clip_size=model.clip_cfg.image_size, seed=0)
+    jobs = evaluate.collect_jobs(ds, 4, 4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with eager():
+        evaluate.generate_all(model, ds, jobs, LOOP_SCALES[0], size, LOOP_STEPS, 4, 4, 0)
+    eager_s = time.perf_counter() - t0
+    peak_eager = torch.cuda.max_memory_allocated() / 2**30
+
+    # the backbones' bf16 features on the card against fp32 on the CPU
+    bank = evaluate.FeatureBank(model, allow_random_backbones=True)
+    reals = [np.asarray(ds.load(i)["image"] + 1.0, np.float32) / 2.0 for i in (0, 8)]
+    imgs = np.concatenate([np.stack(reals), fakes])
+    on_card = _backbone_features(bank, imgs)
+    ref = _cpu_backbone_features(bank, imgs)
+    faulty = _backbone_features(bank, imgs, faults=("pool_pad", "no_antialias", "bgr"))
+    rounded = _backbone_features(bank, imgs, faults=("round_bytes",))["clip"]
+
+    def rel(a, b):
+        return ((a.float().cpu() - b.float()).norm() / b.float().norm()).item()
+
+    bands = {k: rel(on_card[k], ref[k]) for k in on_card}
+    faults = {k: rel(faulty[k], ref[k]) for k in on_card}
+    rounded_rel = rel(rounded, ref["clip"])
+    # the CLIP processor's bytes, which CLIP's band cannot tell from rounded
+    # ones: transformers' to_pil_image takes x·255 in float64, casts it to
+    # float32 and truncates it to uint8
+    truncated = [(im.astype(np.float64) * 255).astype(np.float32).astype(np.uint8)
+                 for im in imgs]
+    bytes_eq = all(np.array_equal(processor_uint8(im)[0], t) for im, t in zip(imgs, truncated))
+    rounding_seen = any(not np.array_equal(np.rint(im.astype(np.float64) * 255).astype(np.uint8),
+                                           t) for im, t in zip(imgs, truncated))
+    del bank, model, models, on_card, faulty, rounded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # classify on the synthetic-only split, judged on the real val images
+    step_s = []
+    train_step = classify.train_step
+
+    def timed_step(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = train_step(*a)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return loss
+
+    train_ds = MESClassificationDataset(synth, "train", 224)
+    val_ds = MESClassificationDataset(synth, "val", 224)
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(classify, "train_step", timed_step):
+        history, counts_c, _, wall_c = _counted(classify.main, [
+            *LOOP_CLASSIFY, "--data-dir", str(synth), "--output-dir", str(work / "cls")])
+    peak_c = torch.cuda.max_memory_allocated() / 2**30
+    last = history[-1]
+    cm = np.asarray(last["confusion_matrix"])
+    steps_per_epoch = len(train_ds) // 32
+
+    checks = {
+        f"augment launches 2 x {per_batch} (warm-up and capture; replays none)":
+            counts_a == {k: 2 * per_batch.get(k, 0) for k in counts_a},
+        "augment: one program, its capture launching one batch's": prog_info is not None
+            and prog_info["launches"] == {k: v for k, v in per_batch.items() if v},
+        f"evaluate launches {len(LOOP_SCALES)} scales x 2 x the batch's":
+            counts_e == {k: 2 * len(LOOP_SCALES) * per_batch.get(k, 0) for k in counts_e},
+        "classify launches none": sum(counts_c.values()) == 0,
+        "first replayed augment batch equal to eager, bit for bit": replay_eq,
+        f"generated {sum(want_per_cls.values())} BMPs under train/<class>/generated_*":
+            len(gen_files) == sum(want_per_cls.values()) and got_per_cls == want_per_cls,
+        "real train and val copied": len(list(synth.glob("train/*/im*.png"))) == sum(
+            n_train.values()) and len(list(synth.glob("val/*/im*.png"))) == n_val,
+        "synthetic-only train split, balanced": all("generated" in p.name for p, _ in
+                                                    train_ds.samples)
+            and len(set(train_ds.class_counts.tolist())) == 1
+            and len(train_ds) == 4 * min(want_per_cls.values()),
+        "val split real only": len(val_ds) == n_val and all(
+            "generated" not in p.name for p, _ in val_ds.samples),
+        "evaluate metrics finite, every class scored": metrics_ok and all(
+            len(r.per_class) == 4 for r in results) and len(results) == len(LOOP_SCALES),
+        f"classify: >= 2 optimizer steps an epoch ({steps_per_epoch}), 2 epochs": (
+            steps_per_epoch >= 2 and len(history) == 2 and len(step_s) == 2 * steps_per_epoch),
+        "classify metrics finite, losses finite": all(
+            math.isfinite(h["qwk"]) and math.isfinite(h["train_loss"]) for h in history),
+        f"confusion matrix sums to the {n_val} real val images": cm.shape == (4, 4)
+            and int(cm.sum()) == n_val,
+        "classifier checkpoints written": all((work / "cls" / f).exists() for f in
+                                               ("last.npz", "best.npz",
+                                                "best_confusion_matrix.json")),
+    }
+    for k, band in BACKBONE_REL_BANDS.items():
+        checks[f"{k} bf16 card vs fp32 CPU rel L2 <= {band:g}"] = bands[k] <= band
+        checks[f"{k} planted fault above its band"] = faults[k] > band
+    checks["CLIP processor bytes truncated as transformers' (rounded ones differ)"] = (
+        bytes_eq and rounding_seen)
+
+    n_aug = sum(want_per_cls.values())
+    log(f"[loop] augment (configs/train_ip.yaml at 256², batch {LOOP_BATCH}, {LOOP_STEPS} "
+        f"steps, checkpoint EMA): {n_aug} images in {len(laps)} replays, main() wall "
+        f"{wall_a:.3f} s with the model's build and the checkpoint's load; first batch "
+        f"{laps[0]:.3f} s (warm-up + capture: {prog_info}), the rest {steady:.4f} s a batch "
+        f"({LOOP_BATCH / steady:.2f} img/s, CLIP encode, conditioning and the host copy "
+        f"included), end to end {n_aug / sum(laps):.2f} img/s; peak allocated {peak_a:.2f} "
+        f"GiB; on {card}")
+    log(f"[loop] evaluate ({len(LOOP_SCALES)} scales, {len(jobs)} jobs a scale, val split): "
+        f"main() wall {wall_e:.3f} s; phases (synced) {laps_e}; each scale's pool freed on "
+        f"its drop {[round(x, 3) for x in pools]} GiB; peak allocated {peak_e:.2f} GiB; scale "
+        f"{LOOP_SCALES[0]} again eagerly: {eager_s:.3f} s, peak {peak_eager:.2f} GiB; "
+        f"results {[(r.scale, round(r.throughput_img_s, 2), r.overall) for r in results]}; on "
+        f"{card}")
+    log(f"[loop] backbones bf16 (card) vs fp32 (CPU) rel L2 {bands}; planted faults "
+        f"(Inception pools counting the padding, VGG's shrink without antialias, CLIP on BGR) "
+        f"{faults}; CLIP on rounded processor bytes {rounded_rel:.4e}; bands "
+        f"{BACKBONE_REL_BANDS}")
+    log(f"[loop] classify (ResNet-18, 224², batch 32, {len(train_ds)} synthetic train images, "
+        f"{n_val} real val): main() wall {wall_c:.3f} s; train_step median "
+        f"{median(step_s) * 1e3:.2f} ms (first {step_s[0] * 1e3:.2f} ms, synced); epochs "
+        f"{[(h['epoch'], round(h['train_loss'], 4), round(h['qwk'], 4), round(h['epoch_seconds'], 3)) for h in history]}; "
+        f"peak allocated {peak_c:.2f} GiB; on {card}")
+    log(f"[loop] launches: augment {counts_a}, by head dim {dims_a}; evaluate {counts_e}, by "
+        f"head dim {dims_e}")
+    shutil.rmtree(work, ignore_errors=True)
+    _check_loop_shapes()
+    log(f"[loop] checks {checks}")
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke.py: product loop checks failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return {"augment": {"counts": counts_a, "head_dims": dims_a},
+            "evaluate": {"counts": counts_e, "head_dims": dims_e},
+            "bands": bands, "faults": faults}
 
 
 def main() -> int:
@@ -2502,6 +2906,7 @@ def main() -> int:
     timed("train kernels", phase_train_kernels, results)
     trained = timed("train", phase_train, card)
     train_cli = timed("train cli", phase_train_cli, card, trained)
+    loop = timed("product loop", phase_product_loop, card, train_cli)
     log(f"[done] seconds per phase {seconds}, {sum(seconds.values()):.1f} s in all")
 
     entries = []
@@ -2509,7 +2914,8 @@ def main() -> int:
         r = results[name]
         by_path = {path: run["counts"][name] for path, run in
                    (("serve", served), ("turbo", turbo), ("infer", inferred),
-                    ("train", trained), ("train_cli", train_cli), ("op", op))}
+                    ("train", trained), ("train_cli", train_cli), ("op", op),
+                    ("augment", loop["augment"]), ("evaluate", loop["evaluate"]))}
         # serve and turbo count host launches (the eager warm-up and the
         # capture of their program); what each replay launches is apart
         by_replay = {path: run["replay_launches"].get(name, 0)
@@ -2533,7 +2939,8 @@ def main() -> int:
             entry["launches_by_head_dim"] = {
                 path: run["head_dims"] for path, run in
                 (("serve", served), ("turbo", turbo), ("infer", inferred),
-                 ("train", trained), ("train_cli", train_cli))}
+                 ("train", trained), ("train_cli", train_cli),
+                 ("augment", loop["augment"]), ("evaluate", loop["evaluate"]))}
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

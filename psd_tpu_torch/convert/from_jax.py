@@ -19,7 +19,14 @@ parameter must be filled, or the bridge raises. A training model's VAE
 (`AutoencoderKL`) takes the whole VAE tree; a serving model's decoder its
 decode half (`vae_decode_tree`). `to_flax_tree` walks the other way, from
 port tensors into the layout of a given flax tree (the train-step tests
-hold post-step parameters and the EMA against psd_tpu's). Real checkpoints reach this through the one name map that exists:
+hold post-step parameters and the EMA against psd_tpu's).
+
+The backbones with BatchNorm (`models/{inception,vgg,resnet}.py`) take
+flax's whole `{"params", "batch_stats"}` variables (`load_variables_`): the
+BatchNorm's running `mean` and `var` keep their names, as the port's
+`models/batchnorm.py` buffers. `to_flax_variables` writes a module back
+into that layout with no tree to follow (the classifier's npz checkpoints,
+which psd_tpu reads). Real checkpoints reach this through the one name map that exists:
 diffusers → `psd_tpu/convert/sd.py` (`scripts/port_weights.py`) → npz
 (`convert/npz.py`) → here.
 """
@@ -97,6 +104,67 @@ def load_flax_(module: nn.Module, tree: Mapping) -> nn.Module:
     sd = state_dict_from_flax(tree, module)
     module.load_state_dict(sd, strict=True)
     return module
+
+
+def merge_variables(variables: Mapping) -> Dict:
+    """flax `{"params": P, "batch_stats": S}` → one tree holding both (their
+    leaf names differ: scale/bias/kernel against mean/var)."""
+    def merge(a: Mapping, b: Mapping) -> Dict:
+        out = dict(a)
+        for k, v in b.items():
+            if k in out and isinstance(v, Mapping) and isinstance(out[k], Mapping):
+                out[k] = merge(out[k], v)
+            elif k in out:
+                raise KeyError(f"batch_stats leaf {k!r} collides with a parameter")
+            else:
+                out[k] = v
+        return out
+
+    extra = set(variables) - {"params", "batch_stats"}
+    if extra:
+        raise KeyError(f"unexpected flax collections {sorted(extra)}")
+    return merge(variables.get("params", {}), variables.get("batch_stats", {}))
+
+
+def load_variables_(module: nn.Module, variables: Mapping) -> nn.Module:
+    """Copy flax variables (params and batch_stats) into `module` in place,
+    strict both ways."""
+    return load_flax_(module, merge_variables(variables))
+
+
+def to_flax_variables(module: nn.Module) -> Dict[str, Dict]:
+    """`module` → `{"params": ..., "batch_stats": ...}` in flax's layout, as
+    numpy float32 (Linear → Dense kernel (in, out), Conv2d → HWIO kernel,
+    BatchNorm → scale/bias and mean/var); raises on a module of any other
+    kind that holds tensors of its own."""
+    from ..models.batchnorm import BatchNorm
+
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+
+    def put(collection: str, name: str, leaf: str, t: torch.Tensor, perm=None):
+        node = out[collection]
+        for part in name.split("."):
+            node = node.setdefault(part, {})
+        arr = t.detach().float().cpu().numpy()
+        node[leaf] = np.ascontiguousarray(arr if perm is None else arr.transpose(perm))
+
+    for name, m in module.named_modules():
+        own = list(m.named_parameters(recurse=False)) + list(m.named_buffers(recurse=False))
+        if not own:
+            continue
+        if isinstance(m, nn.Linear):
+            put("params", name, "kernel", m.weight, (1, 0))
+        elif isinstance(m, nn.Conv2d):
+            put("params", name, "kernel", m.weight, (2, 3, 1, 0))
+        elif isinstance(m, BatchNorm):
+            put("params", name, "scale", m.weight)
+            put("batch_stats", name, "mean", m.mean)
+            put("batch_stats", name, "var", m.var)
+        else:
+            raise TypeError(f"to_flax_variables: no flax layout for {type(m).__name__} at {name!r}")
+        if getattr(m, "bias", None) is not None:
+            put("params", name, "bias", m.bias)
+    return out
 
 
 def to_flax_tree(tensors: Mapping[str, torch.Tensor], like: Mapping) -> Dict:

@@ -1,8 +1,10 @@
 """ctypes binding of the host-side image kernels in `native/limuc_io.cpp`.
 
 Counterpart of `psd_tpu/data/native.py`, over the same C source, which the
-port compiles and does not change. The loader calls two of its kernels: a
-Pillow-exact bilinear resize and the fused uint8 → float32 normalize. The
+port compiles and does not change. The loaders call two of its kernels: a
+Pillow-exact bilinear resize and the fused uint8 → float32 normalize; the
+image writer (`utils/image_io.py`) two more: the fused float32 → uint8
+clip-scale-round and the BMP writer. The
 library builds with `g++` at first use, never
 at import, into `build/psd_tpu_torch/native/<hash>/` under the checkout
 (git-ignored; the hash covers the source, the flags and the CPU, since
@@ -81,7 +83,10 @@ def library() -> ctypes.CDLL:
             u8p, f32p, i = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_float), ctypes.c_int
             lib.resize_bilinear_u8.argtypes = [u8p, i, i, i, u8p, i, i]
             lib.normalize_u8_to_f32.argtypes = [u8p, f32p, i, i, f32p, f32p, ctypes.c_float]
-            for void in (lib.resize_bilinear_u8, lib.normalize_u8_to_f32):
+            lib.f32_to_u8.argtypes = [f32p, u8p, ctypes.c_long]
+            lib.write_bmp.argtypes = [ctypes.c_char_p, u8p, i, i]
+            lib.write_bmp.restype = ctypes.c_int
+            for void in (lib.resize_bilinear_u8, lib.normalize_u8_to_f32, lib.f32_to_u8):
                 void.restype = None
             _lib = lib
     return _lib
@@ -120,3 +125,24 @@ def normalize(img_u8: np.ndarray, mean, std, scale: float = 1.0 / 255.0) -> np.n
     library().normalize_u8_to_f32(_u8(img_u8), _f32(out), h * w, c, _f32(mean), _f32(std), scale)
     return out
 
+
+
+def to_uint8(img_f32: np.ndarray) -> np.ndarray:
+    """float32 array in [0, 1] (any shape) → uint8: clip to [0, 1], ·255,
+    + 0.5, truncate, in float32."""
+    img_f32 = np.ascontiguousarray(img_f32, np.float32)
+    out = np.empty(img_f32.shape, np.uint8)
+    library().f32_to_u8(_f32(img_f32), _u8(out), img_f32.size)
+    return out
+
+
+def write_bmp(path: str | Path, rgb_u8: np.ndarray) -> None:
+    """uint8 (H, W, 3) → a 24-bit bottom-up BMP at `path`."""
+    rgb_u8 = _hwc(rgb_u8, np.uint8)
+    h, w, c = rgb_u8.shape
+    if c != 3:
+        raise ValueError(f"write_bmp takes RGB (H, W, 3), got shape {rgb_u8.shape}")
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    rc = library().write_bmp(str(path).encode(), _u8(rgb_u8), h, w)
+    if rc != 0:
+        raise IOError(f"write_bmp failed with code {rc}: {path}")

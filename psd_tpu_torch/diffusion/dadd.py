@@ -47,6 +47,7 @@ waits for a later slice.
 
 from __future__ import annotations
 
+import gc
 import threading
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -275,7 +276,7 @@ class DADD:
         # captured programs by key (graphs.program_key), on the card only.
         # Unbounded: each new key (a steer or guidance value, a batch size)
         # adds a program whose graph pool holds its activations, and a first
-        # call that warms up and captures; clear it to free the pools.
+        # call that warms up and captures; `drop_programs` frees the pools.
         self.programs: Dict[tuple, CapturedProgram] = {}
         # why each key whose capture failed did (a string, so no traceback
         # keeps the failed capture's tensors alive): a later call with that
@@ -495,6 +496,15 @@ class DADD:
                     self.failed_captures[key] = f"{type(e).__name__}: {e}"
                     raise
         return prog(*inputs)
+
+    def drop_programs(self) -> None:
+        """Free every captured program and its graph pool. A later call
+        captures its key again; the record of failed captures stays."""
+        with self._programs_lock:
+            self.programs.clear()
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     def static_knobs(self, sampling_steps, steer_scale, guidance_scale, encoder_stride,
                      cache_mode, sampler, eta: float = 0.0) -> dict:

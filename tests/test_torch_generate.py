@@ -305,6 +305,33 @@ def test_failed_capture_raises_again_without_capturing(monkeypatch):
     assert attempts == [(1, 8, 8, 4), (2, 8, 8, 4), (1, 8, 8, 4)] and len(port.programs) == 2
 
 
+def test_drop_programs_frees_programs_and_keeps_failed_captures(monkeypatch):
+    """`DADD.drop_programs` empties the program cache (a later call of the
+    key captures again) and leaves the record of failed captures as it is.
+    The card is stood in for as in the test above."""
+    captured = []
+
+    class Program:
+        def __init__(self, body, inputs):
+            captured.append(tuple(inputs[0].shape))
+            self.body = body
+
+        def __call__(self, *inputs):
+            return self.body(*inputs)
+
+    monkeypatch.setattr(dadd_module, "CapturedProgram", Program)
+    port = tiny_dadd(seed=7)
+    port.device = torch.device("cuda")
+    port.failed_captures[("stale",)] = "RuntimeError: earlier"
+    lat = torch.zeros((1, 8, 8, 4))
+    first = port.decode_latents(lat)
+    assert len(port.programs) == 1
+    port.drop_programs()
+    assert port.programs == {} and port.failed_captures == {("stale",): "RuntimeError: earlier"}
+    assert torch.equal(port.decode_latents(lat), first)
+    assert captured == [(1, 8, 8, 4)] * 2 and len(port.programs) == 1
+
+
 def test_server_worker_runs_in_the_construction_context():
     """The worker thread sees the mode flags in force where the server was
     built: eager() and disable_kernels(...) around the construction hold
