@@ -181,10 +181,35 @@ Phases, in order; any failure exits non-zero:
                evaluate's generate and metrics phases, each scale's freed
                pool and the eager alternative's time and peak, classify's
                step time, each peak memory. Deletes phase 6b's files.
+  6d. train_ranks — the training CLI across ranks, started by torchrun
+               (`chip_smoke.py --rank-worker`, each rank the CLI's main()
+               in-process) on a tree of its own at configs/train_ip.yaml's
+               full width, 256², a global batch of 32 (16 a rank: two 14.7
+               GB states on one card), one loader thread, 2 steps, each run
+               against a one-process run of the same argv: (a) two ranks
+               on cuda:0 over gloo at --dp 2 (DDP), then at --fsdp 2
+               (FSDP2); (b) one rank on NCCL at --dp 1. A run that fails
+               prints each rank's last collective and a crashed rank's
+               stack.
+               Checks: each step's loss and grad norm (RANKS_LOSS_RTOL,
+               RANKS_NORM_RTOL), the post-step parameters' difference over
+               the one-process update (RANKS_UPDATE_BAND, set against
+               every rank skipping the gradient average), each rank's
+               launches equal to phase 6's per step × 2 + one encoder
+               attention a batch, rank 0's checkpoint read by the infer
+               CLI on its EMA; then each kernel against its plain version
+               at 16 and 32 rows (RANKS_*, not timed). Prints each rank's
+               synced step times, the share of the last step in gloo's
+               collectives (torch.profiler's gloo spans, each from its call
+               to its completion, DDP's own reducer's too; NCCL's complete
+               at the enqueue, so not measured), its
+               phases, peak memory and launches, the card.
 The line before the last is a JSON object with one entry per kernel:
 `launches` counts the launches of the main-path runs (phases 3b, 5, 5b, 5c,
-6, 6b and 6c, each with the counts set to 0 just before it, 5c before each of
-its two CLI runs, 6b before each of its three, 6c before each of its three; `launches_by_path` splits them; in phases 5 and 5b the wrappers run, and count, at the eager warm-up
+6, 6b, 6c and 6d, each with the counts set to 0 just before it, 5c before each of
+its two CLI runs, 6b before each of its three, 6c before each of its three,
+6d in each rank before its run, whose rank 0 of --dp 2 is `train_dp`;
+`launches_by_path` splits them; in phases 5 and 5b the wrappers run, and count, at the eager warm-up
 and at the capture of the batch's program, and `launches_per_replay` gives
 what one replay launches),
 `max_abs_err` is the largest over the kernel's shapes, `ms`, `plain_ms`,
@@ -461,6 +486,38 @@ LOOP_ATTN_SHAPES = [(12, 1024, 8, 40), (12, 1024, 1, 512)]
 LOOP_SPLIT3_SHAPES = [(12, 1024, 8, 40), (12, 256, 8, 80)]
 LOOP_LN_SHAPES = [(12 * 1024, 320), (12 * 256, 640), (12 * 64, 1280)]
 LOOP_GN_SHAPES = [(12, 1024, 320), (12, 256, 640), (12, 64, 1280)]
+
+# phase 6d: training across ranks. The run has one card and NCCL refuses
+# two ranks on one device, so (a) two ranks share cuda:0 over a gloo group
+# (torchrun; the worker pins them to cuda:0 and starts the group), at --dp 2
+# and then --fsdp 2, and (b) one rank
+# runs on NCCL, the production backend (--dp 1 in a world of 1). A global
+# batch of 32 (16 a rank, so two 14.7 GB training states and their
+# activations fit in 80 GB: the one cut, in batch) of configs/train_ip.yaml
+# at full width, 256², 2 steps, on the phase's own tree of PNGs; each run
+# against a one-process run of the same argv (no torchrun).
+# One loader thread: with more, the augment's draws follow the threads'
+# order (data/limuc.py), and two runs of one argv differ by more than the
+# ranks do (two one-process runs read 2.2e-1 of the update apart; PERF.md).
+RANKS_ARGS = ["dataset.batch_size=32", "dataset.num_workers=1",
+              "training.update_starting_at_step=0", "training.log_every_n_steps=1",
+              "--max-steps", "2"]
+RANKS_STEPS = 2
+RANKS_TIMEOUT_S = 420
+# against the one-process run: each step's loss and grad norm (relative),
+# and the post-step parameters' difference relative to the one-process
+# run's update (‖p − p₁‖ / ‖p₁ − p₀‖). The ranks' bf16 kernels run at batch
+# 16 where the one process runs 32, so their sums round differently; the
+# bands sit between the sound readings and a planted fault (every rank
+# skipping the gradient average, `fault: no_average`; PERF.md §6):
+# losses 1.5e-4 sound (1.1e-3 the fault's second step; the first loss
+# precedes any update), grad norms 1.3e-3 against 0.16, the update 3.9e-2
+# (FSDP2 at one rank 1.2e-2, --dp 1 on NCCL 0: the same rows) against 0.50.
+RANKS_LOSS_RTOL, RANKS_NORM_RTOL, RANKS_UPDATE_BAND = 1e-3, 2e-2, 0.15
+RANKS_ATTN_SHAPES = [(16, 1024, 8, 40), (32, 1024, 8, 40), (16, 1024, 1, 512),
+                     (32, 1024, 1, 512)]
+RANKS_SPLIT3_SHAPES = [(16, 1024, 8, 40), (16, 256, 8, 80), (32, 1024, 8, 40),
+                       (32, 256, 8, 80)]
 
 # ln_gemm_kernel<Kind> in ln_gemm_sm90.cuh, by the enum's value (gn: gn_proj)
 LN_KINDS = ("proj1", "proj3", "geglu", "gn")
@@ -2885,6 +2942,379 @@ def phase_product_loop(card: str, cli: dict) -> dict:
             "bands": bands, "faults": faults}
 
 
+# ---- training across ranks ---------------------------------------------------------
+COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce", "broadcast",
+               "all_gather", "all_gather_object", "barrier")
+
+
+def rank_worker(spec_path: str) -> int:
+    """One rank of phase 6d, started by torchrun (`chip_smoke.py --rank-worker
+    <spec.json>`): the train CLI's main() in-process on this rank's card,
+    as phase 6b runs it, with (on this rank only) the kernels' launch counts
+    from 0, each phase ending with a synchronize, each step's window under
+    torch.profiler (its gloo spans: the time in collectives) and each
+    collective called from Python written to a file before it is entered (a
+    crash leaves the last). The spec's `backend: gloo` runs the ranks on
+    cuda:0 over a gloo group this worker starts (main() takes it as the
+    caller's), else main() starts NCCL on LOCAL_RANK's card; `fault:
+    no_average` skips DDP's all-reduce by a comm hook, else DDP reduces as
+    in production. Writes `<tag>.rank<r>.json`."""
+    import faulthandler
+    import os
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from psd_tpu_torch.ops import kernels
+    from psd_tpu_torch.parallel.mesh import TIMEOUT_S
+    from psd_tpu_torch.pipelines import train
+    from psd_tpu_torch.train import trainer
+
+    faulthandler.enable()  # a crashing rank prints its Python stack into the log
+    spec = json.loads(Path(spec_path).read_text())
+    rank = int(os.environ["RANK"])
+    work = Path(spec["work"])
+    backend = spec.get("backend", "nccl")
+    if backend == "gloo":
+        # the ranks share the one card: each is pinned to cuda:0
+        os.environ["LOCAL_RANK"] = "0"
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", timeout=timedelta(seconds=TIMEOUT_S))
+    trace = open(work / f"{spec['tag']}.rank{rank}.collectives", "w", buffering=1)
+    windows, comm = [], []
+
+    def traced(*a, _call, _name, **k):
+        t = next((x for x in (*a, *k.values()) if isinstance(x, torch.Tensor)), None)
+        trace.write(f"{_name} {'' if t is None else (tuple(t.shape), str(t.dtype), str(t.device))}\n")
+        return _call(*a, **k)
+
+    for name in COLLECTIVES:
+        setattr(dist, name, functools.partial(traced, _call=getattr(dist, name), _name=name))
+
+    shard, make_step, timer = train.shard_train_state, train.make_train_step, train.PhaseTimer
+
+    def sharding(state, mesh):
+        state = shard(state, mesh)
+        if spec.get("fault") == "no_average":
+            def skip(_, bucket):
+                fut = torch.futures.Future()
+                fut.set_result(bucket.buffer())
+                return fut
+
+            state.loss.register_comm_hook(None, skip)
+        return state
+
+    def union(spans):
+        total, end = 0.0, float("-inf")
+        for s, e in sorted(spans):
+            s = max(s, end)
+            if e > s:
+                total, end = total + e - s, e
+        return total
+
+    def stepping(*a, **k):
+        step = make_step(*a, **k)
+
+        def timed(*sa, **sk):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                t0 = time.perf_counter()
+                out = step(*sa, **sk)
+                torch.cuda.synchronize()
+                windows.append((t0, time.perf_counter()))
+            # gloo's collectives on CUDA tensors are host work (copies, a
+            # ring over loopback), each span from its call to its work's
+            # completion, DDP's reducer's too; NCCL's complete at the
+            # enqueue, so their spans say nothing of the device's time
+            comm.append(union((e.time_range.start / 1e6, e.time_range.end / 1e6)
+                              for e in prof.events() if e.name.startswith("gloo:")))
+            return out
+
+        return timed
+
+    train.shard_train_state, train.make_train_step = sharding, stepping
+    train.PhaseTimer = lambda device, sync: timer(device, sync=True)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        r = train.main(spec["argv"])
+        wall = time.perf_counter() - t0
+    finally:
+        if backend == "gloo":
+            dist.destroy_process_group()
+    counts, dims = dict(kernels.launch_counts), dict(kernels.attention_head_dims)
+    out = {"rank": rank, "world": int(os.environ["WORLD_SIZE"]), "backend": backend,
+           "counts": counts, "head_dims": dims, "laps": r["laps"], "wall": wall,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "steps_s": [b - a for a, b in windows],
+           "comm_s": comm if backend == "gloo" else None,
+           "sharded": trainer.is_sharded(r["state"]), "device": str(r["state"].model.device)}
+    (work / f"{spec['tag']}.rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def _torchrun(work: Path, tag: str, nproc: int, argv: list, **spec) -> dict:
+    """The train CLI on `nproc` ranks under torchrun (rank_worker each);
+    → each rank's results, the exit code, the log's tail, and each rank's
+    last collective entered. Every process it starts is stopped."""
+    import os
+    import signal
+
+    spec_path = work / f"{tag}.spec.json"
+    spec_path.write_text(json.dumps({"work": str(work), "tag": tag, "argv": argv, **spec}))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(nproc), str(ROOT / "chip_smoke.py"), "--rank-worker", str(spec_path)]
+    log_path = work / f"{tag}.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as fh:
+        proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, OMP_NUM_THREADS="4"),
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=RANKS_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    wall = time.perf_counter() - t0
+    ranks, last = [], []
+    for r in range(nproc):
+        res = work / f"{tag}.rank{r}.json"
+        ranks.append(json.loads(res.read_text()) if res.exists() else None)
+        trace = work / f"{tag}.rank{r}.collectives"
+        lines = trace.read_text().splitlines() if trace.exists() else []
+        last.append((len(lines), lines[-1] if lines else None))
+    text = log_path.read_text().splitlines()
+    # a crashed rank's stack (faulthandler), else the log's end
+    crash = [i for i, line in enumerate(text) if line.startswith("Fatal Python error")]
+    tail = text[crash[0]:crash[0] + 24] if crash else text[-12:]
+    return {"rc": rc, "ranks": ranks, "wall": wall, "tail": tail, "last_collective": last,
+            "out": Path(argv[argv.index("--output-dir") + 1])}
+
+
+def _flat_rel(a_dir: Path, b_dir: Path, start) -> tuple:
+    """(‖a − b‖ / ‖b‖, ‖a − b‖ / ‖b − start‖) over every parameter of two
+    step directories' params.pt, summed on the card in float64."""
+    def load(d):
+        return torch.load(d / "params.pt", map_location="cpu", weights_only=True, mmap=True)
+
+    a, b = load(a_dir), load(b_dir)
+    diff = norm = upd = torch.zeros((), dtype=torch.float64, device="cuda")
+    for k, w in b.items():
+        x, y, z = (t.to("cuda", torch.float64) for t in (a[k], w, start[k]))
+        diff, norm, upd = diff + (x - y).square().sum(), norm + y.square().sum(), \
+            upd + (y - z).square().sum()
+    return (diff / norm).sqrt().item(), (diff / upd).sqrt().item()
+
+
+def _logged(out: Path) -> list:
+    return [r for r in (json.loads(line) for line in
+                        (out / "metrics.jsonl").read_text().splitlines()) if "loss" in r]
+
+
+def _check_rank_shapes() -> None:
+    """Each kernel of the ranks' path against its plain version by its judge
+    at the rows a rank (16) and the one process (32) give it: the attention
+    forward and backward at the 32×32 sites, the VAE encoder's mid-block
+    attention, split3 (not timed, not counted)."""
+    from psd_tpu_torch.ops import attention, split3
+    from psd_tpu_torch.testing import attention_judge, split3_judge
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    for shape in RANKS_ATTN_SHAPES:
+        q, k, v = randn(*shape), randn(*shape), randn(*shape)
+        ok, text, _ = attention_judge(attention.attention_fwd(q, k, v),
+                                      attention.attention_reference(q, k, v))
+        log(f"[train_ranks] attention {shape}: {text} {'ok' if ok else 'FAIL'} (not timed)")
+        if not ok:
+            raise SystemExit(f"chip_smoke.py: attention {shape} disagrees with its plain version")
+        if shape[-1] == 40:
+            _check_attention_bwd(q, k, v, randn(*shape), f"{shape} (not timed)")
+        del q, k, v
+    for (B, S, H, D) in RANKS_SPLIT3_SHAPES:
+        q, banks = randn(B, S, H, D), [randn(B, 16, H, D) for _ in range(6)]
+        ok, text, _ = split3_judge(split3.split3_fwd(q, *banks, 0.0, 0.1, 0.9),
+                                   split3.split3_reference(q, *banks, 0.0, 0.1, 0.9))
+        log(f"[train_ranks] split3 {(B, S, H, D)}: {text} {'ok' if ok else 'FAIL'} (not timed)")
+        if not ok:
+            raise SystemExit(f"chip_smoke.py: split3 {(B, S, H, D)} disagrees with its plain "
+                             "version")
+    torch.cuda.empty_cache()
+
+
+def phase_train_ranks(card: str, trained: dict, fault: bool = False) -> dict:
+    """The train CLI across ranks (phase 6d): a one-process run at a global
+    batch of 32, then torchrun's two ranks on cuda:0 over gloo at --dp 2
+    and at --fsdp 2, then one rank on NCCL at --dp 1; each against the
+    one-process run (losses,
+    grad norms, the parameters' update, each rank's launches against phase
+    6's per step), rank 0's checkpoint read by the infer CLI. `fault` runs
+    the planted fault its bands were set against (every rank skipping the
+    gradient average) and stops there."""
+    import shutil
+
+    import numpy as np
+
+    from psd_tpu_torch.pipelines import infer, train
+
+    work = ROOT / "build" / "psd_tpu_torch" / "train_ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    _write_tree(work / "data")
+    cfg_path = ROOT / "configs" / "train_ip.yaml"
+    base = ["--config", str(cfg_path), f"dataset.dataset_path={work / 'data'}", *RANKS_ARGS]
+    per_step = {k: v // TRAIN_STEPS for k, v in trained["counts"].items()}
+    # two steps and one encoded batch each (the encoder's mid-block attention)
+    want = {k: per_step[k] * RANKS_STEPS + (RANKS_STEPS if k == "attention" else 0)
+            for k in per_step}
+
+    # the one-process run, its initial parameters kept on the host
+    start = {}
+    make_state = train.create_train_state
+
+    def keeping(model, **kw):
+        start.update({n: p.detach().to("cpu", copy=True)
+                      for n, p in model.core.named_parameters()})
+        return make_state(model, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    train.create_train_state = keeping
+    try:
+        one_dir = work / "one"
+        r0, counts0, dims0, wall0 = _counted(train.main, base + ["--output-dir", str(one_dir)])
+    finally:
+        train.create_train_state = make_state
+    peak0 = torch.cuda.max_memory_allocated() / 2**30
+    laps0 = r0["laps"]
+    del r0
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = _logged(one_dir)
+    if counts0 != want:
+        raise SystemExit(f"chip_smoke.py: the one-process run launched {counts0}, not {want}")
+    log(f"[train_ranks] one process, global batch 32: main() wall {wall0:.3f} s; train_step "
+        f"{[round(x, 4) for x in laps0['train_step']]} s (no sync); losses "
+        f"{[r['loss'] for r in ref]}, grad norms {[r['grad_norm'] for r in ref]}; launches "
+        f"{counts0}; peak {peak0:.2f} GiB; on {card}")
+
+    def failed(tag, run):
+        """A run that did not end: each rank's count of collectives entered
+        and the last, and a crashed rank's stack (faulthandler)."""
+        log(f"[train_ranks] {tag}: rc {run['rc']}; each rank's collectives entered and the "
+            f"last: {run['last_collective']}; log:\n  " + "\n  ".join(run["tail"]))
+
+    def judge(tag, run):
+        """The run's checks against the one-process run; → its readings."""
+        if run["rc"] != 0 or not all(run["ranks"]):
+            failed(tag, run)
+            raise SystemExit(f"chip_smoke.py: {tag} did not run to its end (rc {run['rc']})")
+        got = _logged(run["out"])
+        rel_post, rel_upd = _flat_rel(run["out"] / "checkpoints" / str(RANKS_STEPS),
+                                      one_dir / "checkpoints" / str(RANKS_STEPS), start)
+        loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(got, ref)]
+        norm_rel = [abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+                    for a, b in zip(got, ref)]
+        ranks = run["ranks"]
+        checks = {
+            f"{RANKS_STEPS} steps logged by rank 0": [r["step"] for r in got] == [1, 2],
+            f"losses within rtol {RANKS_LOSS_RTOL:g}": len(loss_rel) == RANKS_STEPS
+                and max(loss_rel) <= RANKS_LOSS_RTOL,
+            f"grad norms within rtol {RANKS_NORM_RTOL:g}": len(norm_rel) == RANKS_STEPS
+                and max(norm_rel) <= RANKS_NORM_RTOL,
+            f"update difference ≤ {RANKS_UPDATE_BAND:g}": rel_upd <= RANKS_UPDATE_BAND,
+            "checkpoint step 2 only": sorted(p.name for p in (run["out"] / "checkpoints")
+                                             .iterdir()) == [str(RANKS_STEPS)],
+            f"each rank's launches {want}": all(r["counts"] == want for r in ranks),
+        }
+        for r in ranks:
+            step = r["steps_s"][-1]
+            comm = (f"its time in collectives not measured ({r['backend']})"
+                    if r["comm_s"] is None else
+                    f"{r['comm_s'][-1]:.4f} s in {r['backend']} collectives "
+                    f"({r['comm_s'][-1] / step:.3f} of it)")
+            log(f"[train_ranks] {tag} rank {r['rank']}/{r['world']} on {r['device']}: steps "
+                f"{[round(x, 4) for x in r['steps_s']]} s (synced), the last {comm}; phases "
+                f"{ {k: [round(x, 4) for x in v] for k, v in r['laps'].items()} }; main() wall "
+                f"{r['wall']:.3f} s; peak {r['peak_gib']:.2f} GiB; launches {r['counts']}, "
+                f"by head dim {r['head_dims']}; FSDP2 {r['sharded']}; on {card}")
+        log(f"[train_ranks] {tag}: torchrun wall {run['wall']:.1f} s, rc {run['rc']}; losses "
+            f"{[r['loss'] for r in got]} (rel {loss_rel}), grad norms "
+            f"{[r['grad_norm'] for r in got]} (rel {norm_rel}); post-step parameters rel L2 "
+            f"{rel_post:.3e}, over the one-process update {rel_upd:.3e}")
+        log(f"[train_ranks] {tag} checks {checks}")
+        if not all(checks.values()):
+            bad = [k for k, v in checks.items() if not v]
+            raise SystemExit(f"chip_smoke.py: {tag} checks failed: {bad}\n"
+                             + "\n".join(run["tail"]))
+        return {"loss_rel": loss_rel, "norm_rel": norm_rel, "rel_post": rel_post,
+                "rel_update": rel_upd, "ranks": ranks}
+
+    if fault:
+        run = _torchrun(work, "fault", 2, base + ["--dp", "2", "--output-dir",
+                                                  str(work / "fault")],
+                        backend="gloo", fault="no_average")
+        if run["rc"] != 0:
+            failed("planted fault", run)
+        got = _logged(run["out"])
+        rel_post, rel_upd = _flat_rel(run["out"] / "checkpoints" / str(RANKS_STEPS),
+                                      one_dir / "checkpoints" / str(RANKS_STEPS), start)
+        log(f"[train_ranks] planted fault (no gradient average), --dp 2 over gloo: losses "
+            f"{[r['loss'] for r in got]}, grad norms {[r['grad_norm'] for r in got]} against "
+            f"{[r['grad_norm'] for r in ref]}; post-step parameters rel L2 {rel_post:.3e}, over "
+            f"the one-process update {rel_upd:.3e}")
+        shutil.rmtree(work, ignore_errors=True)
+        return {}
+
+    readings = {}
+    run = _torchrun(work, "dp2_gloo", 2, base + ["--dp", "2", "--output-dir",
+                                                 str(work / "dp2")], backend="gloo")
+    readings["dp2_gloo"] = judge("--dp 2, two ranks on cuda:0 over gloo", run)
+    counts = run["ranks"][0]["counts"]
+    head_dims = run["ranks"][0]["head_dims"]
+
+    # rank 0's checkpoint read by the infer CLI, on its EMA
+    png = sorted((work / "data" / "val" / "Mayo_2").iterdir())[0]
+    r3 = infer.main(["--config", str(cfg_path), "--structure-image", str(png), "--checkpoint",
+                     str(work / "dp2" / "checkpoints"), "--ema", "--output-dir",
+                     str(work / "infer"), *TRAIN_CLI_INFER])
+    images = r3["images"]
+    del r3
+    gc.collect()
+    torch.cuda.empty_cache()
+    infer_ok = images.shape == (TRAIN_CLI_GRID, 256, 256, 3) and bool(
+        np.isfinite(images).all()) and images.min() >= 0.0 and images.max() <= 1.0
+    log(f"[train_ranks] infer --checkpoint <rank 0's> --ema: images {images.shape} finite in "
+        f"[0, 1]: {infer_ok}")
+    if not infer_ok:
+        raise SystemExit("chip_smoke.py: the infer CLI did not read rank 0's checkpoint")
+    shutil.rmtree(work / "dp2", ignore_errors=True)
+
+    run = _torchrun(work, "fsdp2_gloo", 2, base + ["--fsdp", "2", "--output-dir",
+                                                   str(work / "fsdp2")], backend="gloo")
+    readings["fsdp2_gloo"] = judge("--fsdp 2, two ranks on cuda:0 over gloo", run)
+    if not all(r["sharded"] for r in run["ranks"]):
+        raise SystemExit("chip_smoke.py: the --fsdp 2 run was not under FSDP2")
+    shutil.rmtree(run["out"], ignore_errors=True)
+
+    run = _torchrun(work, "dp1_nccl", 1, base + ["--dp", "1", "--output-dir",
+                                                 str(work / "dp1")])
+    readings["dp1_nccl"] = judge("--dp 1, one rank on NCCL", run)
+    _check_rank_shapes()
+    shutil.rmtree(work, ignore_errors=True)
+    return {"counts": counts, "head_dims": head_dims, "readings": readings,
+            "one_process": {"counts": counts0, "wall": wall0, "peak_gib": peak0}}
+
+
 def main() -> int:
     seconds = {}
 
@@ -2907,6 +3337,7 @@ def main() -> int:
     trained = timed("train", phase_train, card)
     train_cli = timed("train cli", phase_train_cli, card, trained)
     loop = timed("product loop", phase_product_loop, card, train_cli)
+    ranks = timed("train ranks", phase_train_ranks, card, trained)
     log(f"[done] seconds per phase {seconds}, {sum(seconds.values()):.1f} s in all")
 
     entries = []
@@ -2915,7 +3346,8 @@ def main() -> int:
         by_path = {path: run["counts"][name] for path, run in
                    (("serve", served), ("turbo", turbo), ("infer", inferred),
                     ("train", trained), ("train_cli", train_cli), ("op", op),
-                    ("augment", loop["augment"]), ("evaluate", loop["evaluate"]))}
+                    ("augment", loop["augment"]), ("evaluate", loop["evaluate"]),
+                    ("train_dp", ranks))}
         # serve and turbo count host launches (the eager warm-up and the
         # capture of their program); what each replay launches is apart
         by_replay = {path: run["replay_launches"].get(name, 0)
@@ -2940,7 +3372,8 @@ def main() -> int:
                 path: run["head_dims"] for path, run in
                 (("serve", served), ("turbo", turbo), ("infer", inferred),
                  ("train", trained), ("train_cli", train_cli),
-                 ("augment", loop["augment"]), ("evaluate", loop["evaluate"]))}
+                 ("augment", loop["augment"]), ("evaluate", loop["evaluate"]),
+                 ("train_dp", ranks))}
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2951,4 +3384,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2]))
     sys.exit(main())

@@ -627,3 +627,37 @@ class DADD:
 
         inputs, run = self._sample_program(cond, x0, cond_uncond, eta_noise, knobs)
         return self._replay_or_run("generate", lambda *a: self._decode(run(*a)), inputs, **knobs)
+
+
+# the draws whose batch dim is not dim 0: the embedder's (target, source) pair
+DRAW_BATCH_DIM = {"aoe_noise": 1}
+
+
+def shard_draws(draws: Dict[str, torch.Tensor], rows: slice) -> Dict[str, torch.Tensor]:
+    """A rank's rows of the global batch's draws (`DADD.sample_draws` at the
+    global shape, the same on every rank, as `jax.random` draws the same
+    numbers however the batch is sharded)."""
+    out = {}
+    for k, v in draws.items():
+        dim = DRAW_BATCH_DIM.get(k, 0)
+        out[k] = v.narrow(dim, rows.start, rows.stop - rows.start)
+    return out
+
+
+class TrainLoss(nn.Module):
+    """`DADD.train_loss` as `forward(batch, draws)`: the module DDP and FSDP2
+    wrap (`train/trainer.py::shard_train_state`). DDP prepares its gradient
+    reducer in its forward and FSDP2 unshards its root's parameters in
+    forward hooks, while `train_loss` reaches the core through its methods;
+    routed through this forward, both see the step. The core is its one
+    child, so FSDP2's root group holds the core's parameters outside the
+    UNet blocks."""
+
+    def __init__(self, dadd: DADD):
+        super().__init__()
+        self.core = dadd.core
+        self.dadd = dadd
+
+    def forward(self, batch: Dict[str, torch.Tensor], draws: Dict[str, torch.Tensor]):
+        return self.dadd.train_loss(batch, draws=draws)
+

@@ -17,13 +17,27 @@ grid of `val_progression_levels` levels → resume from a path or "last".
 
   * Device: `--device cuda` (the default; "auto" is the same) runs on the
     card and raises without one; only `--device cpu` runs on the CPU.
-  * One card: `--dp` takes −1 or 1 and `--fsdp` 1; other values raise
-    (data parallelism is ROADMAP.md Queue 1 item 5's DDP step).
-  * The draws: each step's from the train state's generator
-    (`step_draws`); the encoder's from a generator seeded 7 and the step,
-    or 11 for validation batches (`encode_noise`, psd_tpu's keys); the val
-    loss's from 1234 and the batch (`val_draws`); the grid's initial
-    latent from 99 (`grid_noise`). Tests patch these to hand JAX's draws.
+  * Across cards: under torchrun (`torchrun --nproc-per-node N -m
+    psd_tpu_torch.pipelines.train ... --dp D --fsdp F`) each process is a
+    rank of a (dp, fsdp) mesh (`parallel/mesh.py`; dp −1 takes every rank
+    fsdp leaves, dp · fsdp must be the world), on its card (LOCAL_RANK),
+    over NCCL on the card and gloo on the CPU (or the caller's group); the
+    state goes under DDP (fsdp 1) or FSDP2 (HSDP, fsdp > 1)
+    (`train/trainer.py::shard_train_state`). Without torchrun the world is
+    one process and the step is the one-card step; a mesh of more ranks
+    than the world raises. `batch_size` is the global batch: every rank
+    loads all of it with the same seeds, so the augment's draws and the
+    encoder's noise are the one-card run's, and encodes and trains on its
+    own rows (`parallel.mesh.shard_batch`). The val loss is averaged over
+    the ranks; every rank samples the grid (under FSDP2 the parameters are
+    gathered for it), rank 0 writes it, the metrics, the log lines and the
+    checkpoints (the one-card format, `train/checkpoint.py`).
+  * The draws, each for the global batch (a rank takes its rows): each
+    step's from the train state's generator (`step_draws`); the encoder's
+    from a generator seeded 7 and the step, or 11 for validation batches
+    (`encode_noise`, psd_tpu's keys); the val loss's from 1234 and the
+    batch (`val_draws`); the grid's initial latent from 99
+    (`grid_noise`). Tests patch these to hand JAX's draws.
   * The train step runs eagerly. Validation runs eagerly too
     (`core.mode.eager()`): once an epoch, where a captured program would
     keep its pool beside the training state. The val loss runs outside
@@ -45,15 +59,19 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..convert.npz import load_params_npz
 from ..core.config import load_config
 from ..core.mode import eager
 from ..data.limuc import AugmentConfig, DataLoader, LIMUCDataset
-from ..diffusion.dadd import DADD
+from ..diffusion.dadd import DADD, shard_draws
+from ..parallel.mesh import (MeshConfig, batch_rows, create_mesh, launched, rank, rank_device,
+                             shard_batch, world_size)
 from ..train import (CheckpointManager, build_optimizer, create_train_state, make_train_step,
                      resolve_resume_path, swapped_in)
 from ..train.checkpoint import restore_into, step_dir
+from ..train.trainer import full_parameters, shard_train_state
 from ..utils.image_io import progression_grid
 from ..utils.logging import MetricLogger
 from ..utils.profiling import PhaseTimer, trace_if
@@ -67,21 +85,15 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--output-dir", type=str, default="runs/train")
     p.add_argument("--max-steps", type=int, default=None, help="cap total steps (smoke runs)")
     p.add_argument("--dp", type=int, default=-1,
-                   help="data-parallel degree: -1 (all cards) or 1; one card for now")
-    p.add_argument("--fsdp", type=int, default=1, help="parameter sharding degree: 1 for now")
+                   help="data-parallel degree; -1: every rank --fsdp leaves (torchrun starts "
+                        "the ranks, one without it)")
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="parameter sharding degree (FSDP2 within each dp replica when > 1)")
     p.add_argument("--vae-params", type=str, default=None, help=".npz ported VAE")
     p.add_argument("--clip-params", type=str, default=None, help=".npz ported CLIP")
     add_device_arg(p)
     add_profile_arg(p)
     return p
-
-
-def check_parallel(dp: int, fsdp: int) -> None:
-    """One card: dp −1 (all of them) or 1, fsdp 1."""
-    if dp not in (-1, 1) or fsdp != 1:
-        raise NotImplementedError(
-            f"--dp {dp} --fsdp {fsdp}: the port trains on one card; data parallelism (DDP, "
-            "then FSDP) is the next step of ROADMAP.md Queue 1 item 5. Use --dp 1 --fsdp 1")
 
 
 def _generator(model: DADD, seed: int) -> torch.Generator:
@@ -126,11 +138,28 @@ def encode_batch(model: DADD, images, clip_images, noise):
 
 def main(argv=None) -> dict:
     """Run the CLI; returns the final train state, the phase times (totals
-    and each call's), the run's seconds and its checkpoint manager."""
+    and each call's), the run's seconds and its checkpoint manager. Under
+    torchrun it starts the process group (unless the caller did) and ends
+    it on the way out, error or not."""
     args = build_argparser().parse_intermixed_args(argv)
     device = cli_device(args.device)
-    check_parallel(args.dp, args.fsdp)
+    mesh_cfg = MeshConfig(dp=args.dp, fsdp=args.fsdp).resolve(world_size())
+    if not launched():
+        return run(args, device, None)
+    started = not dist.is_initialized()
+    try:
+        mesh = create_mesh(mesh_cfg, device.type)
+        return run(args, rank_device(device.type), mesh)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def run(args, device: torch.device, mesh) -> dict:
+    """The run on this rank (`mesh` None: the one process)."""
     cfg = load_config(args.config, overrides=args.overrides)
+    main_rank = rank() == 0
+    say = print if main_rank else (lambda *a, **k: None)
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     model = build_model(cfg, device=device, seed=cfg.training.seed, for_training=True)
@@ -144,6 +173,7 @@ def main(argv=None) -> dict:
                       augment=aug, return_clip=True, clip_size=model.clip_cfg.image_size,
                       seed=cfg.training.seed)
     B = cfg.dataset.batch_size
+    rows = batch_rows(mesh, B)  # raises where the ranks do not split B
     loader = DataLoader(ds, batch_size=B, class_balanced=cfg.dataset.sampler == "class_balanced",
                         num_threads=cfg.dataset.num_workers, seed=cfg.training.seed)
     steps_per_epoch = max(len(loader), 1)
@@ -151,12 +181,14 @@ def main(argv=None) -> dict:
     accum = max(cfg.training.accumulate_grad_batches or 1, 1)
     tx = build_optimizer(cfg, max(steps_per_epoch // accum, 1))
     state, tx = create_train_state(model, tx=tx)
+    if mesh is not None:
+        state = shard_train_state(state, mesh)
     ckpt = CheckpointManager(out_dir / "checkpoints")
     resume = resolve_resume_path(cfg.training.resume_checkpoint, out_dir / "checkpoints")
     if resume is not None:
         state = restore_into(state, step_dir(resume))
-        print(f"Resumed from {resume} at step {state.step}")
-    step_fn = make_train_step(model, tx)
+        say(f"Resumed from {resume} at step {state.step}")
+    step_fn = make_train_step(model, tx, mesh)
 
     total_steps = args.max_steps or steps_per_epoch * cfg.training.max_epochs
     log_every = cfg.training.log_every_n_steps
@@ -170,12 +202,12 @@ def main(argv=None) -> dict:
 
     def run_validation(epoch: int) -> None:
         """The val loss and a fixed progression grid, on the EMA's weights
-        once it has any."""
+        once it has any; every rank runs it, each its rows of the loss."""
         tcfg = cfg.training
         ema_active = state.ema.count > 0
         records = {"step": step, "epoch": epoch, "val/ema_swapped": ema_active}
         swap = swapped_in(model.core, state.ema) if ema_active else contextlib.nullcontext()
-        with swap, torch.no_grad(), eager():
+        with swap, full_parameters(state), torch.no_grad(), eager():
             losses = []
             vloader = DataLoader(val_ds, batch_size=B, shuffle=False, class_balanced=False,
                                  drop_last=False, num_threads=cfg.dataset.num_workers, seed=0)
@@ -184,13 +216,18 @@ def main(argv=None) -> dict:
                     break
                 (img, cimg, lbl), _ = pad_batch([vb["image"], vb["clip_image"], vb["label"]], B)
                 latents, clip_feats = encode_batch(
-                    model, img, cimg, encode_noise(model, img, None))
+                    model, img[rows], cimg[rows], encode_noise(model, img, None)[rows])
+                draws = val_draws(model, (B,) + tuple(latents.shape[1:]), i)
                 loss, _ = model.train_loss(
-                    {"latents": latents, "labels": lbl, "clip_feats": clip_feats},
-                    draws=val_draws(model, tuple(latents.shape), i))
-                losses.append(float(loss))
+                    {"latents": latents, "labels": lbl[rows], "clip_feats": clip_feats},
+                    draws=shard_draws(draws, rows))
+                losses.append(loss.detach().float())
             if losses:
-                records["val/loss"] = float(np.mean(losses))
+                losses = torch.stack(losses)
+                if mesh is not None:  # each rank's mean over its rows → the batch's
+                    dist.all_reduce(losses)
+                    losses /= dist.get_world_size()
+                records["val/loss"] = float(np.mean(losses.tolist()))
             if tcfg.val_progression_levels > 0:
                 item = val_ds.load(0)
                 K = tcfg.val_progression_levels
@@ -204,13 +241,15 @@ def main(argv=None) -> dict:
                                    steer_scale=1.0 if cfg.model.use_routing_gates else 0.0)
                 imgs = model.decode_latents(lat).cpu().numpy()
                 path = sample_dir / f"epoch{epoch:04d}.png"
-                progression_grid(imgs, list(levels), path)
+                if main_rank:
+                    progression_grid(imgs, list(levels), path)
                 records["val/progression_png"] = str(path)
         logger.log(records)
         if "val/loss" in records:
-            print(f"epoch {epoch} val: loss={records['val/loss']:.4f} (ema={ema_active})")
+            say(f"epoch {epoch} val: loss={records['val/loss']:.4f} (ema={ema_active})")
 
-    print(f"Training: {total_steps} steps, {steps_per_epoch} steps/epoch, on {model.device}")
+    say(f"Training: {total_steps} steps, {steps_per_epoch} steps/epoch, on {model.device}"
+        + ("" if mesh is None else f", rank 0 of {mesh}"))
     timer = PhaseTimer(model.device, sync=args.profile)
     t_start = t0 = time.perf_counter()
     done = step >= total_steps
@@ -231,14 +270,16 @@ def main(argv=None) -> dict:
                 if batch is None:
                     break
                 with timer.phase("encode"):
+                    mine = shard_batch(mesh, batch)
                     latents, clip_feats = encode_batch(
-                        model, batch["image"], batch["clip_image"],
-                        encode_noise(model, batch["image"], step))
+                        model, mine["image"], mine["clip_image"],
+                        encode_noise(model, batch["image"], step)[rows])
                 with timer.phase("train_step"):
-                    dev_batch = {"latents": latents, "labels": batch["label"],
+                    dev_batch = {"latents": latents, "labels": mine["label"],
                                  "clip_feats": clip_feats}
+                    shape = (B,) + tuple(latents.shape[1:])
                     state, metrics = step_fn(state, dev_batch,
-                                             draws=step_draws(model, state, tuple(latents.shape)))
+                                             draws=step_draws(model, state, shape))
                 step += 1
                 if step % log_every == 0:
                     m = {k: float(v) for k, v in metrics.items()}
@@ -247,10 +288,11 @@ def main(argv=None) -> dict:
                     t0 = time.perf_counter()
                     # the AOE statistics every max(10 log intervals, 500) steps
                     if step % max(log_every * 10, 500) < log_every:
-                        stats = model.core.ordinal_embedder.embedding_stats()
-                        m.update({k: float(v) for k, v in stats.items()})
+                        with full_parameters(state):
+                            stats = model.core.ordinal_embedder.embedding_stats()
+                            m.update({k: float(v) for k, v in stats.items()})
                     logger.log(m)
-                    print(f"step {step}: loss={m['loss']:.4f} ({m['img_per_sec']:.1f} img/s)")
+                    say(f"step {step}: loss={m['loss']:.4f} ({m['img_per_sec']:.1f} img/s)")
                 if step % steps_per_epoch == 0:
                     with timer.phase("checkpoint"):
                         ckpt.save(step, state)
@@ -266,8 +308,8 @@ def main(argv=None) -> dict:
             ckpt.save(step, state)
     ckpt.wait()
     if args.profile:
-        print(f"[profile] trace → {out_dir / 'trace'}\n{timer.report()}")
-    print(f"Done at step {step}; checkpoints in {out_dir / 'checkpoints'}")
+        say(f"[profile] trace → {out_dir / 'trace'}\n{timer.report()}")
+    say(f"Done at step {step}; checkpoints in {out_dir / 'checkpoints'}")
     return {"state": state, "phases": dict(timer.totals), "laps": dict(timer.laps),
             "seconds": time.perf_counter() - t_start, "checkpoints": ckpt}
 

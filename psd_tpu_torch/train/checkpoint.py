@@ -21,6 +21,14 @@ next step) and writes it in a background thread, as orbax saves
 asynchronously; `wait` joins the writes. After each write the oldest steps
 beyond `MAX_TO_KEEP` are deleted (psd_tpu's default). The CLI resumes
 through `restore_into(state, step_dir(path))`.
+
+Across ranks (`train/trainer.py::shard_train_state`) rank 0 writes this
+one-card format, whole tensors: under DDP from its own replica; under FSDP2
+every rank takes part in gathering each tensor (`parallel.mesh.full`, one
+at a time, so the card holds one whole tensor beyond its shards) and rank 0
+alone copies it to the host. A restore loads the whole tensors on every
+rank and cuts them to its shards, so a one-card checkpoint resumes on any
+mesh, and any mesh's on one card.
 """
 
 from __future__ import annotations
@@ -33,6 +41,9 @@ from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from ..parallel.mesh import full, local, local_part, rank
 
 FILES = ("params.pt", "ema.pt", "optimizer.pt", "state.json")
 MAX_TO_KEEP = 3
@@ -44,32 +55,39 @@ def saved_steps(directory: Path) -> List[int]:
     return sorted(int(p.name) for p in directory.iterdir() if p.is_dir() and p.name.isdigit())
 
 
-def _host(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    return {k: t.detach().to("cpu", copy=True) for k, t in tensors.items()}
+def snapshot(state) -> Optional[Dict]:
+    """A host copy of the train state: what `save` writes. Across ranks
+    every rank calls it (FSDP2's shards are gathered) and only rank 0 gets
+    the copy; the others get None."""
+    from .trainer import is_sharded
 
+    keep = rank() == 0
+    if not keep and not is_sharded(state):
+        return None  # DDP: rank 0 holds the whole state itself
 
-def snapshot(state) -> Dict:
-    """A host copy of the train state: what `save` writes."""
-    core = state.model.core
-    names = {p: n for n, p in core.named_parameters()}
+    def host(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        out = {}
+        for k, t in tensors.items():
+            whole = full(t.detach())
+            if keep:
+                out[k] = whole.to("cpu", copy=True)
+        return out
+
+    named = dict(state.model.core.named_parameters())
     opt = state.opt_state
-    adam = {"exp_avg": {}, "exp_avg_sq": {}, "step": {}}
-    for p, s in opt.adamw.state.items():
-        if s:
-            adam["exp_avg"][names[p]] = s["exp_avg"]
-            adam["exp_avg_sq"][names[p]] = s["exp_avg_sq"]
-            adam["step"][names[p]] = float(s["step"])
-    acc = None if opt.acc is None else dict(zip(names.values(), opt.acc))
-    return {
-        "params.pt": _host(dict(core.named_parameters())),
-        "ema.pt": _host(state.ema.params),
-        "optimizer.pt": {"exp_avg": _host(adam["exp_avg"]),
-                         "exp_avg_sq": _host(adam["exp_avg_sq"]), "step": adam["step"],
+    moments = {n: opt.adamw.state[p] for n, p in named.items() if opt.adamw.state.get(p)}
+    snap = {
+        "params.pt": host(named),
+        "ema.pt": host(state.ema.params),
+        "optimizer.pt": {"exp_avg": host({n: s["exp_avg"] for n, s in moments.items()}),
+                         "exp_avg_sq": host({n: s["exp_avg_sq"] for n, s in moments.items()}),
+                         "step": {n: float(s["step"]) for n, s in moments.items()},
                          "count": opt.count, "mini_step": opt.mini_step,
-                         "acc": None if acc is None else _host(acc)},
+                         "acc": None if opt.acc is None else host(dict(zip(named, opt.acc)))},
         "state.json": {"step": int(state.step), "ema_count": int(state.ema.count),
                        "generator": state.generator.get_state().tolist()},
     }
+    return snap if keep else None
 
 
 def nbytes(snap: Dict) -> int:
@@ -99,26 +117,32 @@ def _write(directory: Path, snap: Dict) -> None:
 @torch.no_grad()
 def restore_into(state, directory: Path):
     """Load the step directory `directory` into `state` in place: the
-    parameters, the EMA, AdamW's state, the counts and the generator."""
-    core = state.model.core
-    named = dict(core.named_parameters())
+    parameters, the EMA, AdamW's state, the counts and the generator; each
+    whole tensor cut to this rank's shard where the state is sharded."""
+    named = dict(state.model.core.named_parameters())
 
     def load(name):
         return torch.load(directory / name, map_location="cpu", weights_only=True, mmap=True)
 
+    def into(dst, whole):
+        if isinstance(dst, DTensor):
+            local(dst).copy_(local(local_part(whole, dst)))
+        else:
+            dst.copy_(whole)
+
     for name, t in load("params.pt").items():
-        named[name].copy_(t)
+        into(named[name], t)
     for name, t in load("ema.pt").items():
-        state.ema.params[name].copy_(t)
+        into(state.ema.params[name], t)
     opt, saved = state.opt_state, load("optimizer.pt")
     opt.adamw.state.clear()
     for name, step in saved["step"].items():
         p = named[name]
         opt.adamw.state[p] = {"step": torch.tensor(step, dtype=torch.float32),
-                              "exp_avg": saved["exp_avg"][name].to(p.device),
-                              "exp_avg_sq": saved["exp_avg_sq"][name].to(p.device)}
+                              "exp_avg": local_part(saved["exp_avg"][name], p),
+                              "exp_avg_sq": local_part(saved["exp_avg_sq"][name], p)}
     opt.count, opt.mini_step = saved["count"], saved["mini_step"]
-    opt.acc = None if saved["acc"] is None else [saved["acc"][n].to(p.device)
+    opt.acc = None if saved["acc"] is None else [local_part(saved["acc"][n], p)
                                                  for n, p in named.items()]
     meta = json.loads((directory / "state.json").read_text())
     state.step, state.ema.count = meta["step"], meta["ema_count"]
@@ -156,13 +180,16 @@ class CheckpointManager:
 
     def save(self, step: int, state) -> bool:
         """Snapshot `state` to host memory now and write it as `step` in the
-        background; False (nothing saved) for a step already saved."""
+        background; False (nothing saved) for a step already saved. Across
+        ranks every rank calls it and rank 0 writes."""
         if step in self._steps:
             return False
         snap = snapshot(state)
         self.wait()
         with self._lock:
             self._steps.append(step)
+        if snap is None:  # rank 0 writes it
+            return True
 
         def write():
             t0 = time.perf_counter()

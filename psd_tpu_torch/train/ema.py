@@ -6,7 +6,8 @@ happen every `update_every_n_steps`; the first update copies the parameters
 (torch AveragedModel with n_averaged == 0). The port updates the average in
 place (JAX's is a pure function returning a new tree). `swapped_in` puts
 the average in the module's place for validation and back (the reference's
-EMA swap; psd_tpu passes the EMA tree to its jitted functions).
+EMA swap; psd_tpu passes the EMA tree to its jitted functions). Under FSDP2
+the average is sharded as its parameters are and updated shard by shard.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ from typing import Dict, Iterator, Mapping
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from ..parallel.mesh import local
 
 
 @dataclass
@@ -37,8 +41,8 @@ def ema_update(state: EMAState, params: Mapping[str, torch.Tensor], step: int,
     """Fold `params` into the average at this step, when the gating says so."""
     if not (step >= start_step and (step - start_step) % every == 0):
         return state
-    avg = list(state.params.values())
-    new = [params[k].detach() for k in state.params]
+    avg = [local(t) for t in state.params.values()]
+    new = [local(params[k].detach()) for k in state.params]
     if state.count == 0:
         torch._foreach_copy_(avg, new)
     else:
@@ -51,13 +55,22 @@ def ema_update(state: EMAState, params: Mapping[str, torch.Tensor], step: int,
 @contextlib.contextmanager
 def swapped_in(module: nn.Module, state: EMAState) -> Iterator[None]:
     """The EMA's tensors in place of `module`'s parameters inside the block,
-    the parameters back after it. No copies: the storages are exchanged."""
+    the parameters back after it. No copies: the storages are exchanged,
+    except for FSDP2's sharded parameters, whose shards are views FSDP2
+    gathers from: their values are exchanged in place."""
     params = dict(module.named_parameters())
 
     def swap():
         with torch.no_grad():
             for name in state.params:
-                params[name].data, state.params[name] = state.params[name], params[name].data
+                p = params[name]
+                if isinstance(p, DTensor):
+                    mine, avg = local(p), local(state.params[name])
+                    held = mine.clone()
+                    mine.copy_(avg)
+                    avg.copy_(held)
+                else:
+                    p.data, state.params[name] = state.params[name], p.data
 
     swap()
     try:

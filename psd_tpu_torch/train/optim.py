@@ -19,6 +19,12 @@ The AdamW itself is `torch.optim.AdamW` (the same update as optax.adamw:
 eps 1e-8 outside the square root, decoupled decay lr·wd·p), one parameter
 group per LR group; `update` sets each group's LR from its schedule before
 every step. Unlike optax the state is updated in place.
+
+Under FSDP2 (`train/trainer.py::shard_train_state`) the gradients, moments
+and accumulators are DTensors sharded over the fsdp ranks: the global norm
+sums their local shards' squares over that group (`group`), so it is the
+whole gradient's norm, and the clip and the accumulation act on the local
+shards (`parallel.mesh.local`).
 """
 
 from __future__ import annotations
@@ -28,8 +34,10 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..core.config import Config
+from ..parallel.mesh import local
 
 DOUBLE_LR_MODULES = ("image_projection", "feature_purifier")
 
@@ -57,17 +65,24 @@ def group_label(name: str) -> str:
     return "x2" if any(p in DOUBLE_LR_MODULES for p in name.split(".")) else "x1"
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt(Σ‖t‖²) over a list of tensors, as a 0-d fp32 tensor."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))).float())
+def global_norm(tensors: Sequence[torch.Tensor], group=None) -> torch.Tensor:
+    """sqrt(Σ‖t‖²) over a list of tensors, as a 0-d fp32 tensor; with
+    `group`, of the whole tensors whose shards these are over its ranks."""
+    norms = torch.stack(torch._foreach_norm([local(t) for t in tensors])).float()
+    if group is None:
+        return torch.linalg.vector_norm(norms)
+    sq = norms.square().sum()
+    dist.all_reduce(sq, group=group)
+    return sq.sqrt()
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         group=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: unchanged below `max_norm`,
     g / ‖g‖ · max_norm above it. Returns the norm before clipping."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, group)
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    torch._foreach_mul_(grads, factor)
+    torch._foreach_mul_([local(g) for g in grads], factor)
     return norm
 
 
@@ -102,28 +117,30 @@ class Optimizer:
         return OptState(adamw)
 
     def update(self, state: OptState, params: Sequence[torch.nn.Parameter],
-               grads: List[torch.Tensor]) -> bool:
-        """Fold `grads` (one per parameter) in; True when an optimizer step
-        was applied (always, unless accumulating)."""
+               grads: List[torch.Tensor], group=None) -> bool:
+        """Fold `grads` (one per parameter, shards over `group` if given) in;
+        True when an optimizer step was applied (always, unless
+        accumulating)."""
         if self.accumulate > 1:
             if state.acc is None:
                 state.acc = [torch.zeros_like(g) for g in grads]
+            acc, g_local = [local(a) for a in state.acc], [local(g) for g in grads]
             n = state.mini_step
-            torch._foreach_mul_(state.acc, float(n))
-            torch._foreach_add_(state.acc, grads)
-            torch._foreach_div_(state.acc, float(n + 1))
+            torch._foreach_mul_(acc, float(n))
+            torch._foreach_add_(acc, g_local)
+            torch._foreach_div_(acc, float(n + 1))
             if n + 1 < self.accumulate:
                 state.mini_step = n + 1
                 return False
             state.mini_step = 0
-            grads = [a.clone() for a in state.acc]
-            torch._foreach_zero_(state.acc)
+            torch._foreach_copy_(g_local, acc)  # the mean, in the gradients' place
+            torch._foreach_zero_(acc)
         if self.clip and self.clip > 0:
-            clip_by_global_norm_(grads, self.clip)
+            clip_by_global_norm_(grads, self.clip, group)
         for p, g in zip(params, grads):
             p.grad = g
-        for group in state.adamw.param_groups:
-            group["lr"] = self.schedules[group["label"]](state.count)
+        for group_ in state.adamw.param_groups:
+            group_["lr"] = self.schedules[group_["label"]](state.count)
         state.adamw.step()
         state.count += 1
         return True

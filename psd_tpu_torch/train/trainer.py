@@ -1,24 +1,42 @@
-"""Train state and the train step, on one device.
+"""Train state and the train step, on one card or one rank of many.
 
 Counterpart of `psd_tpu/train/trainer.py` (`TrainState`,
-`create_train_state`, `make_train_step`) without the mesh: one card, no
-data parallelism (torch.distributed waits). One step is `DADD.train_loss`
-in training mode (`core.mode.training_mode()`, entered here as psd_tpu's
-step enters it, so a validation loss outside a step keeps the serving
-kernels) → backward → gradient norm → clip + AdamW (+ gradient
+`create_train_state`, `make_train_step`, `shard_train_state`). One step is
+`DADD.train_loss` in training mode (`core.mode.training_mode()`, entered
+here as psd_tpu's step enters it, so a validation loss outside a step keeps
+the serving kernels) → backward → gradient norm → clip + AdamW (+ gradient
 accumulation) → EMA, exactly the JAX step's order. The state is updated in
 place and returned.
+
+Across ranks (`parallel/mesh.py`, one process per card under torchrun)
+`shard_train_state` puts the loss (`diffusion.dadd.TrainLoss`) under DDP
+when fsdp = 1, which averages the core's gradients over the ranks, or
+under FSDP2 `fully_shard` on the (dp, fsdp) mesh when fsdp > 1 (HSDP:
+replicated over dp, sharded over fsdp; each ResnetBlock2D and Transformer2D
+of the UNet first, then the loss as the root), and shards the AdamW moments
+and the EMA as their parameters. No `MixedPrecisionPolicy`: the fp32
+masters are cast to bf16 at use, as on one card. Each rank feeds the step
+its own rows of the global batch (`parallel.mesh.shard_batch`) and draws
+the global batch's draws from the generator every rank seeds alike, then
+takes its rows (`shard_draws`): the local mean loss's averaged gradient is
+the gradient of the global mean, and the step is the one-card step on the
+global batch up to the order of the reductions, as psd_tpu's sharded step
+is. The logged metrics are averaged over the ranks.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch import nn
 
 from ..core.mode import training_mode
-from ..diffusion.dadd import DADD
+from ..diffusion.dadd import DADD, TrainLoss, shard_draws
+from ..parallel.mesh import batch_rows, local_part, shard_group, shard_placement
 from .ema import EMAState, ema_init, ema_update
 from .optim import Optimizer, OptState, build_optimizer, global_norm
 
@@ -30,6 +48,8 @@ class TrainState:
     opt_state: OptState
     ema: EMAState
     generator: torch.Generator
+    # across ranks (shard_train_state): the loss under DDP or FSDP2
+    loss: Optional[nn.Module] = None
 
 
 def create_train_state(dadd: DADD, tx: Optional[Optimizer] = None, steps_per_epoch: int = 1000,
@@ -48,25 +68,122 @@ def create_train_state(dadd: DADD, tx: Optional[Optimizer] = None, steps_per_epo
     return state, tx
 
 
-def make_train_step(dadd: DADD, tx: Optimizer):
+def _unet_blocks(dadd: DADD):
+    from ..models.unet import ResnetBlock2D, Transformer2D
+
+    return [m for m in dadd.core.unet.children() if isinstance(m, (ResnetBlock2D, Transformer2D))]
+
+
+@torch.no_grad()
+def shard_train_state(state: TrainState, mesh) -> TrainState:
+    """Place the state on the mesh (psd_tpu's `shard_train_state`): the loss
+    under DDP (fsdp = 1) or FSDP2 (fsdp > 1), the moments, the accumulated
+    gradients and the EMA as their parameters. The state may have taken
+    steps: its full tensors are cut to each rank's shards."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.nn.parallel import DistributedDataParallel as DDP
+
+    dadd, opt = state.model, state.opt_state
+    old = dict(dadd.core.named_parameters())
+    loss = TrainLoss(dadd)
+    n = mesh["fsdp"].size()
+    if n > 1:
+        place = shard_placement(n)
+        for block in _unet_blocks(dadd):
+            fully_shard(block, mesh=mesh, shard_placement_fn=place)
+        state.loss = fully_shard(loss, mesh=mesh, shard_placement_fn=place)
+    else:
+        # static_graph: the parameters the loss never reaches (whose
+        # gradients stay None, zeros below) are found at the first step
+        state.loss = DDP(loss, device_ids=None if dadd.device.type == "cpu" else [dadd.device],
+                         static_graph=True)
+    new = dict(dadd.core.named_parameters())
+    if any(new[k] is not old[k] for k in old):
+        moments = {k: opt.adamw.state.get(p) for k, p in old.items()}
+        name = {id(p): k for k, p in old.items()}
+        groups = [dict(g, params=[new[name[id(p)]] for p in g["params"]])
+                  for g in opt.adamw.param_groups]
+        opt.adamw = torch.optim.AdamW(groups, **{k: opt.adamw.defaults[k] for k in
+                                                 ("betas", "eps", "weight_decay")})
+        for k, s in moments.items():
+            if s:
+                opt.adamw.state[new[k]] = {
+                    "step": s["step"], "exp_avg": local_part(s["exp_avg"], new[k]),
+                    "exp_avg_sq": local_part(s["exp_avg_sq"], new[k])}
+        if opt.acc is not None:
+            opt.acc = [local_part(a, new[k]) for a, k in zip(opt.acc, old)]
+        state.ema.params = {k: local_part(t, new[k]) for k, t in state.ema.params.items()}
+    return state
+
+
+def is_sharded(state: TrainState) -> bool:
+    """True where the state is under FSDP2 (its tensors are shards)."""
+    from torch.distributed.fsdp import FSDPModule
+
+    return isinstance(state.loss, FSDPModule)
+
+
+@contextlib.contextmanager
+def full_parameters(state: TrainState) -> Iterator[None]:
+    """The core's parameters whole inside the block, on every rank, for
+    what runs outside the step (validation, the embedder's statistics):
+    under FSDP2 the root's group is gathered (each UNet block gathers its
+    own in its forward); nothing to do on one card or under DDP. Every
+    rank enters it together."""
+    if not is_sharded(state):
+        yield
+        return
+    state.loss.unshard()
+    try:
+        yield
+    finally:
+        state.loss.reshard()
+
+
+def _mean_over_ranks(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each metric (a mean over this rank's rows) averaged over the ranks:
+    the global batch's mean, the ranks' row counts being equal."""
+    keys = sorted(metrics)
+    stacked = torch.stack([metrics[k].detach().float() for k in keys])
+    dist.all_reduce(stacked)
+    stacked /= dist.get_world_size()
+    return dict(zip(keys, stacked.unbind()))
+
+
+def make_train_step(dadd: DADD, tx: Optimizer, mesh=None):
+    """The step. With a `mesh` (after `shard_train_state`) the batch holds
+    this rank's rows and the draws, when given, are the global batch's."""
     tcfg = dadd.cfg.training
-    named = dict(dadd.core.named_parameters())
-    params = list(named.values())
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    draws: Optional[Dict[str, torch.Tensor]] = None):
         """One step on `batch` (pre-encoded latents, labels, clip_feats);
         `draws` overrides the generator's random numbers (tests)."""
+        named = dict(dadd.core.named_parameters())
+        params = list(named.values())
         for p in params:
             p.grad = None
+        if mesh is not None:
+            n_local = len(batch["labels"])
+            n = n_local * dist.get_world_size()
+            if draws is None:
+                shape = (n,) + tuple(batch["latents"].shape[1:])
+                draws = dadd.sample_draws(shape, state.generator)
+            draws = shard_draws(draws, batch_rows(mesh, n))
         with training_mode():
-            loss, metrics = dadd.train_loss(batch, generator=state.generator, draws=draws)
+            if mesh is None:
+                loss, metrics = dadd.train_loss(batch, generator=state.generator, draws=draws)
+            else:
+                loss, metrics = state.loss(batch, draws)
             loss.backward()
+        if mesh is not None:
+            metrics = _mean_over_ranks(metrics)
         # a parameter the loss does not reach gets a zero gradient, as under
         # jax.grad (AdamW then still applies its weight decay)
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-        metrics["grad_norm"] = global_norm(grads)
-        applied = tx.update(state.opt_state, params, grads)
+        group = shard_group(params[0]) if mesh is not None else None
+        metrics["grad_norm"] = global_norm(grads, group)
+        applied = tx.update(state.opt_state, params, grads, group)
         if tx.accumulate > 1:
             # EMA start/every count optimizer steps; micro-steps never update
             ema_step = state.opt_state.count - 1 if applied else -1

@@ -4,6 +4,8 @@ package imports and the config names a `wandb.project`.
 Counterpart of `psd_tpu/utils/logging.py`: each record is one JSON line
 `{"ts": <unix seconds>, **metrics}`, flushed as it is written; a wandb run
 that fails to start or to log is dropped without changing the call sites.
+Across ranks only rank 0 logs; on the others the logger opens nothing and
+`log` does nothing.
 """
 
 from __future__ import annotations
@@ -13,13 +15,18 @@ import time
 from pathlib import Path
 from typing import Any, Dict, Optional
 
+from ..parallel.mesh import rank
+
 
 class MetricLogger:
     def __init__(self, jsonl_path: str | Path, wandb_cfg: Optional[Dict] = None):
         self.path = Path(jsonl_path)
+        self._fh = None
+        self._wandb = None
+        if rank() != 0:
+            return
         self.path.parent.mkdir(parents=True, exist_ok=True)
         self._fh = open(self.path, "a")
-        self._wandb = None
         if wandb_cfg and wandb_cfg.get("project"):
             try:
                 import wandb
@@ -36,6 +43,8 @@ class MetricLogger:
                 self._wandb = None
 
     def log(self, metrics: Dict[str, Any]) -> None:
+        if self._fh is None:
+            return
         self._fh.write(json.dumps({"ts": time.time(), **metrics}) + "\n")
         self._fh.flush()
         if self._wandb is not None:
@@ -51,7 +60,8 @@ class MetricLogger:
         self.close()
 
     def close(self) -> None:
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()
         if self._wandb is not None:
             try:
                 self._wandb.finish()

@@ -33,9 +33,10 @@ def test_train_augment_classify_chain(tmp_path):
     common = ["--config", TINY, f"dataset.dataset_path={data_root}", "dataset.batch_size=4",
               "training.log_every_n_steps=1", "training.check_val_every_n_epochs=0",
               "--max-steps", "2", "--output-dir", str(run_dir), "--device", "cpu"]
-    with pytest.raises(NotImplementedError):
+    # without torchrun the world is one process: a mesh of two ranks raises
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         train.main(common + ["--dp", "2"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         train.main(common + ["--fsdp", "2"])
     out = train.main(common + ["--dp", "1"])
     assert out["state"].step == 2

@@ -262,14 +262,18 @@ def test_infer_reads_the_ports_checkpoint(runs, tmp_path, monkeypatch, ema):
 
 
 def test_cli_device_and_parallel_refusals(runs, monkeypatch, tmp_path):
-    """--device never picks the CPU unasked; --dp 2 and --fsdp 2 raise."""
+    """--device never picks the CPU unasked; without torchrun the world is
+    one process, so --dp 2 and --fsdp 2 raise (saying how to start the
+    ranks), and --dp 0 is no mesh."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert train.build_argparser().parse_args(["--config", "c"]).device == "cuda"
     argv = _argv(runs["data"], tmp_path / "x")
     for extra in ([], ["--device", "auto"], ["--device", "cuda:0"]):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             train.main(argv + extra)
-    for extra in (["--dp", "2"], ["--fsdp", "2"], ["--dp", "0"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    for extra, match in ((["--dp", "2"], "torchrun --nproc-per-node 2"),
+                         (["--fsdp", "2"], "torchrun --nproc-per-node 2"),
+                         (["--dp", "0"], "dp is -1 or ≥ 1")):
+        with pytest.raises(ValueError, match=match):
             train.main(argv + ["--device", "cpu"] + extra)
     assert not (tmp_path / "x").exists()

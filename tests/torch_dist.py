@@ -1,0 +1,202 @@
+"""Ranks of torch.distributed on the CPU for the port's parallel tests.
+
+`run_ranks(fn, world, tmp_path, *args)` spawns `world` processes that join
+one gloo group through a `file://` store under `tmp_path` (never a TCP
+port: the suite runs several workers at once), each with two threads and
+a timeout of its own, so a hung collective fails the test instead of
+hanging the run (`Ranks` starts them and leaves the caller free until
+`join`). Each rank calls `fn(*args)` and hands back what it returns; a
+rank that raises fails the test with its traceback. `fn` lives in an
+importable module (spawned processes import it), and the functions the
+tests run live here: the port imports nothing from `tests/`.
+"""
+
+from __future__ import annotations
+
+import os
+import traceback
+from datetime import timedelta
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+TIMEOUT_S = 120
+
+
+def _entry(fn, rank, world, store, timeout, out, args):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    os.nice(5)  # below the caller, which may compile beside its ranks
+    torch.set_num_threads(2)
+    from threadpoolctl import threadpool_limits
+
+    try:
+        with threadpool_limits(2):
+            dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                    world_size=world, timeout=timedelta(seconds=timeout))
+            try:
+                out.put((rank, "ok", fn(*args)))
+            finally:
+                dist.destroy_process_group()
+    except BaseException:
+        out.put((rank, "error", traceback.format_exc()))
+
+
+class Ranks:
+    """`world` spawned gloo ranks running fn(*args); `join` → their results."""
+
+    def __init__(self, fn, world: int, tmp_path: Path, *args, timeout: float = TIMEOUT_S):
+        ctx = mp.get_context("spawn")
+        self.world, self.timeout, self.out = world, timeout, ctx.Queue()
+        store = Path(tmp_path) / f"store_{fn.__name__}_{os.urandom(4).hex()}"
+        self.procs = [ctx.Process(target=_entry,
+                                  args=(fn, r, world, store, timeout, self.out, args))
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def join(self) -> list:
+        results, errors = {}, []
+        try:
+            for _ in range(self.world):
+                rank, status, value = self.out.get(timeout=self.timeout + 60)
+                if status == "ok":
+                    results[rank] = value
+                else:
+                    errors.append(f"rank {rank}:\n{value}")
+        finally:
+            for p in self.procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+        if errors:
+            raise AssertionError("\n".join(errors))
+        return [results[r] for r in range(self.world)]
+
+
+def run_ranks(fn, world: int, tmp_path: Path, *args, timeout: float = TIMEOUT_S) -> list:
+    """fn(*args) on each of `world` gloo ranks → their results, by rank."""
+    return Ranks(fn, world, tmp_path, *args, timeout=timeout).join()
+
+
+# ---- what the ranks run ---------------------------------------------------------------
+def _numpy(tensors):
+    """name → whole numpy array, for plain tensors and DTensors alike: one
+    `all_gather_object` of every rank's shards (not a collective per
+    tensor), each whole tensor then concatenated from the shards of the
+    ranks along its sharded mesh dim."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from psd_tpu_torch.parallel.mesh import local
+
+    mine = {k: local(t.detach()).cpu().numpy().copy() for k, t in tensors.items()}
+    sharded = {k: t for k, t in tensors.items() if isinstance(t, DTensor)}
+    if not sharded:
+        return mine
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, {k: mine[k] for k in sharded})
+    for k, t in sharded.items():
+        (mesh_dim, dim), = [(i, p.dim) for i, p in enumerate(t.placements) if isinstance(p, Shard)]
+        index = list(t.device_mesh.get_coordinate())
+        index[mesh_dim] = slice(None)
+        ranks = t.device_mesh.mesh[tuple(index)].tolist()
+        mine[k] = np.concatenate([everyone[r][k] for r in ranks], axis=dim)
+    return mine
+
+
+def _state_arrays(state):
+    """Whole params, EMA, AdamW moments and accumulators (gathered on every
+    rank) as numpy, name → array."""
+    named = dict(state.model.core.named_parameters())
+    opt = state.opt_state
+    moments = {n: opt.adamw.state[p] for n, p in named.items() if opt.adamw.state.get(p)}
+    return {"params": _numpy(named), "ema": _numpy(state.ema.params),
+            "exp_avg": _numpy({n: s["exp_avg"] for n, s in moments.items()}),
+            "exp_avg_sq": _numpy({n: s["exp_avg_sq"] for n, s in moments.items()}),
+            "acc": None if opt.acc is None else _numpy(dict(zip(named, opt.acc))),
+            "ema_count": state.ema.count, "count": opt.count}
+
+
+def tiny_steps(dp: int, fsdp: int, overrides: dict, batches: list, steps: int,
+               remat: bool = False, draws=None):
+    """The port's step on `tiny_dadd(seed=0)`, `steps` times, on this rank's
+    rows of each global batch (numpy dicts), the draws the generator's or
+    the global ones given (one dict a step); with a mesh when dp or fsdp
+    is given (None: one process, no group). → per step the metrics, the
+    raw averaged gradients and the state's arrays (whole), and the initial
+    parameters."""
+    from psd_tpu_torch.parallel.mesh import MeshConfig, create_mesh, shard_batch
+    from psd_tpu_torch.testing import tiny_dadd
+    from psd_tpu_torch.train import create_train_state, make_train_step
+    from psd_tpu_torch.train.trainer import shard_train_state
+
+    model = tiny_dadd(for_training=True, seed=0, remat=remat)
+    for (section, name), value in overrides.items():
+        setattr(getattr(model.cfg, section), name, value)
+    state, tx = create_train_state(model, steps_per_epoch=10, seed=0)
+    mesh = None
+    if dp is not None:
+        mesh = create_mesh(MeshConfig(dp=dp, fsdp=fsdp), "cpu")
+        state = shard_train_state(state, mesh)
+    step = make_train_step(model, tx, mesh)
+    named = list(dict(model.core.named_parameters()))
+    seen = []
+    update = tx.update
+
+    def recording(opt_state, params, grads, group=None):
+        seen.append(_numpy(dict(zip(named, grads))))
+        return update(opt_state, params, grads, group)
+
+    tx.update = recording
+    metrics, states = [], []
+    init = _numpy(dict(model.core.named_parameters()))
+    for i in range(steps):
+        batch = {k: torch.from_numpy(np.asarray(v)) for k, v in batches[i].items()}
+        mine = shard_batch(mesh, batch)
+        d = None if draws is None else {k: torch.from_numpy(np.array(v)) for k, v in
+                                        draws[i].items()}
+        state, m = step(state, mine, draws=d)
+        metrics.append({k: float(v) for k, v in m.items()})
+        states.append(_state_arrays(state))
+    return {"metrics": metrics, "grads": seen, "states": states, "init": init}
+
+
+def shard_round_trip(dp: int, fsdp: int) -> list:
+    """`full` and `local_part` on this rank against DTensor's own sharding,
+    over even and uneven shapes and every dim: → what disagreed."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from psd_tpu_torch.parallel.mesh import MeshConfig, create_mesh, full, local_part
+
+    mesh = create_mesh(MeshConfig(dp=dp, fsdp=fsdp), "cpu")
+    bad = []
+    for shape, dim in [((5, 3), 0), ((7,), 0), ((3, 8), 1), ((1, 4), 0), ((6, 4, 3), 2)]:
+        x = torch.arange(int(np.prod(shape)), dtype=torch.float32).reshape(shape)
+        dt = distribute_tensor(x, mesh, [Replicate(), Shard(dim)])
+        part = local_part(x, dt)
+        if not torch.equal(part.to_local(), dt.to_local()):
+            bad.append(("local_part", shape, dim))
+        if not (torch.equal(full(dt), x) and torch.equal(full(part), x)):
+            bad.append(("full", shape, dim))
+    return bad
+
+
+def steps_and_round_trip(dp: int, fsdp: int, *args):
+    """`tiny_steps`, then `shard_round_trip`, in one group of ranks."""
+    return tiny_steps(dp, fsdp, *args), shard_round_trip(dp, fsdp)
+
+
+def tiny_runs(dp: int, fsdp: int, runs: dict, batches: list, remat: bool = False):
+    """`tiny_steps` for each run (name → (overrides, steps)) in turn."""
+    return {name: tiny_steps(dp, fsdp, over, batches, steps, remat)
+            for name, (over, steps) in runs.items()}
+
+
+def cli_main(argv):
+    """The train CLI's `main` on this rank → its final step and whole state."""
+    from psd_tpu_torch.pipelines import train
+
+    r = train.main(argv)
+    return {"step": r["state"].step, **_state_arrays(r["state"])}
