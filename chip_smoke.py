@@ -112,14 +112,35 @@ Phases, in order; any failure exits non-zero:
                a LEACE npz fitted in the phase. Each run: 13 finite images in
                [0, 1], the files written, each kernel's launches equal to
                what the routes give the batch (psd_tpu_torch.testing.
-               route_launches: at batch 13 the LN kernels skip the 16² and 8²
-               levels), the CLIP tower's bf16 features against the same tower
+               route_launches: at batch 13 the LN kernels skip the 8²
+               level), the CLIP tower's bf16 features against the same tower
                in fp32 (CLIP_REL_BAND); in (a) one batch-13 eps on the CLI's
                conditioning, kernels against all plain (UNET_REL_BAND). Then
                each kernel against its plain version by its judge at the
                path's batch-13 and batch-26 shapes (INFER_*; not timed).
                Printed: the CLI's phase times, its time and main()'s wall
                with the model's build, peak memory, the card.
+  5d. serve_ranks — GenerationServer(mesh=) across ranks, started by
+               torchrun (`chip_smoke.py --rank-worker`, each rank the server
+               in-process) at phase 5's width (512², 50 DDIM steps, bf16, by
+               graph replay; fused is off under a mesh: sample(mesh=) and
+               decode_latents(mesh=), each rank its own programs at its rows,
+               gathered): (a) two ranks on cuda:0 over gloo at dp 2,
+               max_batch 8 (4 rows a rank): rank 0 answers phase 5's first 12
+               requests (a full batch and a padded one), again, and with a
+               planted fault (each rank's x0 drawn at its own 4 rows); (b)
+               one rank on NCCL at dp 1. Checks: rank 0's images within
+               SERVE_RANKS_BAND of phase 5's one-process server on the same
+               requests and seeds (mean), the fault beyond it (both printed);
+               equal bit for bit to one process at a rank's rows; the
+               second round bit for bit, dp 1 equal to phase 5 bit for bit;
+               each rank's two programs launching the routes' counts at its
+               rows, the host counts warm-up + capture; then each serving
+               kernel against its plain version at a rank's 4 rows
+               (SERVE_RANK_*, not timed). Prints, per rank, each batch's wall
+               (synchronized), the time in the gathers, one replay's device
+               and host time, each program's warm-up / capture /
+               instantiation, peak memory, the card.
   6. train   — the attention backward kernel against autograd through the
                plain version at the training shapes, by relative L2 over
                each of dQ, dK, dV and each of their rows
@@ -188,17 +209,17 @@ Phases, in order; any failure exits non-zero:
                GB states on one card), one loader thread, 2 steps, each run
                against a one-process run of the same argv: (a) two ranks
                on cuda:0 over gloo at --dp 2 (DDP), then at --fsdp 2
-               (FSDP2); (b) one rank on NCCL at --dp 1. A run that fails
+               (FSDP2, 1 step); (b) one rank on NCCL at --dp 1. A run that fails
                prints each rank's last collective and a crashed rank's
                stack.
                Checks: each step's loss and grad norm (RANKS_LOSS_RTOL,
                RANKS_NORM_RTOL), the post-step parameters' difference over
                the one-process update (RANKS_UPDATE_BAND, set against
                every rank skipping the gradient average), each rank's
-               launches equal to phase 6's per step × 2 + one encoder
-               attention a batch, rank 0's checkpoint read by the infer
-               CLI on its EMA; then each kernel against its plain version
-               at 16 and 32 rows (RANKS_*, not timed). Prints each rank's
+               launches equal to phase 6's per step × its steps + one
+               encoder attention a batch, rank 0's checkpoint read by the
+               infer CLI on its EMA; then each kernel against its plain
+               version at a rank's 16 rows (RANKS_*, not timed). Prints each rank's
                synced step times, the share of the last step in gloo's
                collectives (torch.profiler's gloo spans, each from its call
                to its completion, DDP's own reducer's too; NCCL's complete
@@ -206,9 +227,11 @@ Phases, in order; any failure exits non-zero:
                phases, peak memory and launches, the card.
 The line before the last is a JSON object with one entry per kernel:
 `launches` counts the launches of the main-path runs (phases 3b, 5, 5b, 5c,
-6, 6b, 6c and 6d, each with the counts set to 0 just before it, 5c before each of
+5d, 6, 6b, 6c and 6d, each with the counts set to 0 just before it, 5c before each of
 its two CLI runs, 6b before each of its three, 6c before each of its three,
-6d in each rank before its run, whose rank 0 of --dp 2 is `train_dp`;
+5d and 6d in each rank before its run, whose rank 0 of dp 2 over gloo is
+`serve_dp` (5d, the host counts of its warm-ups and captures) and
+`train_dp` (6d);
 `launches_by_path` splits them; in phases 5 and 5b the wrappers run, and count, at the eager warm-up
 and at the capture of the batch's program, and `launches_per_replay` gives
 what one replay launches),
@@ -230,6 +253,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -381,6 +405,34 @@ TURBO_LAUNCHES = {"attention": 156, "split3": 185, "ln_proj": 382, "ln_geglu": 1
                   "gn_proj": 191}
 # served batches timed with and without graphs, in alternating pairs
 AB_PAIRS = 4
+# phase 5d: serving across ranks, GenerationServer(mesh=) started by
+# torchrun at phase 5's width (512², 50 DDIM steps, bf16, by graph replay).
+# The run has one card and NCCL refuses two ranks on one device, so (a) two
+# ranks share cuda:0 over gloo at dp 2, max_batch 8 (4 rows a rank), and (b)
+# one rank runs on NCCL at dp 1. Rank 0 answers phase 5's first 12 requests
+# (a full batch and one of 4 padded to 8), once more (replays) and once with
+# a planted fault: each rank drawing its x0 at its own 4 rows instead of
+# taking its rows of the batch's draw of 8.
+SERVE_RANKS_BATCH, SERVE_RANKS_REQUESTS = 8, 12
+# rank 0's images against phase 5's one-process server on the same requests
+# and seeds, the mean absolute difference on [0, 1]. The ranks run 4 rows
+# where the one process runs 8, and cuDNN's and cuBLAS's bf16 sums at 4 rows
+# round otherwise: one eps differs by 1.3e-2 relative L2 (all plain too),
+# and the random-weight 50-step sampler grows it to images 0.127 apart (one
+# process, rows 0-3 at 4 against 8; another x0 reads 0.246; PERF.md §6 PR
+# 16). On an NVIDIA H100 80GB HBM3 (700 W) the sound ranks read 0.1209 and
+# the planted fault 0.1633, both deterministic; the band sits between. The
+# exact check is beside it: the ranks' images equal, bit for bit, what one
+# process gives at a rank's rows of the same batches and draws.
+SERVE_RANKS_BAND = 0.14
+# a rank's 4 rows: the serving kernels at phase 5's shapes at batch 4, held
+# to their plain versions untimed (split3 at S = 64 too, which the route
+# leaves to the plain path at any batch)
+SERVE_RANK_ATTN_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 4096, 1, 512)]
+SERVE_RANK_SPLIT3_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160),
+                            (4, 64, 8, 160)]
+SERVE_RANK_LN_SHAPES = [(4 * 4096, 320), (4 * 1024, 640), (4 * 256, 1280), (4 * 64, 1280)]
+SERVE_RANK_GN_SHAPES = [(4, 4096, 320), (4, 1024, 640), (4, 256, 1280), (4, 64, 1280)]
 # int8 vs bf16 VAE decode of the same latents (8, 64, 64, 4), same weights
 # with spread channel gains: PSNR floor in dB, between the sound reading
 # (37.19) and a planted per-tensor weight scale's (36.69; deterministic,
@@ -419,7 +471,8 @@ LEACE_FIT_ROWS = 32
 INFER_ATTN_SHAPES = [(13, 4096, 8, 40), (13, 1024, 8, 80), (13, 4096, 1, 512),
                      (26, 1024, 8, 40), (13, 1024, 1, 512)]
 INFER_SPLIT3_SHAPES = [(13, 4096, 8, 40), (13, 1024, 8, 80), (13, 256, 8, 160)]
-INFER_LN_SHAPES = [(13 * 4096, 320), (13 * 1024, 640), (26 * 1024, 320), (26 * 256, 640)]
+INFER_LN_SHAPES = [(13 * 4096, 320), (13 * 1024, 640), (13 * 256, 1280), (26 * 1024, 320),
+                   (26 * 256, 640), (26 * 64, 1280)]
 INFER_GN_SHAPES = [(13, 4096, 320), (13, 1024, 640), (13, 256, 1280), (13, 64, 1280),
                    (26, 1024, 320), (26, 256, 640), (26, 64, 1280)]
 
@@ -445,7 +498,7 @@ TRAIN_CLI_ATTN_SHAPES = [(64, 1024, 1, 512), (4, 1024, 1, 512)]
 TRAIN_CLI_SPLIT3_SHAPES = [(64, 1024, 8, 40), (64, 256, 8, 80), (4, 1024, 8, 40),
                            (4, 256, 8, 80)]
 TRAIN_CLI_LN_SHAPES = [(64 * 1024, 320), (64 * 256, 640), (64 * 64, 1280), (64 * 16, 1280),
-                       (4 * 1024, 320), (4 * 256, 640)]
+                       (4 * 1024, 320), (4 * 256, 640), (4 * 64, 1280)]
 TRAIN_CLI_GN_SHAPES = [(64, 1024, 320), (64, 256, 640), (64, 64, 1280), (4, 1024, 320),
                        (4, 256, 640), (4, 64, 1280)]
 
@@ -494,15 +547,15 @@ LOOP_GN_SHAPES = [(12, 1024, 320), (12, 256, 640), (12, 64, 1280)]
 # runs on NCCL, the production backend (--dp 1 in a world of 1). A global
 # batch of 32 (16 a rank, so two 14.7 GB training states and their
 # activations fit in 80 GB: the one cut, in batch) of configs/train_ip.yaml
-# at full width, 256², 2 steps, on the phase's own tree of PNGs; each run
-# against a one-process run of the same argv (no torchrun).
+# at full width, 256², 2 steps (--fsdp 2: 1), on the phase's own tree of
+# PNGs; each run against a one-process run of the same argv (no torchrun).
 # One loader thread: with more, the augment's draws follow the threads'
 # order (data/limuc.py), and two runs of one argv differ by more than the
 # ranks do (two one-process runs read 2.2e-1 of the update apart; PERF.md).
 RANKS_ARGS = ["dataset.batch_size=32", "dataset.num_workers=1",
               "training.update_starting_at_step=0", "training.log_every_n_steps=1",
               "--max-steps", "2"]
-RANKS_STEPS = 2
+RANKS_STEPS, RANKS_FSDP_STEPS = 2, 1
 RANKS_TIMEOUT_S = 420
 # against the one-process run: each step's loss and grad norm (relative),
 # and the post-step parameters' difference relative to the one-process
@@ -514,10 +567,10 @@ RANKS_TIMEOUT_S = 420
 # precedes any update), grad norms 1.3e-3 against 0.16, the update 3.9e-2
 # (FSDP2 at one rank 1.2e-2, --dp 1 on NCCL 0: the same rows) against 0.50.
 RANKS_LOSS_RTOL, RANKS_NORM_RTOL, RANKS_UPDATE_BAND = 1e-3, 2e-2, 0.15
-RANKS_ATTN_SHAPES = [(16, 1024, 8, 40), (32, 1024, 8, 40), (16, 1024, 1, 512),
-                     (32, 1024, 1, 512)]
-RANKS_SPLIT3_SHAPES = [(16, 1024, 8, 40), (16, 256, 8, 80), (32, 1024, 8, 40),
-                       (32, 256, 8, 80)]
+# the kernels at the rows a rank gives them (16), held to their plain
+# versions untimed
+RANKS_ATTN_SHAPES = [(16, 1024, 8, 40), (16, 1024, 1, 512)]
+RANKS_SPLIT3_SHAPES = [(16, 1024, 8, 40), (16, 256, 8, 80)]
 
 # ln_gemm_kernel<Kind> in ln_gemm_sm90.cuh, by the enum's value (gn: gn_proj)
 LN_KINDS = ("proj1", "proj3", "geglu", "gn")
@@ -1459,6 +1512,17 @@ def _check_capture_failure() -> dict:
     return r
 
 
+def _serve_requests(batch: int = 8) -> list:
+    """Phase 5's requests, (feats, target, source, seed) each: two batches of
+    `batch`, each led by its own seed (phase 5d serves the first 12)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((2 * batch, 257, 1024)).astype(np.float32)
+    targets = np.tile(np.linspace(0.0, 3.0, batch), 2)
+    return [(feats[i], targets[i], 1.0, i if i < batch else 100 + i) for i in range(2 * batch)]
+
+
 def phase_serve(card: str, unet: dict) -> dict:
     """The exact path (50 DDIM steps, bf16 VAE) at 512², batch 8, through
     GenerationServer: by graph replay (the default), against the eager run
@@ -1478,11 +1542,7 @@ def phase_serve(card: str, unet: dict) -> dict:
     model = DADD(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
     torch.cuda.synchronize()
     log(f"[serve] SD-scale DADD built and initialised in {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(0)
-    feats = rng.standard_normal((2 * batch, 257, 1024)).astype(np.float32)
-    targets = np.tile(np.linspace(0.0, 3.0, batch), 2)
-    # two batches, each led by its own seed
-    requests = [(feats[i], targets[i], 1.0, i if i < batch else 100 + i) for i in range(2 * batch)]
+    requests = _serve_requests(batch)
     first = requests[:batch]
 
     def make_server(**kw):
@@ -1514,6 +1574,8 @@ def phase_serve(card: str, unet: dict) -> dict:
     probe.events.clear()
     images16, _ = _serve(server, requests)
     pipelined = probe.events[:4] == ["dispatch", "dispatch", "fulfill", "fulfill"]
+    # phase 5d's requests: a full batch and one of 4 padded to 8
+    images12, _ = _serve(server, requests[:SERVE_RANKS_REQUESTS])
     _close(server, "graph")
 
     # the eager run of the same requests
@@ -1543,9 +1605,10 @@ def phase_serve(card: str, unet: dict) -> dict:
         "all five serving kernels launched": min(serve_counts.values()) > 0,
         "attention saw D=40, 80 (UNet) and 512 (VAE)": all(dims.get(d, 0) > 0
                                                            for d in (40, 80, 512)),
-        # first, again, two pipelined: four replays of one program; the
-        # eager server replays nothing, fused=False one program of each kind
-        "one replay a batch (fused=True)": prog.replays == 4,
+        # first, again, two pipelined, phase 5d's two: six replays of one
+        # program; the eager server replays nothing, fused=False one
+        # program of each kind
+        "one replay a batch (fused=True)": prog.replays == 6,
         "two replays a batch (fused=False)": (sprog.replays, dprog.replays) == (1, 1),
         f"the capture launches {expected}": launches == expected,
         "host counts = warm-up + capture": serve_counts == {k: 2 * n for k, n in expected.items()},
@@ -1573,7 +1636,9 @@ def phase_serve(card: str, unet: dict) -> dict:
         f"{wall_replay:.3f} s, {batch / wall_replay:.4f} img/s on {card}")
     log(f"[serve] host launch counts over the first batch {counts} (the eager warm-up and the "
         f"capture); one replay launches {dict(prog.launches)}; attention by head dim {dims}")
-    log(f"[serve] max abs difference {diffs}; fused=False: sample warm-up "
+    log(f"[serve] max abs difference {diffs}; phase 5d's 12 requests (the second batch padded "
+        f"from 4) against the same requests in two full batches: "
+        f"{_max_diff(images12, images16[:12])}; fused=False: sample warm-up "
         f"{sprog.warmup_s:.3f} s + capture {sprog.capture_s:.3f} s + instantiation "
         f"{sprog.instantiate_s:.3f} s, decode {dprog.warmup_s:.3f} + {dprog.capture_s:.3f} + "
         f"{dprog.instantiate_s:.3f} s")
@@ -1598,7 +1663,8 @@ def phase_serve(card: str, unet: dict) -> dict:
     torch.cuda.empty_cache()
     failure = _check_capture_failure()
     return {"counts": counts, "head_dims": dims, "replay_launches": launches,
-            "wall_s": wall_replay, "img_per_s": batch / wall_replay, "ab": ab,
+            "images12": images12, "wall_s": wall_replay, "img_per_s": batch / wall_replay,
+            "ab": ab,
             "replay_ms": replay_ms, "diffs": diffs, "failure": failure,
             "memory_gib": {"first_peak": peak_first, "replay_peak": peak_replay,
                            "eager_peak": peak_eager, **mem_graph}}
@@ -2948,28 +3014,21 @@ COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce", 
 
 
 def rank_worker(spec_path: str) -> int:
-    """One rank of phase 6d, started by torchrun (`chip_smoke.py --rank-worker
-    <spec.json>`): the train CLI's main() in-process on this rank's card,
-    as phase 6b runs it, with (on this rank only) the kernels' launch counts
-    from 0, each phase ending with a synchronize, each step's window under
-    torch.profiler (its gloo spans: the time in collectives) and each
-    collective called from Python written to a file before it is entered (a
-    crash leaves the last). The spec's `backend: gloo` runs the ranks on
-    cuda:0 over a gloo group this worker starts (main() takes it as the
-    caller's), else main() starts NCCL on LOCAL_RANK's card; `fault:
-    no_average` skips DDP's all-reduce by a comm hook, else DDP reduces as
-    in production. Writes `<tag>.rank<r>.json`."""
+    """One rank of phase 5d or 6d, started by torchrun (`chip_smoke.py
+    --rank-worker <spec.json>`): the spec's `kind` ("train": the train CLI,
+    `_train_rank`; "serve": the server, `_serve_rank`) in-process on this
+    rank's card, with each collective called from Python written to a file
+    before it is entered (a crash leaves the last). The spec's `backend:
+    gloo` runs the ranks on cuda:0 over a gloo group this worker starts
+    (the code under test takes it as the caller's), else NCCL starts on
+    LOCAL_RANK's card as in production. Writes `<tag>.rank<r>.json`."""
     import faulthandler
     import os
     from datetime import timedelta
 
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
 
-    from psd_tpu_torch.ops import kernels
     from psd_tpu_torch.parallel.mesh import TIMEOUT_S
-    from psd_tpu_torch.pipelines import train
-    from psd_tpu_torch.train import trainer
 
     faulthandler.enable()  # a crashing rank prints its Python stack into the log
     spec = json.loads(Path(spec_path).read_text())
@@ -2982,7 +3041,6 @@ def rank_worker(spec_path: str) -> int:
         torch.cuda.set_device(0)
         dist.init_process_group("gloo", timeout=timedelta(seconds=TIMEOUT_S))
     trace = open(work / f"{spec['tag']}.rank{rank}.collectives", "w", buffering=1)
-    windows, comm = [], []
 
     def traced(*a, _call, _name, **k):
         t = next((x for x in (*a, *k.values()) if isinstance(x, torch.Tensor)), None)
@@ -2991,7 +3049,32 @@ def rank_worker(spec_path: str) -> int:
 
     for name in COLLECTIVES:
         setattr(dist, name, functools.partial(traced, _call=getattr(dist, name), _name=name))
+    run = {"train": _train_rank, "serve": _serve_rank}[spec.get("kind", "train")]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out = run(spec, rank, work)
+    finally:
+        if dist.is_initialized():  # the train CLI ends a group it started itself
+            dist.destroy_process_group()
+    out.update(rank=rank, world=int(os.environ["WORLD_SIZE"]), backend=backend,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    (work / f"{spec['tag']}.rank{rank}.json").write_text(json.dumps(out))
+    return 0
 
+
+def _train_rank(spec: dict, rank: int, work: Path) -> dict:
+    """Phase 6d's rank: the train CLI's main() as phase 6b runs it, with the
+    kernels' launch counts from 0, each phase ending with a synchronize,
+    each step's window under torch.profiler (its gloo spans: the time in
+    collectives); `fault: no_average` skips DDP's all-reduce by a comm
+    hook, else DDP reduces as in production."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from psd_tpu_torch.ops import kernels
+    from psd_tpu_torch.pipelines import train
+    from psd_tpu_torch.train import trainer
+
+    windows, comm = [], []
     shard, make_step, timer = train.shard_train_state, train.make_train_step, train.PhaseTimer
 
     def sharding(state, mesh):
@@ -3035,35 +3118,25 @@ def rank_worker(spec_path: str) -> int:
 
     train.shard_train_state, train.make_train_step = sharding, stepping
     train.PhaseTimer = lambda device, sync: timer(device, sync=True)
-    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    try:
-        t0 = time.perf_counter()
-        r = train.main(spec["argv"])
-        wall = time.perf_counter() - t0
-    finally:
-        if backend == "gloo":
-            dist.destroy_process_group()
-    counts, dims = dict(kernels.launch_counts), dict(kernels.attention_head_dims)
-    out = {"rank": rank, "world": int(os.environ["WORLD_SIZE"]), "backend": backend,
-           "counts": counts, "head_dims": dims, "laps": r["laps"], "wall": wall,
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "steps_s": [b - a for a, b in windows],
-           "comm_s": comm if backend == "gloo" else None,
-           "sharded": trainer.is_sharded(r["state"]), "device": str(r["state"].model.device)}
-    (work / f"{spec['tag']}.rank{rank}.json").write_text(json.dumps(out))
-    return 0
+    t0 = time.perf_counter()
+    r = train.main(spec["argv"])
+    wall = time.perf_counter() - t0
+    return {"counts": dict(kernels.launch_counts), "head_dims": dict(kernels.attention_head_dims),
+            "laps": r["laps"], "wall": wall, "steps_s": [b - a for a, b in windows],
+            "comm_s": comm if spec.get("backend") == "gloo" else None,
+            "sharded": trainer.is_sharded(r["state"]), "device": str(r["state"].model.device)}
 
 
-def _torchrun(work: Path, tag: str, nproc: int, argv: list, **spec) -> dict:
-    """The train CLI on `nproc` ranks under torchrun (rank_worker each);
-    → each rank's results, the exit code, the log's tail, and each rank's
-    last collective entered. Every process it starts is stopped."""
+def _torchrun(work: Path, tag: str, nproc: int, **spec) -> dict:
+    """`nproc` ranks under torchrun (rank_worker each, on `spec`); → each
+    rank's results, the exit code, the log's tail, and each rank's last
+    collective entered. Every process it starts is stopped."""
     import os
     import signal
 
     spec_path = work / f"{tag}.spec.json"
-    spec_path.write_text(json.dumps({"work": str(work), "tag": tag, "argv": argv, **spec}))
+    spec_path.write_text(json.dumps({"work": str(work), "tag": tag, **spec}))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
            str(nproc), str(ROOT / "chip_smoke.py"), "--rank-worker", str(spec_path)]
     log_path = work / f"{tag}.log"
@@ -3094,17 +3167,278 @@ def _torchrun(work: Path, tag: str, nproc: int, argv: list, **spec) -> dict:
     # a crashed rank's stack (faulthandler), else the log's end
     crash = [i for i, line in enumerate(text) if line.startswith("Fatal Python error")]
     tail = text[crash[0]:crash[0] + 24] if crash else text[-12:]
-    return {"rc": rc, "ranks": ranks, "wall": wall, "tail": tail, "last_collective": last,
-            "out": Path(argv[argv.index("--output-dir") + 1])}
+    return {"rc": rc, "ranks": ranks, "wall": wall, "tail": tail, "last_collective": last}
 
 
-def _flat_rel(a_dir: Path, b_dir: Path, start) -> tuple:
+def _ranks_failed(phase: str, tag: str, run: dict) -> None:
+    """A run that did not end: each rank's count of collectives entered and
+    the last, and a crashed rank's stack (faulthandler)."""
+    log(f"[{phase}] {tag}: rc {run['rc']}; each rank's collectives entered and the "
+        f"last: {run['last_collective']}; log:\n  " + "\n  ".join(run["tail"]))
+
+
+# ---- serving across ranks -----------------------------------------------------------
+def _serve_rank(spec: dict, rank: int, work: Path) -> dict:
+    """Phase 5d's rank: a GenerationServer(mesh=) on a (dp, 1) mesh over the
+    SD-scale DADD as phase 5 builds it; rank 0 serves phase 5's first
+    SERVE_RANKS_REQUESTS requests in each of the spec's rounds ("sound";
+    "again", its replays; "fault", each rank's x0 drawn at its own rows)
+    and saves their images. Timed on every rank: each batch (from its
+    header to its images, synchronized), each gather (synchronized on both
+    sides, the wait for the other rank included), then each program's
+    replay, one rank at a time."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from psd_tpu_torch.core.config import load_config
+    from psd_tpu_torch.diffusion.dadd import DADD
+    from psd_tpu_torch.ops import kernels
+    from psd_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from psd_tpu_torch.pipelines.serve import GenerationServer
+
+    mesh = create_mesh(MeshConfig(dp=spec["dp"]), "cuda")
+    world = mesh.size()
+    cfg = load_config(ROOT / "configs" / "train_ip.yaml", ["dataset.image_size=512"])
+    model = DADD(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    requests = _serve_requests(SERVE_RANKS_BATCH)[:SERVE_RANKS_REQUESTS]
+    batches, gathers = [], []
+    gather = dist.all_gather_into_tensor
+
+    def timed_gather(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gather(*a, **k)
+        torch.cuda.synchronize()
+        gathers.append(time.perf_counter() - t0)
+        return out
+
+    dist.all_gather_into_tensor = timed_gather
+
+    class TimedServer(GenerationServer):
+        def _generate(self, *a):
+            t0 = time.perf_counter()
+            out = super()._generate(*a)
+            torch.cuda.synchronize()
+            batches.append(time.perf_counter() - t0)
+            return out
+
+    noise = model.initial_noise
+
+    def own_rows(batch, image_size, generator, shared_noise=True):
+        """The planted fault: x0 drawn at a rank's row count, repeated."""
+        return noise(batch // world, image_size, generator, shared_noise).repeat(world, 1, 1, 1)
+
+    kernels.reset_launch_counts()
+    rounds, counts = {}, {}
+    for name in spec["rounds"]:
+        model.initial_noise = own_rows if name == "fault" else noise
+        batches.clear()
+        gathers.clear()
+        server = TimedServer(model, image_size=cfg.dataset.image_size,
+                             sampling_steps=cfg.diffusion.sampling_steps, steer_scale=1.0,
+                             max_batch=SERVE_RANKS_BATCH, max_wait_s=0.05, mesh=mesh)
+        wall = None
+        if rank == 0:
+            images, wall = _serve(server, requests)
+            np.save(work / f"{spec['tag']}.{name}.npy", np.stack(images))
+        server.close()
+        model.initial_noise = noise
+        rounds[name] = {"wall_s": wall, "batch_s": list(batches), "gather_s": list(gathers)}
+        counts[name] = dict(kernels.launch_counts)
+    progs = {key[0]: p for key, p in model.programs.items()}
+    programs = {kind: {"launches": dict(p.launches), "replays": p.replays,
+                       "warmup_s": p.warmup_s, "capture_s": p.capture_s,
+                       "instantiate_s": p.instantiate_s} for kind, p in progs.items()}
+    if rank == 0 and world > 1:
+        np.save(work / f"{spec['tag']}.blocks.npy", _one_process_blocks(model, requests, world))
+    replay = {}
+    for r in range(world):  # one rank's replays at a time on the card
+        if r == rank:
+            replay = {kind: _replay_ms(p) for kind, p in progs.items()}
+        dist.barrier()
+    return {"counts": counts[spec["rounds"][0]], "counts_end": counts[spec["rounds"][-1]],
+            "head_dims": dict(kernels.attention_head_dims), "n_programs": len(model.programs),
+            "programs": programs,
+            "replay_ms": replay, "rounds": rounds, "device": str(model.device)}
+
+
+def _one_process_blocks(model, requests, world: int):
+    """What one process gives at a rank's rows, without a mesh: each of the
+    server's batches as it pads it (features with the last request's,
+    labels with 0) and seeds it (SEED_BASE + the leading request's seed),
+    the batch's x0 drawn whole, then each rank's rows sampled and decoded
+    on their own (the ranks' programs, replayed) → the requests' images."""
+    import numpy as np
+
+    from psd_tpu_torch.parallel.mesh import shard_rows
+    from psd_tpu_torch.pipelines.serve import SEED_BASE
+
+    B, out = SERVE_RANKS_BATCH, []
+    size, steps = model.cfg.dataset.image_size, model.cfg.diffusion.sampling_steps
+    for i in range(0, len(requests), B):
+        batch = requests[i:i + B]
+        n = len(batch)
+        feats = np.stack([r[0] for r in batch] + [batch[-1][0]] * (B - n))
+        cond = model.prepare_inference_cond(
+            np.asarray([r[1] for r in batch] + [0.0] * (B - n), np.float32),
+            np.asarray([r[2] for r in batch] + [0.0] * (B - n), np.float32), feats)
+        gen = torch.Generator(device=model.device).manual_seed(SEED_BASE + batch[0][3])
+        x0 = model.initial_noise(B, size, gen, shared_noise=False)
+        images = []
+        for r in range(world):
+            rows = shard_rows(B, world, 1, r, 0)
+            images.append(model.decode_latents(model.sample(cond[rows], x0[rows], steps, 1.0)))
+        out.append(torch.cat(images)[:n].cpu().numpy())
+    return np.concatenate(out)
+
+
+def _check_serve_rank_shapes() -> None:
+    """Each serving kernel against its plain version by its judge at a
+    rank's 4 rows (SERVE_RANK_*; not timed, not counted)."""
+    from psd_tpu_torch.ops import attention, split3
+    from psd_tpu_torch.testing import attention_judge, split3_judge
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29)
+
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    checks = []
+    for shape in SERVE_RANK_ATTN_SHAPES:
+        q, k, v = randn(*shape), randn(*shape), randn(*shape)
+        checks.append(("attention", shape, attention_judge(
+            attention.attention_fwd(q, k, v), attention.attention_reference(q, k, v))))
+    for (B, S, H, D) in SERVE_RANK_SPLIT3_SHAPES:
+        q, banks = randn(B, S, H, D), [randn(B, 16, H, D) for _ in range(6)]
+        checks.append(("split3", (B, S, H, D), split3_judge(
+            split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9),
+            split3.split3_reference(q, *banks, 1.0, 0.1, 0.9))))
+    for name, shape, (ok, text, _) in checks:
+        log(f"[serve_ranks] {name} {shape}: {text} {'ok' if ok else 'FAIL'} (not timed)")
+        if not ok:
+            raise SystemExit(f"chip_smoke.py: {name} {shape} disagrees with its plain version")
+    for M, C in SERVE_RANK_LN_SHAPES:
+        _check_ln_edge(randn, M, C, C, 4 * C, 0.0)
+    for B, S, C in SERVE_RANK_GN_SHAPES:
+        _check_gn_edge(randn, B, S, C, C, 0.0)
+    torch.cuda.empty_cache()
+
+
+def phase_serve_ranks(card: str, served: dict) -> dict:
+    """GenerationServer(mesh=) across ranks (phase 5d), started by torchrun:
+    two ranks on cuda:0 over gloo at dp 2 (sound, again, the planted
+    fault), then one rank on NCCL at dp 1; rank 0's images against phase
+    5's one-process server on the same requests (SERVE_RANKS_BAND at dp 2,
+    bit for bit at dp 1), each rank's launches against the routes' at its
+    rows; then the kernels at a rank's rows."""
+    import shutil
+
+    import numpy as np
+
+    from psd_tpu_torch.core.config import load_config
+    from psd_tpu_torch.diffusion.dadd import core_config_from
+    from psd_tpu_torch.models.vae import VAEConfig
+    from psd_tpu_torch.testing import route_launches
+
+    work = ROOT / "build" / "psd_tpu_torch" / "serve_ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = load_config(ROOT / "configs" / "train_ip.yaml", ["dataset.image_size=512"])
+    ref = np.stack(served["images12"])
+
+    def diff(images, want=ref):
+        d = np.abs(images.astype(np.float64) - want)
+        return float(d.max()), float(d.mean())
+
+    def run_ranks(tag, dp, rounds, **spec):
+        run = _torchrun(work, tag, dp, kind="serve", dp=dp, rounds=rounds, **spec)
+        if run["rc"] != 0 or not all(run["ranks"]):
+            _ranks_failed("serve_ranks", tag, run)
+            raise SystemExit(f"chip_smoke.py: serve ranks {tag} did not run to its end "
+                             f"(rc {run['rc']})")
+        run["images"] = {name: np.load(work / f"{tag}.{name}.npy") for name in rounds}
+        rows = SERVE_RANKS_BATCH // dp
+        want = route_launches(core_config_from(cfg), VAEConfig(), rows, cfg.dataset.image_size,
+                              cfg.diffusion.sampling_steps)
+        want = {k: n for k, n in want.items() if n}
+        for r in run["ranks"]:
+            progs = r["programs"]
+            launched = dict(sum((Counter(p["launches"]) for p in progs.values()), Counter()))
+            host = {k: n for k, n in r["counts"].items() if n}
+            r["checks"] = {
+                "two programs (sample, decode)": r["n_programs"] == 2
+                    and set(progs) == {"sample", "decode"},
+                f"one replay a batch each ({2 * len(rounds)})": all(
+                    p["replays"] == 2 * len(rounds) for p in progs.values()),
+                f"sample + decode launch the routes' at {rows} rows {want}": launched == want,
+                "host counts = warm-up + capture": host == {k: 2 * n for k, n in want.items()},
+                "later rounds replay only": r["counts_end"] == r["counts"],
+                "attention saw D=40, 80 (UNet) and 512 (VAE)": all(
+                    r["head_dims"].get(str(d), 0) > 0 for d in (40, 80, 512)),
+            }
+            rd = r["rounds"]
+            log(f"[serve_ranks] {tag} rank {r['rank']}/{r['world']} on {r['device']} over "
+                f"{r['backend']}: {rows} rows a batch; batch wall s (synced) by round "
+                f"{ {k: [round(x, 4) for x in v['batch_s']] for k, v in rd.items()} }; in the "
+                f"gathers s {({k: [round(x, 4) for x in v['gather_s']] for k, v in rd.items()})}; "
+                f"rank 0's 12 requests s {({k: v['wall_s'] for k, v in rd.items()})}; one replay "
+                f"device ms / host ms until replay() returns: "
+                + ", ".join(f"{k} {v['device_ms']:.2f} / {v['host_launch_ms']:.2f}"
+                            for k, v in r["replay_ms"].items())
+                + f"; warm-up / capture / instantiation s "
+                f"{ {k: (round(p['warmup_s'], 3), round(p['capture_s'], 3), round(p['instantiate_s'], 3)) for k, p in progs.items()} }; "  # noqa: E501
+                f"peak {r['peak_gib']:.3f} GiB; host launches {r['counts']}, by head dim "
+                f"{r['head_dims']}; on {card}")
+            log(f"[serve_ranks] {tag} rank {r['rank']} checks {r['checks']}")
+        log(f"[serve_ranks] {tag}: torchrun wall {run['wall']:.1f} s, rc {run['rc']}")
+        return run
+
+    gloo = run_ranks("dp2_gloo", 2, ["sound", "again", "fault"], backend="gloo")
+    imgs = gloo["images"]
+    blocks = np.load(work / "dp2_gloo.blocks.npy")
+    sound, fault = diff(imgs["sound"]), diff(imgs["fault"])
+    log(f"[serve_ranks] dp 2 over gloo, rank 0's 12 images against phase 5's one process, "
+        f"max / mean abs: sound {sound[0]:.4e} / {sound[1]:.4e}, the planted fault (x0 at a "
+        f"rank's rows) {fault[0]:.4e} / {fault[1]:.4e}; band (mean) {SERVE_RANKS_BAND:g}; "
+        f"against one process at 4 rows: sound {diff(imgs['sound'], blocks)}, the fault "
+        f"{diff(imgs['fault'], blocks)}, phase 5 {diff(blocks)}")
+    checks = {
+        "dp 2: shape (12, 512, 512, 3), finite, in [0, 1]": imgs["sound"].shape == ref.shape
+            and bool(np.isfinite(imgs["sound"]).all()) and imgs["sound"].min() >= 0.0
+            and imgs["sound"].max() <= 1.0,
+        f"dp 2: within {SERVE_RANKS_BAND:g} (mean) of phase 5": sound[1] <= SERVE_RANKS_BAND,
+        f"dp 2: the planted fault beyond {SERVE_RANKS_BAND:g}": fault[1] > SERVE_RANKS_BAND,
+        "dp 2: equal to one process at a rank's rows": np.array_equal(imgs["sound"], blocks),
+        "dp 2: the planted fault not": not np.array_equal(imgs["fault"], blocks),
+        "dp 2: replayed again bit for bit": np.array_equal(imgs["again"], imgs["sound"]),
+        "dp 2: every rank's checks": all(all(r["checks"].values()) for r in gloo["ranks"]),
+    }
+    nccl = run_ranks("dp1_nccl", 1, ["sound"])
+    checks["dp 1 on NCCL: equal to phase 5 bit for bit"] = np.array_equal(
+        nccl["images"]["sound"], ref)
+    checks["dp 1 on NCCL: its checks"] = all(nccl["ranks"][0]["checks"].values())
+    log(f"[serve_ranks] dp 1 on NCCL against phase 5: max / mean abs "
+        f"{diff(nccl['images']['sound'])}")
+    log(f"[serve_ranks] checks {checks}")
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke.py: serve ranks checks failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    _check_serve_rank_shapes()
+    shutil.rmtree(work, ignore_errors=True)
+    r0 = gloo["ranks"][0]
+    return {"counts": r0["counts"], "head_dims": {int(k): v for k, v in r0["head_dims"].items()},
+            "sound": sound, "fault": fault, "ranks": gloo["ranks"] + nccl["ranks"]}
+
+
+def _params(step_dir: Path) -> dict:
+    """A step directory's params.pt, memory-mapped."""
+    return torch.load(step_dir / "params.pt", map_location="cpu", weights_only=True, mmap=True)
+
+
+def _flat_rel(a: dict, b: dict, start: dict) -> tuple:
     """(‖a − b‖ / ‖b‖, ‖a − b‖ / ‖b − start‖) over every parameter of two
-    step directories' params.pt, summed on the card in float64."""
-    def load(d):
-        return torch.load(d / "params.pt", map_location="cpu", weights_only=True, mmap=True)
-
-    a, b = load(a_dir), load(b_dir)
+    sets of parameters (name → tensor), summed on the card in float64."""
     diff = norm = upd = torch.zeros((), dtype=torch.float64, device="cuda")
     for k, w in b.items():
         x, y, z = (t.to("cuda", torch.float64) for t in (a[k], w, start[k]))
@@ -3156,8 +3490,8 @@ def _check_rank_shapes() -> None:
 def phase_train_ranks(card: str, trained: dict, fault: bool = False) -> dict:
     """The train CLI across ranks (phase 6d): a one-process run at a global
     batch of 32, then torchrun's two ranks on cuda:0 over gloo at --dp 2
-    and at --fsdp 2, then one rank on NCCL at --dp 1; each against the
-    one-process run (losses,
+    and at --fsdp 2 (one step), then one rank on NCCL at --dp 1; each
+    against the one-process run (losses,
     grad norms, the parameters' update, each rank's launches against phase
     6's per step), rank 0's checkpoint read by the infer CLI. `fault` runs
     the planted fault its bands were set against (every rank skipping the
@@ -3174,32 +3508,51 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False) -> dict:
     cfg_path = ROOT / "configs" / "train_ip.yaml"
     base = ["--config", str(cfg_path), f"dataset.dataset_path={work / 'data'}", *RANKS_ARGS]
     per_step = {k: v // TRAIN_STEPS for k, v in trained["counts"].items()}
-    # two steps and one encoded batch each (the encoder's mid-block attention)
-    want = {k: per_step[k] * RANKS_STEPS + (RANKS_STEPS if k == "attention" else 0)
-            for k in per_step}
 
-    # the one-process run, its initial parameters kept on the host
-    start = {}
-    make_state = train.create_train_state
+    def launches(steps):
+        """The steps and one encoded batch each (the encoder's mid-block
+        attention)."""
+        return {k: per_step[k] * steps + (steps if k == "attention" else 0) for k in per_step}
+
+    want = launches(RANKS_STEPS)
+
+    # the one-process run, its initial parameters and those after its first
+    # step kept on the host
+    start, first = {}, {}
+    make_state, make_step = train.create_train_state, train.make_train_step
 
     def keeping(model, **kw):
         start.update({n: p.detach().to("cpu", copy=True)
                       for n, p in model.core.named_parameters()})
         return make_state(model, **kw)
 
+    def stepping(model, *a, **k):
+        step = make_step(model, *a, **k)
+
+        def keep_first(*sa, **sk):
+            out = step(*sa, **sk)
+            if not first:
+                first.update({n: p.detach().to("cpu", copy=True)
+                              for n, p in model.core.named_parameters()})
+            return out
+
+        return keep_first
+
     torch.cuda.reset_peak_memory_stats()
-    train.create_train_state = keeping
+    train.create_train_state, train.make_train_step = keeping, stepping
     try:
         one_dir = work / "one"
         r0, counts0, dims0, wall0 = _counted(train.main, base + ["--output-dir", str(one_dir)])
     finally:
-        train.create_train_state = make_state
+        train.create_train_state, train.make_train_step = make_state, make_step
     peak0 = torch.cuda.max_memory_allocated() / 2**30
     laps0 = r0["laps"]
     del r0
     gc.collect()
     torch.cuda.empty_cache()
     ref = _logged(one_dir)
+    after = {RANKS_FSDP_STEPS: first, RANKS_STEPS: _params(one_dir / "checkpoints" /
+                                                            str(RANKS_STEPS))}
     if counts0 != want:
         raise SystemExit(f"chip_smoke.py: the one-process run launched {counts0}, not {want}")
     log(f"[train_ranks] one process, global batch 32: main() wall {wall0:.3f} s; train_step "
@@ -3207,33 +3560,34 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False) -> dict:
         f"{[r['loss'] for r in ref]}, grad norms {[r['grad_norm'] for r in ref]}; launches "
         f"{counts0}; peak {peak0:.2f} GiB; on {card}")
 
-    def failed(tag, run):
-        """A run that did not end: each rank's count of collectives entered
-        and the last, and a crashed rank's stack (faulthandler)."""
-        log(f"[train_ranks] {tag}: rc {run['rc']}; each rank's collectives entered and the "
-            f"last: {run['last_collective']}; log:\n  " + "\n  ".join(run["tail"]))
+    def ranks_run(tag, nproc, argv, **spec):
+        run = _torchrun(work, tag, nproc, argv=argv, **spec)
+        run["out"] = Path(argv[argv.index("--output-dir") + 1])
+        return run
 
-    def judge(tag, run):
-        """The run's checks against the one-process run; → its readings."""
+    def judge(tag, run, steps=RANKS_STEPS):
+        """The run's checks against the one-process run's first `steps`
+        steps; → its readings."""
         if run["rc"] != 0 or not all(run["ranks"]):
-            failed(tag, run)
+            _ranks_failed("train_ranks", tag, run)
             raise SystemExit(f"chip_smoke.py: {tag} did not run to its end (rc {run['rc']})")
         got = _logged(run["out"])
-        rel_post, rel_upd = _flat_rel(run["out"] / "checkpoints" / str(RANKS_STEPS),
-                                      one_dir / "checkpoints" / str(RANKS_STEPS), start)
+        rel_post, rel_upd = _flat_rel(_params(run["out"] / "checkpoints" / str(steps)),
+                                      after[steps], start)
         loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(got, ref)]
         norm_rel = [abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
                     for a, b in zip(got, ref)]
-        ranks = run["ranks"]
+        ranks, want = run["ranks"], launches(steps)
         checks = {
-            f"{RANKS_STEPS} steps logged by rank 0": [r["step"] for r in got] == [1, 2],
-            f"losses within rtol {RANKS_LOSS_RTOL:g}": len(loss_rel) == RANKS_STEPS
+            f"{steps} steps logged by rank 0": [r["step"] for r in got] == list(
+                range(1, steps + 1)),
+            f"losses within rtol {RANKS_LOSS_RTOL:g}": len(loss_rel) == steps
                 and max(loss_rel) <= RANKS_LOSS_RTOL,
-            f"grad norms within rtol {RANKS_NORM_RTOL:g}": len(norm_rel) == RANKS_STEPS
+            f"grad norms within rtol {RANKS_NORM_RTOL:g}": len(norm_rel) == steps
                 and max(norm_rel) <= RANKS_NORM_RTOL,
             f"update difference ≤ {RANKS_UPDATE_BAND:g}": rel_upd <= RANKS_UPDATE_BAND,
-            "checkpoint step 2 only": sorted(p.name for p in (run["out"] / "checkpoints")
-                                             .iterdir()) == [str(RANKS_STEPS)],
+            f"checkpoint step {steps} only": sorted(
+                p.name for p in (run["out"] / "checkpoints").iterdir()) == [str(steps)],
             f"each rank's launches {want}": all(r["counts"] == want for r in ranks),
         }
         for r in ranks:
@@ -3260,14 +3614,13 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False) -> dict:
                 "rel_update": rel_upd, "ranks": ranks}
 
     if fault:
-        run = _torchrun(work, "fault", 2, base + ["--dp", "2", "--output-dir",
-                                                  str(work / "fault")],
+        run = ranks_run("fault", 2, base + ["--dp", "2", "--output-dir", str(work / "fault")],
                         backend="gloo", fault="no_average")
         if run["rc"] != 0:
-            failed("planted fault", run)
+            _ranks_failed("train_ranks", "planted fault", run)
         got = _logged(run["out"])
-        rel_post, rel_upd = _flat_rel(run["out"] / "checkpoints" / str(RANKS_STEPS),
-                                      one_dir / "checkpoints" / str(RANKS_STEPS), start)
+        rel_post, rel_upd = _flat_rel(_params(run["out"] / "checkpoints" / str(RANKS_STEPS)),
+                                      after[RANKS_STEPS], start)
         log(f"[train_ranks] planted fault (no gradient average), --dp 2 over gloo: losses "
             f"{[r['loss'] for r in got]}, grad norms {[r['grad_norm'] for r in got]} against "
             f"{[r['grad_norm'] for r in ref]}; post-step parameters rel L2 {rel_post:.3e}, over "
@@ -3276,8 +3629,8 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False) -> dict:
         return {}
 
     readings = {}
-    run = _torchrun(work, "dp2_gloo", 2, base + ["--dp", "2", "--output-dir",
-                                                 str(work / "dp2")], backend="gloo")
+    run = ranks_run("dp2_gloo", 2, base + ["--dp", "2", "--output-dir", str(work / "dp2")],
+                    backend="gloo")
     readings["dp2_gloo"] = judge("--dp 2, two ranks on cuda:0 over gloo", run)
     counts = run["ranks"][0]["counts"]
     head_dims = run["ranks"][0]["head_dims"]
@@ -3299,15 +3652,15 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False) -> dict:
         raise SystemExit("chip_smoke.py: the infer CLI did not read rank 0's checkpoint")
     shutil.rmtree(work / "dp2", ignore_errors=True)
 
-    run = _torchrun(work, "fsdp2_gloo", 2, base + ["--fsdp", "2", "--output-dir",
-                                                   str(work / "fsdp2")], backend="gloo")
-    readings["fsdp2_gloo"] = judge("--fsdp 2, two ranks on cuda:0 over gloo", run)
+    run = ranks_run("fsdp2_gloo", 2, base + ["--fsdp", "2", "--max-steps", str(RANKS_FSDP_STEPS),
+                                             "--output-dir", str(work / "fsdp2")], backend="gloo")
+    readings["fsdp2_gloo"] = judge(f"--fsdp 2 ({RANKS_FSDP_STEPS} step), two ranks on cuda:0 "
+                                   "over gloo", run, RANKS_FSDP_STEPS)
     if not all(r["sharded"] for r in run["ranks"]):
         raise SystemExit("chip_smoke.py: the --fsdp 2 run was not under FSDP2")
     shutil.rmtree(run["out"], ignore_errors=True)
 
-    run = _torchrun(work, "dp1_nccl", 1, base + ["--dp", "1", "--output-dir",
-                                                 str(work / "dp1")])
+    run = ranks_run("dp1_nccl", 1, base + ["--dp", "1", "--output-dir", str(work / "dp1")])
     readings["dp1_nccl"] = judge("--dp 1, one rank on NCCL", run)
     _check_rank_shapes()
     shutil.rmtree(work, ignore_errors=True)
@@ -3333,6 +3686,7 @@ def main() -> int:
     served = timed("serve", phase_serve, card, unet)
     turbo = timed("turbo", phase_turbo, card, served)
     inferred = timed("infer", phase_infer, card)
+    served_dp = timed("serve ranks", phase_serve_ranks, card, served)
     timed("train kernels", phase_train_kernels, results)
     trained = timed("train", phase_train, card)
     train_cli = timed("train cli", phase_train_cli, card, trained)
@@ -3347,7 +3701,7 @@ def main() -> int:
                    (("serve", served), ("turbo", turbo), ("infer", inferred),
                     ("train", trained), ("train_cli", train_cli), ("op", op),
                     ("augment", loop["augment"]), ("evaluate", loop["evaluate"]),
-                    ("train_dp", ranks))}
+                    ("train_dp", ranks), ("serve_dp", served_dp))}
         # serve and turbo count host launches (the eager warm-up and the
         # capture of their program); what each replay launches is apart
         by_replay = {path: run["replay_launches"].get(name, 0)
@@ -3373,7 +3727,7 @@ def main() -> int:
                 (("serve", served), ("turbo", turbo), ("infer", inferred),
                  ("train", trained), ("train_cli", train_cli),
                  ("augment", loop["augment"]), ("evaluate", loop["evaluate"]),
-                 ("train_dp", ranks))}
+                 ("train_dp", ranks), ("serve_dp", served_dp))}
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

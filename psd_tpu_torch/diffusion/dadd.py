@@ -42,7 +42,9 @@ values (at init and in `load_flax`). Baseline mode is here too: the BOE, the
 plain ImageProjection from CLIP's pooled embedding, split2 routing, LEACE
 erasure of the projected image tokens and eta-stochastic DDIM, whose
 per-step noise is drawn outside the graph like the initial latents. ToMe
-waits for a later slice.
+waits for a later slice. `sample` and `decode_latents` take a mesh: each
+rank of torchrun's runs its rows of the batch, and the results are gathered
+(psd_tpu's dp-sharded sampling).
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ from ..models.init import flax_init_
 from ..models.layers import quantize_int8_weights_, store_weights_in_
 from ..models.unet import UNet2DCondition, UNetConfig
 from ..models.vae import AutoencoderKL, VAEConfig, VAEDecode, sample_gaussian
+from ..parallel.mesh import batch_rows, gather_rows
 from .graphs import CapturedProgram, program_key
 from .sampler import SamplerConfig, cfg_eps_fn, ddim_sample, dpm_sample
 from .schedule import NoiseSchedule
@@ -573,23 +576,45 @@ class DADD:
                steer_scale: float = 0.0, guidance_scale: float = 1.0,
                cond_uncond: Optional[torch.Tensor] = None, encoder_stride: int = 1,
                cache_mode: str = "encoder", sampler: str = "ddim", eta: float = 0.0,
-               eta_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+               eta_noise: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
         """DDIM or DPM-Solver++(2M) (`sampler` "ddim" | "dpm") from the
         initial latents x0 (B, h, w, 4) → scaled latents, fp32.
         `encoder_stride > 1` propagates cached UNet features across non-key
         steps (`cache_mode` "encoder" | "deep"); not with CFG. DDIM with
         `eta > 0` adds `eta_noise` (steps, B, h, w, 4) a step. On the card,
-        one replay of the loop's captured program."""
+        one replay of the loop's captured program.
+
+        With a `mesh` (`parallel.mesh.create_mesh`; every rank calls it with
+        the same global inputs, as psd_tpu's `sample(mesh=)` takes global
+        arrays) each rank samples its rows (`batch_rows`) of cond, x0,
+        cond_uncond and eta_noise (dim 1 there) in its own program, and the
+        latents are gathered: every rank returns the whole (B, h, w, 4). A
+        B the ranks do not split raises."""
         knobs = self.static_knobs(sampling_steps, steer_scale, guidance_scale,
                                   encoder_stride, cache_mode, sampler, eta)
+        if mesh is not None:
+            B = cond.shape[0]
+            batches = {"x0": x0.shape[0], "cond_uncond": B if cond_uncond is None
+                       else cond_uncond.shape[0],
+                       "eta_noise": B if eta_noise is None else eta_noise.shape[1]}
+            if any(n != B for n in batches.values()):
+                raise ValueError(f"sample(mesh=): cond has {B} rows, the other inputs "
+                                 f"{batches}")
+            rows = batch_rows(mesh, B)
+            cond, x0 = cond[rows], x0[rows]
+            cond_uncond = None if cond_uncond is None else cond_uncond[rows]
+            eta_noise = None if eta_noise is None else eta_noise[:, rows]
         inputs, run = self._sample_program(cond, x0, cond_uncond, eta_noise, knobs)
-        return self._replay_or_run("sample", run, inputs, **knobs)
+        return gather_rows(mesh, self._replay_or_run("sample", run, inputs, **knobs))
 
     @torch.inference_mode()
-    def decode_latents(self, latents) -> torch.Tensor:
+    def decode_latents(self, latents, mesh=None) -> torch.Tensor:
         """Scaled latents → images in [0, 1], fp32. On the card, one replay
-        of the decoder's captured program."""
-        return self._replay_or_run("decode", self._decode, (latents,))
+        of the decoder's captured program. With a `mesh`, each rank decodes
+        its rows of the global latents and the images are gathered (psd_tpu
+        decodes dp-sharded latents where they lie)."""
+        mine = latents[batch_rows(mesh, latents.shape[0])]
+        return gather_rows(mesh, self._replay_or_run("decode", self._decode, (mine,)))
 
     @torch.inference_mode()
     def generate(self, cond, x0: Optional[torch.Tensor] = None,

@@ -13,7 +13,7 @@ The five kernel sites, routed by shape as `psd_tpu` routes them:
     training the FlashAttention autograd.Function with the backward kernel);
   * split3 cross-attention with S ≥ 256, S % 128 == 0 → `ops.split3`
     (in training its autograd.Function);
-  * norm1/norm2 + q/k/v projections with B·S % 512 == 0, C % 64 == 0 →
+  * norm1/norm2 + q/k/v projections with B·S % 128 == 0, C % 64 == 0 →
     `ops.geglu.ln_proj_fwd` (inference only);
   * norm3 + GEGLU projection, same gate → `ops.geglu.ln_geglu_fwd`
     (inference only);
@@ -34,7 +34,7 @@ from torch import nn
 
 from ..core.mode import is_training, use_kernel
 from ..ops.attention import attention_probs, dot_product_attention
-from ..ops.geglu import gelu_exact, ln_geglu_fwd, ln_proj_fwd, ln_reference
+from ..ops.geglu import gelu_exact, ln_geglu_fwd, ln_proj_fwd, ln_reference, ln_shape_error
 from ..ops.gnproj import gn_proj_fwd
 from ..ops.norms import group_norm, group_norm_fold
 from ..ops.quant import qconv3x3, quant_cols
@@ -251,8 +251,13 @@ class CrossAttnMode:
 
 
 def ln_fused_ok(x) -> bool:
-    """Shape gate of the fused LayerNorm kernels (layers.py:591-613)."""
-    return (x.shape[0] * x.shape[1]) % 512 == 0 and x.shape[-1] % 64 == 0
+    """Shape gate of the fused LayerNorm kernels: every x (B, S, C) whose
+    B·S rows and C channels they take (`ln_shape_error`: B·S % 128,
+    C % 64). psd_tpu's gate (layers.py:591-613) asks B·S % 512 of its
+    512-row blocks, per shard under a mesh; here that would refuse a rank's
+    4 · 64 rows at 512², which its one-process batch of 8 takes."""
+    C = x.shape[-1]
+    return ln_shape_error(x.shape[0] * x.shape[1], C, C) is None
 
 
 def gn_proj_ok(S: int, C: int) -> bool:

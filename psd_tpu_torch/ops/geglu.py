@@ -53,8 +53,8 @@ def ln_shape_error(M: int, C: int, N: int) -> Optional[str]:
     """Why the LayerNorm-fused kernels do not take x (M, C) with N output
     columns (a projection's rows; GEGLU's N = W0 rows / 2), or None when
     they do: 128-row tiles, 64-column K chunks (one TMA box), and 16-byte
-    rows for TMA and the bf16x2 stores. Every shape `ln_fused_ok` routes
-    (M % 512, C % 64; N = C or 4C) passes."""
+    rows for TMA and the bf16x2 stores. `ln_fused_ok` routes every (M, C)
+    that passes (N = C or 4C)."""
     if M <= 0 or M % 128:
         return f"M={M} must be a positive multiple of 128 (the kernels' row tiles)"
     if C <= 0 or C % 64:

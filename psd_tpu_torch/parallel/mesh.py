@@ -22,6 +22,12 @@ state goes under DDP (fsdp = 1) or FSDP2 (fsdp > 1, HSDP over the 2-D mesh;
 A DTensor's values are read and written through `local` (its shard; a plain
 tensor is its own), `local_part` cuts a full tensor to another's shard, and
 `full` gathers a shard back (a collective: every rank calls it).
+
+Sampling and serving (`DADD.sample(mesh=)`, `GenerationServer(mesh=)`)
+split the batch as psd_tpu's `batch_sharding` does and replicate the
+model: each rank runs its rows (`batch_rows`), `gather_rows` puts the
+ranks' rows back together into the global batch on every rank, and
+`broadcast` hands rank 0's tensors to the others.
 """
 
 from __future__ import annotations
@@ -121,6 +127,37 @@ def batch_rows(mesh: Optional[DeviceMesh], n: int) -> slice:
         return slice(0, n)
     dp_index, fsdp_index = mesh.get_coordinate()
     return shard_rows(n, mesh["dp"].size(), mesh["fsdp"].size(), dp_index, fsdp_index)
+
+
+def mesh_group(mesh: DeviceMesh):
+    """The process group over every rank of `mesh`: the world, whose rank
+    order is the order of `batch_rows`' blocks where the mesh lays the
+    world out as `create_mesh` does (rank = dp_index · fsdp + fsdp_index)."""
+    ranks = mesh.mesh.flatten().tolist()
+    if ranks != list(range(dist.get_world_size())):
+        raise ValueError(f"a mesh over ranks {ranks} is not the world in rank order "
+                         "(build it with create_mesh)")
+    return dist.group.WORLD
+
+
+def gather_rows(mesh: Optional[DeviceMesh], part: torch.Tensor) -> torch.Tensor:
+    """The global batch on every rank from each rank's rows of it
+    (`batch_rows`' blocks of dim 0, every rank the same count): c10d's
+    all_gather_into_tensor over every rank of the mesh (a collective: every
+    rank calls it); `part` itself without a mesh."""
+    if mesh is None:
+        return part
+    part = part.contiguous()
+    whole = part.new_empty((mesh.size() * part.shape[0],) + tuple(part.shape[1:]))
+    dist.all_gather_into_tensor(whole, part, group=mesh_group(mesh))
+    return whole
+
+
+def broadcast(mesh: DeviceMesh, t: torch.Tensor) -> torch.Tensor:
+    """`t` overwritten on every rank of the mesh with rank 0's (in place; a
+    collective: every rank calls it with a tensor of one shape)."""
+    dist.broadcast(t, src=0, group=mesh_group(mesh))
+    return t
 
 
 def shard_batch(mesh: Optional[DeviceMesh], batch):

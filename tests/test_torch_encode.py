@@ -268,11 +268,11 @@ def test_route_launches_of_the_train_cli_path():
     latents 32² the self-attention kernel takes the five S = 1024 sites,
     split3 the S = 1024 and 256 ones, the LN kernels all 16 sites, gn_proj
     all but the 4² mid block) and a 4-level grid of 10 steps with its
-    decode, whose LN kernels skip the 8² and 4² levels (M % 512)."""
+    decode, whose LN kernels skip the 4² level (B·S % 128)."""
     ip = core_config_from(load_config(ROOT / "configs" / "train_ip.yaml"))
     vae = VAEConfig()
     assert route_launches(ip, vae, 64, 256, 1, decode=False) == {
         "attention": 5, "split3": 10, "ln_proj": 32, "ln_geglu": 16, "gn_proj": 15}
     assert route_launches(ip, vae, 4, 256, 10) == {
-        "attention": 51, "split3": 100, "ln_proj": 200, "ln_geglu": 100, "gn_proj": 150}
+        "attention": 51, "split3": 100, "ln_proj": 300, "ln_geglu": 150, "gn_proj": 150}
     assert route_launches(ip, vae, 4, 256, 10, decode=False)["attention"] == 50

@@ -302,19 +302,20 @@ def test_generate_eta_draws_and_graph_key():
 def test_route_launches_give_the_measured_counts():
     """At batch 8, 512², the counts chip_smoke.py holds each captured program
     to (measured on the card): exact and turbo. At the CLI's batch 13 the LN
-    kernels skip the 16² and 8² levels (M % 512), and baseline mode at 256²
-    with CFG (batch 26) has no split3 and one self-attention level."""
+    kernels skip the 8² level (B·S % 128), and baseline mode at 256² with
+    CFG (batch 26) has no split3, one self-attention level and no LN kernel
+    at 4²."""
     vae = VAEConfig()
     ip = core_config_from(load_config(ROOT / "configs" / "train_ip.yaml"))
     assert route_launches(ip, vae, 8, 512, 50) == chip_smoke.SERVE_LAUNCHES
     assert route_launches(ip, vae, 8, 512, chip_smoke.TURBO_FULL,
                           chip_smoke.TURBO_SHALLOW) == chip_smoke.TURBO_LAUNCHES
     assert route_launches(ip, vae, 13, 512, 50) == {
-        "attention": 501, "split3": 750, "ln_proj": 1000, "ln_geglu": 500, "gn_proj": 800}
+        "attention": 501, "split3": 750, "ln_proj": 1500, "ln_geglu": 750, "gn_proj": 800}
     base = core_config_from(load_config(ROOT / "configs" / "train.yaml"))
     assert base.unet.attn_mode == "split2"
     assert route_launches(base, vae, 13, 256, 50, cfg_pass=True) == {
-        "attention": 251, "split3": 0, "ln_proj": 1000, "ln_geglu": 500, "gn_proj": 750}
+        "attention": 251, "split3": 0, "ln_proj": 1500, "ln_geglu": 750, "gn_proj": 750}
 
 
 @pytest.mark.parametrize("levels,phase", [((32, 64), "full"), ((32, 64), "shallow"),

@@ -230,3 +230,29 @@ def test_attention_site_routes_by_admission(monkeypatch, D, kernel):
     out = attention.dot_product_attention(q, k, v)
     assert (len(calls) == 1) == kernel
     torch.testing.assert_close(out, attention.attention_reference(q, k, v))
+
+
+# ---- a rank's rows of the served batch --------------------------------------------------
+@pytest.mark.parametrize("ranks", [2, 4])
+@pytest.mark.parametrize("turbo", [False, True], ids=["exact", "turbo"])
+def test_rank_rows_take_the_kernels_of_the_one_process_batch(ranks, turbo):
+    """Serving across ranks (`DADD.sample(mesh=)`): a rank's 8 / ranks rows
+    of the 512², batch-8 path take every kernel route the one process's 8
+    take, the LN kernels at the 8² level's 4 · 64 and 2 · 64 rows among
+    them (psd_tpu's per-shard M % 512 would leave those to the plain path),
+    so each rank launches what the batch does: chip_smoke.py phase 5d holds
+    each rank's programs to these counts."""
+    from pathlib import Path
+
+    import chip_smoke
+    from psd_tpu_torch.core.config import load_config
+    from psd_tpu_torch.diffusion.dadd import core_config_from
+    from psd_tpu_torch.models.vae import VAEConfig
+    from psd_tpu_torch.testing import route_launches
+
+    ip = core_config_from(load_config(Path(__file__).resolve().parents[1] / "configs" /
+                                      "train_ip.yaml"))
+    steps = (chip_smoke.TURBO_FULL, chip_smoke.TURBO_SHALLOW) if turbo else (50, 0)
+    assert layers.ln_fused_ok(SimpleNamespace(shape=(8 // ranks, 64, 1280)))
+    assert route_launches(ip, VAEConfig(), 8 // ranks, 512, *steps) == \
+        route_launches(ip, VAEConfig(), 8, 512, *steps)

@@ -14,6 +14,7 @@ tests run live here: the port imports nothing from `tests/`.
 from __future__ import annotations
 
 import os
+import time
 import traceback
 from datetime import timedelta
 from pathlib import Path
@@ -200,3 +201,86 @@ def cli_main(argv):
 
     r = train.main(argv)
     return {"step": r["state"].step, **_state_arrays(r["state"])}
+
+
+SERVE_TURBO = {"exact": {}, "turbo": dict(sampler="dpm", encoder_stride=2, cache_mode="deep")}
+
+
+def serve_ranks(inputs: dict) -> dict:
+    """The port's sampling and serving across this group's ranks on
+    `tiny_dadd(seed=0)`, 4 steps, steer 1.0 (tests/test_torch_serve_ranks.py):
+    `sample(mesh=)` + `decode_latents(mesh=)` at (dp 2, fsdp 1) and at
+    (dp 1, fsdp 2) with CFG, DDIM with eta 0.5 at (2, 1); the refusals of a
+    batch the ranks do not split; a `GenerationServer(mesh=)` for each of
+    SERVE_TURBO (rank 0 submits `inputs["requests"]`, rank 1 tries to),
+    with idle headers before the requests; then a batch that fails on rank
+    0 before its header. → what each rank saw, as numpy."""
+    from psd_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from psd_tpu_torch.pipelines import serve
+    from psd_tpu_torch.testing import tiny_dadd
+
+    serve.IDLE_HEADER_S = 0.05
+    rank = dist.get_rank()
+    model = tiny_dadd(seed=0)
+    dp2 = create_mesh(MeshConfig(dp=2, fsdp=1), "cpu")
+    fsdp2 = create_mesh(MeshConfig(dp=1, fsdp=2), "cpu")
+    t = {k: torch.from_numpy(v) for k, v in inputs.items() if isinstance(v, np.ndarray)}
+    cond = model.prepare_inference_cond(t["tgt"], t["src"], t["feats"])
+    uncond = model.prepare_inference_cond(t["tgt"], t["src"], t["feats"], zero_aoe=True,
+                                          zero_image=True)
+    out = {}
+
+    def images(mesh, **kw):
+        lat = model.sample(cond, t["x0"], 4, 1.0, mesh=mesh, **kw)
+        return model.decode_latents(lat, mesh=mesh).numpy()
+
+    out["dp2"] = images(dp2)
+    out["fsdp2_cfg"] = images(fsdp2, cond_uncond=uncond, guidance_scale=2.5)
+    out["eta"] = images(dp2, eta=0.5, eta_noise=t["eta_noise"])
+
+    def refusal(fn):
+        try:
+            fn()
+        except ValueError as e:
+            return str(e)
+        return None
+
+    out["odd_sample"] = refusal(lambda: model.sample(cond[:3], t["x0"][:3], 4, 1.0, mesh=dp2))
+    out["odd_decode"] = refusal(lambda: model.decode_latents(t["x0"][:3], mesh=dp2))
+    out["odd_server"] = refusal(lambda: serve.GenerationServer(model, max_batch=3, mesh=dp2))
+
+    def server(**kw):
+        return serve.GenerationServer(model, image_size=32, sampling_steps=4, max_batch=4,
+                                      max_wait_s=0.05, mesh=dp2, **kw)
+
+    for name, turbo in SERVE_TURBO.items():
+        s = server(**turbo)
+        assert not s.fused
+        if rank == 0:
+            time.sleep(0.3)  # rank 0 idle: idle headers reach rank 1
+            futures = [s.submit(*r) for r in inputs["requests"]]
+            out[name] = [f.result(timeout=TIMEOUT_S) for f in futures]
+        else:
+            try:
+                s.submit(*inputs["requests"][0])
+            except RuntimeError as e:
+                out["submit"] = str(e)
+        t0 = time.perf_counter()
+        s.close(timeout=TIMEOUT_S)
+        out[f"{name}_close_s"] = time.perf_counter() - t0
+        out[f"{name}_alive"] = s._worker.is_alive()
+
+    # a batch that fails on rank 0 before its header: requests of two shapes
+    s = server()
+    if rank == 0:
+        feats = inputs["requests"][0][0]
+        futures = [s.submit(feats, 1.0, 0.0), s.submit(feats[:5], 2.0, 0.0)]
+        out["failed"] = [type(f.exception(timeout=TIMEOUT_S)).__name__ for f in futures]
+        s._worker.join(timeout=TIMEOUT_S)
+        try:
+            s.submit(feats, 1.0, 0.0)
+        except RuntimeError as e:
+            out["after_failure"] = str(e)
+    s.close(timeout=TIMEOUT_S)
+    out["failed_alive"] = s._worker.is_alive()
+    return out
