@@ -120,6 +120,24 @@ Phases, in order; any failure exits non-zero:
                path's batch-13 and batch-26 shapes (INFER_*; not timed).
                Printed: the CLI's phase times, its time and main()'s wall
                with the model's build, peak memory, the card.
+  5e. unet_levers — the UNet's inference levers at full width (SD UNet,
+               512², batch 8): each kernel at the shapes ToMe gives it
+               (attention at S' = 2048, 3072, 1024 and at batch 13; split3
+               at 2048; ln_proj and ln_geglu at B·S' = 16384 and 26624 rows)
+               against its plain version by its judge, timed as phase 3
+               times (kept under "levers_shapes", outside the sums); one
+               eps per lever on phase 4's inputs — ToMe 0.5 in branch and in
+               block mode, the int8 UNet — on the kernels against all plain
+               (UNET_REL_BAND) with its launches equal to the routes', the
+               int8 eps against the bf16 eps of the same weights
+               (LEVER_INT8_BAND) and a planted fault (per-K scales at the
+               square int8 projections) beyond it; the README's turbo point
+               with ToMe (TOME_TURBO) served by graph replay, its images
+               equal bit for bit to the eager run's, its program launching
+               what route_launches gives, one replay's device and host ms
+               printed beside phase 5b's; the infer CLI with the README's
+               turbo flags at 512², 13 levels (finite images in [0, 1], the
+               routes' launches, its seconds and peak memory).
   5d. serve_ranks — GenerationServer(mesh=) across ranks, started by
                torchrun (`chip_smoke.py --rank-worker`, each rank the server
                in-process) at phase 5's width (512², 50 DDIM steps, bf16, by
@@ -206,10 +224,10 @@ Phases, in order; any failure exits non-zero:
                (`chip_smoke.py --rank-worker`, each rank the CLI's main()
                in-process) on a tree of its own at configs/train_ip.yaml's
                full width, 256², a global batch of 32 (16 a rank: two 14.7
-               GB states on one card), one loader thread, 2 steps, each run
+               GB states on one card), one loader thread, one step, each run
                against a one-process run of the same argv: (a) two ranks
                on cuda:0 over gloo at --dp 2 (DDP), then at --fsdp 2
-               (FSDP2, 1 step); (b) one rank on NCCL at --dp 1. A run that fails
+               (FSDP2); (b) one rank on NCCL at --dp 1. A run that fails
                prints each rank's last collective and a crashed rank's
                stack.
                Checks: each step's loss and grad norm (RANKS_LOSS_RTOL,
@@ -227,12 +245,13 @@ Phases, in order; any failure exits non-zero:
                phases, peak memory and launches, the card.
 The line before the last is a JSON object with one entry per kernel:
 `launches` counts the launches of the main-path runs (phases 3b, 5, 5b, 5c,
-5d, 6, 6b, 6c and 6d, each with the counts set to 0 just before it, 5c before each of
-its two CLI runs, 6b before each of its three, 6c before each of its three,
+5d, 5e, 6, 6b, 6c and 6d, each with the counts set to 0 just before it, 5c before each of
+its two CLI runs, 5e before its served batch and its CLI run (`levers`), 6b
+before each of its three, 6c before each of its three,
 5d and 6d in each rank before its run, whose rank 0 of dp 2 over gloo is
 `serve_dp` (5d, the host counts of its warm-ups and captures) and
 `train_dp` (6d);
-`launches_by_path` splits them; in phases 5 and 5b the wrappers run, and count, at the eager warm-up
+`launches_by_path` splits them; in phases 5, 5b and 5e the wrappers run, and count, at the eager warm-up
 and at the capture of the batch's program, and `launches_per_replay` gives
 what one replay launches),
 `max_abs_err` is the largest over the kernel's shapes, `ms`, `plain_ms`,
@@ -388,8 +407,7 @@ Q8_PROBE_SHAPE, Q8_PROBE_TIES = (2, 4096, 8, 40), tuple(k + 0.5 for k in range(4
 Q8_PROBE_MIN_TIES = 32
 
 # the turbo serving point, a copy of bench.py's TURBO (bench.py imports JAX);
-# tests/test_torch_turbo.py holds the two equal. The port has no ToMe: its
-# ratio must stay 0.
+# tests/test_torch_turbo.py holds the two equal
 TURBO = dict(tome_ratio=0.0, tome_mode="branch",
              encoder_stride=5, cache_mode="deep",
              sampler="dpm", steps=25, vae_quant="int8")
@@ -405,6 +423,25 @@ TURBO_LAUNCHES = {"attention": 156, "split3": 185, "ln_proj": 382, "ln_geglu": 1
                   "gn_proj": 191}
 # served batches timed with and without graphs, in alternating pairs
 AB_PAIRS = 4
+# phase 5e: the UNet's inference levers at full width (SD UNet, 512², batch
+# 8). The README's turbo point: TURBO with ToMe at 0.5 in branch mode (the
+# int8 VAE decoder; README.md "turbo serving")
+TOME_TURBO = dict(TURBO, tome_ratio=0.5, tome_mode="branch")
+# the kernels at the lengths ToMe merges the 64×64 sites' 4096 tokens to
+# (2048 at ratio 0.5, 3072 at 0.25, 1024 at 0.75; batch 13: the CLI's), and
+# the LayerNorm GEMMs at the merged rows (B·S' = 8·2048; 13·2048), C = 320
+LEVER_ATTN_SHAPES = [(8, 2048, 8, 40), (8, 3072, 8, 40), (8, 1024, 8, 40), (13, 2048, 8, 40)]
+LEVER_SPLIT3_SHAPES = [(8, 2048, 8, 40)]
+LEVER_LN_PROJ_SHAPES = [(8 * 2048, 320, 3), (8 * 2048, 320, 1), (13 * 2048, 320, 3)]
+LEVER_LN_GEGLU_SHAPES = [(8 * 2048, 320)]
+# the int8 UNet's eps against the bf16 UNet's on the same weights, the int8
+# attention sites' channels spread (the same function; relative L2). On an
+# NVIDIA H100 80GB HBM3 (700 W) the sound int8 UNet reads 3.836e-2 and a
+# planted fault, the square projections' weights quantized with per-K (input
+# channel) scales where per-N ones belong, 0.8778 (PERF.md §6 PR 17); the
+# band sits between. Without the spread the fault read 3.018e-2 against the
+# sound 2.769e-2: flax-style init gives every channel the same range
+LEVER_INT8_BAND = 0.1
 # phase 5d: serving across ranks, GenerationServer(mesh=) started by
 # torchrun at phase 5's width (512², 50 DDIM steps, bf16, by graph replay).
 # The run has one card and NCCL refuses two ranks on one device, so (a) two
@@ -454,6 +491,13 @@ INFER_RUN_A = ["--config", "configs/train_ip.yaml", "--image-size", "512", "--me
                str(INFER_LEVELS), "--steer-scale", "1.0", "--seed", "0"]
 INFER_RUN_B = ["--config", "configs/train.yaml", "--mes-steps", str(INFER_LEVELS),
                "--guidance-scale", "3.0", "--eta", "0.5", "--seed", "0"]
+# phase 5e: the infer CLI with the README's turbo flags at 512², 13 levels
+INFER_TURBO = INFER_RUN_A + ["--sampler", "dpm", "--sampling-steps", str(TOME_TURBO["steps"]),
+                             "--encoder-stride", str(TOME_TURBO["encoder_stride"]),
+                             "--cache-mode", TOME_TURBO["cache_mode"],
+                             "--tome-ratio", str(TOME_TURBO["tome_ratio"]),
+                             "--tome-mode", TOME_TURBO["tome_mode"],
+                             "--vae-quant", TOME_TURBO["vae_quant"]]
 # the CLIP ViT-L/14 tower's bf16 features (the CLI's) against the same tower
 # in fp32 on the same pixels, relative L2 over the whole output: bf16
 # activations and weights through 24 pre-LN layers. On an NVIDIA H100 80GB
@@ -547,25 +591,27 @@ LOOP_GN_SHAPES = [(12, 1024, 320), (12, 256, 640), (12, 64, 1280)]
 # runs on NCCL, the production backend (--dp 1 in a world of 1). A global
 # batch of 32 (16 a rank, so two 14.7 GB training states and their
 # activations fit in 80 GB: the one cut, in batch) of configs/train_ip.yaml
-# at full width, 256², 2 steps (--fsdp 2: 1), on the phase's own tree of
-# PNGs; each run against a one-process run of the same argv (no torchrun).
+# at full width, 256², one step each (cut in depth to keep the script in its
+# clock), on the phase's own tree of PNGs; each run against a one-process run
+# of the same argv (no torchrun).
 # One loader thread: with more, the augment's draws follow the threads'
 # order (data/limuc.py), and two runs of one argv differ by more than the
 # ranks do (two one-process runs read 2.2e-1 of the update apart; PERF.md).
+RANKS_STEPS = 1
 RANKS_ARGS = ["dataset.batch_size=32", "dataset.num_workers=1",
               "training.update_starting_at_step=0", "training.log_every_n_steps=1",
-              "--max-steps", "2"]
-RANKS_STEPS, RANKS_FSDP_STEPS = 2, 1
+              "--max-steps", str(RANKS_STEPS)]
 RANKS_TIMEOUT_S = 420
 # against the one-process run: each step's loss and grad norm (relative),
 # and the post-step parameters' difference relative to the one-process
 # run's update (‖p − p₁‖ / ‖p₁ − p₀‖). The ranks' bf16 kernels run at batch
 # 16 where the one process runs 32, so their sums round differently; the
 # bands sit between the sound readings and a planted fault (every rank
-# skipping the gradient average, `fault: no_average`; PERF.md §6):
-# losses 1.5e-4 sound (1.1e-3 the fault's second step; the first loss
-# precedes any update), grad norms 1.3e-3 against 0.16, the update 3.9e-2
-# (FSDP2 at one rank 1.2e-2, --dp 1 on NCCL 0: the same rows) against 0.50.
+# skipping the gradient average, `fault: no_average`; PERF.md §6, read at
+# two steps): losses 1.5e-4 sound (1.1e-3 the fault's second step; the
+# first loss, the one a one-step run logs, precedes any update), grad norms
+# 1.3e-3 against 0.16, the update 3.9e-2 (FSDP2 5.8e-2 at one step, --dp 1
+# on NCCL 0: the same rows) against 0.50.
 RANKS_LOSS_RTOL, RANKS_NORM_RTOL, RANKS_UPDATE_BAND = 1e-3, 2e-2, 0.15
 # the kernels at the rows a rank gives them (16), held to their plain
 # versions untimed
@@ -1698,8 +1744,6 @@ def phase_turbo(card: str, exact: dict) -> dict:
     from psd_tpu_torch.ops import kernels
     from psd_tpu_torch.pipelines.serve import GenerationServer
 
-    if TURBO["tome_ratio"] != 0.0:
-        raise SystemExit("chip_smoke.py: TURBO asks for ToMe, which the port does not have")
     cfg = load_config(ROOT / "configs" / "train_ip.yaml", ["dataset.image_size=512"])
     size, batch = cfg.dataset.image_size, 8
     t0 = time.perf_counter()
@@ -1973,9 +2017,12 @@ def _infer_run(name: str, argv, out_dir: Path, card: str, structure: Path) -> di
     size = images.shape[1]
     do_cfg = out["uncond"] is not None
     args = infer.build_argparser().parse_args(argv)
-    expected = route_launches(model.core_cfg, model.vae_cfg, INFER_LEVELS, size,
-                              args.sampling_steps or model.cfg.diffusion.sampling_steps,
-                              cfg_pass=do_cfg)
+    steps = args.sampling_steps or model.cfg.diffusion.sampling_steps
+    full = sum(1 for i in range(steps) if i % args.encoder_stride == 0 or i == steps - 1)
+    if full < steps and args.cache_mode != "deep":
+        raise SystemExit("chip_smoke.py: _infer_run counts DeepCache's shallow steps only")
+    expected = route_launches(model.core_cfg, model.vae_cfg, INFER_LEVELS, size, full,
+                              steps - full, cfg_pass=do_cfg)
     clip_img, _ = infer.load_structure_image(structure, size, model.clip_cfg.image_size)
     feats = model.encode_image_clip(clip_img)
     clip_rel = _clip_rel_l2(model, clip_img, feats)
@@ -2142,6 +2189,321 @@ def phase_infer(card: str) -> dict:
                  for d in set(a["head_dims"]) | set(b["head_dims"])}
     return {"counts": counts, "head_dims": head_dims, "eps_rel_l2": eps_rel,
             "runs": {"a": a, "b": b}}
+
+
+def _lever_kernels(results: dict) -> None:
+    """Each kernel at the shapes the levers give it (LEVER_*), against its
+    plain version by its judge, timed as phase 3 times it (kernel, plain,
+    library, bound); kept under "levers_shapes", outside the entries' sums."""
+    from psd_tpu_torch.ops import attention, geglu, split3
+    from psd_tpu_torch.testing import attention_judge, ln_gemm_judge, split3_judge
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    for shape in LEVER_ATTN_SHAPES:
+        B, S, H, D = shape
+        q, k, v = randn(*shape), randn(*shape), randn(*shape)
+        _compare("attention", shape, lambda: attention.attention_fwd(q, k, v),
+                 lambda: attention.attention_reference(q, k, v), results,
+                 (4.0 * B * H * S * S * D, 4 * B * S * H * D * 2),
+                 fn_library=lambda: _sdpa(q, k, v), judge=attention_judge,
+                 note={"exp2_ms_at_sfu_rate": B * H * S * S / sfu_exp2_per_s() * 1e3},
+                 key="levers_shapes")
+        del q, k, v
+        torch.cuda.empty_cache()
+    for (B, S, H, D) in LEVER_SPLIT3_SHAPES:
+        q = randn(B, S, H, D)
+        banks = [randn(B, 16, H, D) for _ in range(6)]
+        _compare("split3", (B, S, H, D),
+                 lambda: split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9),
+                 lambda: split3.split3_reference(q, *banks, 1.0, 0.1, 0.9), results,
+                 (3 * 4.0 * B * H * S * 16 * D, (2 * B * S + 6 * B * 16) * H * D * 2),
+                 judge=split3_judge, key="levers_shapes")
+    for (M, C, n_out) in LEVER_LN_PROJ_SHAPES:
+        x = randn(M, C)
+        lw = 1.0 + randn(C, std=0.1, dtype=torch.float32)
+        lb = randn(C, std=0.1, dtype=torch.float32)
+        ws = tuple(randn(C, C, std=C ** -0.5) for _ in range(n_out))
+        _compare("ln_proj", (M, C, n_out), lambda: geglu.ln_proj_fwd(x, lw, lb, ws),
+                 lambda: geglu.ln_proj_reference(x, lw, lb, ws), results,
+                 (2.0 * M * C * C * n_out,
+                  M * C * 2 + 2 * C * 4 + n_out * (C * C * 2 + M * C * 2)),
+                 judge=ln_gemm_judge, key="levers_shapes")
+    for (M, C) in LEVER_LN_GEGLU_SHAPES:
+        x = randn(M, C)
+        lw = 1.0 + randn(C, std=0.1, dtype=torch.float32)
+        lb = randn(C, std=0.1, dtype=torch.float32)
+        w0 = randn(8 * C, C, std=C ** -0.5)
+        b0 = randn(8 * C, std=0.02, dtype=torch.float32)
+        _compare("ln_geglu", (M, C), lambda: geglu.ln_geglu_fwd(x, lw, lb, w0, b0),
+                 lambda: geglu.ln_geglu_reference(x, lw, lb, w0, b0), results,
+                 (2.0 * M * C * 8 * C,
+                  M * C * 2 + 2 * C * 4 + 8 * C * C * 2 + 8 * C * 4 + M * 4 * C * 2),
+                 judge=ln_gemm_judge, key="levers_shapes")
+    torch.cuda.empty_cache()
+
+
+def _per_k_int8_(unet, fp32) -> int:
+    """The planted fault of the int8 eps band: every square int8 projection
+    (q, k, v, out, proj_in, proj_out) quantized with per-K (input channel)
+    scales where per-N ones belong; → the sites changed."""
+    from psd_tpu_torch.ops.quant import quant_cols
+
+    n = 0
+    for prefix, m in unet.named_modules():
+        for name in getattr(m, "int8_sites", ()):
+            wq = getattr(m, f"{name}_wq")
+            if wq.ndim != 2 or wq.shape[0] != wq.shape[1]:
+                continue
+            q, sw = quant_cols(fp32[f"{prefix}.{name}.weight"].reshape(wq.shape), axis=1)
+            wq.copy_(q)
+            getattr(m, f"{name}_sw").copy_(sw.reshape(-1))
+            n += 1
+    return n
+
+
+def _spread_gains_(unet, fp32: dict, gen) -> dict:
+    """fp32 weights of the same function with the int8 attention sites'
+    channels spread: at each attention with int8 weights, q's output
+    channels times g and k's (to_k, and to_k_dis of split3) times 1/g, v's
+    (to_v, to_v_dis) times h and to_out_0's input channels times 1/h, g and
+    h 2^u with u ~ U(-VAE_GAIN_LOG2, VAE_GAIN_LOG2): the logits and the
+    output are unchanged up to rounding. Flax-style init gives every output
+    channel the same range, where per-N and per-K scales read alike; trained
+    weights' channels spread (as phase 5b spreads the VAE's)."""
+    out = dict(fp32)
+
+    def gains(n):
+        return torch.exp2((2.0 * torch.rand(n, generator=gen, device=gen.device) - 1.0)
+                          * VAE_GAIN_LOG2)
+
+    for prefix, m in unet.named_modules():
+        if "to_q" not in getattr(m, "int8_sites", ()):
+            continue
+        g, h = gains(m.to_q.out_features), gains(m.to_v.out_features)
+        for name, row_gain in (("to_q", g), ("to_k", 1.0 / g), ("to_k_dis", 1.0 / g),
+                               ("to_v", h), ("to_v_dis", h)):
+            key = f"{prefix}.{name}.weight"
+            if key in out:
+                out[key] = fp32[key] * row_gain[:, None]
+        key = f"{prefix}.to_out_0.weight"
+        out[key] = fp32[key] / h[None, :]
+    return out
+
+
+def _lever_eps(card: str) -> dict:
+    """One SD-scale eps (phase 4's inputs and weights) per lever: ToMe 0.5
+    in branch and in block mode, and the int8 UNet, on the kernels against
+    all plain, their launches against the routes'; the int8 eps against the
+    bf16 eps of the same weights (its attention sites' channels spread,
+    _spread_gains_), and a planted fault's (_per_k_int8_)."""
+    from dataclasses import replace
+
+    from psd_tpu_torch.core.mode import KERNELS, disable_kernels
+    from psd_tpu_torch.diffusion.dadd import DADDCoreConfig
+    from psd_tpu_torch.models.init import flax_init_
+    from psd_tpu_torch.models.layers import quantize_int8_weights_, store_weights_in_
+    from psd_tpu_torch.models.unet import UNet2DCondition, sd14_unet_config
+    from psd_tpu_torch.models.vae import VAEConfig
+    from psd_tpu_torch.ops import kernels
+    from psd_tpu_torch.testing import route_launches
+
+    dev = torch.device("cuda")
+    cfg = sd14_unet_config(attn_mode="split3", gate_init_anatomy=(0.1, 0.9),
+                           gate_init_disease=(0.9, 0.1), dtype=torch.bfloat16)
+
+    def built(ucfg, weights):
+        with dev:
+            unet = UNet2DCondition(ucfg).eval()
+        unet.load_state_dict(weights)
+        quantize_int8_weights_(unet)
+        return store_weights_in_(unet, torch.bfloat16)
+
+    with dev:
+        plain = UNet2DCondition(cfg).eval()
+    g = torch.Generator(device=dev).manual_seed(1)
+    flax_init_(plain, g)
+    x = torch.randn((8, 64, 64, 4), generator=g, device=dev)
+    t = torch.full((8,), 501, dtype=torch.int32, device=dev)
+    ctx = torch.randn((8, 48, 768), generator=g, device=dev)
+    fp32 = {k: v.clone() for k, v in plain.state_dict().items()}
+    store_weights_in_(plain, torch.bfloat16)
+    models = {}
+    for name, kw in (("tome_branch", dict(tome_ratio=0.5, tome_mode="branch")),
+                     ("tome_block", dict(tome_ratio=0.5, tome_mode="block"))):
+        with torch.device("meta"):  # ToMe adds no parameter: the plain model's tensors, shared
+            unet = UNet2DCondition(replace(cfg, **kw)).eval()
+        unet.load_state_dict(plain.state_dict(), assign=True)
+        models[name] = unet.config, unet, plain
+    q8cfg = replace(cfg, quant="int8")
+    with dev:
+        sites = UNet2DCondition(q8cfg)
+    spread = _spread_gains_(sites, fp32, torch.Generator(device=dev).manual_seed(5))
+    del sites
+    models["int8"] = q8cfg, built(q8cfg, spread), built(cfg, spread)
+    out = {}
+    with torch.inference_mode():
+        for name, (lcfg, unet, ref) in models.items():
+            eps_ref = ref(x, t, ctx, 1.0)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            eps_k = unet(x, t, ctx, 1.0)
+            torch.cuda.synchronize()
+            counts = {k: kernels.launch_counts[k] for k in SERVE_KERNELS}
+            want = route_launches(DADDCoreConfig(unet=lcfg), VAEConfig(), 8, 512, 1, decode=False)
+            with disable_kernels(*KERNELS):
+                eps_p = unet(x, t, ctx, 1.0)
+            rel = ((eps_k - eps_p).norm() / eps_p.norm()).item()
+            ref_rel = ((eps_k - eps_ref).norm() / eps_ref.norm()).item()
+            ms = time_ms(lambda: unet(x, t, ctx, 1.0), n=3, warmup=1)
+            ref_ms = time_ms(lambda: ref(x, t, ctx, 1.0), n=3, warmup=1)
+            dev_ms = _eps_device_ms(lambda: unet(x, t, ctx, 1.0), ())
+            ref_dev_ms = _eps_device_ms(lambda: ref(x, t, ctx, 1.0), ())
+            r = {"rel_l2_vs_plain": rel, "rel_l2_vs_exact": ref_rel, "launches": counts,
+                 "routes": want, "ms": ms, "exact_ms": ref_ms, "device_ms": dev_ms,
+                 "exact_device_ms": ref_dev_ms}
+            if name == "int8":
+                r["fault_sites"] = _per_k_int8_(unet, spread)
+                fault = unet(x, t, ctx, 1.0)
+                r["fault_rel_l2_vs_exact"] = ((fault - eps_ref).norm() / eps_ref.norm()).item()
+                del fault
+            out[name] = r
+            log(f"[levers] eps {name} (8,64,64,4), 48 tokens, delta 1.0: rel L2 kernels vs plain "
+                f"{rel:.3e} (band {UNET_REL_BAND:g}), vs the exact eps of the same weights "
+                f"{ref_rel:.3e}"
+                + (f" (attention channels spread by 2^±{VAE_GAIN_LOG2:g}), the planted fault "
+                   f"(per-K scales at {r['fault_sites']} square projections) "
+                   f"{r['fault_rel_l2_vs_exact']:.3e}" if name == "int8" else "")
+                + f"; launches {counts}, the routes' {want}; eps {ms:.2f} ms, the exact eps "
+                f"{ref_ms:.2f} ms (eager, host clock); on the device (one eps captured, "
+                f"replayed) {dev_ms} ms, the exact eps {ref_dev_ms} ms; on {card}")
+            del eps_k, eps_p, eps_ref
+    del models, unet, ref, plain, fp32, spread
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_unet_levers(card: str, turbo: dict, results: dict) -> dict:
+    """The UNet's inference levers at full width (phase 5e): the kernels at
+    the shapes ToMe gives them; one eps per lever (ToMe branch and block,
+    the int8 UNet) against all plain, the int8 one against the bf16 eps;
+    the README's turbo point with ToMe (TOME_TURBO) served by graph replay
+    against its eager run; the infer CLI with the README's turbo flags."""
+    import numpy as np
+    from PIL import Image
+
+    from psd_tpu_torch.core.config import load_config
+    from psd_tpu_torch.core.mode import eager
+    from psd_tpu_torch.diffusion.dadd import DADD, core_config_from
+    from psd_tpu_torch.models.vae import VAEConfig
+    from psd_tpu_torch.ops import kernels
+    from psd_tpu_torch.pipelines.serve import GenerationServer
+    from psd_tpu_torch.testing import route_launches
+
+    _lever_kernels(results)
+    eps = _lever_eps(card)
+
+    cfg = load_config(ROOT / "configs" / "train_ip.yaml", ["dataset.image_size=512"])
+    size, batch = cfg.dataset.image_size, 8
+    core_cfg = core_config_from(cfg, tome_ratio=TOME_TURBO["tome_ratio"],
+                                tome_mode=TOME_TURBO["tome_mode"])
+    vae_cfg = VAEConfig(quant=TOME_TURBO["vae_quant"])
+    t0 = time.perf_counter()
+    model = DADD(cfg, core_cfg=core_cfg, vae_cfg=vae_cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((batch, 257, 1024)).astype(np.float32)
+    targets = np.linspace(0.0, 3.0, batch)
+    requests = [(feats[i], targets[i], 1.0, i) for i in range(batch)]
+
+    def make_server():
+        return GenerationServer(model, image_size=size, sampling_steps=TOME_TURBO["steps"],
+                                steer_scale=1.0, max_batch=batch, max_wait_s=0.05,
+                                encoder_stride=TOME_TURBO["encoder_stride"],
+                                cache_mode=TOME_TURBO["cache_mode"],
+                                sampler=TOME_TURBO["sampler"])
+
+    server = make_server()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    images, wall_first = _serve(server, requests)
+    counts = dict(kernels.launch_counts)
+    dims = dict(kernels.attention_head_dims)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    (prog,) = _programs(model, "generate")
+    launches = dict(prog.launches)
+    again, wall_replay = _serve(server, requests)
+    _close(server, "ToMe turbo graph")
+    with eager():
+        eserver = make_server()
+    eager_images, wall_eager = _serve(eserver, requests)
+    _close(eserver, "ToMe turbo eager")
+    replay_ms = _replay_ms(prog)
+    expected = route_launches(core_cfg, vae_cfg, batch, size, TURBO_FULL, TURBO_SHALLOW)
+    diffs = {"replay vs eager": _max_diff(images, eager_images),
+             "replay again": _max_diff(again, images)}
+    del server, eserver, prog
+    model.programs.clear()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    work = ROOT / "build" / "psd_tpu_torch" / "infer"
+    work.mkdir(parents=True, exist_ok=True)
+    structure = work / "structure.png"
+    if not structure.exists():
+        Image.fromarray(np.random.default_rng(0).integers(0, 256, (512, 512, 3), np.uint8)).save(
+            structure)
+    cli = _infer_run("turbo", INFER_TURBO, work / "turbo", card, structure)
+    cli.pop("out")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    int8 = eps["int8"]
+    checks = {
+        "images (512,512,3) finite in [0,1]": all(
+            im.shape == (size, size, 3) and np.isfinite(im).all() and im.min() >= 0.0
+            and im.max() <= 1.0 for im in images),
+        "targets differ": not np.allclose(images[0], images[-1], atol=1e-3),
+        f"the capture launches the routes' {expected}": launches == expected,
+        "every image equals the eager run's": max(diffs.values()) == 0.0,
+        **{f"eps {k} kernels vs plain rel L2 <= {UNET_REL_BAND:g}":
+           eps[k]["rel_l2_vs_plain"] <= UNET_REL_BAND for k in ("tome_branch", "tome_block",
+                                                                 "int8")},
+        **{f"eps {k} launches the routes'": eps[k]["launches"] == eps[k]["routes"]
+           for k in ("tome_branch", "tome_block", "int8")},
+        f"int8 eps vs bf16 rel L2 <= {LEVER_INT8_BAND:g}":
+            int8["rel_l2_vs_exact"] <= LEVER_INT8_BAND,
+        f"the planted fault beyond {LEVER_INT8_BAND:g}":
+            int8["fault_rel_l2_vs_exact"] > LEVER_INT8_BAND,
+        **{f"infer turbo {k}": v for k, v in cli["checks"].items()},
+    }
+    log(f"[levers] {batch} requests, {size}px, {TOME_TURBO}, by graph replay: model built in "
+        f"{build_s:.1f} s; first batch (warm-up + capture + replay) wall {wall_first:.3f} s; a "
+        f"replayed batch wall {wall_replay:.3f} s ({batch / wall_replay:.4f} img/s), eager "
+        f"{wall_eager:.3f} s; peak allocated over the first batch {peak:.3f} GiB; on {card}")
+    log(f"[levers] one replay: device ms {replay_ms['device_ms']:.2f}, host ms until replay() "
+        f"returns {replay_ms['host_launch_ms']:.2f}; phase 5b's turbo replay (no ToMe) in this "
+        f"call: device ms {turbo['replay_ms']['device_ms']:.2f}, host ms "
+        f"{turbo['replay_ms']['host_launch_ms']:.2f} (a record, not a claim)")
+    log(f"[levers] host launch counts over the first batch {counts}; one replay launches "
+        f"{launches}; attention by head dim {dims}; max abs difference {diffs}")
+    log(f"[levers] checks {checks}")
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke.py: lever checks failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    total = {k: counts.get(k, 0) + cli["counts"].get(k, 0) for k in set(counts) | set(cli["counts"])}
+    head_dims = {d: dims.get(d, 0) + cli["head_dims"].get(d, 0)
+                 for d in set(dims) | set(cli["head_dims"])}
+    return {"counts": total, "head_dims": head_dims, "replay_launches": launches,
+            "replay_ms": replay_ms, "wall_s": wall_replay, "eps": eps, "diffs": diffs,
+            "infer": cli, "peak_gib": peak}
 
 
 def phase_train_kernels(results: dict) -> None:
@@ -3488,14 +3850,14 @@ def _check_rank_shapes() -> None:
 
 
 def phase_train_ranks(card: str, trained: dict, fault: bool = False) -> dict:
-    """The train CLI across ranks (phase 6d): a one-process run at a global
-    batch of 32, then torchrun's two ranks on cuda:0 over gloo at --dp 2
-    and at --fsdp 2 (one step), then one rank on NCCL at --dp 1; each
-    against the one-process run (losses,
-    grad norms, the parameters' update, each rank's launches against phase
-    6's per step), rank 0's checkpoint read by the infer CLI. `fault` runs
-    the planted fault its bands were set against (every rank skipping the
-    gradient average) and stops there."""
+    """The train CLI across ranks (phase 6d), one step each: a one-process
+    run at a global batch of 32, then torchrun's two ranks on cuda:0 over
+    gloo at --dp 2 and at --fsdp 2, then one rank on NCCL at --dp 1; each
+    against the one-process run (loss, grad norm, the parameters' update,
+    each rank's launches against phase 6's per step), rank 0's checkpoint
+    of --dp 2 read by the infer CLI. `fault` runs the planted fault its
+    bands were set against (every rank skipping the gradient average) and
+    stops there."""
     import shutil
 
     import numpy as np
@@ -3516,43 +3878,29 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False) -> dict:
 
     want = launches(RANKS_STEPS)
 
-    # the one-process run, its initial parameters and those after its first
-    # step kept on the host
-    start, first = {}, {}
-    make_state, make_step = train.create_train_state, train.make_train_step
+    # the one-process run, its initial parameters kept on the host
+    start = {}
+    make_state = train.create_train_state
 
     def keeping(model, **kw):
         start.update({n: p.detach().to("cpu", copy=True)
                       for n, p in model.core.named_parameters()})
         return make_state(model, **kw)
 
-    def stepping(model, *a, **k):
-        step = make_step(model, *a, **k)
-
-        def keep_first(*sa, **sk):
-            out = step(*sa, **sk)
-            if not first:
-                first.update({n: p.detach().to("cpu", copy=True)
-                              for n, p in model.core.named_parameters()})
-            return out
-
-        return keep_first
-
     torch.cuda.reset_peak_memory_stats()
-    train.create_train_state, train.make_train_step = keeping, stepping
+    train.create_train_state = keeping
     try:
         one_dir = work / "one"
         r0, counts0, dims0, wall0 = _counted(train.main, base + ["--output-dir", str(one_dir)])
     finally:
-        train.create_train_state, train.make_train_step = make_state, make_step
+        train.create_train_state = make_state
     peak0 = torch.cuda.max_memory_allocated() / 2**30
     laps0 = r0["laps"]
     del r0
     gc.collect()
     torch.cuda.empty_cache()
     ref = _logged(one_dir)
-    after = {RANKS_FSDP_STEPS: first, RANKS_STEPS: _params(one_dir / "checkpoints" /
-                                                            str(RANKS_STEPS))}
+    after = _params(one_dir / "checkpoints" / str(RANKS_STEPS))
     if counts0 != want:
         raise SystemExit(f"chip_smoke.py: the one-process run launched {counts0}, not {want}")
     log(f"[train_ranks] one process, global batch 32: main() wall {wall0:.3f} s; train_step "
@@ -3565,15 +3913,15 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False) -> dict:
         run["out"] = Path(argv[argv.index("--output-dir") + 1])
         return run
 
-    def judge(tag, run, steps=RANKS_STEPS):
-        """The run's checks against the one-process run's first `steps`
-        steps; → its readings."""
+    def judge(tag, run):
+        """The run's checks against the one-process run; → its readings."""
+        steps = RANKS_STEPS
         if run["rc"] != 0 or not all(run["ranks"]):
             _ranks_failed("train_ranks", tag, run)
             raise SystemExit(f"chip_smoke.py: {tag} did not run to its end (rc {run['rc']})")
         got = _logged(run["out"])
         rel_post, rel_upd = _flat_rel(_params(run["out"] / "checkpoints" / str(steps)),
-                                      after[steps], start)
+                                      after, start)
         loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(got, ref)]
         norm_rel = [abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
                     for a, b in zip(got, ref)]
@@ -3620,7 +3968,7 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False) -> dict:
             _ranks_failed("train_ranks", "planted fault", run)
         got = _logged(run["out"])
         rel_post, rel_upd = _flat_rel(_params(run["out"] / "checkpoints" / str(RANKS_STEPS)),
-                                      after[RANKS_STEPS], start)
+                                      after, start)
         log(f"[train_ranks] planted fault (no gradient average), --dp 2 over gloo: losses "
             f"{[r['loss'] for r in got]}, grad norms {[r['grad_norm'] for r in got]} against "
             f"{[r['grad_norm'] for r in ref]}; post-step parameters rel L2 {rel_post:.3e}, over "
@@ -3652,10 +4000,9 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False) -> dict:
         raise SystemExit("chip_smoke.py: the infer CLI did not read rank 0's checkpoint")
     shutil.rmtree(work / "dp2", ignore_errors=True)
 
-    run = ranks_run("fsdp2_gloo", 2, base + ["--fsdp", "2", "--max-steps", str(RANKS_FSDP_STEPS),
-                                             "--output-dir", str(work / "fsdp2")], backend="gloo")
-    readings["fsdp2_gloo"] = judge(f"--fsdp 2 ({RANKS_FSDP_STEPS} step), two ranks on cuda:0 "
-                                   "over gloo", run, RANKS_FSDP_STEPS)
+    run = ranks_run("fsdp2_gloo", 2, base + ["--fsdp", "2", "--output-dir", str(work / "fsdp2")],
+                    backend="gloo")
+    readings["fsdp2_gloo"] = judge("--fsdp 2, two ranks on cuda:0 over gloo", run)
     if not all(r["sharded"] for r in run["ranks"]):
         raise SystemExit("chip_smoke.py: the --fsdp 2 run was not under FSDP2")
     shutil.rmtree(run["out"], ignore_errors=True)
@@ -3686,6 +4033,7 @@ def main() -> int:
     served = timed("serve", phase_serve, card, unet)
     turbo = timed("turbo", phase_turbo, card, served)
     inferred = timed("infer", phase_infer, card)
+    levers = timed("unet levers", phase_unet_levers, card, turbo, results)
     served_dp = timed("serve ranks", phase_serve_ranks, card, served)
     timed("train kernels", phase_train_kernels, results)
     trained = timed("train", phase_train, card)
@@ -3701,17 +4049,19 @@ def main() -> int:
                    (("serve", served), ("turbo", turbo), ("infer", inferred),
                     ("train", trained), ("train_cli", train_cli), ("op", op),
                     ("augment", loop["augment"]), ("evaluate", loop["evaluate"]),
-                    ("train_dp", ranks), ("serve_dp", served_dp))}
-        # serve and turbo count host launches (the eager warm-up and the
+                    ("train_dp", ranks), ("serve_dp", served_dp), ("levers", levers))}
+        # serve, turbo and levers count host launches (the eager warm-up and the
         # capture of their program); what each replay launches is apart
         by_replay = {path: run["replay_launches"].get(name, 0)
-                     for path, run in (("serve", served), ("turbo", turbo))}
+                     for path, run in (("serve", served), ("turbo", turbo), ("levers", levers))}
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": sum(by_path.values()), "launches_by_path": by_path,
                  "launches_per_replay": by_replay,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": _bound_by(r),
                  "library_ms": r["library_ms"], "shapes": r["shapes"]}
+        if "levers_shapes" in r:
+            entry["levers_shapes"] = r["levers_shapes"]
         if "fwd_bwd_ms" in r:
             entry["fwd_bwd_ms"] = r["fwd_bwd_ms"]
             entry["sdpa_fwd_bwd_ms"] = r["sdpa_fwd_bwd_ms"]
@@ -3727,7 +4077,7 @@ def main() -> int:
                 (("serve", served), ("turbo", turbo), ("infer", inferred),
                  ("train", trained), ("train_cli", train_cli),
                  ("augment", loop["augment"]), ("evaluate", loop["evaluate"]),
-                 ("train_dp", ranks), ("serve_dp", served_dp))}
+                 ("train_dp", ranks), ("serve_dp", served_dp), ("levers", levers))}
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -37,12 +37,16 @@ of its static knobs (`graphs.py`, psd_tpu's jitted programs); on the CPU,
 and under `core.mode.eager()`, they run op by op. The turbo levers are here: the
 DPM-Solver++(2M) sampler, encoder propagation and DeepCache through the
 UNet's phases (`DADDCore.eps_encode/eps_decode/eps_deep/eps_shallow`), and
-the int8 VAE decoder, whose int8 weights are computed once from the fp32
-values (at init and in `load_flax`). Baseline mode is here too: the BOE, the
+the int8 VAE decoder, and the UNet's own levers, the W8A8 int8 UNet
+(`core_config_from(quant="int8")`) and ToMe token merging (`tome_ratio`,
+`tome_mode`). A serving model's int8 weights are computed once from the fp32
+values (at init, in `load_flax` and in `load_core_state_dict`), a training
+model's from its fp32 masters at each inference use, as psd_tpu quantizes
+its fp32 parameters. Baseline mode is here too: the BOE, the
 plain ImageProjection from CLIP's pooled embedding, split2 routing, LEACE
 erasure of the projected image tokens and eta-stochastic DDIM, whose
-per-step noise is drawn outside the graph like the initial latents. ToMe
-waits for a later slice. `sample` and `decode_latents` take a mesh: each
+per-step noise is drawn outside the graph like the initial latents.
+`sample` and `decode_latents` take a mesh: each
 rank of torchrun's runs its rows of the batch, and the results are gathered
 (psd_tpu's dp-sharded sampling).
 """
@@ -188,10 +192,14 @@ class DADDCore(nn.Module):
         return self.unet(latents, t, cond, delta_scale, phase="shallow", cached=cached)
 
 
-def core_config_from(cfg: Config, dtype=torch.bfloat16) -> DADDCoreConfig:
+def core_config_from(cfg: Config, remat: Optional[bool] = None, dtype=torch.bfloat16,
+                     quant: str = "none", tome_ratio: float = 0.0,
+                     tome_mode: str = "branch") -> DADDCoreConfig:
     """DADDCoreConfig from a reference-format Config (routing gates → split3,
     else split2; gradient checkpointing from
-    `training.gradient_checkpointing`)."""
+    `training.gradient_checkpointing` unless `remat` says), with the UNet's
+    inference levers: `quant` ("int8": the W8A8 UNet) and ToMe
+    (`tome_ratio`, `tome_mode`), psd_tpu's signature."""
     m = cfg.model
     unet = UNetConfig(
         in_channels=m.latent_channels,
@@ -207,7 +215,10 @@ def core_config_from(cfg: Config, dtype=torch.bfloat16) -> DADDCoreConfig:
         use_frequency_strategy=m.use_frequency_strategy,
         gate_init_anatomy=m.gate_init_anatomy,
         gate_init_disease=m.gate_init_disease,
-        remat=cfg.training.gradient_checkpointing,
+        remat=cfg.training.gradient_checkpointing if remat is None else remat,
+        quant=quant,
+        tome_ratio=tome_ratio,
+        tome_mode=tome_mode,
         dtype=dtype,
     )
     return DADDCoreConfig(
@@ -264,7 +275,8 @@ class DADD:
             if self._vae is not None:
                 flax_init_(self._vae, gen)
         if not for_training:
-            # the int8 decoder weights come from the fp32 values, before the cast
+            # the int8 weights come from the fp32 values, before the cast
+            quantize_int8_weights_(self.core.unet)
             quantize_int8_weights_(self.vae)
             store_weights_in_(self.core.unet, self.core_cfg.unet.dtype)
             store_weights_in_(self.vae.decoder, self.vae_cfg.dtype)
@@ -293,7 +305,10 @@ class DADD:
         a part whose tree is None keeps the weights it has. A serving model
         takes the decode half of `vae_tree`, a training model all of it."""
         if core_tree is not None:
-            load_flax_(self.core, core_tree)
+            if self.for_training:
+                load_flax_(self.core, core_tree)
+            else:
+                self.load_core_state_dict(state_dict_from_flax(core_tree, self.core))
         if vae_tree is not None:
             if self.for_training:
                 load_flax_(self._frozen_vae(init=False), vae_tree)
@@ -303,6 +318,16 @@ class DADD:
                 self._vae.load_state_dict(sd, strict=True)
         if clip_tree is not None:
             load_flax_(self._clip_tower(init=False), clip_tree)
+        return self
+
+    def load_core_state_dict(self, state_dict) -> "DADD":
+        """Replace the core's weights with a state_dict of fp32 tensors (the
+        bridge's, a checkpoint's); a serving model's int8 weights are
+        computed from those fp32 values, as psd_tpu quantizes its fp32
+        parameters."""
+        if not self.for_training:
+            quantize_int8_weights_(self.core, state_dict)
+        self.core.load_state_dict(state_dict, strict=True)
         return self
 
     @property

@@ -1,7 +1,10 @@
 """UNet and VAE building blocks, NHWC, as PyTorch modules.
 
-Counterpart of `psd_tpu/models/layers.py` (the ToMe-free path; of the int8
-levers, the resblock's W8A8 convs that the int8 VAE decoder runs). Module attribute names are the flax tree names
+Counterpart of `psd_tpu/models/layers.py`, with its two inference levers:
+ToMe token merging in `BasicTransformerBlock` (`ops/tome.py`) and the W8A8
+int8 path (`quant="int8"`: `qconv3x3` in the resblocks, `qdense` in the
+attention projections, the GEGLU feed-forward and Transformer2D's 1×1
+convs). Module attribute names are the flax tree names
 (`time_emb_proj`, `attn2.to_k_dis`, `ff.net_0_proj`, ...), so the bridge from
 JAX parameters (`convert/from_jax.py`) is a mechanical walk. Each module
 computes in its `dtype`, casting parameters at use, as flax's (dtype,
@@ -14,11 +17,13 @@ The five kernel sites, routed by shape as `psd_tpu` routes them:
   * split3 cross-attention with S ≥ 256, S % 128 == 0 → `ops.split3`
     (in training its autograd.Function);
   * norm1/norm2 + q/k/v projections with B·S % 128 == 0, C % 64 == 0 →
-    `ops.geglu.ln_proj_fwd` (inference only);
+    `ops.geglu.ln_proj_fwd` (inference only; not where the int8 path
+    projects, C ≥ 512);
   * norm3 + GEGLU projection, same gate → `ops.geglu.ln_geglu_fwd`
-    (inference only);
+    (inference only; not where the int8 path projects, C ≥ 512);
   * Transformer2D's GroupNorm → proj_in with S % 64 == 0, C % 64 == 0 →
-    `ops.gnproj.gn_proj_fwd` (inference only).
+    `ops.gnproj.gn_proj_fwd` (inference only; off on the int8 path).
+Under ToMe the attention and LayerNorm sites run at the merged length.
 Each wrapper runs its plain version for a CPU tensor.
 """
 
@@ -37,8 +42,9 @@ from ..ops.attention import attention_probs, dot_product_attention
 from ..ops.geglu import gelu_exact, ln_geglu_fwd, ln_proj_fwd, ln_reference, ln_shape_error
 from ..ops.gnproj import gn_proj_fwd
 from ..ops.norms import group_norm, group_norm_fold
-from ..ops.quant import qconv3x3, quant_cols
+from ..ops.quant import qconv3x3, qdense, quant_cols, quant_worthwhile
 from ..ops.split3 import split3_attention, split3_shape_error
+from ..ops.tome import ToMeSpec, build_merge, merge, unmerge
 from ..ops.upconv import conv2d_nhwc, upsample2x_conv3x3
 
 
@@ -118,6 +124,53 @@ def final_conv(x, layer: nn.Conv2d, dtype):
     return out.float() + layer.bias.float()
 
 
+def _int8_buffers_(module: nn.Module, sites) -> None:
+    """Give `module` the non-persistent int8 weight buffers of its int8
+    sites (`sites`: names of its Linear / Conv2d children): `<site>_wq`,
+    int8 of the weight's shape with 1×1 kernels flattened to (N, K), and
+    `<site>_sw`, the per-output-channel scales. `quantize_int8_weights_`
+    sets them; checkpoints and the bridge never see them. Until it has,
+    `int8_weights` quantizes the current fp32 weights at each use."""
+    module.int8_sites = tuple(sites)
+    module.int8_ready = False
+    for name in module.int8_sites:
+        w = getattr(module, name).weight
+        shape = w.shape[:2] if w.ndim == 4 and w.shape[2:] == (1, 1) else w.shape
+        module.register_buffer(f"{name}_wq", torch.zeros(shape, dtype=torch.int8, device=w.device),
+                               persistent=False)
+        module.register_buffer(f"{name}_sw", torch.zeros(shape[0], device=w.device),
+                               persistent=False)
+
+
+def int8_weights(module: nn.Module, name: str):
+    """(int8 weights, per-output-channel scales) of the int8 site `name`:
+    the buffers `quantize_int8_weights_` set (a serving model's, from the
+    fp32 values before its weights were cast), or else the current fp32
+    weights quantized at this use (a training model's masters), as psd_tpu
+    quantizes its fp32 parameters at apply time."""
+    wq = getattr(module, f"{name}_wq")
+    if module.int8_ready:
+        return wq, getattr(module, f"{name}_sw")
+    w = getattr(module, name).weight
+    if w.dtype != torch.float32:
+        raise ValueError(f"{name}: the int8 weights of {w.dtype} weights were never set; "
+                         "call quantize_int8_weights_ before casting the weights")
+    wq, sw = quant_cols(w.reshape(wq.shape), axis=0)
+    return wq, sw.reshape(-1)
+
+
+def int8_linear(x, module: nn.Module, name: str, dtype):
+    """`qdense` of x with the site `name` of `module` (a Linear or a 1×1
+    Conv2d): its int8 weights from K = 512 on, its own weight below."""
+    layer = getattr(module, name)
+    w = layer.weight
+    w = w.reshape(w.shape[0], w.shape[1]) if w.ndim == 4 else w
+    wq = sw = None
+    if name in getattr(module, "int8_sites", ()):
+        wq, sw = int8_weights(module, name)
+    return qdense(x, w, wq, sw, layer.bias, out_dtype=dtype)
+
+
 class ResnetBlock2D(nn.Module):
     """GN→SiLU→conv → (+temb folded into GN) → GN→SiLU→conv → +shortcut.
 
@@ -125,13 +178,13 @@ class ResnetBlock2D(nn.Module):
     the conv weights to avoid materializing it, which is the same math.
 
     `quant="int8"` (inference only) runs conv1 and conv2 as W8A8 `qconv3x3`
-    where psd_tpu's `quant_gate="vae"` admits the input
-    (psd_tpu/models/layers.py:145-167, :233-247): the SD decoder's win
-    region, Cin ≥ 256 at ≤ 256², or Cin ≥ 128 with Cin == Cout. (The
-    "unet" gate belongs to the UNet's int8 path, which is not ported.) The
-    int8 weights and their per-Cout scales are buffers, set from the fp32
-    weights by `quantize_int8_weights_`; on that branch norm2 runs without
-    the temb fold and the embedding is added explicitly, as in psd_tpu."""
+    where psd_tpu's int8 gate admits the input
+    (psd_tpu/models/layers.py:145-167, :233-247): `quant_gate="unet"`, the
+    UNet's, at H, W ≤ 32; `quant_gate="vae"`, the SD decoder's win region,
+    Cin ≥ 256 at ≤ 256², or Cin ≥ 128 with Cin == Cout. The int8 weights
+    and their per-Cout scales are buffers, set from the fp32 weights by
+    `quantize_int8_weights_`; on that branch norm2 runs without the temb
+    fold and the embedding is added explicitly, as in psd_tpu."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_dim: Optional[int] = None,
                  eps: float = 1e-5, groups: int = 32, dtype=torch.bfloat16,
@@ -139,10 +192,11 @@ class ResnetBlock2D(nn.Module):
         super().__init__()
         if quant not in ("none", "int8"):
             raise ValueError(f"quant must be 'none' or 'int8', got {quant!r}")
-        if quant == "int8" and quant_gate != "vae":
-            raise NotImplementedError(f"int8 quant_gate {quant_gate!r} is not ported")
+        if quant_gate not in ("unet", "vae"):
+            raise ValueError(f"quant_gate must be 'unet' or 'vae', got {quant_gate!r}")
         self.dtype = dtype
         self.quant = quant
+        self.quant_gate = quant_gate
         self.out_channels = out_channels
         self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
@@ -153,14 +207,13 @@ class ResnetBlock2D(nn.Module):
         if in_channels != out_channels:
             self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
         if quant == "int8":
-            for name, conv_ in (("conv1", self.conv1), ("conv2", self.conv2)):
-                self.register_buffer(f"{name}_wq", torch.zeros(conv_.weight.shape, dtype=torch.int8),
-                                     persistent=False)
-                self.register_buffer(f"{name}_sw", torch.zeros(out_channels), persistent=False)
+            _int8_buffers_(self, ("conv1", "conv2"))
 
     def _q_conv_ok(self, x) -> bool:
         if self.quant != "int8" or is_training():
             return False
+        if self.quant_gate == "unet":
+            return x.shape[1] <= 32 and x.shape[2] <= 32
         cin, sp = x.shape[-1], max(x.shape[1], x.shape[2])
         return (cin >= 256 and sp <= 256) or (cin >= 128 and cin == self.out_channels)
 
@@ -172,11 +225,11 @@ class ResnetBlock2D(nn.Module):
         if skip is not None:
             x = torch.cat([x, skip], dim=-1)
         if self._q_conv_ok(x):
-            h = qconv3x3(F.silu(gn(x, self.norm1)).to(dt), self.conv1_wq, self.conv1_sw,
+            h = qconv3x3(F.silu(gn(x, self.norm1)).to(dt), *int8_weights(self, "conv1"),
                          self.conv1.bias, out_dtype=dt)
             if emb is not None:
                 h = h + emb[:, None, None, :].to(h.dtype)
-            h = qconv3x3(F.silu(gn(h, self.norm2)).to(dt), self.conv2_wq, self.conv2_sw,
+            h = qconv3x3(F.silu(gn(h, self.norm2)).to(dt), *int8_weights(self, "conv2"),
                          self.conv2.bias, out_dtype=dt)
         else:
             h = conv(F.silu(gn(x, self.norm1)), self.conv1, dt)
@@ -189,22 +242,25 @@ class ResnetBlock2D(nn.Module):
 
 @torch.no_grad()
 def quantize_int8_weights_(module: nn.Module, fp32_weights=None) -> nn.Module:
-    """Set the int8 conv weights and per-Cout scales of every
-    `ResnetBlock2D(quant="int8")` under `module` from fp32 weights: the
-    module's own (before `store_weights_in_` casts them), or `fp32_weights`,
-    a state_dict of fp32 tensors keyed as `module`'s (the bridge's). As
-    psd_tpu quantizes the fp32 parameter tree (`ops/quant.py::quant_cols`)."""
+    """Set the int8 weights and per-output-channel scales of every int8
+    site under `module` (the int8 resblocks' 3×3 convs, the int8 UNet's
+    Linear layers and 1×1 convs) from fp32 weights: the module's own (before
+    `store_weights_in_` casts them), or `fp32_weights`, a state_dict of fp32
+    tensors keyed as `module`'s (the bridge's, a checkpoint's). As psd_tpu
+    quantizes the fp32 parameter tree (`ops/quant.py::quant_cols`, the
+    output axis kept)."""
     for prefix, m in module.named_modules():
-        if not (isinstance(m, ResnetBlock2D) and m.quant == "int8"):
-            continue
-        for name in ("conv1", "conv2"):
+        for name in getattr(m, "int8_sites", ()):
             key = f"{prefix}.{name}.weight" if prefix else f"{name}.weight"
             w = getattr(m, name).weight if fp32_weights is None else fp32_weights[key]
             if w.dtype != torch.float32:
                 raise ValueError(f"{key}: int8 weights come from fp32 values, got {w.dtype}")
-            wq, sw = quant_cols(w.to(m.conv1_wq.device), axis=0)  # OIHW: Cout first
-            getattr(m, f"{name}_wq").copy_(wq)
+            wq_buf = getattr(m, f"{name}_wq")
+            wq, sw = quant_cols(w.to(wq_buf.device).reshape(wq_buf.shape), axis=0)
+            wq_buf.copy_(wq)
             getattr(m, f"{name}_sw").copy_(sw.reshape(-1))
+        if getattr(m, "int8_sites", ()):
+            m.int8_ready = True
     return module
 
 
@@ -279,10 +335,14 @@ class Attention(nn.Module):
 
     The block's pre-attention LayerNorm is passed in (ln_scale/ln_bias) and
     fused with the projections: three (q, k, v) for self-attention, one (q)
-    for cross-attention."""
+    for cross-attention. `quant="int8"` (inference only, psd_tpu's
+    `Attention(quant=)`): where the width is at least MIN_QUANT_K, those
+    projections and to_out_0 run as `qdense` after a plain LayerNorm; the
+    16-token cross-attention K/V stay in `dtype`."""
 
     def __init__(self, dim: int, num_heads: int, context_dim: Optional[int] = None,
-                 mode: CrossAttnMode = CrossAttnMode(), dtype=torch.bfloat16):
+                 mode: CrossAttnMode = CrossAttnMode(), dtype=torch.bfloat16,
+                 quant: str = "none"):
         super().__init__()
         if mode.kind not in ("plain", "split2", "split3"):
             raise ValueError(f"attention mode {mode.kind!r} is not one of plain, split2, split3")
@@ -298,20 +358,27 @@ class Attention(nn.Module):
             self.to_k_dis = nn.Linear(ctx, dim, bias=False)
             self.to_v_dis = nn.Linear(ctx, dim, bias=False)
         self.to_out_0 = nn.Linear(dim, dim)
+        self.quant = quant
+        self.proj_sites = ("to_q",) if self.is_cross else ("to_q", "to_k", "to_v")
+        if quant == "int8" and quant_worthwhile(dim):
+            _int8_buffers_(self, self.proj_sites + ("to_out_0",))
 
     def forward(self, x, context=None, delta_scale: Optional[float] = None,
                 ln_scale=None, ln_bias=None):
         dt = self.dtype
         B, S, C = x.shape
         hd = C // self.num_heads
+        use_q8 = self.quant == "int8" and quant_worthwhile(C) and not is_training()
 
         def heads(t):
             return t.reshape(B, -1, self.num_heads, hd)
 
-        ws = (self.to_q.weight,) if self.is_cross else (
-            self.to_q.weight, self.to_k.weight, self.to_v.weight)
-        if ln_scale is None:
+        ws = tuple(getattr(self, n).weight for n in self.proj_sites)
+        if ln_scale is None and not use_q8:
             outs = [F.linear(x.to(dt), w.to(dt)) for w in ws]
+        elif use_q8:
+            hn = x.to(dt) if ln_scale is None else ln_reference(x.to(dt), ln_scale, ln_bias)
+            outs = [int8_linear(hn, self, n, dt) for n in self.proj_sites]
         elif ln_fused_ok(x) and use_kernel("ln_proj"):
             outs = ln_proj_fwd(x.reshape(B * S, C).to(dt), ln_scale, ln_bias,
                                tuple(w.to(dt) for w in ws))
@@ -349,7 +416,10 @@ class Attention(nn.Module):
             ctx = context.to(dt)
             z = dot_product_attention(q, heads(linear(ctx, self.to_k, dt)),
                                       heads(linear(ctx, self.to_v, dt)))
-        return linear(z.reshape(B, S, C), self.to_out_0, dt)
+        z = z.reshape(B, S, C)
+        if use_q8:
+            return int8_linear(z, self, "to_out_0", dt)
+        return linear(z, self.to_out_0, dt)
 
 
 def split2_attention(q, k, v):
@@ -360,67 +430,122 @@ def split2_attention(q, k, v):
 
 class GEGLUFeedForward(nn.Module):
     """LN (passed in) → GEGLU projection dim→8·dim, split, h·gelu(g) →
-    net_2 (4·dim→dim)."""
+    net_2 (4·dim→dim). `quant="int8"` (inference only, psd_tpu's
+    `GEGLUFeedForward(quant=)`): each projection runs as `qdense` where its
+    depth is at least MIN_QUANT_K (net_0 at dim, net_2 at 4·dim), so at
+    dim = 320 net_0 keeps the fused LN → GEGLU kernel and net_2 is int8."""
 
-    def __init__(self, dim: int, mult: int = 4, dtype=torch.bfloat16):
+    def __init__(self, dim: int, mult: int = 4, dtype=torch.bfloat16, quant: str = "none"):
         super().__init__()
         self.dtype = dtype
+        self.quant = quant
         self.net_0_proj = nn.Linear(dim, dim * mult * 2)
         self.net_2 = nn.Linear(dim * mult, dim)
+        if quant == "int8":
+            _int8_buffers_(self, [n for n, k in (("net_0_proj", dim), ("net_2", dim * mult))
+                                  if quant_worthwhile(k)])
 
     def forward(self, x, ln_scale, ln_bias):
         dt = self.dtype
         B, S, C = x.shape
+        use_q8 = self.quant == "int8" and not is_training()
         w0, b0 = self.net_0_proj.weight, self.net_0_proj.bias
-        if ln_fused_ok(x) and use_kernel("ln_geglu"):
+        if use_q8 and quant_worthwhile(C):
+            proj = int8_linear(ln_reference(x.to(dt), ln_scale, ln_bias), self, "net_0_proj",
+                               torch.float32)
+            hh, g = proj.chunk(2, dim=-1)
+            h = (hh * gelu_exact(g)).to(dt)
+        elif ln_fused_ok(x) and use_kernel("ln_geglu"):
             h = ln_geglu_fwd(x.reshape(B * S, C).to(dt), ln_scale, ln_bias,
                              w0.to(dt), b0).reshape(B, S, -1)
         else:
             proj = F.linear(ln_reference(x.to(dt), ln_scale, ln_bias), w0.to(dt))
             hh, g = (proj.float() + b0.float()).chunk(2, dim=-1)
             h = (hh * gelu_exact(g)).to(dt)
+        if use_q8 and quant_worthwhile(h.shape[-1]):
+            return int8_linear(h, self, "net_2", dt)
         return linear(h, self.net_2, dt)
 
 
 class BasicTransformerBlock(nn.Module):
-    """x + attn1(LN1 x) → x + attn2(LN2 x, ctx) → x + FF(LN3 x)."""
+    """x + attn1(LN1 x) → x + attn2(LN2 x, ctx) → x + FF(LN3 x).
+
+    `tome` (a `ToMeSpec`, inference only, psd_tpu's
+    `BasicTransformerBlock(tome=, hw=)`): at sites of at least
+    `tome.min_tokens` tokens one merge is built from the block input on its
+    (H, W) grid `hw`. "branch" mode runs attn1 on the merged tokens (and
+    attn2's query with `merge_cross`, the FF with `merge_mlp`) and unmerges
+    each branch's output; "block" mode merges once at entry, runs the whole
+    block at the merged length and unmerges once at exit."""
 
     def __init__(self, dim: int, num_heads: int, context_dim: int,
-                 mode: CrossAttnMode = CrossAttnMode(), dtype=torch.bfloat16):
+                 mode: CrossAttnMode = CrossAttnMode(), dtype=torch.bfloat16,
+                 quant: str = "none", tome: Optional[ToMeSpec] = None):
         super().__init__()
+        self.tome = tome
         self.norm1 = nn.LayerNorm(dim)
-        self.attn1 = Attention(dim, num_heads, dtype=dtype)
+        self.attn1 = Attention(dim, num_heads, dtype=dtype, quant=quant)
         self.norm2 = nn.LayerNorm(dim)
-        self.attn2 = Attention(dim, num_heads, context_dim, mode, dtype=dtype)
+        self.attn2 = Attention(dim, num_heads, context_dim, mode, dtype=dtype, quant=quant)
         self.norm3 = nn.LayerNorm(dim)
-        self.ff = GEGLUFeedForward(dim, dtype=dtype)
+        self.ff = GEGLUFeedForward(dim, dtype=dtype, quant=quant)
 
-    def forward(self, x, context, delta_scale=None):
-        x = x + self.attn1(x, ln_scale=self.norm1.weight, ln_bias=self.norm1.bias)
-        x = x + self.attn2(x, context, delta_scale, ln_scale=self.norm2.weight,
-                           ln_bias=self.norm2.bias)
-        return x + self.ff(x, self.norm3.weight, self.norm3.bias)
+    def forward(self, x, context, delta_scale=None, hw=None):
+        S = x.shape[1]
+        t = self.tome
+        mi = None
+        if t is not None and hw is not None and t.active(S) and not is_training():
+            mi = build_merge(x, hw[0], hw[1], t.r_count(S))
+        block = mi is not None and t.mode == "block"
+        if block:
+            x = merge(x, mi)
+
+        def branch(fn, h, merged: bool):
+            if mi is None or block or not merged:
+                return fn(h)
+            return unmerge(fn(merge(h, mi)), mi)
+
+        x = x + branch(lambda h: self.attn1(h, ln_scale=self.norm1.weight,
+                                            ln_bias=self.norm1.bias), x, True)
+        x = x + branch(lambda h: self.attn2(h, context, delta_scale, ln_scale=self.norm2.weight,
+                                            ln_bias=self.norm2.bias), x,
+                       mi is not None and t.merge_cross)
+        x = x + branch(lambda h: self.ff(h, self.norm3.weight, self.norm3.bias), x,
+                       mi is not None and t.merge_mlp)
+        # block mode: merged tokens take their region dst's output
+        return unmerge(x, mi) if block else x
 
 
 class Transformer2D(nn.Module):
-    """GN → proj_in (1×1) → transformer block(s) → proj_out (1×1) → +x."""
+    """GN → proj_in (1×1) → transformer block(s) → proj_out (1×1) → +x.
+
+    `quant="int8"`: gn_proj off, proj_in / proj_out by `qdense` (int8 from
+    C = 512 on), as psd_tpu's `Transformer2D(quant=)`; `tome` goes to the
+    blocks with the site's (H, W)."""
 
     def __init__(self, channels: int, num_heads: int, context_dim: int, depth: int = 1,
-                 mode: CrossAttnMode = CrossAttnMode(), dtype=torch.bfloat16):
+                 mode: CrossAttnMode = CrossAttnMode(), dtype=torch.bfloat16,
+                 quant: str = "none", tome: Optional[ToMeSpec] = None):
         super().__init__()
         self.dtype = dtype
         self.depth = depth
+        self.quant = quant
         self.norm = nn.GroupNorm(32, channels, eps=1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
         for d in range(depth):
             self.add_module(f"transformer_blocks_{d}", BasicTransformerBlock(
-                channels, num_heads, context_dim, mode, dtype=dtype))
+                channels, num_heads, context_dim, mode, dtype=dtype, quant=quant, tome=tome))
         self.proj_out = nn.Conv2d(channels, channels, 1)
+        if quant == "int8" and quant_worthwhile(channels):
+            _int8_buffers_(self, ("proj_in", "proj_out"))
 
     def forward(self, x, context, delta_scale=None):
         B, H, W, C = x.shape
         S = H * W
-        if gn_proj_ok(S, C) and use_kernel("gn_proj"):
+        use_q8 = self.quant == "int8" and not is_training()
+        if use_q8:
+            h = int8_linear(gn(x, self.norm), self, "proj_in", self.dtype).reshape(B, S, C)
+        elif gn_proj_ok(S, C) and use_kernel("gn_proj"):
             # folded GroupNorm affine + proj_in as one kernel (layers.py:835-857)
             n = self.norm
             w, b = group_norm_fold(x, n.weight, n.bias, n.num_groups, n.eps)
@@ -430,6 +555,10 @@ class Transformer2D(nn.Module):
         else:
             h = conv1x1(gn(x, self.norm), self.proj_in, self.dtype).reshape(B, S, C)
         for d in range(self.depth):
-            h = getattr(self, f"transformer_blocks_{d}")(h, context, delta_scale)
-        h = conv1x1(h.reshape(B, H, W, C), self.proj_out, self.dtype)
+            h = getattr(self, f"transformer_blocks_{d}")(h, context, delta_scale, hw=(H, W))
+        h = h.reshape(B, H, W, C)
+        if use_q8:
+            h = int8_linear(h, self, "proj_out", self.dtype)
+        else:
+            h = conv1x1(h, self.proj_out, self.dtype)
         return h + x

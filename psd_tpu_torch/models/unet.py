@@ -7,6 +7,12 @@ frequency strategy: low-resolution blocks (down index ≥ n−2, mid, up index
 arXiv:2312.09608: "encode"/"decode") and DeepCache (arXiv:2310.01407:
 "deep"/"shallow"), the turbo serving levers of `diffusion/sampler.py`.
 
+Two inference levers, off by default and under `training_mode()`:
+`quant="int8"` (W8A8: the resblocks' 3×3 convs at ≤ 32², the attention and
+feed-forward projections and the 1×1 convs from 512 channels on) and ToMe
+token merging (`tome_ratio` > 0 at sites of at least `tome_min_tokens`
+tokens, `ops/tome.py`), as psd_tpu's `UNetConfig.quant` / `tome_*`.
+
 `remat` is gradient checkpointing of every ResnetBlock2D and Transformer2D
 (`psd_tpu/models/unet.py:176-178`, `training.gradient_checkpointing`):
 `torch.utils.checkpoint` without re-entry, the kernel-mode flags of the
@@ -25,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core import mode
+from ..ops.tome import ToMeSpec
 
 from .layers import (
     CrossAttnMode,
@@ -60,8 +67,24 @@ class UNetConfig:
     gate_init_anatomy: Tuple[float, float] = (0.5, 0.5)
     gate_init_disease: Tuple[float, float] = (0.5, 0.5)
     gate_init_both: Tuple[float, float] = (0.5, 0.5)
+    # "int8": the W8A8 inference path (ops/quant.py); inference only
+    quant: str = "none"
+    # ToMe (ops/tome.py): the ratio quantizes to m/4 (0.25 / 0.5 / 0.75); 0
+    # is the exact path; at sites of >= tome_min_tokens tokens; "branch" or
+    # "block" mode
+    tome_ratio: float = 0.0
+    tome_min_tokens: int = 4096
+    tome_mlp: bool = False
+    tome_cross: bool = False
+    tome_mode: str = "branch"
     remat: bool = False
     dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def tome_spec(self) -> ToMeSpec:
+        return ToMeSpec(ratio=self.tome_ratio, min_tokens=self.tome_min_tokens,
+                        merge_mlp=self.tome_mlp, merge_cross=self.tome_cross,
+                        mode=self.tome_mode)
 
     def block_role(self, where: str, idx: int = 0) -> str:
         if not self.use_frequency_strategy:
@@ -134,12 +157,15 @@ class UNet2DCondition(nn.Module):
         n = len(cfg.block_out_channels)
 
         sites = {name: (ch, m) for name, _, ch, m in cfg.transformer_sites()}
+        tome = cfg.tome_spec if cfg.tome_ratio > 0.0 else None
+        res = dict(dtype=dt, quant=cfg.quant, quant_gate="unet")
 
         def attn(name):
             if name in sites:
                 ch, m = sites[name]
                 self.add_module(name, Transformer2D(ch, cfg.num_heads, cfg.cross_attention_dim,
-                                                    cfg.transformer_depth, m, dtype=dt))
+                                                    cfg.transformer_depth, m, dtype=dt,
+                                                    quant=cfg.quant, tome=tome))
 
         self.time_embedding = TimestepEmbedding(ch0, temb_dim, dtype=dt)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
@@ -149,7 +175,7 @@ class UNet2DCondition(nn.Module):
         for i, out_ch in enumerate(cfg.block_out_channels):
             for j in range(cfg.layers_per_block):
                 self.add_module(f"down_blocks_{i}_resnets_{j}",
-                                ResnetBlock2D(h_ch, out_ch, temb_dim, dtype=dt))
+                                ResnetBlock2D(h_ch, out_ch, temb_dim, **res))
                 h_ch = out_ch
                 attn(f"down_blocks_{i}_attentions_{j}")
                 skip_ch.append(out_ch)
@@ -159,15 +185,15 @@ class UNet2DCondition(nn.Module):
                 skip_ch.append(out_ch)
 
         mid = cfg.block_out_channels[-1]
-        self.mid_block_resnets_0 = ResnetBlock2D(mid, mid, temb_dim, dtype=dt)
+        self.mid_block_resnets_0 = ResnetBlock2D(mid, mid, temb_dim, **res)
         attn("mid_block_attentions_0")
-        self.mid_block_resnets_1 = ResnetBlock2D(mid, mid, temb_dim, dtype=dt)
+        self.mid_block_resnets_1 = ResnetBlock2D(mid, mid, temb_dim, **res)
 
         rev = tuple(reversed(cfg.block_out_channels))
         for i, out_ch in enumerate(rev):
             for j in range(cfg.layers_per_block + 1):
                 self.add_module(f"up_blocks_{i}_resnets_{j}",
-                                ResnetBlock2D(h_ch + skip_ch.pop(), out_ch, temb_dim, dtype=dt))
+                                ResnetBlock2D(h_ch + skip_ch.pop(), out_ch, temb_dim, **res))
                 h_ch = out_ch
                 attn(f"up_blocks_{i}_attentions_{j}")
             if i < n - 1:

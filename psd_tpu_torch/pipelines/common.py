@@ -1,10 +1,9 @@
 """Shared pipeline helpers: model building (with the tiny smoke model), the
 `--device` flag's device, the turbo and profile flags, and `pad_batch`.
 
-Counterpart of `psd_tpu/pipelines/common.py`. The turbo flags the port
-serves (`--sampler dpm`, `--encoder-stride`, `--cache-mode`, `--vae-quant
-int8`) work; ToMe is not ported (ROADMAP.md Queue 1 item 7), so
-`--tome-ratio > 0` raises.
+Counterpart of `psd_tpu/pipelines/common.py`, with its turbo flags
+(`--sampler dpm`, `--encoder-stride`, `--cache-mode`, `--tome-ratio`,
+`--tome-mode`, `--vae-quant int8`).
 """
 
 from __future__ import annotations
@@ -22,13 +21,10 @@ from ..models.vae import VAEConfig, tiny_vae_config
 def build_model(cfg: Config, dtype_str: str = "bf16", tome_ratio: float = 0.0,
                 tome_mode: str = "branch", vae_quant: str = "none", device="cuda",
                 seed: int = 0, for_training: bool = False) -> DADD:
-    """The DADD a config describes, its weights drawn from `seed`; the tiny
-    UNet/VAE/CLIP in fp32 when the config sets `model.tiny` (tests, CI);
-    with fp32 master weights for `for_training`."""
-    if tome_ratio > 0:
-        raise NotImplementedError(
-            f"--tome-ratio {tome_ratio}: ToMe token merging is not ported "
-            "(ROADMAP.md Queue 1 item 7); use --tome-ratio 0")
+    """The DADD a config describes, its weights drawn from `seed`, with ToMe
+    at `tome_ratio` / `tome_mode`; the tiny UNet/VAE/CLIP in fp32 when the
+    config sets `model.tiny` (tests, CI; ToMe ignored there, as psd_tpu
+    ignores it); with fp32 master weights for `for_training`."""
     if cfg.model.extras.get("tiny", False):
         attn_mode = "split3" if cfg.model.use_routing_gates else "split2"
         core_cfg = DADDCoreConfig(
@@ -49,7 +45,7 @@ def build_model(cfg: Config, dtype_str: str = "bf16", tome_ratio: float = 0.0,
                     clip_cfg=tiny_clip_config(), dtype=torch.float32, device=device, seed=seed,
                     for_training=for_training)
     dtype = torch.bfloat16 if dtype_str == "bf16" else torch.float32
-    core_cfg = core_config_from(cfg, dtype=dtype)
+    core_cfg = core_config_from(cfg, dtype=dtype, tome_ratio=tome_ratio, tome_mode=tome_mode)
     # the CLIP tower computes in bf16 whatever `dtype_str` says, as psd_tpu's
     return DADD(cfg, core_cfg=core_cfg, vae_cfg=VAEConfig(dtype=dtype, quant=vae_quant),
                 device=device, seed=seed, for_training=for_training)
@@ -81,9 +77,12 @@ def add_turbo_args(p):
                         "features (Faster Diffusion); 'deep' caches the last-up-block input "
                         "and re-runs the shallow path (DeepCache, arXiv:2310.01407)")
     p.add_argument("--tome-ratio", type=float, default=0.0,
-                   help="ToMe token merging (arXiv:2303.17098); not ported: only 0 runs")
+                   help="ToMe token merging (arXiv:2303.17098): fraction of the 64×64 "
+                        "sites' tokens merged before attention (quantized to 0.25 / 0.5 / "
+                        "0.75); 0 = exact")
     p.add_argument("--tome-mode", type=str, default="branch", choices=["branch", "block"],
-                   help="ToMe's merge granularity (with --tome-ratio, not ported)")
+                   help="ToMe's granularity: 'branch' merges around each attention/FF "
+                        "branch (ToMe-SD); 'block' merges once per transformer block")
     p.add_argument("--sampler", type=str, default="ddim", choices=["ddim", "dpm"],
                    help="'ddim' is reference-exact; 'dpm' = DPM-Solver++(2M) "
                         "(arXiv:2211.01095), 20-25 steps where DDIM wants 50")

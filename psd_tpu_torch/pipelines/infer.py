@@ -100,7 +100,7 @@ def load_params(model: DADD, checkpoint: Optional[str], use_ema: bool = False) -
     if use_ema and not checkpoint:
         raise ValueError("--ema needs --checkpoint: the EMA weights come from a checkpoint")
     if checkpoint:
-        model.core.load_state_dict(load_weights(checkpoint, ema=use_ema), strict=True)
+        model.load_core_state_dict(load_weights(checkpoint, ema=use_ema))
         frozen = Path(checkpoint) / "frozen"
         trees = {part: load_params_npz(frozen / f"{part}.npz") for part in ("vae", "clip")
                  if (frozen / f"{part}.npz").exists()}

@@ -21,6 +21,7 @@ from .models.clip import tiny_clip_config
 from .models.unet import tiny_unet_config
 from .models.vae import VAEConfig, tiny_vae_config
 from .ops.attention import kernel_route
+from .ops.quant import quant_worthwhile
 
 
 def tiny_dadd(device="cpu", seed=0, for_training=False, routing=True, purifier=True, plus=True,
@@ -66,30 +67,41 @@ def route_launches(core_cfg: DADDCoreConfig, vae_cfg: VAEConfig, batch: int, ima
     `shallow_steps` DeepCache shallow ones at `batch` (twice that with
     `cfg_pass`, CFG's one call over [cond | uncond]), then, with `decode`,
     the VAE decode at `batch`. Inference mode, every kernel on. One
-    evaluation without the decode is a validation loss's forward."""
+    evaluation without the decode is a validation loss's forward. The UNet's
+    levers move the routes: under ToMe each merged branch runs at its merged
+    length (`ToMeSpec.merged_tokens`); the int8 UNet takes gn_proj nowhere
+    and the LayerNorm kernels only below MIN_QUANT_K channels."""
     u = core_cfg.unet
     lat = image_size // 2 ** (len(vae_cfg.block_out_channels) - 1)
     B = batch * (2 if cfg_pass else 1)
     n_ctx = core_cfg.num_aoe_tokens + core_cfg.num_image_tokens + (
         u.num_delta_tokens if u.attn_mode == "split3" else 0)
     meta = functools.partial(torch.empty, device="meta")
+    tome = u.tome_spec if u.tome_ratio > 0.0 else None
 
     def per_eval(shallow: bool) -> Counter:
         c = Counter()
         for _, level, C, mode in u.transformer_sites(shallow):
             S = (lat >> level) ** 2
             H, D = u.num_heads, C // u.num_heads
-            q = meta((B, S, H, D))
-            c["gn_proj"] += gn_proj_ok(S, C)
-            if ln_fused_ok(meta((B, S, C))):
-                c["ln_proj"] += 2  # attn1's q/k/v, attn2's q
-                c["ln_geglu"] += 1
-            c["attention"] += kernel_route(q, q) is not None
+            # the lengths attn1, attn2 and the FF run at
+            S1 = S2 = S3 = S
+            if tome is not None and tome.active(S):
+                block = tome.mode == "block"
+                S1 = tome.merged_tokens(S)
+                S2 = S1 if block or tome.merge_cross else S
+                S3 = S1 if block or tome.merge_mlp else S
+            ln = not (u.quant == "int8" and quant_worthwhile(C))
+            c["gn_proj"] += u.quant != "int8" and gn_proj_ok(S, C)
+            c["ln_proj"] += ln * (ln_fused_ok(meta((B, S1, C))) + ln_fused_ok(meta((B, S2, C))))
+            c["ln_geglu"] += ln and ln_fused_ok(meta((B, S3, C)))
+            q1, q2 = meta((B, S1, H, D)), meta((B, S2, H, D))
+            c["attention"] += kernel_route(q1, q1) is not None
             if mode.kind == "split3":
                 lens = [mode.num_image_tokens, mode.num_aoe_tokens, mode.num_delta_tokens]
-                c["split3"] += split3_kernel_ok(B, S, H, D, lens)
+                c["split3"] += split3_kernel_ok(B, S2, H, D, lens)
             else:
-                c["attention"] += kernel_route(q, meta((B, n_ctx, H, D))) is not None
+                c["attention"] += kernel_route(q2, meta((B, n_ctx, H, D))) is not None
         return c
 
     total = Counter()

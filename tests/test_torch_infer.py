@@ -405,7 +405,7 @@ def _tiny_argv(structure, tmp_path, *extra):
 @pytest.mark.parametrize("extra,error", [
     (["--checkpoint", "ckpt"], FileNotFoundError),  # a checkpoint that does not exist
     (["--ema"], ValueError),  # EMA weights without a checkpoint to take them from
-    (["--tome-ratio", "0.5"], NotImplementedError),
+    (["--tome-ratio", "0.5", "--tome-mode", "global"], SystemExit),  # not a ToMe mode
 ], ids=["checkpoint", "ema", "tome"])
 def test_cli_refuses_what_the_port_lacks(structure, tmp_path, extra, error):
     with pytest.raises(error):

@@ -183,3 +183,26 @@ def assert_step_parity(r):
         assert np.all(np.abs(v - jp[name]) <= band), name
         assert np.all(np.abs(pe[name] - je[name]) <= band), name
     assert p["step"] == j["step"] == 1 and p["ema_count"] == j["ema_count"] == 1
+
+
+def as_flax(module, init_fn, *args):
+    """`module`'s tensors in the layout of psd_tpu's `init_fn(key, *args)`
+    tree ({"params": ...}; `jax.eval_shape`, no JAX init runs), zeros for
+    leaves the module lacks. Buffers (the int8 weights) are not leaves."""
+    from psd_tpu_torch.convert.from_jax import torch_key
+
+    def shapes(tree, prefix=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from shapes(v, prefix + (k,))
+            else:
+                yield prefix + (k,), v
+
+    like = jax.eval_shape(init_fn, jax.random.PRNGKey(0), *args)
+    tensors = {k: v.float() for k, v in module.state_dict().items()}
+    for path, leaf in shapes(like["params"]):
+        key, perm = torch_key(path, len(leaf.shape))
+        if key not in tensors:
+            shape = leaf.shape if perm is None else tuple(leaf.shape[i] for i in perm)
+            tensors[key] = torch.zeros(shape)
+    return {"params": to_flax_tree(tensors, like)}
