@@ -159,6 +159,26 @@ Phases, in order; any failure exits non-zero:
                (synchronized), the time in the gathers, one replay's device
                and host time, each program's warm-up / capture /
                instantiation, peak memory, the card.
+  5f. serve_tp — tensor parallelism for serving, in 5d's gloo launch after
+               its rounds: a (dp 1, tp 2) mesh over the same two ranks, the
+               UNet's transformer sites cut to each rank's 4 heads and half
+               the columns (DADD.shard_tp_). Before the cut, one process's
+               eps and 4-step images (eagerly) of the server's first batch
+               of 8. Checks: (a) each kernel at a rank's shapes (TP_*:
+               attention and split3 at H = 4, ln_proj at C/2 columns,
+               ln_geglu at 2C a half) against its plain version by its
+               judge, timed as phase 3 times (kept under "tp_shapes"), tp
+               4's shapes untimed; (b) the eps on the ranks within
+               TP_EPS_BAND of one process's, two planted faults beyond it
+               (rank 1 dropping net_2's all-reduce, rank 1 running rank 0's
+               q heads), every rank's the same; (c) sample(mesh=) +
+               decode_latents(mesh=) at 4 steps: every rank's images the
+               same, within TP_IMAGE_BAND (mean) of one process's, the
+               net_2 fault's beyond; (d) GenerationServer(mesh=) on the same
+               8 requests, rank 0's images equal (c)'s; (e) each rank's
+               launches those route_launches(tp=2) gives. Prints each rank's
+               synced wall, its time in the all-reduces (each synced) and
+               gathers, peak memory, the card.
   6. train   — the attention backward kernel against autograd through the
                plain version at the training shapes, by relative L2 over
                each of dQ, dK, dV and each of their rows
@@ -245,20 +265,22 @@ Phases, in order; any failure exits non-zero:
                phases, peak memory and launches, the card.
 The line before the last is a JSON object with one entry per kernel:
 `launches` counts the launches of the main-path runs (phases 3b, 5, 5b, 5c,
-5d, 5e, 6, 6b, 6c and 6d, each with the counts set to 0 just before it, 5c before each of
+5d, 5e, 5f, 6, 6b, 6c and 6d, each with the counts set to 0 just before it, 5c before each of
 its two CLI runs, 5e before its served batch and its CLI run (`levers`), 6b
 before each of its three, 6c before each of its three,
 5d and 6d in each rank before its run, whose rank 0 of dp 2 over gloo is
-`serve_dp` (5d, the host counts of its warm-ups and captures) and
-`train_dp` (6d);
+`serve_dp` (5d, the host counts of its warm-ups and captures),
+`serve_tp` (5f's rank 0: (c) and (d), each from 0) and `train_dp` (6d);
 `launches_by_path` splits them; in phases 5, 5b and 5e the wrappers run, and count, at the eager warm-up
 and at the capture of the batch's program, and `launches_per_replay` gives
 what one replay launches),
 `max_abs_err` is the largest over the kernel's shapes, `ms`, `plain_ms`,
 `library_ms` and `bound_ms` sum one call at each of its main-path shapes
 (attention_bwd's `library_ms` is SDPA's backward alone, on a retained
-graph; `fwd_bwd_ms` and `sdpa_fwd_bwd_ms` are the two fwd+bwd readings).
-The last line is the device JSON. Imports nothing of JAX.
+graph; `fwd_bwd_ms` and `sdpa_fwd_bwd_ms` are the two fwd+bwd readings);
+`levers_shapes` (5e) and `tp_shapes` (5f) list the readings at those
+phases' shapes, outside the sums. The last line is the device JSON.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -470,6 +492,35 @@ SERVE_RANK_SPLIT3_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160)
                             (4, 64, 8, 160)]
 SERVE_RANK_LN_SHAPES = [(4 * 4096, 320), (4 * 1024, 640), (4 * 256, 1280), (4 * 64, 1280)]
 SERVE_RANK_GN_SHAPES = [(4, 4096, 320), (4, 1024, 640), (4, 256, 1280), (4, 64, 1280)]
+# phase 5f: serving under tp, in 5d's torchrun launch: its two ranks on
+# cuda:0 over gloo, after 5d's checks, on a second mesh (dp 1, tp 2) over
+# them. Each rank holds half the heads and columns of every UNet
+# transformer site (parallel/mesh.py::shard_tp_) and the whole batch of 8.
+TP, TP_BATCH, TP_STEPS = 2, 8, 4
+# the kernels at a rank's shapes (512², batch 8, tp 2): H/tp = 4 heads
+# (attention at 64² and 32², split3 at 64², 32², 16²), ln_proj's C/tp
+# columns and ln_geglu's 4C/tp a half at each level's rows; timed as phase 3
+# times, kept under "tp_shapes" outside the entries' sums
+TP_ATTN_SHAPES = [(8, 4096, 4, 40), (8, 1024, 4, 80)]
+TP_SPLIT3_SHAPES = [(8, 4096, 4, 40), (8, 1024, 4, 80), (8, 256, 4, 160)]
+TP_LN_SHAPES = [(32768, 320), (8192, 640), (2048, 1280), (512, 1280)]
+# untimed: tp 4's (2 heads; ln_proj N = C/4, ln_geglu N = C a half)
+TP4_ATTN_EDGE = [(8, 4096, 2, 40)]
+TP4_SPLIT3_EDGE = [(8, 4096, 2, 40), (8, 256, 2, 160)]
+TP4_LN_EDGE = [(32768, 320, 80, 320), (8192, 640, 160, 640)]
+# (b): one eps (latents (8, 64, 64, 4), t = 501, δ = 1, the batch's
+# conditioning) of the tp ranks against the one-process eps of the same
+# weights, relative L2 on rank 0. The ranks sum each row-parallel product
+# of two halves of K in bf16 where one process sums all K in one cuBLAS
+# product. On an NVIDIA H100 80GB HBM3 (700 W) the sound ranks read
+# 1.628e-2 and the planted faults, rank 1 keeping its own half of net_2's
+# product (the all-reduce's result dropped) 0.2382, rank 1 running rank 0's
+# q heads 0.2036 (PERF.md §6, the tp serving entry); the band sits between.
+TP_EPS_BAND = 5e-2
+# (c), (d): TP_STEPS DDIM steps and the decode on the ranks against the one
+# process, mean absolute difference of the images on [0, 1]: the sound
+# ranks read 6.279e-3 there; the net_2 fault's images are read beside
+TP_IMAGE_BAND = 2e-2
 # int8 vs bf16 VAE decode of the same latents (8, 64, 64, 4), same weights
 # with spread channel gains: PSNR floor in dB, between the sound reading
 # (37.19) and a planted per-tensor weight scale's (36.69; deterministic,
@@ -2194,7 +2245,9 @@ def phase_infer(card: str) -> dict:
 def _lever_kernels(results: dict) -> None:
     """Each kernel at the shapes the levers give it (LEVER_*), against its
     plain version by its judge, timed as phase 3 times it (kernel, plain,
-    library, bound); kept under "levers_shapes", outside the entries' sums."""
+    library, bound; beside the LayerNorm GEMMs the cuBLAS product of the
+    same size, kept as `cublas_product_ms`); kept under "levers_shapes",
+    outside the entries' sums."""
     from psd_tpu_torch.ops import attention, geglu, split3
     from psd_tpu_torch.testing import attention_judge, ln_gemm_judge, split3_judge
 
@@ -2228,22 +2281,26 @@ def _lever_kernels(results: dict) -> None:
         lw = 1.0 + randn(C, std=0.1, dtype=torch.float32)
         lb = randn(C, std=0.1, dtype=torch.float32)
         ws = tuple(randn(C, C, std=C ** -0.5) for _ in range(n_out))
+        xhat, wcat = geglu.ln_reference(x, lw, lb), torch.cat(ws)  # the cuBLAS yardstick
         _compare("ln_proj", (M, C, n_out), lambda: geglu.ln_proj_fwd(x, lw, lb, ws),
                  lambda: geglu.ln_proj_reference(x, lw, lb, ws), results,
                  (2.0 * M * C * C * n_out,
                   M * C * 2 + 2 * C * 4 + n_out * (C * C * 2 + M * C * 2)),
-                 judge=ln_gemm_judge, key="levers_shapes")
+                 judge=ln_gemm_judge, key="levers_shapes",
+                 extra={"cublas_product_ms": time_ms(lambda: torch.matmul(xhat, wcat.T))})
     for (M, C) in LEVER_LN_GEGLU_SHAPES:
         x = randn(M, C)
         lw = 1.0 + randn(C, std=0.1, dtype=torch.float32)
         lb = randn(C, std=0.1, dtype=torch.float32)
         w0 = randn(8 * C, C, std=C ** -0.5)
         b0 = randn(8 * C, std=0.02, dtype=torch.float32)
+        xhat = geglu.ln_reference(x, lw, lb)
         _compare("ln_geglu", (M, C), lambda: geglu.ln_geglu_fwd(x, lw, lb, w0, b0),
                  lambda: geglu.ln_geglu_reference(x, lw, lb, w0, b0), results,
                  (2.0 * M * C * 8 * C,
                   M * C * 2 + 2 * C * 4 + 8 * C * C * 2 + 8 * C * 4 + M * 4 * C * 2),
-                 judge=ln_gemm_judge, key="levers_shapes")
+                 judge=ln_gemm_judge, key="levers_shapes",
+                 extra={"cublas_product_ms": time_ms(lambda: torch.matmul(xhat, w0.T))})
     torch.cuda.empty_cache()
 
 
@@ -3591,7 +3648,7 @@ def _serve_rank(spec: dict, rank: int, work: Path) -> dict:
         return noise(batch // world, image_size, generator, shared_noise).repeat(world, 1, 1, 1)
 
     kernels.reset_launch_counts()
-    rounds, counts = {}, {}
+    rounds, counts = {}, {None: {}}
     for name in spec["rounds"]:
         model.initial_noise = own_rows if name == "fault" else noise
         batches.clear()
@@ -3611,17 +3668,180 @@ def _serve_rank(spec: dict, rank: int, work: Path) -> dict:
     programs = {kind: {"launches": dict(p.launches), "replays": p.replays,
                        "warmup_s": p.warmup_s, "capture_s": p.capture_s,
                        "instantiate_s": p.instantiate_s} for kind, p in progs.items()}
-    if rank == 0 and world > 1:
+    if rank == 0 and world > 1 and spec["rounds"]:
         np.save(work / f"{spec['tag']}.blocks.npy", _one_process_blocks(model, requests, world))
     replay = {}
     for r in range(world):  # one rank's replays at a time on the card
         if r == rank:
             replay = {kind: _replay_ms(p) for kind, p in progs.items()}
         dist.barrier()
-    return {"counts": counts[spec["rounds"][0]], "counts_end": counts[spec["rounds"][-1]],
-            "head_dims": dict(kernels.attention_head_dims), "n_programs": len(model.programs),
-            "programs": programs,
-            "replay_ms": replay, "rounds": rounds, "device": str(model.device)}
+    first, last = (spec["rounds"][0], spec["rounds"][-1]) if spec["rounds"] else (None, None)
+    out = {"counts": counts[first], "counts_end": counts[last],
+           "head_dims": dict(kernels.attention_head_dims), "n_programs": len(model.programs),
+           "programs": programs,
+           "replay_ms": replay, "rounds": rounds, "device": str(model.device)}
+    if spec.get("tp"):
+        gathers.clear()
+        out["tp"] = _serve_tp_rank(model, cfg, rank, gathers)
+    return out
+
+
+def _serve_tp_rank(model, cfg, rank: int, gathers: list) -> dict:
+    """Phase 5f's rank, on 5d's ranks and model: a (dp 1, tp 2) mesh over
+    the two. Before the cut, one process's eps and TP_STEPS-step images
+    (eagerly) of the server's first batch of 8 (its padded features and
+    labels, x0 from its generator); then the UNet cut over tp and (b) the
+    eps on the ranks, sound and with each planted fault, (c) sample +
+    decode_latents on the mesh (eagerly, the all-reduces synchronized and
+    timed, the launches counted from 0), (d) GenerationServer(mesh=) on the
+    same 8 requests (rank 0 submits; the launches counted from 0). →
+    readings, digests of what must match across ranks, each path's
+    launches."""
+    import hashlib
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from psd_tpu_torch.core.mode import eager
+    from psd_tpu_torch.models import layers
+    from psd_tpu_torch.ops import kernels
+    from psd_tpu_torch.parallel.mesh import MeshConfig, create_mesh, tp_scope
+    from psd_tpu_torch.pipelines.serve import SEED_BASE, GenerationServer
+
+    mesh = create_mesh(MeshConfig(dp=1, tp=TP), "cuda")
+    dev, size = model.device, cfg.dataset.image_size
+    requests = _serve_requests(TP_BATCH)[:TP_BATCH]
+    torch.cuda.reset_peak_memory_stats()
+
+    def digest(t):
+        return hashlib.sha1(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def mean_abs(a, b):
+        return (a.double() - b.double()).abs().mean().item()
+
+    with torch.inference_mode():
+        # the batch as the server builds it (pipelines/serve.py::_dispatch)
+        feats = torch.from_numpy(np.stack([r[0] for r in requests])).to(dev)
+        labels = torch.tensor([[r[1] for r in requests], [r[2] for r in requests]],
+                              dtype=torch.float32, device=dev)
+        cond = model.prepare_inference_cond(labels[0], labels[1], feats)
+        gen = torch.Generator(device=dev).manual_seed(SEED_BASE + requests[0][3])
+        x0 = model.initial_noise(TP_BATCH, size, gen, shared_noise=False)
+        g = torch.Generator(device=dev).manual_seed(23)
+        side = size // model.spatial_factor
+        lat = torch.randn((TP_BATCH, side, side, 4), generator=g, device=dev)
+        t = torch.full((TP_BATCH,), 501, dtype=torch.int32, device=dev)
+
+        def eps():
+            out = model.core.eps(lat, t, cond, 1.0)
+            torch.cuda.synchronize()
+            return out
+
+        with eager():
+            eps_one = eps()
+            images_one = model.decode_latents(model.sample(cond, x0, TP_STEPS, 1.0))
+        sites = {name: m for name, m in model.core.unet.named_modules()
+                 if getattr(m, "tp_kind", None) == "attention"}
+        q_whole = {name: m.to_q.weight.detach().clone() for name, m in sites.items()}
+        t0 = time.perf_counter()
+        model.shard_tp_(mesh)
+        cut_s = time.perf_counter() - t0
+        with tp_scope(mesh):
+            eps_tp = eps()
+            row = layers.row_parallel_linear
+            net_2 = {id(m.net_2) for m in model.core.unet.modules()
+                     if getattr(m, "tp_kind", None) == "geglu"}
+
+            def own_half(x, layer, dtype, group):
+                """The planted fault: rank 1 keeps its own half of net_2's
+                product; it still takes part in the all-reduce, so the
+                ranks' collectives stay in one order."""
+                if rank != 1 or id(layer) not in net_2:
+                    return row(x, layer, dtype, group)
+                part = F.linear(x.to(dtype), layer.weight.to(dtype))
+                layers.tp_all_reduce(part.clone(), group)
+                return part + layer.bias.to(dtype)
+
+            layers.row_parallel_linear = own_half
+            try:
+                eps_skip = eps()
+                with eager():
+                    images_skip = model.decode_latents(
+                        model.sample(cond, x0, TP_STEPS, 1.0, mesh=mesh), mesh=mesh)
+            finally:
+                layers.row_parallel_linear = row
+            own = {}
+            if rank == 1:  # the planted fault: rank 1 runs rank 0's q heads
+                for name, m in sites.items():
+                    own[name] = m.to_q.weight.data
+                    m.to_q.weight.data = q_whole[name][:own[name].shape[0]].contiguous()
+            try:
+                eps_swap = eps()
+            finally:
+                for name, w in own.items():
+                    sites[name].to_q.weight.data = w
+        del q_whole
+        eps_reading = {"sound": rel(eps_tp, eps_one), "own net_2 half on rank 1":
+                       rel(eps_skip, eps_one), "rank 0's q heads on rank 1":
+                       rel(eps_swap, eps_one)}
+
+        # (c): sample + decode on the mesh, each all-reduce synchronized and timed
+        reduce, reduce_s = layers.tp_all_reduce, []
+
+        def timed_reduce(x, group):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = reduce(x, group)
+            torch.cuda.synchronize()
+            reduce_s.append(time.perf_counter() - t1)
+            return out
+
+        layers.tp_all_reduce = timed_reduce
+        gathers.clear()
+        kernels.reset_launch_counts()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with eager():
+                images = model.decode_latents(model.sample(cond, x0, TP_STEPS, 1.0, mesh=mesh),
+                                              mesh=mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            layers.tp_all_reduce = reduce
+        counts_c = dict(kernels.launch_counts)
+        head_dims = dict(kernels.attention_head_dims)
+        gather_c = list(gathers)
+
+    # (d): the server on the mesh, the same 8 requests
+    kernels.reset_launch_counts()
+    server = GenerationServer(model, image_size=size, sampling_steps=TP_STEPS, steer_scale=1.0,
+                              max_batch=TP_BATCH, max_wait_s=0.05, mesh=mesh)
+    served = served_wall = None
+    if rank == 0:
+        served, served_wall = _serve(server, requests)
+    server.close()
+    counts_d = dict(kernels.launch_counts)
+    out = {"eps_rel_l2": eps_reading, "eps_digest": digest(eps_tp),
+           "images_digest": digest(images),
+           "images_mean_abs": mean_abs(images, images_one),
+           "images_fault_mean_abs": mean_abs(images_skip, images_one),
+           "images_max_abs": (images.double() - images_one.double()).abs().max().item(),
+           "images_ok": bool(torch.isfinite(images).all()) and images.min().item() >= 0.0
+           and images.max().item() <= 1.0 and tuple(images.shape) == (TP_BATCH, size, size, 3),
+           "wall_s": wall, "all_reduce_s": sum(reduce_s), "all_reduces": len(reduce_s),
+           "gather_s": sum(gather_c), "cut_s": cut_s, "counts": counts_c, "counts_server":
+           counts_d, "head_dims": head_dims, "tp_heads": next(iter(sites.values())).to_q
+           .weight.shape[0], "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if served is not None:
+        got = torch.from_numpy(np.stack(served))
+        out.update(server_wall_s=served_wall,
+                   server_equal_c=bool(torch.equal(got, images.cpu())),
+                   server_mean_abs=mean_abs(got, images_one.cpu()))
+    return out
 
 
 def _one_process_blocks(model, requests, world: int):
@@ -3687,13 +3907,190 @@ def _check_serve_rank_shapes() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_serve_ranks(card: str, served: dict) -> dict:
+def _tp_kernels(results: dict) -> None:
+    """Phase 5f (a): each kernel of the tp serving path at a rank's shapes
+    (TP_*), against its plain version by its judge, timed as phase 3 times
+    it (kernel, plain, library: SDPA for the attention; the cuBLAS product
+    of the same size beside the LayerNorm GEMMs, kept as
+    `cublas_product_ms`), kept under "tp_shapes" outside the entries' sums;
+    then tp 4's shapes (TP4_*), untimed."""
+    from psd_tpu_torch.ops import attention, geglu, split3
+    from psd_tpu_torch.testing import attention_judge, ln_gemm_judge, split3_judge
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    for shape in TP_ATTN_SHAPES:
+        B, S, H, D = shape
+        q, k, v = randn(*shape), randn(*shape), randn(*shape)
+        _compare("attention", shape, lambda: attention.attention_fwd(q, k, v),
+                 lambda: attention.attention_reference(q, k, v), results,
+                 (4.0 * B * H * S * S * D, 4 * B * S * H * D * 2),
+                 fn_library=lambda: _sdpa(q, k, v), judge=attention_judge,
+                 note={"exp2_ms_at_sfu_rate": B * H * S * S / sfu_exp2_per_s() * 1e3},
+                 key="tp_shapes")
+        del q, k, v
+        torch.cuda.empty_cache()
+    for (B, S, H, D) in TP_SPLIT3_SHAPES:
+        q = randn(B, S, H, D)
+        banks = [randn(B, 16, H, D) for _ in range(6)]
+        _compare("split3", (B, S, H, D),
+                 lambda: split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9),
+                 lambda: split3.split3_reference(q, *banks, 1.0, 0.1, 0.9), results,
+                 (3 * 4.0 * B * H * S * 16 * D, (2 * B * S + 6 * B * 16) * H * D * 2),
+                 judge=split3_judge, key="tp_shapes",
+                 note={"device_ms": graph_ms(
+                     lambda: split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9))})
+    for (M, C) in TP_LN_SHAPES:
+        N = C // TP
+        x = randn(M, C)
+        lw = 1.0 + randn(C, std=0.1, dtype=torch.float32)
+        lb = randn(C, std=0.1, dtype=torch.float32)
+        xhat = geglu.ln_reference(x, lw, lb)  # the cuBLAS yardstick's A
+        for n_out in (3, 1):
+            ws = tuple(randn(N, C, std=C ** -0.5) for _ in range(n_out))
+            wcat = torch.cat(ws)
+            _compare("ln_proj", (M, C, N, n_out), lambda: geglu.ln_proj_fwd(x, lw, lb, ws),
+                     lambda: geglu.ln_proj_reference(x, lw, lb, ws), results,
+                     (2.0 * M * C * N * n_out,
+                      M * C * 2 + 2 * C * 4 + n_out * (N * C * 2 + M * N * 2)),
+                     judge=ln_gemm_judge, key="tp_shapes",
+                     extra={"cublas_product_ms": time_ms(lambda: torch.matmul(xhat, wcat.T))},
+                     note={"device_ms": graph_ms(lambda: geglu.ln_proj_fwd(x, lw, lb, ws))})
+        w0 = randn(8 * N, C, std=C ** -0.5)  # [h_r ; g_r]: 4C/tp rows a half
+        b0 = randn(8 * N, std=0.02, dtype=torch.float32)
+        _compare("ln_geglu", (M, C, 4 * N), lambda: geglu.ln_geglu_fwd(x, lw, lb, w0, b0),
+                 lambda: geglu.ln_geglu_reference(x, lw, lb, w0, b0), results,
+                 (2.0 * M * C * 8 * N,
+                  M * C * 2 + 2 * C * 4 + 8 * N * C * 2 + 8 * N * 4 + M * 4 * N * 2),
+                 judge=ln_gemm_judge, key="tp_shapes",
+                 extra={"cublas_product_ms": time_ms(lambda: torch.matmul(xhat, w0.T))},
+                 note={"device_ms": graph_ms(lambda: geglu.ln_geglu_fwd(x, lw, lb, w0, b0))})
+        del x, xhat, w0
+        torch.cuda.empty_cache()
+    checks = []
+    for shape in TP4_ATTN_EDGE:
+        q, k, v = randn(*shape), randn(*shape), randn(*shape)
+        checks.append(("attention", shape, attention_judge(
+            attention.attention_fwd(q, k, v), attention.attention_reference(q, k, v))))
+    for (B, S, H, D) in TP4_SPLIT3_EDGE:
+        q, banks = randn(B, S, H, D), [randn(B, 16, H, D) for _ in range(6)]
+        checks.append(("split3", (B, S, H, D), split3_judge(
+            split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9),
+            split3.split3_reference(q, *banks, 1.0, 0.1, 0.9))))
+    for name, shape, (ok, text, _) in checks:
+        log(f"[serve_tp] tp 4: {name} {shape}: {text} {'ok' if ok else 'FAIL'} (not timed)")
+        if not ok:
+            raise SystemExit(f"chip_smoke.py: {name} {shape} disagrees with its plain version")
+    for M, C, n_proj, n_geglu in TP4_LN_EDGE:
+        _check_ln_edge(randn, M, C, n_proj, n_geglu, 0.0)
+    torch.cuda.empty_cache()
+
+
+def _check_serve_tp(card: str, ranks: list, cfg) -> dict:
+    """Phase 5f's checks on its ranks' readings (`_serve_tp_rank`): (b) the
+    eps within TP_EPS_BAND of one process's and each planted fault beyond
+    it, every rank's eps the same; (c) the images every rank's the same,
+    within TP_IMAGE_BAND (mean) of one process's; (d) the server's images
+    (rank 0) equal (c)'s and so within the band; (e) each rank's launches
+    those route_launches gives a rank's cut sites: (c) TP_STEPS eager
+    evaluations and the decode, (d) the same with the decode at its
+    program's warm-up and capture. Prints each rank's synced wall, its
+    time in the all-reduces and peak memory."""
+    from psd_tpu_torch.diffusion.dadd import core_config_from
+    from psd_tpu_torch.models.vae import VAEConfig
+    from psd_tpu_torch.testing import route_launches
+
+    size = cfg.dataset.image_size
+    core_cfg = core_config_from(cfg)
+
+    def route(steps, decode):
+        return Counter(route_launches(core_cfg, VAEConfig(), TP_BATCH, size, steps, decode=decode,
+                                      tp=TP))
+
+    want_c = route(TP_STEPS, True)
+    want_d = route(TP_STEPS, False) + route(0, True) + route(0, True)
+    want_c, want_d = ({k: n for k, n in w.items() if n} for w in (want_c, want_d))
+    tps = [r["tp"] for r in ranks]
+    for r, t in zip(ranks, tps):
+        eps = ", ".join(f"{k} {v:.4e}" for k, v in t["eps_rel_l2"].items())
+        log(f"[serve_tp] rank {r['rank']}/{r['world']} over {r['backend']}: eps rel L2 against "
+            f"one process: {eps}; {TP_STEPS}-step images against one process: mean abs "
+            f"{t['images_mean_abs']:.4e}, max abs {t['images_max_abs']:.4e}, the net_2 fault's "
+            f"mean abs {t['images_fault_mean_abs']:.4e}; sample + decode "
+            f"wall {t['wall_s']:.3f} s (synced), {t['all_reduces']} all-reduces "
+            f"{t['all_reduce_s']:.3f} s (each synced), gathers {t['gather_s']:.3f} s; the cut "
+            f"{t['cut_s']:.3f} s; peak {t['peak_gib']:.3f} GiB; launches (c) {t['counts']}, "
+            f"by head dim {t['head_dims']}, (d) {t['counts_server']}; to_q rows {t['tp_heads']}"
+            + (f"; server wall {t['server_wall_s']:.3f} s, mean abs against one process "
+               f"{t['server_mean_abs']:.4e}" if "server_wall_s" in t else "") + f"; on {card}")
+    t0 = tps[0]
+    eps = t0["eps_rel_l2"]
+    faults = {k: v for k, v in eps.items() if k != "sound"}
+    checks = {
+        f"(b) eps within {TP_EPS_BAND:g} of one process": eps["sound"] <= TP_EPS_BAND,
+        f"(b) each planted fault beyond {TP_EPS_BAND:g} {faults}": all(
+            v > TP_EPS_BAND for v in faults.values()),
+        "(b) every rank's eps the same": len({t["eps_digest"] for t in tps}) == 1,
+        "(c) images (8, 512, 512, 3), finite, in [0, 1]": all(t["images_ok"] for t in tps),
+        "(c) every rank's images the same": len({t["images_digest"] for t in tps}) == 1,
+        f"(c) within {TP_IMAGE_BAND:g} (mean) of one process": t0["images_mean_abs"]
+            <= TP_IMAGE_BAND,
+        f"(c) the net_2 fault's images beyond {TP_IMAGE_BAND:g}": t0["images_fault_mean_abs"]
+            > TP_IMAGE_BAND,
+        "(d) the server's images equal (c)'s": t0.get("server_equal_c") is True,
+        f"(d) within {TP_IMAGE_BAND:g} (mean) of one process": t0.get("server_mean_abs", 1.0)
+            <= TP_IMAGE_BAND,
+        f"(e) (c) launches the routes' at tp {TP} {want_c}": all(
+            {k: n for k, n in t["counts"].items() if n} == want_c for t in tps),
+        f"(e) (d) launches the routes' at tp {TP} {want_d}": all(
+            {k: n for k, n in t["counts_server"].items() if n} == want_d for t in tps),
+        f"a rank's to_q holds C/{TP} rows": all(t["tp_heads"] == 320 // TP for t in tps),
+    }
+    log(f"[serve_tp] checks {checks}")
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke.py: serve tp checks failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    counts = {k: n + t0["counts_server"].get(k, 0) for k, n in t0["counts"].items()}
+    return {"counts": counts, "head_dims": {int(k): v for k, v in
+                                                  t0["head_dims"].items()}, "ranks": tps}
+
+
+def phase_serve_tp(card: str, results: dict) -> dict:
+    """Phase 5f alone (5d runs it after its own checks, in its launch): two
+    ranks on cuda:0 over gloo, the tp checks, then the kernels at the tp
+    shapes."""
+    import shutil
+
+    from psd_tpu_torch.core.config import load_config
+
+    work = ROOT / "build" / "psd_tpu_torch" / "serve_tp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = load_config(ROOT / "configs" / "train_ip.yaml", ["dataset.image_size=512"])
+    run = _torchrun(work, "tp_gloo", 2, kind="serve", dp=2, rounds=[], tp=True, backend="gloo")
+    if run["rc"] != 0 or not all(run["ranks"]):
+        _ranks_failed("serve_tp", "tp_gloo", run)
+        raise SystemExit(f"chip_smoke.py: serve tp did not run to its end (rc {run['rc']})")
+    log(f"[serve_tp] torchrun wall {run['wall']:.1f} s")
+    tp = _check_serve_tp(card, run["ranks"], cfg)
+    _tp_kernels(results)
+    shutil.rmtree(work, ignore_errors=True)
+    return tp
+
+
+def phase_serve_ranks(card: str, served: dict, results: dict) -> dict:
     """GenerationServer(mesh=) across ranks (phase 5d), started by torchrun:
     two ranks on cuda:0 over gloo at dp 2 (sound, again, the planted
     fault), then one rank on NCCL at dp 1; rank 0's images against phase
     5's one-process server on the same requests (SERVE_RANKS_BAND at dp 2,
     bit for bit at dp 1), each rank's launches against the routes' at its
-    rows; then the kernels at a rank's rows."""
+    rows; then the kernels at a rank's rows. Phase 5f runs in the gloo
+    launch after 5d's rounds (`_serve_tp_rank`); its checks and its kernels
+    at the tp shapes follow 5d's."""
     import shutil
 
     import numpy as np
@@ -3756,7 +4153,7 @@ def phase_serve_ranks(card: str, served: dict) -> dict:
         log(f"[serve_ranks] {tag}: torchrun wall {run['wall']:.1f} s, rc {run['rc']}")
         return run
 
-    gloo = run_ranks("dp2_gloo", 2, ["sound", "again", "fault"], backend="gloo")
+    gloo = run_ranks("dp2_gloo", 2, ["sound", "again", "fault"], backend="gloo", tp=True)
     imgs = gloo["images"]
     blocks = np.load(work / "dp2_gloo.blocks.npy")
     sound, fault = diff(imgs["sound"]), diff(imgs["fault"])
@@ -3787,10 +4184,12 @@ def phase_serve_ranks(card: str, served: dict) -> dict:
         raise SystemExit(f"chip_smoke.py: serve ranks checks failed: "
                          f"{[k for k, v in checks.items() if not v]}")
     _check_serve_rank_shapes()
+    tp = _check_serve_tp(card, gloo["ranks"], cfg)
+    _tp_kernels(results)
     shutil.rmtree(work, ignore_errors=True)
     r0 = gloo["ranks"][0]
     return {"counts": r0["counts"], "head_dims": {int(k): v for k, v in r0["head_dims"].items()},
-            "sound": sound, "fault": fault, "ranks": gloo["ranks"] + nccl["ranks"]}
+            "sound": sound, "fault": fault, "ranks": gloo["ranks"] + nccl["ranks"], "tp": tp}
 
 
 def _params(step_dir: Path) -> dict:
@@ -4034,7 +4433,8 @@ def main() -> int:
     turbo = timed("turbo", phase_turbo, card, served)
     inferred = timed("infer", phase_infer, card)
     levers = timed("unet levers", phase_unet_levers, card, turbo, results)
-    served_dp = timed("serve ranks", phase_serve_ranks, card, served)
+    served_dp = timed("serve ranks", phase_serve_ranks, card, served, results)
+    served_tp = served_dp["tp"]
     timed("train kernels", phase_train_kernels, results)
     trained = timed("train", phase_train, card)
     train_cli = timed("train cli", phase_train_cli, card, trained)
@@ -4049,7 +4449,8 @@ def main() -> int:
                    (("serve", served), ("turbo", turbo), ("infer", inferred),
                     ("train", trained), ("train_cli", train_cli), ("op", op),
                     ("augment", loop["augment"]), ("evaluate", loop["evaluate"]),
-                    ("train_dp", ranks), ("serve_dp", served_dp), ("levers", levers))}
+                    ("train_dp", ranks), ("serve_dp", served_dp), ("levers", levers),
+                    ("serve_tp", served_tp))}
         # serve, turbo and levers count host launches (the eager warm-up and the
         # capture of their program); what each replay launches is apart
         by_replay = {path: run["replay_launches"].get(name, 0)
@@ -4060,8 +4461,9 @@ def main() -> int:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": _bound_by(r),
                  "library_ms": r["library_ms"], "shapes": r["shapes"]}
-        if "levers_shapes" in r:
-            entry["levers_shapes"] = r["levers_shapes"]
+        for extra in ("levers_shapes", "tp_shapes"):
+            if extra in r:
+                entry[extra] = r[extra]
         if "fwd_bwd_ms" in r:
             entry["fwd_bwd_ms"] = r["fwd_bwd_ms"]
             entry["sdpa_fwd_bwd_ms"] = r["sdpa_fwd_bwd_ms"]
@@ -4077,7 +4479,8 @@ def main() -> int:
                 (("serve", served), ("turbo", turbo), ("infer", inferred),
                  ("train", trained), ("train_cli", train_cli),
                  ("augment", loop["augment"]), ("evaluate", loop["evaluate"]),
-                 ("train_dp", ranks), ("serve_dp", served_dp), ("levers", levers))}
+                 ("train_dp", ranks), ("serve_dp", served_dp), ("levers", levers),
+                 ("serve_tp", served_tp))}
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

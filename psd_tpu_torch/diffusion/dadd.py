@@ -48,7 +48,9 @@ erasure of the projected image tokens and eta-stochastic DDIM, whose
 per-step noise is drawn outside the graph like the initial latents.
 `sample` and `decode_latents` take a mesh: each
 rank of torchrun's runs its rows of the batch, and the results are gathered
-(psd_tpu's dp-sharded sampling).
+(psd_tpu's dp-sharded sampling). On a mesh with a tp axis `sample` cuts the
+UNet's transformer sites over tp at its first call (`shard_tp_`) and runs
+op by op; a cut UNet raises outside `sample(mesh=)` of that mesh.
 """
 
 from __future__ import annotations
@@ -71,7 +73,8 @@ from ..models.init import flax_init_
 from ..models.layers import quantize_int8_weights_, store_weights_in_
 from ..models.unet import UNet2DCondition, UNetConfig
 from ..models.vae import AutoencoderKL, VAEConfig, VAEDecode, sample_gaussian
-from ..parallel.mesh import batch_rows, gather_rows
+from ..parallel.mesh import (TP_TRAINING, batch_rows, gather_rows, shard_tp_, tp_group,
+                             tp_scope, tp_size)
 from .graphs import CapturedProgram, program_key
 from .sampler import SamplerConfig, cfg_eps_fn, ddim_sample, dpm_sample
 from .schedule import NoiseSchedule
@@ -299,12 +302,15 @@ class DADD:
         # capture's pool); clear it to let such a key capture again
         self.failed_captures: Dict[tuple, str] = {}
         self._programs_lock = threading.Lock()
+        # the tp group the UNet's transformer sites were cut for (shard_tp_)
+        self.tp_group = None
 
     def load_flax(self, core_tree=None, vae_tree=None, clip_tree=None) -> "DADD":
         """Replace the weights with `psd_tpu` parameter trees (numpy leaves);
         a part whose tree is None keeps the weights it has. A serving model
         takes the decode half of `vae_tree`, a training model all of it."""
         if core_tree is not None:
+            self._require_whole("load_flax")
             if self.for_training:
                 load_flax_(self.core, core_tree)
             else:
@@ -325,9 +331,35 @@ class DADD:
         bridge's, a checkpoint's); a serving model's int8 weights are
         computed from those fp32 values, as psd_tpu quantizes its fp32
         parameters."""
+        self._require_whole("load_core_state_dict")
         if not self.for_training:
             quantize_int8_weights_(self.core, state_dict)
         self.core.load_state_dict(state_dict, strict=True)
+        return self
+
+    def _require_whole(self, what: str) -> None:
+        if self.tp_group is not None:
+            raise RuntimeError(f"{what}: the UNet is cut over tp; load the weights into a "
+                               "model that was not cut, then sample(mesh=)")
+
+    def shard_tp_(self, mesh) -> "DADD":
+        """Cut the UNet's transformer sites to this rank's slice of the
+        mesh's tp axis, in place (`parallel/mesh.py::shard_tp_`): nothing
+        where tp is 1, nothing again for the group it was cut for. The
+        captured programs go (they hold the whole weights). A serving model
+        only (training under tp: ROADMAP.md Queue 1 item 7b); the int8 UNet
+        raises (item 7c); another tp group raises."""
+        if tp_size(mesh) == 1:
+            return self
+        if self.tp_group is not None:
+            if self.tp_group is not tp_group(mesh):
+                raise RuntimeError("the UNet is cut over another tp group than this mesh's")
+            return self
+        if self.for_training:
+            raise NotImplementedError(TP_TRAINING)
+        self.drop_programs()
+        shard_tp_(self.core.unet, mesh)
+        self.tp_group = tp_group(mesh)
         return self
 
     @property
@@ -614,9 +646,16 @@ class DADD:
         arrays) each rank samples its rows (`batch_rows`) of cond, x0,
         cond_uncond and eta_noise (dim 1 there) in its own program, and the
         latents are gathered: every rank returns the whole (B, h, w, 4). A
-        B the ranks do not split raises."""
+        B the ranks do not split raises. On a mesh with a tp axis the rows
+        follow (dp, fsdp), the UNet is cut over tp at the first call
+        (`shard_tp_`), and the loop runs op by op on every backend: its
+        all-reduces are not captured (gloo's cannot be; NCCL's could, but
+        no run here can hold a captured NCCL tp program to a reference)."""
         knobs = self.static_knobs(sampling_steps, steer_scale, guidance_scale,
                                   encoder_stride, cache_mode, sampler, eta)
+        self.shard_tp_(mesh)
+        if self.tp_group is not None and self.tp_group is not tp_group(mesh):
+            raise RuntimeError("sample: the UNet is cut over tp; pass the mesh it was cut for")
         if mesh is not None:
             B = cond.shape[0]
             batches = {"x0": x0.shape[0], "cond_uncond": B if cond_uncond is None
@@ -630,7 +669,10 @@ class DADD:
             cond_uncond = None if cond_uncond is None else cond_uncond[rows]
             eta_noise = None if eta_noise is None else eta_noise[:, rows]
         inputs, run = self._sample_program(cond, x0, cond_uncond, eta_noise, knobs)
-        return gather_rows(mesh, self._replay_or_run("sample", run, inputs, **knobs))
+        with tp_scope(mesh):
+            if self.tp_group is not None:
+                return gather_rows(mesh, run(*inputs))
+            return gather_rows(mesh, self._replay_or_run("sample", run, inputs, **knobs))
 
     @torch.inference_mode()
     def decode_latents(self, latents, mesh=None) -> torch.Tensor:
@@ -665,6 +707,9 @@ class DADD:
         (`VAEConfig(quant="int8")`)."""
         knobs = self.static_knobs(sampling_steps, steer_scale, guidance_scale,
                                   encoder_stride, cache_mode, sampler, eta)
+        if self.tp_group is not None:
+            raise RuntimeError("generate: the UNet is cut over tp; call sample(mesh=) and "
+                               "decode_latents(mesh=) with the mesh it was cut for")
         if x0 is None or (knobs["eta"] > 0 and eta_noise is None):
             if generator is None:
                 raise ValueError("generate needs x0 (and eta_noise when eta > 0) or a "

@@ -25,6 +25,14 @@ The five kernel sites, routed by shape as `psd_tpu` routes them:
     `ops.gnproj.gn_proj_fwd` (inference only; off on the int8 path).
 Under ToMe the attention and LayerNorm sites run at the merged length.
 Each wrapper runs its plain version for a CPU tensor.
+
+Under tp (serving, `parallel/mesh.py::shard_tp_`) each attention site and
+feed-forward holds its rank's heads and columns: the routes take the local
+shapes (H/tp heads, C/tp or 4C/tp columns), and to_out_0 and net_2 are
+row-parallel (`row_parallel_linear`: the product without bias, an
+all-reduce over the tp group in the compute dtype, then the bias, as
+psd_tpu's bf16 dot, psum and bias). A site that was never cut runs as
+before, with no collective.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.mode import is_training, use_kernel
+from ..parallel.mesh import site_tp_group, tp_all_reduce
 from ..ops.attention import attention_probs, dot_product_attention
 from ..ops.geglu import gelu_exact, ln_geglu_fwd, ln_proj_fwd, ln_reference, ln_shape_error
 from ..ops.gnproj import gn_proj_fwd
@@ -67,6 +76,16 @@ def linear(x, layer: nn.Linear, dtype):
     """flax nn.Dense with (dtype, fp32 params): operands and bias in dtype."""
     b = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), b)
+
+
+def row_parallel_linear(x, layer: nn.Linear, dtype, group):
+    """`linear` of a row-parallel site cut over tp: each rank's product of
+    its input columns without bias, summed over the tp group in dtype, then
+    the whole bias in dtype; plain `linear` where `group` is None."""
+    if group is None:
+        return linear(x, layer, dtype)
+    out = tp_all_reduce(F.linear(x.to(dtype), layer.weight.to(dtype)), group)
+    return out + layer.bias.to(dtype)
 
 
 def conv(x, layer: nn.Conv2d, dtype, stride: int = 1):
@@ -306,14 +325,16 @@ class CrossAttnMode:
     dis_gate: float = 0.5
 
 
-def ln_fused_ok(x) -> bool:
+def ln_fused_ok(x, n: Optional[int] = None) -> bool:
     """Shape gate of the fused LayerNorm kernels: every x (B, S, C) whose
-    B·S rows and C channels they take (`ln_shape_error`: B·S % 128,
-    C % 64). psd_tpu's gate (layers.py:591-613) asks B·S % 512 of its
-    512-row blocks, per shard under a mesh; here that would refuse a rank's
-    4 · 64 rows at 512², which its one-process batch of 8 takes."""
+    B·S rows and C channels they take with n output columns (ln_proj's C,
+    ln_geglu's 4C per half; under tp a rank's C/tp and 4C/tp; C when not
+    given) (`ln_shape_error`: B·S % 128, C % 64, n % 8). psd_tpu's gate
+    (layers.py:591-613) asks B·S % 512 of its 512-row blocks, per shard
+    under a mesh; here that would refuse a rank's 4 · 64 rows at 512²,
+    which its one-process batch of 8 takes."""
     C = x.shape[-1]
-    return ln_shape_error(x.shape[0] * x.shape[1], C, C) is None
+    return ln_shape_error(x.shape[0] * x.shape[1], C, C if n is None else n) is None
 
 
 def gn_proj_ok(S: int, C: int) -> bool:
@@ -338,7 +359,11 @@ class Attention(nn.Module):
     for cross-attention. `quant="int8"` (inference only, psd_tpu's
     `Attention(quant=)`): where the width is at least MIN_QUANT_K, those
     projections and to_out_0 run as `qdense` after a plain LayerNorm; the
-    16-token cross-attention K/V stay in `dtype`."""
+    16-token cross-attention K/V stay in `dtype`. Cut over tp (`tp`, set by
+    `parallel/mesh.py::cut_tp_`) it runs num_heads/tp heads and to_out_0
+    row-parallel."""
+
+    tp_kind = "attention"
 
     def __init__(self, dim: int, num_heads: int, context_dim: Optional[int] = None,
                  mode: CrossAttnMode = CrossAttnMode(), dtype=torch.bfloat16,
@@ -359,6 +384,7 @@ class Attention(nn.Module):
             self.to_v_dis = nn.Linear(ctx, dim, bias=False)
         self.to_out_0 = nn.Linear(dim, dim)
         self.quant = quant
+        self.tp = None
         self.proj_sites = ("to_q",) if self.is_cross else ("to_q", "to_k", "to_v")
         if quant == "int8" and quant_worthwhile(dim):
             _int8_buffers_(self, self.proj_sites + ("to_out_0",))
@@ -368,10 +394,12 @@ class Attention(nn.Module):
         dt = self.dtype
         B, S, C = x.shape
         hd = C // self.num_heads
+        group = site_tp_group(self.tp, is_training())
+        H = self.num_heads // (1 if self.tp is None else self.tp.size)  # this rank's heads
         use_q8 = self.quant == "int8" and quant_worthwhile(C) and not is_training()
 
         def heads(t):
-            return t.reshape(B, -1, self.num_heads, hd)
+            return t.reshape(B, -1, H, hd)
 
         ws = tuple(getattr(self, n).weight for n in self.proj_sites)
         if ln_scale is None and not use_q8:
@@ -379,10 +407,10 @@ class Attention(nn.Module):
         elif use_q8:
             hn = x.to(dt) if ln_scale is None else ln_reference(x.to(dt), ln_scale, ln_bias)
             outs = [int8_linear(hn, self, n, dt) for n in self.proj_sites]
-        elif ln_fused_ok(x) and use_kernel("ln_proj"):
+        elif ln_fused_ok(x, H * hd) and use_kernel("ln_proj"):
             outs = ln_proj_fwd(x.reshape(B * S, C).to(dt), ln_scale, ln_bias,
                                tuple(w.to(dt) for w in ws))
-            outs = [o.reshape(B, S, C) for o in outs]
+            outs = [o.reshape(B, S, H * hd) for o in outs]
         else:
             hn = ln_reference(x.to(dt), ln_scale, ln_bias)
             outs = [F.linear(hn, w.to(dt)) for w in ws]
@@ -402,7 +430,7 @@ class Attention(nn.Module):
                 (delta_tok, self.to_k_dis), (delta_tok, self.to_v_dis)))
             ds = 0.0 if delta_scale is None else float(delta_scale)
             lens = [b.shape[1] for b in banks[0::2]]
-            if split3_kernel_ok(B, S, self.num_heads, hd, lens) and use_kernel("split3"):
+            if split3_kernel_ok(B, S, H, hd, lens) and use_kernel("split3"):
                 z = split3_attention(q.contiguous(), *banks, ds, m.anat_gate, m.dis_gate)
             else:
                 z_anat = dot_product_attention(q, banks[0], banks[1])
@@ -416,10 +444,10 @@ class Attention(nn.Module):
             ctx = context.to(dt)
             z = dot_product_attention(q, heads(linear(ctx, self.to_k, dt)),
                                       heads(linear(ctx, self.to_v, dt)))
-        z = z.reshape(B, S, C)
+        z = z.reshape(B, S, H * hd)
         if use_q8:
             return int8_linear(z, self, "to_out_0", dt)
-        return linear(z, self.to_out_0, dt)
+        return row_parallel_linear(z, self.to_out_0, dt, group)
 
 
 def split2_attention(q, k, v):
@@ -433,12 +461,17 @@ class GEGLUFeedForward(nn.Module):
     net_2 (4·dim→dim). `quant="int8"` (inference only, psd_tpu's
     `GEGLUFeedForward(quant=)`): each projection runs as `qdense` where its
     depth is at least MIN_QUANT_K (net_0 at dim, net_2 at 4·dim), so at
-    dim = 320 net_0 keeps the fused LN → GEGLU kernel and net_2 is int8."""
+    dim = 320 net_0 keeps the fused LN → GEGLU kernel and net_2 is int8.
+    Cut over tp (`tp`) it holds N/tp of each GEGLU half's N = 4·dim columns,
+    packed [h_r ; g_r], and net_2 runs row-parallel."""
+
+    tp_kind = "geglu"
 
     def __init__(self, dim: int, mult: int = 4, dtype=torch.bfloat16, quant: str = "none"):
         super().__init__()
         self.dtype = dtype
         self.quant = quant
+        self.tp = None
         self.net_0_proj = nn.Linear(dim, dim * mult * 2)
         self.net_2 = nn.Linear(dim * mult, dim)
         if quant == "int8":
@@ -449,13 +482,14 @@ class GEGLUFeedForward(nn.Module):
         dt = self.dtype
         B, S, C = x.shape
         use_q8 = self.quant == "int8" and not is_training()
+        group = site_tp_group(self.tp, is_training())
         w0, b0 = self.net_0_proj.weight, self.net_0_proj.bias
         if use_q8 and quant_worthwhile(C):
             proj = int8_linear(ln_reference(x.to(dt), ln_scale, ln_bias), self, "net_0_proj",
                                torch.float32)
             hh, g = proj.chunk(2, dim=-1)
             h = (hh * gelu_exact(g)).to(dt)
-        elif ln_fused_ok(x) and use_kernel("ln_geglu"):
+        elif ln_fused_ok(x, w0.shape[0] // 2) and use_kernel("ln_geglu"):
             h = ln_geglu_fwd(x.reshape(B * S, C).to(dt), ln_scale, ln_bias,
                              w0.to(dt), b0).reshape(B, S, -1)
         else:
@@ -464,7 +498,7 @@ class GEGLUFeedForward(nn.Module):
             h = (hh * gelu_exact(g)).to(dt)
         if use_q8 and quant_worthwhile(h.shape[-1]):
             return int8_linear(h, self, "net_2", dt)
-        return linear(h, self.net_2, dt)
+        return row_parallel_linear(h, self.net_2, dt, group)
 
 
 class BasicTransformerBlock(nn.Module):

@@ -1,23 +1,37 @@
-"""Data parallelism over torch.distributed: one process per card.
+"""Data and tensor parallelism over torch.distributed: one process per card.
 
 Counterpart of `psd_tpu/parallel/mesh.py`. psd_tpu is one controller over a
 `Mesh(dp, fsdp, tp)`: the batch's dim 0 is split over ("dp", "fsdp"), the
 state is fsdp-sharded on each parameter's largest divisible dim, XLA
 all-reduces the gradients and each Pallas kernel `shard_map`s itself over
-the batch axes. The port runs one process per rank, started by `torchrun`:
-the process is the shard, so each rank runs the unchanged kernels on its own
-rows, and `shard_map_batch0`, `kernel_batch_axes` and `constrain_batch` have
-no counterpart. The mesh is a `DeviceMesh` of shape (dp, fsdp); the train
-state goes under DDP (fsdp = 1) or FSDP2 (fsdp > 1, HSDP over the 2-D mesh;
-`train/trainer.py::shard_train_state`).
+the batch axes (and the head axis under tp). The port runs one process per
+rank, started by `torchrun`: the process is the shard, so each rank runs
+the unchanged kernels on its own rows and heads, and `shard_map_batch0`,
+`kernel_batch_axes` and `constrain_batch` have no counterpart. The mesh is
+a `DeviceMesh` of shape (dp, fsdp), or (dp, fsdp, tp) when tp > 1; the
+train state goes under DDP (fsdp = 1) or FSDP2 (fsdp > 1, HSDP over the
+2-D mesh; `train/trainer.py::shard_train_state`).
 
-  * A rank's rows: rank = dp_index · fsdp + fsdp_index owns the rank-th
-    contiguous block of dim 0, as `P(("dp", "fsdp"))` lays the rows out.
+  * Rank order: tp innermost, as psd_tpu's `reshape(dp, fsdp, tp)`: rank =
+    (dp_index · fsdp + fsdp_index) · tp + tp_index.
+  * A rank's rows: its (dp, fsdp) position i = dp_index · fsdp + fsdp_index
+    owns the i-th contiguous block of dim 0, as `P(("dp", "fsdp"))` lays
+    the rows out; the tp ranks of a group hold the same rows.
   * `fsdp_shard_dim` is `fsdp_param_spec`'s rule (the largest dim that
     divides and holds at least two rows a rank); where no dim qualifies
     psd_tpu replicates the parameter, and FSDP2, which shards every
     parameter, takes its default Shard(0), padded.
-  * tp is not ported (ROADMAP.md Queue 1 item 7): tp ≠ 1 raises.
+  * tp (serving only): `tp_param_dim` is psd_tpu's `tp_param_spec` on the
+    port's names, and `shard_tp_` cuts the UNet's transformer sites in place
+    to the rank's heads and columns, Megatron-style: to_q/k/v/k_dis/v_dis
+    column-parallel, to_out_0 and the feed-forward's net_2 row-parallel
+    (a product without bias, an all-reduce over the tp group, then the
+    whole bias), net_0_proj's two GEGLU halves cut alike (psd_tpu's
+    `constrain_tp_geglu`), so each rank's packed [h_r ; g_r] keeps the
+    LN → GEGLU kernel's interface. A cut site runs only inside `tp_scope`
+    of the mesh it was cut for (`DADD.sample(mesh=)` enters it) and raises
+    anywhere else; training under tp is ROADMAP.md Queue 1 item 7b, the
+    int8 UNet under tp item 7c.
 
 A DTensor's values are read and written through `local` (its shard; a plain
 tensor is its own), `local_part` cuts a full tensor to another's shard, and
@@ -25,25 +39,31 @@ tensor is its own), `local_part` cuts a full tensor to another's shard, and
 
 Sampling and serving (`DADD.sample(mesh=)`, `GenerationServer(mesh=)`)
 split the batch as psd_tpu's `batch_sharding` does and replicate the
-model: each rank runs its rows (`batch_rows`), `gather_rows` puts the
-ranks' rows back together into the global batch on every rank, and
-`broadcast` hands rank 0's tensors to the others.
+model outside its tp sites: each rank runs its rows (`batch_rows`),
+`gather_rows` puts the rows back together into the global batch on every
+rank, and `broadcast` hands rank 0's tensors to the others.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+from contextvars import ContextVar
 from dataclasses import dataclass
 from datetime import timedelta
 from typing import Optional
 
 import torch
 import torch.distributed as dist
+from torch import nn
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import DTensor, Shard
 
 # a collective that waits longer fails the run instead of hanging its ranks
 TIMEOUT_S = 600
+# what training under tp and the int8 UNet under tp still need
+TP_TRAINING = "training under tp is not ported (ROADMAP.md Queue 1 item 7b)"
+TP_INT8 = "the int8 UNet under tp is not ported (ROADMAP.md Queue 1 item 7c)"
 
 
 @dataclass(frozen=True)
@@ -53,21 +73,21 @@ class MeshConfig:
     tp: int = 1
 
     def resolve(self, world_size: int) -> "MeshConfig":
-        """psd_tpu's rule, with every rank placed: dp · fsdp must be the
-        world size (a rank with no place in the mesh has nothing to do)."""
-        if self.tp != 1:
-            raise NotImplementedError(
-                f"tp={self.tp}: tensor parallelism is not ported (ROADMAP.md Queue 1 item 7)")
-        if self.fsdp < 1 or self.dp == 0 or self.dp < -1:
-            raise ValueError(f"mesh dp={self.dp} fsdp={self.fsdp}: dp is -1 or ≥ 1, fsdp ≥ 1")
-        dp = world_size // self.fsdp if self.dp == -1 else self.dp
-        if dp < 1 or dp * self.fsdp != world_size:
-            need = max(dp, 1) * self.fsdp
+        """psd_tpu's rule, with every rank placed: dp · fsdp · tp must be
+        the world size (a rank with no place in the mesh has nothing to
+        do)."""
+        if self.fsdp < 1 or self.tp < 1 or self.dp == 0 or self.dp < -1:
+            raise ValueError(f"mesh dp={self.dp} fsdp={self.fsdp} tp={self.tp}: dp is -1 or "
+                             "≥ 1, fsdp and tp ≥ 1")
+        inner = self.fsdp * self.tp
+        dp = world_size // inner if self.dp == -1 else self.dp
+        if dp < 1 or dp * inner != world_size:
+            need = max(dp, 1) * inner
             raise ValueError(
-                f"mesh dp={self.dp} fsdp={self.fsdp} needs {need} ranks, the world has "
-                f"{world_size}: start one process per rank, e.g. `torchrun --nproc-per-node "
-                f"{need} -m psd_tpu_torch.pipelines.train ...`")
-        return MeshConfig(dp=dp, fsdp=self.fsdp)
+                f"mesh dp={self.dp} fsdp={self.fsdp} tp={self.tp} needs {need} ranks, the world "
+                f"has {world_size}: start one process per rank, e.g. `torchrun "
+                f"--nproc-per-node {need} -m psd_tpu_torch.pipelines.train ...`")
+        return MeshConfig(dp=dp, fsdp=self.fsdp, tp=self.tp)
 
 
 def world_size() -> int:
@@ -98,9 +118,10 @@ def rank_device(device_type: str) -> torch.device:
 
 
 def create_mesh(cfg: Optional[MeshConfig] = None, device_type: str = "cuda") -> DeviceMesh:
-    """The (dp, fsdp) DeviceMesh over the process group, which is started
-    from torchrun's environment (NCCL on cuda, gloo on cpu) unless the
-    caller started one."""
+    """The DeviceMesh over the process group, which is started from
+    torchrun's environment (NCCL on cuda, gloo on cpu) unless the caller
+    started one: ("dp", "fsdp"), and ("dp", "fsdp", "tp") when tp > 1, tp
+    innermost (rank = (dp_index · fsdp + fsdp_index) · tp + tp_index)."""
     if device_type == "cuda":
         # before the group and the mesh, which would take LOCAL_RANK itself
         torch.cuda.set_device(rank_device("cuda"))
@@ -109,7 +130,22 @@ def create_mesh(cfg: Optional[MeshConfig] = None, device_type: str = "cuda") -> 
         dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
                                 timeout=timedelta(seconds=TIMEOUT_S))
     cfg = (cfg or MeshConfig()).resolve(dist.get_world_size())
-    return init_device_mesh(device_type, (cfg.dp, cfg.fsdp), mesh_dim_names=("dp", "fsdp"))
+    if cfg.tp == 1:
+        return init_device_mesh(device_type, (cfg.dp, cfg.fsdp), mesh_dim_names=("dp", "fsdp"))
+    return init_device_mesh(device_type, (cfg.dp, cfg.fsdp, cfg.tp),
+                            mesh_dim_names=("dp", "fsdp", "tp"))
+
+
+def tp_size(mesh: Optional[DeviceMesh]) -> int:
+    """The mesh's tp axis (1 without a mesh or a tp axis)."""
+    if mesh is None or "tp" not in (mesh.mesh_dim_names or ()):
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index("tp"))
+
+
+def tp_group(mesh: Optional[DeviceMesh]):
+    """The process group over this rank's tp ranks, None where tp is 1."""
+    return mesh.get_group("tp") if tp_size(mesh) > 1 else None
 
 
 def shard_rows(n: int, dp: int, fsdp: int, dp_index: int, fsdp_index: int) -> slice:
@@ -122,17 +158,18 @@ def shard_rows(n: int, dp: int, fsdp: int, dp_index: int, fsdp_index: int) -> sl
 
 
 def batch_rows(mesh: Optional[DeviceMesh], n: int) -> slice:
-    """This rank's rows of a global batch of n; all of them without a mesh."""
+    """This rank's rows of a global batch of n (its (dp, fsdp) position's;
+    every tp rank of a group the same); all of them without a mesh."""
     if mesh is None:
         return slice(0, n)
-    dp_index, fsdp_index = mesh.get_coordinate()
-    return shard_rows(n, mesh["dp"].size(), mesh["fsdp"].size(), dp_index, fsdp_index)
+    dp_index, fsdp_index = mesh.get_coordinate()[:2]
+    return shard_rows(n, mesh.size(0), mesh.size(1), dp_index, fsdp_index)
 
 
 def mesh_group(mesh: DeviceMesh):
     """The process group over every rank of `mesh`: the world, whose rank
-    order is the order of `batch_rows`' blocks where the mesh lays the
-    world out as `create_mesh` does (rank = dp_index · fsdp + fsdp_index)."""
+    order is the order of `batch_rows`' blocks (each repeated over tp)
+    where the mesh lays the world out as `create_mesh` does."""
     ranks = mesh.mesh.flatten().tolist()
     if ranks != list(range(dist.get_world_size())):
         raise ValueError(f"a mesh over ranks {ranks} is not the world in rank order "
@@ -144,12 +181,17 @@ def gather_rows(mesh: Optional[DeviceMesh], part: torch.Tensor) -> torch.Tensor:
     """The global batch on every rank from each rank's rows of it
     (`batch_rows`' blocks of dim 0, every rank the same count): c10d's
     all_gather_into_tensor over every rank of the mesh (a collective: every
-    rank calls it); `part` itself without a mesh."""
+    rank calls it), then one copy of each block, its tp rank 0's (the tp
+    ranks of a group hold the same rows); `part` itself without a mesh."""
     if mesh is None:
         return part
     part = part.contiguous()
-    whole = part.new_empty((mesh.size() * part.shape[0],) + tuple(part.shape[1:]))
+    world, rest = mesh.size(), tuple(part.shape[1:])
+    whole = part.new_empty((world * part.shape[0],) + rest)
     dist.all_gather_into_tensor(whole, part, group=mesh_group(mesh))
+    tp = tp_size(mesh)
+    if tp > 1:
+        whole = whole.view((world // tp, tp) + tuple(part.shape))[:, 0].reshape((-1,) + rest)
     return whole
 
 
@@ -243,3 +285,124 @@ def shard_group(t: torch.Tensor):
         if isinstance(placement, Shard):
             return t.device_mesh.get_group(mesh_dim)
     return None
+
+
+# ---- tensor parallelism (tp axis), serving only ---------------------------------------
+# psd_tpu's `_TP_COL` / `_TP_ROW` (parallel/mesh.py:245-246): the flax (in,
+# out) kernel is the torch (out, in) weight, so column-parallel cuts torch dim
+# 0 and row-parallel dim 1
+TP_COLUMN = ("to_q", "to_k", "to_v", "to_k_dis", "to_v_dis")
+TP_ROW = ("to_out_0", "net_2")
+
+
+def tp_param_dim(name: str, shape, tp: int) -> Optional[int]:
+    """psd_tpu's `tp_param_spec` on a port parameter name ('...attn1.to_q.
+    weight'): the torch dim the tp axis cuts, or None where it stays
+    whole."""
+    parts = name.split(".")
+    if tp <= 1 or len(parts) < 2 or parts[-1] != "weight" or len(shape) != 2:
+        return None
+    if parts[-2] in TP_COLUMN and shape[0] % tp == 0:
+        return 0
+    if parts[-2] in TP_ROW and shape[1] % tp == 0:
+        return 1
+    return None
+
+
+@dataclass(frozen=True)
+class TPCut:
+    """What a cut transformer site holds: its tp group, the tp size and
+    this rank's index on the tp axis."""
+    group: object
+    size: int
+    rank: int
+
+
+def _narrow_(p: torch.Tensor, dim: int, size: int, rank: int) -> None:
+    """Replace `p`'s values by its rank-th of `size` slices along dim."""
+    step = p.shape[dim] // size
+    p.data = p.data.narrow(dim, rank * step, step).contiguous()
+
+
+@torch.no_grad()
+def cut_tp_(module: nn.Module, cut: TPCut) -> nn.Module:
+    """Cut every transformer site under `module` (a module with `tp_kind`
+    "attention" or "geglu", `models/layers.py`) in place to the slice of
+    tp rank `cut.rank`: the weights `tp_param_dim` names; net_0_proj's
+    (2N, C) weight and (2N,) bias as two halves, each to its N/tp rows, kept
+    packed [h_r ; g_r]. Row-parallel biases stay whole. An attention site
+    whose heads the tp size does not divide, or a feed-forward whose N it
+    does not, stays whole (psd_tpu's `h_ax = None`, spattn.py:278). A
+    site's `tp` is set where it was cut."""
+    n, r = cut.size, cut.rank
+    for prefix, m in module.named_modules():
+        kind = getattr(m, "tp_kind", None)
+        if kind is None:
+            continue
+        if m.tp is not None:
+            raise RuntimeError(f"{prefix}: already cut over tp")
+        if m.quant == "int8":
+            raise NotImplementedError(TP_INT8)
+        if kind == "attention" and m.num_heads % n:
+            continue
+        if kind == "geglu":
+            N = m.net_2.in_features
+            if N % n:
+                continue
+            w, b = m.net_0_proj.weight, m.net_0_proj.bias
+            k = N // n
+            w.data = w.data.view(2, N, -1)[:, r * k:(r + 1) * k].reshape(2 * k, -1).contiguous()
+            b.data = b.data.view(2, N)[:, r * k:(r + 1) * k].reshape(-1).contiguous()
+        for name, child in m.named_children():
+            dim = tp_param_dim(f"{name}.weight", tuple(child.weight.shape), n)
+            if dim is not None:
+                _narrow_(child.weight, dim, n, r)
+        m.tp = cut
+    return module
+
+
+def shard_tp_(module: nn.Module, mesh: DeviceMesh) -> nn.Module:
+    """`cut_tp_` of `module` (the UNet) to this rank's slice of the mesh's
+    tp axis; nothing where tp is 1."""
+    n = tp_size(mesh)
+    if n == 1:
+        return module
+    return cut_tp_(module, TPCut(tp_group(mesh), n, mesh.get_local_rank("tp")))
+
+
+# the tp group a cut site may run in (`tp_scope`); None outside
+_TP_GROUP: ContextVar = ContextVar("psd_tpu_torch_tp_group", default=None)
+
+
+@contextlib.contextmanager
+def tp_scope(mesh: Optional[DeviceMesh]):
+    """Run the model's cut sites over the mesh's tp group (none where the
+    mesh has no tp axis, or without a mesh)."""
+    token = _TP_GROUP.set(tp_group(mesh))
+    try:
+        yield
+    finally:
+        _TP_GROUP.reset(token)
+
+
+def site_tp_group(cut: Optional[TPCut], training: bool):
+    """The group a site cut as `cut` all-reduces over (None for a whole
+    site). A cut site raises in training, and outside `tp_scope` of the
+    mesh it was cut for: a rank alone holds a part of its weights."""
+    if cut is None:
+        return None
+    if training:
+        raise NotImplementedError(TP_TRAINING)
+    active = _TP_GROUP.get()
+    if active is not cut.group:
+        where = "with no tp mesh" if active is None else "over another tp group"
+        raise RuntimeError(f"a UNet cut over tp ({cut.size} ranks) runs {where}: call "
+                           "DADD.sample(mesh=) with the mesh it was cut for")
+    return cut.group
+
+
+def tp_all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every tp rank's `t`, in place, in t's dtype (a
+    collective over the tp group)."""
+    dist.all_reduce(t, group=group)
+    return t

@@ -44,7 +44,10 @@ waiting ranks' broadcast stays inside the group's timeout. No fallback: a
 failed batch on rank 0 (a collective, a capture, a rank that raised and
 left a gather waiting until its timeout) fails its futures and every later
 request, and the server stops; a rank ≥ 1 whose worker failed raises the
-error from `close`.
+error from `close`. On a mesh with a tp axis the rows follow (dp, fsdp), the
+header and stop still go over the whole world, and the model's UNet is cut
+over tp when the server is built (`DADD.shard_tp_`; an int8 or training
+model raises there); each batch's sample then runs op by op.
 """
 
 from __future__ import annotations
@@ -97,6 +100,7 @@ class GenerationServer:
         self.mesh = mesh
         if mesh is not None:
             batch_rows(mesh, max_batch)  # raises where the ranks do not split it
+            model.shard_tp_(mesh)
         # one replay a batch (generate), or two (sample, then decode_latents)
         self.fused = fused and mesh is None
         self.rank = 0 if mesh is None else mesh.get_rank()

@@ -60,7 +60,7 @@ def tiny_dadd(device="cpu", seed=0, for_training=False, routing=True, purifier=T
 
 def route_launches(core_cfg: DADDCoreConfig, vae_cfg: VAEConfig, batch: int, image_size: int,
                    full_steps: int, shallow_steps: int = 0, cfg_pass: bool = False,
-                   decode: bool = True) -> Dict[str, int]:
+                   decode: bool = True, tp: int = 1) -> Dict[str, int]:
     """The hand-written kernels one generate call launches, from the routes'
     own gates (`ln_fused_ok`, `gn_proj_ok`, `split3_kernel_ok`,
     `kernel_route`) at its shapes: `full_steps` full UNet evaluations and
@@ -70,7 +70,10 @@ def route_launches(core_cfg: DADDCoreConfig, vae_cfg: VAEConfig, batch: int, ima
     evaluation without the decode is a validation loss's forward. The UNet's
     levers move the routes: under ToMe each merged branch runs at its merged
     length (`ToMeSpec.merged_tokens`); the int8 UNet takes gn_proj nowhere
-    and the LayerNorm kernels only below MIN_QUANT_K channels."""
+    and the LayerNorm kernels only below MIN_QUANT_K channels. On a rank of
+    a tp mesh (`tp` > 1; `batch` is then the rank's rows) each site whose
+    heads tp divides runs H/tp heads, ln_proj C/tp columns and ln_geglu
+    4C/tp a half (`parallel/mesh.py::cut_tp_`)."""
     u = core_cfg.unet
     lat = image_size // 2 ** (len(vae_cfg.block_out_channels) - 1)
     B = batch * (2 if cfg_pass else 1)
@@ -84,6 +87,9 @@ def route_launches(core_cfg: DADDCoreConfig, vae_cfg: VAEConfig, batch: int, ima
         for _, level, C, mode in u.transformer_sites(shallow):
             S = (lat >> level) ** 2
             H, D = u.num_heads, C // u.num_heads
+            # the rank's heads and columns where tp cuts the site
+            H, N = (H // tp, C // tp) if H % tp == 0 else (H, C)
+            N_ff = 4 * C // tp if 4 * C % tp == 0 else 4 * C
             # the lengths attn1, attn2 and the FF run at
             S1 = S2 = S3 = S
             if tome is not None and tome.active(S):
@@ -93,8 +99,9 @@ def route_launches(core_cfg: DADDCoreConfig, vae_cfg: VAEConfig, batch: int, ima
                 S3 = S1 if block or tome.merge_mlp else S
             ln = not (u.quant == "int8" and quant_worthwhile(C))
             c["gn_proj"] += u.quant != "int8" and gn_proj_ok(S, C)
-            c["ln_proj"] += ln * (ln_fused_ok(meta((B, S1, C))) + ln_fused_ok(meta((B, S2, C))))
-            c["ln_geglu"] += ln and ln_fused_ok(meta((B, S3, C)))
+            c["ln_proj"] += ln * (ln_fused_ok(meta((B, S1, C)), N)
+                                  + ln_fused_ok(meta((B, S2, C)), N))
+            c["ln_geglu"] += ln and ln_fused_ok(meta((B, S3, C)), N_ff)
             q1, q2 = meta((B, S1, H, D)), meta((B, S2, H, D))
             c["attention"] += kernel_route(q1, q1) is not None
             if mode.kind == "split3":

@@ -36,7 +36,8 @@ from torch import nn
 
 from ..core.mode import training_mode
 from ..diffusion.dadd import DADD, TrainLoss, shard_draws
-from ..parallel.mesh import batch_rows, local_part, shard_group, shard_placement
+from ..parallel.mesh import (TP_TRAINING, batch_rows, local_part, shard_group, shard_placement,
+                             tp_size)
 from .ema import EMAState, ema_init, ema_update
 from .optim import Optimizer, OptState, build_optimizer, global_norm
 
@@ -79,7 +80,10 @@ def shard_train_state(state: TrainState, mesh) -> TrainState:
     """Place the state on the mesh (psd_tpu's `shard_train_state`): the loss
     under DDP (fsdp = 1) or FSDP2 (fsdp > 1), the moments, the accumulated
     gradients and the EMA as their parameters. The state may have taken
-    steps: its full tensors are cut to each rank's shards."""
+    steps: its full tensors are cut to each rank's shards. A mesh with a tp
+    axis raises: training under tp is ROADMAP.md Queue 1 item 7b."""
+    if tp_size(mesh) > 1:
+        raise NotImplementedError(TP_TRAINING)
     from torch.distributed.fsdp import fully_shard
     from torch.nn.parallel import DistributedDataParallel as DDP
 

@@ -114,8 +114,12 @@ def test_shards_gather_and_cut_as_dtensor(runs):
 
 
 def test_tp_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MeshConfig(tp=2).resolve(2)
+    """A tp that does not divide the world raises, and says how many ranks
+    the mesh needs."""
+    with pytest.raises(ValueError, match="needs 3 ranks, the world has 2"):
+        MeshConfig(tp=3).resolve(2)
+    with pytest.raises(ValueError, match="needs 4 ranks, the world has 2"):
+        MeshConfig(dp=1, fsdp=2, tp=2).resolve(2)
 
 
 @pytest.mark.parametrize("local_rank", [0, 1, 2])

@@ -284,3 +284,108 @@ def serve_ranks(inputs: dict) -> dict:
     s.close(timeout=TIMEOUT_S)
     out["failed_alive"] = s._worker.is_alive()
     return out
+
+
+TINY_TOME_BLOCK = dict(tome_ratio=0.5, tome_min_tokens=256, tome_mode="block")
+
+
+def tp_ranks(inputs: dict, dp: int) -> dict:
+    """The port's serving on this group's ranks at (dp, fsdp 1, tp 2) on
+    `tiny_dadd(seed=0)`, 4 steps, steer 1.0 (tests/test_torch_tp.py):
+    `sample(mesh=)` + `decode_latents(mesh=)`; at dp 1 also ToMe in block
+    mode and a `GenerationServer(mesh=)` for each of SERVE_TURBO (rank 0
+    submits `inputs["requests"]`); at dp 2 the cut model's eps inside its
+    tp scope and what raises under tp: the cut UNet without its mesh or over
+    another tp group (a second mesh of the same shape: new tp groups),
+    reloaded, in training, a training model, the train state, the int8
+    UNet. → what each rank saw."""
+    from psd_tpu_torch.core.mode import training_mode
+    from psd_tpu_torch.parallel.mesh import MeshConfig, create_mesh, tp_scope
+    from psd_tpu_torch.pipelines import serve
+    from psd_tpu_torch.testing import tiny_dadd
+    from psd_tpu_torch.train import create_train_state
+    from psd_tpu_torch.train.trainer import shard_train_state
+
+    serve.IDLE_HEADER_S = 0.05
+    rank = dist.get_rank()
+    mesh = create_mesh(MeshConfig(dp=dp, tp=2), "cpu")
+    t = {k: torch.from_numpy(v) for k, v in inputs.items() if isinstance(v, np.ndarray)}
+
+    def images(model):
+        cond = model.prepare_inference_cond(t["tgt"], t["src"], t["feats"])
+        lat = model.sample(cond, t["x0"], 4, 1.0, mesh=mesh)
+        return model.decode_latents(lat, mesh=mesh).numpy()
+
+    model = tiny_dadd(seed=0)
+    out = {"images": images(model), "heads": model.core.unet.down_blocks_0_attentions_0
+           .transformer_blocks_0.attn1.to_q.weight.shape[0]}
+    if dp == 1:
+        out["tome"] = images(tiny_dadd(seed=0, **TINY_TOME_BLOCK))
+        out["servers"] = {}
+        for name, turbo in SERVE_TURBO.items():
+            s = serve.GenerationServer(model, image_size=32, sampling_steps=4, max_batch=4,
+                                       max_wait_s=0.05, mesh=mesh, **turbo)
+            if rank == 0:
+                futures = [s.submit(*r) for r in inputs["requests"]]
+                out["servers"][name] = [f.result(timeout=TIMEOUT_S) for f in futures]
+            s.close(timeout=TIMEOUT_S)
+        return out
+
+    def refusal(fn):
+        try:
+            fn()
+        except (RuntimeError, NotImplementedError) as e:
+            return f"{type(e).__name__}: {e}"
+        return None
+
+    cond = model.prepare_inference_cond(t["tgt"], t["src"], t["feats"])
+    x = t["x0"]
+    steps = torch.full((x.shape[0],), 500)
+    other = create_mesh(MeshConfig(dp=dp, tp=2), "cpu")
+    whole = tiny_dadd(seed=0)
+
+    def eps_in(scope_mesh, training=False):
+        with tp_scope(scope_mesh), torch.no_grad():
+            if training:
+                with training_mode():
+                    return model.core.eps(x, steps, cond, 1.0)
+            return model.core.eps(x, steps, cond, 1.0)
+
+    out["other_group"] = other.get_group("tp") is not mesh.get_group("tp")
+    out["raises"] = {
+        "sample without a mesh": refusal(lambda: model.sample(cond, x, 4, 1.0)),
+        "generate": refusal(lambda: model.generate(cond, x0=x, sampling_steps=4)),
+        "sample over another tp group": refusal(lambda: model.sample(cond, x, 4, 1.0,
+                                                                     mesh=other)),
+        "eps without a mesh": refusal(lambda: eps_in(None)),
+        "eps over another tp group": refusal(lambda: eps_in(other)),
+        "eps in training": refusal(lambda: eps_in(mesh, training=True)),
+        "load_core_state_dict": refusal(lambda: model.load_core_state_dict(
+            whole.core.state_dict())),
+        "load_flax": refusal(lambda: model.load_flax(core_tree={})),
+        "a training model": refusal(lambda: tiny_dadd(for_training=True).shard_tp_(mesh)),
+        "shard_train_state": refusal(lambda: shard_train_state(
+            create_train_state(tiny_dadd(for_training=True), steps_per_epoch=10)[0], mesh)),
+        "the int8 UNet": refusal(lambda: tiny_dadd(seed=0, quant="int8").shard_tp_(mesh)),
+        "a server of the int8 UNet": refusal(lambda: serve.GenerationServer(
+            tiny_dadd(seed=0, quant="int8"), max_batch=4, mesh=mesh)),
+    }
+    out["eps_in_scope"] = eps_in(mesh).numpy()
+    return out
+
+
+def tp_train_state_refusal() -> str:
+    """`shard_train_state` on a (dp 1, tp 2) mesh of this group's ranks →
+    its error."""
+    from psd_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from psd_tpu_torch.testing import tiny_dadd
+    from psd_tpu_torch.train import create_train_state
+    from psd_tpu_torch.train.trainer import shard_train_state
+
+    mesh = create_mesh(MeshConfig(dp=1, tp=2), "cpu")
+    state, _ = create_train_state(tiny_dadd(for_training=True, seed=0), steps_per_epoch=10)
+    try:
+        shard_train_state(state, mesh)
+    except NotImplementedError as e:
+        return str(e)
+    return "no error"
