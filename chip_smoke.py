@@ -285,6 +285,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -516,11 +517,27 @@ TP4_LN_EDGE = [(32768, 320, 80, 320), (8192, 640, 160, 640)]
 # 1.628e-2 and the planted faults, rank 1 keeping its own half of net_2's
 # product (the all-reduce's result dropped) 0.2382, rank 1 running rank 0's
 # q heads 0.2036 (PERF.md §6, the tp serving entry); the band sits between.
+# (f) holds the int8 UNet's eps on the ranks to it too: 3.224e-2 there (the
+# bf16 sums' other order, and the int8 codes it flips; PERF.md §6, the
+# int8 and tp train entry),
+# where its sites' bit-equality guards the row-parallel scales.
 TP_EPS_BAND = 5e-2
 # (c), (d): TP_STEPS DDIM steps and the decode on the ranks against the one
 # process, mean absolute difference of the images on [0, 1]: the sound
 # ranks read 6.279e-3 there; the net_2 fault's images are read beside
 TP_IMAGE_BAND = 2e-2
+# (f): the int8 UNet under tp on 5f's mesh, phase 5e's int8 UNet (its
+# weights, attention channels spread, and inputs): one eps on the ranks
+# against the one-process int8 eps within TP_EPS_BAND, every rank's the
+# same; and a row-parallel int8 site of each kind on the ranks, handed its
+# rank's columns of one input, bit-equal to the whole site's output
+# (torch._int_mm's int32 sums and the MAX of the row amax are exact), where
+# the planted fault (each rank's scale from its own columns) is not:
+# site → (module path, site name, rows)
+TP_INT8_SITES = {"net_2 at C = 320": ("down_blocks_0_attentions_0.transformer_blocks_0.ff",
+                                      "net_2", 8 * 4096),
+                 "to_out_0 at C = 640": ("down_blocks_1_attentions_0.transformer_blocks_0.attn1",
+                                         "to_out_0", 8 * 1024)}
 # int8 vs bf16 VAE decode of the same latents (8, 64, 64, 4), same weights
 # with spread channel gains: PSNR floor in dB, between the sound reading
 # (37.19) and a planted per-tensor weight scale's (36.69; deterministic,
@@ -668,6 +685,43 @@ RANKS_LOSS_RTOL, RANKS_NORM_RTOL, RANKS_UPDATE_BAND = 1e-3, 2e-2, 0.15
 # versions untimed
 RANKS_ATTN_SHAPES = [(16, 1024, 8, 40), (16, 1024, 1, 512)]
 RANKS_SPLIT3_SHAPES = [(16, 1024, 8, 40), (16, 256, 8, 80)]
+# phase 6e: the tp train step through the API (`shard_train_state` on a
+# (dp 1, tp 2) mesh, `make_train_step`), in 6d's --dp 2 gloo launch after
+# its step: configs/train_ip.yaml at full width, 256², a global batch of
+# TRAIN_TP_BATCH (both tp ranks hold all its rows), one step, against the
+# one-process step on the same initial state, batch and draws (rank 0 runs
+# it first). The loss, the grad norm and the flattened update take 6d's
+# bands (RANKS_*); the conditioning modules and one cut site's weights, small
+# shares of the 920 M entries, are judged each on its own: ‖p − p₁‖ over
+# ‖p₁ − p₀‖ within the module's band, set between the sound reading and the
+# planted faults' (`phase_train_tp(card, trained, fault=True)`: f left off
+# the context tokens; g all-reducing in its backward too; PERF.md §6, the
+# int8 and tp train entry)
+TRAIN_TP_BATCH = 16
+TRAIN_TP_SITE = "unet.down_blocks_0_attentions_0.transformer_blocks_0"
+TRAIN_TP_MODULES = {
+    "ordinal_embedder": re.compile(r"ordinal_embedder\..*"),
+    "image_projection": re.compile(r"image_projection\..*"),
+    "feature_purifier": re.compile(r"feature_purifier\..*"),
+    "attn1 q/k/v": re.compile(re.escape(TRAIN_TP_SITE) + r"\.attn1\.to_[qkv]\.weight"),
+    "attn2 k/v": re.compile(re.escape(TRAIN_TP_SITE) + r"\.attn2\.to_[kv](_dis)?\.weight"),
+    "net_2": re.compile(re.escape(TRAIN_TP_SITE) + r"\.ff\.net_2\.weight"),
+}
+# On an NVIDIA H100 80GB HBM3 (700 W) the sound run read 4.1e-2–9.4e-2 by
+# module (7.5e-2 flattened); f off the context 0.995–1.03 at the
+# conditioning modules (the cut site's weights as sound), g all-reducing
+# backward 1.20–1.27 everywhere (grad norm 53.2 against 7.75; PERF.md §6,
+# the int8 and tp train entry). The band sits between.
+TRAIN_TP_MODULE_BAND = 0.3
+# the context tokens at SD scale (16 AOE + 16 image + 16 delta): how the
+# planted fault tells them from a site's hidden tokens (1024, 256, 64, 16)
+TRAIN_TP_CONTEXT_TOKENS = 48
+# each rank's kernels at the tp step's shapes (its 16 rows, H/tp = 4 heads):
+# the attention forward with its lse and the backward at the 32×32 sites,
+# split3's autograd.Function at 32² and 16²; timed, kept under
+# "tp_train_shapes" outside the entries' sums
+TRAIN_TP_ATTN_SHAPES = [(16, 1024, 4, 40)]
+TRAIN_TP_SPLIT3_SHAPES = [(16, 1024, 4, 40), (16, 256, 4, 80)]
 
 # ln_gemm_kernel<Kind> in ln_gemm_sm90.cuh, by the enum's value (gn: gn_proj)
 LN_KINDS = ("proj1", "proj3", "geglu", "gn")
@@ -2563,12 +2617,81 @@ def phase_unet_levers(card: str, turbo: dict, results: dict) -> dict:
             "infer": cli, "peak_gib": peak}
 
 
+def _attention_bwd_reading(shape, q, k, v, dout) -> dict:
+    """The attention backward at one shape: judged against autograd through
+    the plain forward (`_check_attention_bwd`), timed beside the plain
+    version, SDPA's backward alone (the library call) and both fwd+bwd, with
+    its bound. → the shape's entry."""
+    from psd_tpu_torch.ops import attention
+
+    B, S, H, D = shape
+    err, readings = _check_attention_bwd(q, k, v, dout, str(shape))
+    out, lse = attention.attention_fwd(q, k, v, return_lse=True)
+
+    def fwd_bwd_kernel():
+        o, l_ = attention.attention_fwd(q, k, v, return_lse=True)
+        return attention.attention_bwd(q, k, v, o, l_, dout)
+
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+    def fwd_bwd_sdpa():
+        return torch.autograd.grad(_sdpa(qg, kg, vg), (qg, kg, vg), dout)
+
+    o_sdpa = _sdpa(qg, kg, vg)  # a retained graph: SDPA's backward alone
+
+    def bwd_sdpa():
+        return torch.autograd.grad(o_sdpa, (qg, kg, vg), dout, retain_graph=True)
+
+    ms_k = time_ms(lambda: attention.attention_bwd(q, k, v, out, lse, dout), n=5)
+    ms_p = time_ms(lambda: attention.attention_bwd_reference(q, k, v, dout), n=3, warmup=1)
+    ms_l = time_ms(bwd_sdpa, n=5)
+    ms_fb = time_ms(fwd_bwd_kernel, n=5)
+    ms_lfb = time_ms(fwd_bwd_sdpa, n=5)
+    flops = 5 * 2.0 * B * H * S * S * D
+    nbytes = 8 * B * S * H * D * 2 + B * H * S * 4
+    b_ms, b_by = bound(flops, nbytes)
+    # one exp2 a logit in each of the dQ and dK/dV passes
+    exp2_ms = 2 * B * H * S * S / sfu_exp2_per_s() * 1e3
+    log(f"[train] attention_bwd {shape}: kernel {ms_k:.4f} ms, plain (autograd through "
+        f"the plain forward) {ms_p:.4f} ms, SDPA backward {ms_l:.4f} ms, bound {b_ms:.4f} "
+        f"ms ({b_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), exp2 at the SFU "
+        f"rate {exp2_ms:.4f} ms (printed, not kept); kernel fwd+bwd {ms_fb:.4f} ms, SDPA "
+        f"fwd+bwd {ms_lfb:.4f} ms")
+    return {"shape": list(shape), "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
+            "library_ms": ms_l, "fwd_bwd_ms": ms_fb, "sdpa_fwd_bwd_ms": ms_lfb,
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes, **readings}
+
+
+def _check_split3_autograd(randn, shape, timed: bool = True) -> None:
+    """split3's autograd.Function (kernel forward, plain backward) against
+    autograd through the plain version at `shape`, δ = 1; timed beside."""
+    from psd_tpu_torch.ops import split3
+
+    B, S, H, D = shape
+    ins = [randn(B, S, H, D)] + [randn(B, 16, H, D) for _ in range(6)]
+    dout = randn(B, S, H, D)
+
+    def grads(fn):
+        xs = [t.clone().requires_grad_(True) for t in ins]
+        out = fn(*xs, 1.0, 0.1, 0.9, None)
+        return (out.detach(),) + torch.autograd.grad(out, xs, dout)
+
+    got = grads(split3.Split3Attention.apply)
+    want = grads(split3.split3_reference)
+    _grad_compare("split3 autograd.Function", (B, S, H, D),
+                  ("out", "dq", "dk_anat", "dv_anat", "dk_dis", "dv_dis", "dk_delta",
+                   "dv_delta"), got, want)
+    if timed:
+        ms_k = time_ms(lambda: grads(split3.Split3Attention.apply), n=5)
+        ms_p = time_ms(lambda: grads(split3.split3_reference), n=5)
+        log(f"[train] split3 fwd+bwd {(B, S, H, D)}: kernel forward + plain backward "
+            f"{ms_k:.4f} ms, plain {ms_p:.4f} ms")
+
+
 def phase_train_kernels(results: dict) -> None:
     """The attention backward kernel and split3's autograd.Function at the
     training shapes, against autograd through their plain versions; the
     backward also at its edge shapes."""
-    from psd_tpu_torch.ops import attention, split3
-
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
 
@@ -2576,53 +2699,17 @@ def phase_train_kernels(results: dict) -> None:
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
     for shape in ATTN_BWD_SHAPES:
-        B, S, H, D = shape
         q, k, v, dout = (randn(*shape) for _ in range(4))
-        err, readings = _check_attention_bwd(q, k, v, dout, str(shape))
-        out, lse = attention.attention_fwd(q, k, v, return_lse=True)
-
-        def fwd_bwd_kernel():
-            o, l_ = attention.attention_fwd(q, k, v, return_lse=True)
-            return attention.attention_bwd(q, k, v, o, l_, dout)
-
-        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
-
-        def fwd_bwd_sdpa():
-            return torch.autograd.grad(_sdpa(qg, kg, vg), (qg, kg, vg), dout)
-
-        o_sdpa = _sdpa(qg, kg, vg)  # a retained graph: SDPA's backward alone
-
-        def bwd_sdpa():
-            return torch.autograd.grad(o_sdpa, (qg, kg, vg), dout, retain_graph=True)
-
-        ms_k = time_ms(lambda: attention.attention_bwd(q, k, v, out, lse, dout), n=5)
-        ms_p = time_ms(lambda: attention.attention_bwd_reference(q, k, v, dout), n=3, warmup=1)
-        ms_l = time_ms(bwd_sdpa, n=5)
-        ms_fb = time_ms(fwd_bwd_kernel, n=5)
-        ms_lfb = time_ms(fwd_bwd_sdpa, n=5)
-        flops = 5 * 2.0 * B * H * S * S * D
-        nbytes = 8 * B * S * H * D * 2 + B * H * S * 4
-        b_ms, b_by = bound(flops, nbytes)
-        # one exp2 a logit in each of the dQ and dK/dV passes
-        exp2_ms = 2 * B * H * S * S / sfu_exp2_per_s() * 1e3
-        log(f"[train] attention_bwd {shape}: kernel {ms_k:.4f} ms, plain (autograd through "
-            f"the plain forward) {ms_p:.4f} ms, SDPA backward {ms_l:.4f} ms, bound {b_ms:.4f} "
-            f"ms ({b_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), exp2 at the SFU "
-            f"rate {exp2_ms:.4f} ms (printed, not kept); kernel fwd+bwd {ms_fb:.4f} ms, SDPA "
-            f"fwd+bwd {ms_lfb:.4f} ms")
+        entry = _attention_bwd_reading(shape, q, k, v, dout)
         r = results.setdefault("attention_bwd", {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                                  "library_ms": 0.0, "bound_ms": 0.0,
                                                  "fwd_bwd_ms": 0.0, "sdpa_fwd_bwd_ms": 0.0,
                                                  "shapes": []})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        for key, val in (("ms", ms_k), ("plain_ms", ms_p), ("library_ms", ms_l),
-                         ("bound_ms", b_ms), ("fwd_bwd_ms", ms_fb), ("sdpa_fwd_bwd_ms", ms_lfb)):
-            r[key] += val
-        r["shapes"].append({"shape": list(shape), "max_abs_err": err, "ms": ms_k,
-                            "plain_ms": ms_p, "library_ms": ms_l, "fwd_bwd_ms": ms_fb,
-                            "sdpa_fwd_bwd_ms": ms_lfb, "bound_ms": b_ms, "bound_by": b_by,
-                            "flops": flops, "bytes": nbytes, **readings})
-        del q, k, v, dout, out, lse, qg, kg, vg, o_sdpa
+        r["max_abs_err"] = max(r["max_abs_err"], entry["max_abs_err"])
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "fwd_bwd_ms", "sdpa_fwd_bwd_ms"):
+            r[key] += entry[key]
+        r["shapes"].append(entry)
+        del q, k, v, dout
         torch.cuda.empty_cache()
 
     # the narrow forward's edge shapes: every padded head dim the backward is
@@ -2632,24 +2719,8 @@ def phase_train_kernels(results: dict) -> None:
         k, v = randn(B, Sk, H, D), randn(B, Sk, H, D)
         _check_attention_bwd(q, k, v, dout, f"edge {(B, Sq, H, D)} Sk {Sk} (not timed)")
 
-    for (B, S, H, D) in SPLIT3_TRAIN_SHAPES:
-        ins = [randn(B, S, H, D)] + [randn(B, 16, H, D) for _ in range(6)]
-        dout = randn(B, S, H, D)
-
-        def grads(fn):
-            xs = [t.clone().requires_grad_(True) for t in ins]
-            out = fn(*xs, 1.0, 0.1, 0.9, None)
-            return (out.detach(),) + torch.autograd.grad(out, xs, dout)
-
-        got = grads(split3.Split3Attention.apply)
-        want = grads(split3.split3_reference)
-        _grad_compare("split3 autograd.Function", (B, S, H, D),
-                      ("out", "dq", "dk_anat", "dv_anat", "dk_dis", "dv_dis", "dk_delta",
-                       "dv_delta"), got, want)
-        ms_k = time_ms(lambda: grads(split3.Split3Attention.apply), n=5)
-        ms_p = time_ms(lambda: grads(split3.split3_reference), n=5)
-        log(f"[train] split3 fwd+bwd {(B, S, H, D)}: kernel forward + plain backward "
-            f"{ms_k:.4f} ms, plain {ms_p:.4f} ms")
+    for shape in SPLIT3_TRAIN_SHAPES:
+        _check_split3_autograd(randn, shape)
 
 
 def phase_train(card: str) -> dict:
@@ -3468,15 +3539,17 @@ def rank_worker(spec_path: str) -> int:
 
     for name in COLLECTIVES:
         setattr(dist, name, functools.partial(traced, _call=getattr(dist, name), _name=name))
-    run = {"train": _train_rank, "serve": _serve_rank}[spec.get("kind", "train")]
+    run = {"train": _train_rank, "serve": _serve_rank,
+           "train_tp": lambda spec_, rank_, _: {"tp": _train_tp_rank(spec_, rank_)}}[
+        spec.get("kind", "train")]
     torch.cuda.reset_peak_memory_stats()
     try:
         out = run(spec, rank, work)
     finally:
         if dist.is_initialized():  # the train CLI ends a group it started itself
             dist.destroy_process_group()
-    out.update(rank=rank, world=int(os.environ["WORLD_SIZE"]), backend=backend,
-               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    out.update(rank=rank, world=int(os.environ["WORLD_SIZE"]), backend=backend)
+    out.setdefault("peak_gib", torch.cuda.max_memory_allocated() / 2**30)
     (work / f"{spec['tag']}.rank{rank}.json").write_text(json.dumps(out))
     return 0
 
@@ -3507,14 +3580,6 @@ def _train_rank(spec: dict, rank: int, work: Path) -> dict:
             state.loss.register_comm_hook(None, skip)
         return state
 
-    def union(spans):
-        total, end = 0.0, float("-inf")
-        for s, e in sorted(spans):
-            s = max(s, end)
-            if e > s:
-                total, end = total + e - s, e
-        return total
-
     def stepping(*a, **k):
         step = make_step(*a, **k)
 
@@ -3529,8 +3594,8 @@ def _train_rank(spec: dict, rank: int, work: Path) -> dict:
             # ring over loopback), each span from its call to its work's
             # completion, DDP's reducer's too; NCCL's complete at the
             # enqueue, so their spans say nothing of the device's time
-            comm.append(union((e.time_range.start / 1e6, e.time_range.end / 1e6)
-                              for e in prof.events() if e.name.startswith("gloo:")))
+            comm.append(_union((e.time_range.start / 1e6, e.time_range.end / 1e6)
+                               for e in prof.events() if e.name.startswith("gloo:")))
             return out
 
         return timed
@@ -3541,10 +3606,17 @@ def _train_rank(spec: dict, rank: int, work: Path) -> dict:
     t0 = time.perf_counter()
     r = train.main(spec["argv"])
     wall = time.perf_counter() - t0
-    return {"counts": dict(kernels.launch_counts), "head_dims": dict(kernels.attention_head_dims),
-            "laps": r["laps"], "wall": wall, "steps_s": [b - a for a, b in windows],
-            "comm_s": comm if spec.get("backend") == "gloo" else None,
-            "sharded": trainer.is_sharded(r["state"]), "device": str(r["state"].model.device)}
+    out = {"counts": dict(kernels.launch_counts), "head_dims": dict(kernels.attention_head_dims),
+           "laps": r["laps"], "wall": wall, "steps_s": [b - a for a, b in windows],
+           "comm_s": comm if spec.get("backend") == "gloo" else None,
+           "sharded": trainer.is_sharded(r["state"]), "device": str(r["state"].model.device),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if spec.get("tp"):  # phase 6e in this launch, the CLI's state freed first
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["tp"] = _train_tp_rank(spec, rank)
+    return out
 
 
 def _torchrun(work: Path, tag: str, nproc: int, **spec) -> dict:
@@ -3694,9 +3766,9 @@ def _serve_tp_rank(model, cfg, rank: int, gathers: list) -> dict:
     eps on the ranks, sound and with each planted fault, (c) sample +
     decode_latents on the mesh (eagerly, the all-reduces synchronized and
     timed, the launches counted from 0), (d) GenerationServer(mesh=) on the
-    same 8 requests (rank 0 submits; the launches counted from 0). →
-    readings, digests of what must match across ranks, each path's
-    launches."""
+    same 8 requests (rank 0 submits; the launches counted from 0), (f) the
+    int8 UNet under tp (`_serve_tp_int8`). → readings, digests of what must
+    match across ranks, each path's launches."""
     import hashlib
 
     import numpy as np
@@ -3705,6 +3777,7 @@ def _serve_tp_rank(model, cfg, rank: int, gathers: list) -> dict:
     from psd_tpu_torch.core.mode import eager
     from psd_tpu_torch.models import layers
     from psd_tpu_torch.ops import kernels
+    from psd_tpu_torch.parallel import mesh as tp_mesh
     from psd_tpu_torch.parallel.mesh import MeshConfig, create_mesh, tp_scope
     from psd_tpu_torch.pipelines.serve import SEED_BASE, GenerationServer
 
@@ -3762,7 +3835,7 @@ def _serve_tp_rank(model, cfg, rank: int, gathers: list) -> dict:
                 if rank != 1 or id(layer) not in net_2:
                     return row(x, layer, dtype, group)
                 part = F.linear(x.to(dtype), layer.weight.to(dtype))
-                layers.tp_all_reduce(part.clone(), group)
+                tp_mesh.tp_all_reduce(part.clone(), group)
                 return part + layer.bias.to(dtype)
 
             layers.row_parallel_linear = own_half
@@ -3789,17 +3862,17 @@ def _serve_tp_rank(model, cfg, rank: int, gathers: list) -> dict:
                        rel(eps_swap, eps_one)}
 
         # (c): sample + decode on the mesh, each all-reduce synchronized and timed
-        reduce, reduce_s = layers.tp_all_reduce, []
+        reduce, reduce_s = tp_mesh.tp_all_reduce, []
 
-        def timed_reduce(x, group):
+        def timed_reduce(x, group, *op):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            out = reduce(x, group)
+            out = reduce(x, group, *op)
             torch.cuda.synchronize()
             reduce_s.append(time.perf_counter() - t1)
             return out
 
-        layers.tp_all_reduce = timed_reduce
+        tp_mesh.tp_all_reduce = timed_reduce
         gathers.clear()
         kernels.reset_launch_counts()
         try:
@@ -3811,7 +3884,7 @@ def _serve_tp_rank(model, cfg, rank: int, gathers: list) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
-            layers.tp_all_reduce = reduce
+            tp_mesh.tp_all_reduce = reduce
         counts_c = dict(kernels.launch_counts)
         head_dims = dict(kernels.attention_head_dims)
         gather_c = list(gathers)
@@ -3841,6 +3914,92 @@ def _serve_tp_rank(model, cfg, rank: int, gathers: list) -> dict:
         out.update(server_wall_s=served_wall,
                    server_equal_c=bool(torch.equal(got, images.cpu())),
                    server_mean_abs=mean_abs(got, images_one.cpu()))
+    model.drop_programs()  # 5d's and (d)'s pools: the int8 UNet's room
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["int8"] = _serve_tp_int8(mesh, digest, rel)
+    return out
+
+
+def _serve_tp_int8(mesh, digest, rel) -> dict:
+    """Phase 5f (f), on a rank of 5f's mesh: phase 5e's int8 UNet
+    (`_lever_eps`' weights and inputs, built alike on every rank), quantized
+    whole; its one-process eps; each TP_INT8_SITES site's output on one
+    seeded input, whole; then the UNet cut over tp (`shard_tp_`): the eps
+    on the ranks (the launches counted from 0), and each site on the
+    rank's columns of the input, sound and with the planted fault (quant_rows
+    dropping the MAX over the tp group)."""
+    import copy
+    from dataclasses import replace
+
+    from psd_tpu_torch.models import layers
+    from psd_tpu_torch.models.init import flax_init_
+    from psd_tpu_torch.models.unet import UNet2DCondition, sd14_unet_config
+    from psd_tpu_torch.ops import kernels, quant
+    from psd_tpu_torch.parallel.mesh import shard_tp_, tp_scope
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    cfg = sd14_unet_config(attn_mode="split3", gate_init_anatomy=(0.1, 0.9),
+                           gate_init_disease=(0.9, 0.1), dtype=bf16)
+    with dev:
+        plain = UNet2DCondition(cfg).eval()
+    g = torch.Generator(device=dev).manual_seed(1)
+    flax_init_(plain, g)
+    x = torch.randn((8, 64, 64, 4), generator=g, device=dev)
+    t = torch.full((8,), 501, dtype=torch.int32, device=dev)
+    ctx = torch.randn((8, 48, 768), generator=g, device=dev)
+    fp32 = {k: v.clone() for k, v in plain.state_dict().items()}
+    del plain
+    q8cfg = replace(cfg, quant="int8")
+    with dev:
+        unet = UNet2DCondition(q8cfg).eval()
+    unet.load_state_dict(_spread_gains_(unet, fp32, torch.Generator(device=dev).manual_seed(5)))
+    del fp32
+    layers.quantize_int8_weights_(unet)
+    layers.store_weights_in_(unet, bf16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gx = torch.Generator(device=dev).manual_seed(7)
+    out = {"sites": {}}
+    with torch.inference_mode():
+        eps_one = unet(x, t, ctx, 1.0)
+        inputs, whole = {}, {}
+        for key, (path, name, rows) in TP_INT8_SITES.items():
+            site = unet.get_submodule(path)
+            K = getattr(site, name).in_features
+            inputs[key] = torch.randn((rows, K), generator=gx, device=dev).to(bf16)
+            whole[key] = layers.int8_linear(inputs[key], copy.deepcopy(site), name, bf16)
+        torch.cuda.synchronize()
+        shard_tp_(unet, mesh)
+        rows_quant = quant.quant_rows
+        with tp_scope(mesh):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            eps_tp = unet(x, t, ctx, 1.0)
+            torch.cuda.synchronize()
+            out["eps_wall_s"] = time.perf_counter() - t0
+            out["counts"] = dict(kernels.launch_counts)
+            out["head_dims"] = dict(kernels.attention_head_dims)
+            for key, (path, name, _) in TP_INT8_SITES.items():
+                m = unet.get_submodule(path)
+                k = inputs[key].shape[-1] // m.tp.size
+                mine = inputs[key][:, m.tp.rank * k:(m.tp.rank + 1) * k]
+                sound = layers.int8_linear(mine, m, name, bf16, m.tp.group)
+                quant.quant_rows = lambda x_, group=None: rows_quant(x_)
+                try:
+                    fault = layers.int8_linear(mine, m, name, bf16, m.tp.group)
+                finally:
+                    quant.quant_rows = rows_quant
+                out["sites"][key] = {
+                    "cols": k, "equal": bool(torch.equal(sound, whole[key])),
+                    "fault_equal": bool(torch.equal(fault, whole[key])),
+                    "fault_rel_l2": rel(fault, whole[key]),
+                    "max_abs": (sound.float() - whole[key].float()).abs().max().item()}
+        out.update(eps_rel_l2=rel(eps_tp, eps_one), eps_digest=digest(eps_tp),
+                   eps_finite=bool(torch.isfinite(eps_tp).all()))
+    del unet, eps_one, eps_tp, inputs, whole
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3998,9 +4157,13 @@ def _check_serve_tp(card: str, ranks: list, cfg) -> dict:
     (rank 0) equal (c)'s and so within the band; (e) each rank's launches
     those route_launches gives a rank's cut sites: (c) TP_STEPS eager
     evaluations and the decode, (d) the same with the decode at its
-    program's warm-up and capture. Prints each rank's synced wall, its
-    time in the all-reduces and peak memory."""
-    from psd_tpu_torch.diffusion.dadd import core_config_from
+    program's warm-up and capture; (f) the int8 UNet's row-parallel int8
+    sites bit-equal to the whole sites and the planted per-rank-scale fault
+    not, its eps within TP_EPS_BAND of one process's and the same on every
+    rank, its launches the routes' at tp. Prints each rank's synced wall,
+    its time in the all-reduces and peak memory."""
+    from psd_tpu_torch.diffusion.dadd import DADDCoreConfig, core_config_from
+    from psd_tpu_torch.models.unet import sd14_unet_config
     from psd_tpu_torch.models.vae import VAEConfig
     from psd_tpu_torch.testing import route_launches
 
@@ -4013,8 +4176,21 @@ def _check_serve_tp(card: str, ranks: list, cfg) -> dict:
 
     want_c = route(TP_STEPS, True)
     want_d = route(TP_STEPS, False) + route(0, True) + route(0, True)
-    want_c, want_d = ({k: n for k, n in w.items() if n} for w in (want_c, want_d))
+    q8cfg = sd14_unet_config(attn_mode="split3", quant="int8")
+    want_f = route_launches(DADDCoreConfig(unet=q8cfg), VAEConfig(), TP_BATCH, size, 1,
+                            decode=False, tp=TP)
+    want_c, want_d, want_f = ({k: n for k, n in w.items() if n} for w in (want_c, want_d, want_f))
     tps = [r["tp"] for r in ranks]
+    for r, t in zip(ranks, tps):
+        q = t["int8"]
+        sites = "; ".join(f"{k}: {v['cols']} columns a rank, bit-equal {v['equal']} (max abs "
+                          f"{v['max_abs']:.3e}), the per-rank-scale fault bit-equal "
+                          f"{v['fault_equal']} (rel L2 {v['fault_rel_l2']:.3e})"
+                          for k, v in q["sites"].items())
+        log(f"[serve_tp] (f) rank {r['rank']}: the int8 UNet's eps on the ranks against one "
+            f"process rel L2 {q['eps_rel_l2']:.4e} (band {TP_EPS_BAND:g}), {q['eps_wall_s']:.3f} "
+            f"s eager; launches {q['counts']}, the routes' {want_f}; by head dim "
+            f"{q['head_dims']}; row-parallel int8 sites: {sites}; on {card}")
     for r, t in zip(ranks, tps):
         eps = ", ".join(f"{k} {v:.4e}" for k, v in t["eps_rel_l2"].items())
         log(f"[serve_tp] rank {r['rank']}/{r['world']} over {r['backend']}: eps rel L2 against "
@@ -4049,14 +4225,25 @@ def _check_serve_tp(card: str, ranks: list, cfg) -> dict:
         f"(e) (d) launches the routes' at tp {TP} {want_d}": all(
             {k: n for k, n in t["counts_server"].items() if n} == want_d for t in tps),
         f"a rank's to_q holds C/{TP} rows": all(t["tp_heads"] == 320 // TP for t in tps),
+        "(f) each row-parallel int8 site bit-equal to the whole site": all(
+            v["equal"] for t in tps for v in t["int8"]["sites"].values()),
+        "(f) the per-rank-scale fault not bit-equal": not any(
+            v["fault_equal"] for t in tps for v in t["int8"]["sites"].values()),
+        f"(f) the int8 eps within {TP_EPS_BAND:g} of one process": all(
+            t["int8"]["eps_finite"] and t["int8"]["eps_rel_l2"] <= TP_EPS_BAND for t in tps),
+        "(f) every rank's int8 eps the same": len({t["int8"]["eps_digest"] for t in tps}) == 1,
+        f"(f) the int8 eps launches the routes' at tp {TP} {want_f}": all(
+            {k: n for k, n in t["int8"]["counts"].items() if n} == want_f for t in tps),
     }
     log(f"[serve_tp] checks {checks}")
     if not all(checks.values()):
         raise SystemExit(f"chip_smoke.py: serve tp checks failed: "
                          f"{[k for k, v in checks.items() if not v]}")
-    counts = {k: n + t0["counts_server"].get(k, 0) for k, n in t0["counts"].items()}
-    return {"counts": counts, "head_dims": {int(k): v for k, v in
-                                                  t0["head_dims"].items()}, "ranks": tps}
+    counts = {k: n + t0["counts_server"].get(k, 0) + t0["int8"]["counts"].get(k, 0)
+              for k, n in t0["counts"].items()}
+    dims = Counter({int(k): v for k, v in t0["head_dims"].items()})
+    dims.update({int(k): v for k, v in t0["int8"]["head_dims"].items()})
+    return {"counts": counts, "head_dims": dict(dims), "ranks": tps}
 
 
 def phase_serve_tp(card: str, results: dict) -> dict:
@@ -4197,11 +4384,13 @@ def _params(step_dir: Path) -> dict:
     return torch.load(step_dir / "params.pt", map_location="cpu", weights_only=True, mmap=True)
 
 
-def _flat_rel(a: dict, b: dict, start: dict) -> tuple:
+def _flat_rel(a: dict, b: dict, start: dict, keys=None) -> tuple:
     """(‖a − b‖ / ‖b‖, ‖a − b‖ / ‖b − start‖) over every parameter of two
-    sets of parameters (name → tensor), summed on the card in float64."""
+    sets of parameters (name → tensor), or over `keys`, summed on the card
+    in float64."""
     diff = norm = upd = torch.zeros((), dtype=torch.float64, device="cuda")
-    for k, w in b.items():
+    for k in (b if keys is None else keys):
+        w = b[k]
         x, y, z = (t.to("cuda", torch.float64) for t in (a[k], w, start[k]))
         diff, norm, upd = diff + (x - y).square().sum(), norm + y.square().sum(), \
             upd + (y - z).square().sum()
@@ -4248,15 +4437,339 @@ def _check_rank_shapes() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_train_ranks(card: str, trained: dict, fault: bool = False) -> dict:
+# ---- the tp train step (phase 6e) --------------------------------------------------------
+@contextlib.contextmanager
+def _tp_f_off_context():
+    """The planted fault: no f on the cross-attention's context tokens (the
+    conditioning modules then get a part of their gradient on each tp
+    rank), told from the sites' hidden tokens by their count."""
+    from psd_tpu_torch.models import layers
+
+    copy = layers.copy_to_tp
+    layers.copy_to_tp = lambda x, group: (x if x.shape[1] == TRAIN_TP_CONTEXT_TOKENS
+                                          else copy(x, group))
+    try:
+        yield
+    finally:
+        layers.copy_to_tp = copy
+
+
+@contextlib.contextmanager
+def _tp_g_reducing_backward():
+    """The planted fault: g's backward all-reduces too, as
+    torch.distributed.nn.functional.all_reduce's does (the residual
+    stream's gradient tp times too large at every row-parallel site)."""
+    from psd_tpu_torch.models import layers
+    from psd_tpu_torch.parallel import mesh
+
+    class Both(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group):
+            ctx.group = group
+            return mesh.tp_all_reduce(x.clone(), group)
+
+        @staticmethod
+        def backward(ctx, grad):
+            return mesh.tp_all_reduce(grad.clone(), ctx.group), None
+
+    reduce = layers.reduce_from_tp
+    layers.reduce_from_tp = lambda x, group: x if group is None else Both.apply(x, group)
+    try:
+        yield
+    finally:
+        layers.reduce_from_tp = reduce
+
+
+TRAIN_TP_FAULTS = {"f off the context": _tp_f_off_context,
+                   "g all-reducing backward": _tp_g_reducing_backward}
+
+
+def _union(spans) -> float:
+    """The length of a union of (start, end) spans."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        s = max(s, end)
+        if e > s:
+            total, end = total + e - s, e
+    return total
+
+
+def _train_tp_rank(spec: dict, rank: int) -> dict:
+    """Phase 6e's rank, on 6d's ranks (two on cuda:0 over gloo): a (dp 1,
+    tp 2) mesh over them; rank 0 first takes the one-process step on the
+    SD-scale DADD (seed 0) at TRAIN_TP_BATCH seeded rows and draws, keeping
+    the initial and the stepped parameters on the host, while rank 1 waits;
+    then both build the same model, `shard_train_state` it on the mesh and
+    take the same step through `make_train_step` (synced, its gloo spans
+    under torch.profiler, the launches counted from 0), sound and then with
+    each of the spec's planted `faults`; rank 0 reads the snapshot (the
+    checkpoint's gather) of the sound run, the gathered parameters of a
+    faulted one, and each run's updates against the one process's (flat
+    and by TRAIN_TP_MODULES)."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from psd_tpu_torch.core.config import load_config
+    from psd_tpu_torch.diffusion.dadd import DADD
+    from psd_tpu_torch.ops import kernels
+    from psd_tpu_torch.parallel.mesh import (MeshConfig, create_mesh, shard_batch, tp_cuts,
+                                             tp_gather)
+    from psd_tpu_torch.train import create_train_state, make_train_step
+    from psd_tpu_torch.train.checkpoint import snapshot
+    from psd_tpu_torch.train.trainer import shard_train_state
+
+    mesh = create_mesh(MeshConfig(dp=1, tp=TP), "cuda")
+    cfg = load_config(ROOT / "configs" / "train_ip.yaml", ["training.update_starting_at_step=0"])
+    dev, B = torch.device("cuda"), TRAIN_TP_BATCH
+    lat = cfg.dataset.image_size // 8
+    g = torch.Generator(device=dev).manual_seed(41)
+    batch = {"latents": torch.randn((B, lat, lat, 4), generator=g, device=dev),
+             "labels": torch.randint(0, 4, (B,), generator=g, device=dev).float(),
+             "clip_feats": torch.randn((B, 257, 1024), generator=g, device=dev)}
+
+    def built():
+        model = DADD(cfg, dtype=torch.bfloat16, device="cuda", seed=0, for_training=True)
+        state, tx = create_train_state(model)
+        draws = model.sample_draws((B, lat, lat, 4), torch.Generator(device=dev).manual_seed(42))
+        return model, state, tx, draws
+
+    def host(named):
+        return {k: v.detach().to("cpu", copy=True) for k, v in named.items()}
+
+    def freed():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = {"runs": {}}
+    if rank == 0:
+        model, state, tx, draws = built()
+        start = host(dict(model.core.named_parameters()))
+        step = make_train_step(model, tx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, draws=draws)
+        torch.cuda.synchronize()
+        out["one"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                      "step_s": time.perf_counter() - t0}
+        after = host(dict(model.core.named_parameters()))
+        del model, state, tx, step, draws, m
+        freed()
+    dist.barrier()
+    for name in ["sound"] + list(spec.get("faults", [])):
+        model, state, tx, draws = built()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = shard_train_state(state, mesh)
+        shard_s = time.perf_counter() - t0
+        step = make_train_step(model, tx, mesh)
+        mine = shard_batch(mesh, batch)
+        kernels.reset_launch_counts()
+        with TRAIN_TP_FAULTS[name]() if name in TRAIN_TP_FAULTS else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                t0 = time.perf_counter()
+                state, m = step(state, mine, draws=draws)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        run = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "step_s": wall,
+               "shard_s": shard_s, "comm_s": _union((e.time_range.start / 1e6,
+                                                     e.time_range.end / 1e6)
+                                                    for e in prof.events()
+                                                    if e.name.startswith("gloo:")),
+               "counts": dict(kernels.launch_counts),
+               "head_dims": dict(kernels.attention_head_dims),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "local_to_q": tuple(dict(model.core.named_parameters())[
+                   f"{TRAIN_TP_SITE}.attn1.to_q.weight"].shape)}
+        del prof
+        if name == "sound":  # the checkpoint's gather: rank 0's one-card snapshot
+            t0 = time.perf_counter()
+            snap = snapshot(state)
+            run["snapshot_s"] = time.perf_counter() - t0
+            params = None if snap is None else snap["params.pt"]
+            if snap is not None:
+                run["checkpoint_like_one_card"] = all(
+                    {k: tuple(v.shape) for k, v in tensors.items()}
+                    == {k: tuple(v.shape) for k, v in start.items()}
+                    for tensors in (snap["params.pt"], snap["ema.pt"],
+                                    snap["optimizer.pt"]["exp_avg"],
+                                    snap["optimizer.pt"]["exp_avg_sq"]))
+            del snap
+        else:
+            cuts, params = tp_cuts(model.core), {} if rank == 0 else None
+            for k, p in model.core.named_parameters():
+                w = p.detach()
+                if k in cuts:
+                    dim, halves, cut = cuts[k]
+                    w = tp_gather(w, dim, halves, cut)
+                if params is not None:
+                    params[k] = w.to("cpu", copy=True)
+        if name == "sound":  # a second step: the first one's warm-up left out
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                t0 = time.perf_counter()
+                step(state, mine, draws=draws)
+                torch.cuda.synchronize()
+                run["steady_step_s"] = time.perf_counter() - t0
+            run["steady_comm_s"] = _union((e.time_range.start / 1e6, e.time_range.end / 1e6)
+                                          for e in prof.events() if e.name.startswith("gloo:"))
+            run["steady_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            del prof
+        if rank == 0:
+            run["update_rel"] = _flat_rel(params, after, start)[1]
+            run["modules"] = {}
+            for mod, pattern in TRAIN_TP_MODULES.items():
+                keys = [k for k in start if pattern.fullmatch(k)]
+                run["modules"][mod] = (_flat_rel(params, after, start, keys)[1], len(keys))
+        out["runs"][name] = run
+        del model, state, tx, step, draws, m, params
+        freed()
+        dist.barrier()
+    return out
+
+
+def _check_train_tp(card: str, ranks: list, per_step: dict, strict: bool = True) -> dict:
+    """Phase 6e's checks on its ranks' readings (`_train_tp_rank`): the sound
+    run's loss, grad norm and flattened update against the one-process step
+    within 6d's bands, each TRAIN_TP_MODULES update within
+    TRAIN_TP_MODULE_BAND, rank 0's checkpoint gathered whole in the one-card
+    names and shapes, each rank's launches phase 6's per step (the
+    attention forward at D = 40 only), a rank's to_q cut in half. Prints
+    each run's readings (the planted faults' beside); raises on a failed
+    check where `strict`."""
+    runs = [r["tp"]["runs"] for r in ranks]
+    one = ranks[0]["tp"]["one"]
+    for r, by_name in zip(ranks, runs):
+        for name, run in by_name.items():
+            extra = ""
+            if "update_rel" in run:
+                mods = ", ".join(f"{k} {v:.3e} ({n} tensors)" for k, (v, n) in
+                                 run["modules"].items())
+                extra = (f"; update against the one process's {run['update_rel']:.3e} (band "
+                         f"{RANKS_UPDATE_BAND:g}), by module: {mods}")
+            log(f"[train_tp] {name} rank {r['rank']}/{r['world']} over {r['backend']}: loss "
+                f"{run['loss']:.6f} (one process {one['loss']:.6f}), grad norm "
+                f"{run['grad_norm']:.6f} ({one['grad_norm']:.6f}); step {run['step_s']:.3f} s "
+                f"synced, {run['comm_s']:.3f} s in gloo ({run['comm_s'] / run['step_s']:.3f} of "
+                f"it), shard_train_state {run['shard_s']:.3f} s; peak {run['peak_gib']:.2f} GiB; "
+                f"launches {run['counts']}, by head dim {run['head_dims']}; to_q "
+                f"{run['local_to_q']}" + (f"; snapshot {run['snapshot_s']:.3f} s"
+                                          if "snapshot_s" in run else "")
+                + (f"; a second step {run['steady_step_s']:.3f} s synced, "
+                   f"{run['steady_comm_s']:.3f} s in gloo "
+                   f"({run['steady_comm_s'] / run['steady_step_s']:.3f} of it), peak "
+                   f"{run['steady_peak_gib']:.2f} GiB" if "steady_step_s" in run else "") + extra
+                + f"; one process's step {one['step_s']:.3f} s; on {card}")
+    sound = runs[0]["sound"]
+    loss_rel = abs(sound["loss"] - one["loss"]) / abs(one["loss"])
+    norm_rel = abs(sound["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
+    want = {k: n for k, n in per_step.items() if n}
+    checks = {
+        f"loss within rtol {RANKS_LOSS_RTOL:g}": loss_rel <= RANKS_LOSS_RTOL,
+        f"grad norm within rtol {RANKS_NORM_RTOL:g}": norm_rel <= RANKS_NORM_RTOL,
+        f"update difference ≤ {RANKS_UPDATE_BAND:g}": sound["update_rel"] <= RANKS_UPDATE_BAND,
+        f"each module's update ≤ {TRAIN_TP_MODULE_BAND:g}": all(
+            v <= TRAIN_TP_MODULE_BAND and n > 0 for v, n in sound["modules"].values()),
+        "rank 0's checkpoint in the one-card names and shapes": sound.get(
+            "checkpoint_like_one_card") is True,
+        f"each rank's launches phase 6's per step {want}": all(
+            {k: n for k, n in r["sound"]["counts"].items() if n} == want for r in runs),
+        "attention forward at D=40 only": all(set(r["sound"]["head_dims"]) == {"40"}
+                                              for r in runs),
+        "every rank's loss the same": len({r["sound"]["loss"] for r in runs}) == 1,
+        f"a rank's to_q holds 320/{TP} rows": all(
+            r["sound"]["local_to_q"] == [320 // TP, 320] for r in runs),
+    }
+    log(f"[train_tp] loss rel {loss_rel:.3e}, grad norm rel {norm_rel:.3e}; checks {checks}")
+    if strict and not all(checks.values()):
+        raise SystemExit(f"chip_smoke.py: train tp checks failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return {"counts": sound["counts"], "head_dims": {int(k): v for k, v in
+                                                     sound["head_dims"].items()},
+            "loss_rel": loss_rel, "norm_rel": norm_rel, "runs": runs, "one": one}
+
+
+def _train_tp_kernels(results: dict) -> None:
+    """Phase 6e's kernels at a tp rank's training shapes: the attention
+    forward with its lse (judged, its lse checked, timed beside SDPA) and
+    the backward (judged, timed beside SDPA's backward, with its bound) at
+    TRAIN_TP_ATTN_SHAPES; split3's forward kernel (judged, timed, with its
+    bound) and its autograd.Function (judged and timed) at
+    TRAIN_TP_SPLIT3_SHAPES; the readings kept under "tp_train_shapes"."""
+    from psd_tpu_torch.ops import attention, split3
+    from psd_tpu_torch.testing import ATTN_LSE_BAND, attention_judge, split3_judge
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(43)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    for shape in TRAIN_TP_ATTN_SHAPES:
+        B, S, H, D = shape
+        q, k, v, dout = (randn(*shape) for _ in range(4))
+        lse_abs = _check_lse(q, k, v, ATTN_LSE_BAND)
+        _compare("attention", shape + ("lse",),
+                 lambda: attention.attention_fwd(q, k, v, return_lse=True),
+                 lambda: (attention.attention_reference(q, k, v),
+                          attention.lse_reference(q, k, D ** -0.5)), results,
+                 (4.0 * B * H * S * S * D, 4 * B * S * H * D * 2 + B * H * S * 4),
+                 fn_library=lambda: _sdpa(q, k, v), extra={"lse_max_abs": lse_abs},
+                 judge=lambda a, b: attention_judge(a[0], b[0]),
+                 note={"exp2_ms_at_sfu_rate": B * H * S * S / sfu_exp2_per_s() * 1e3},
+                 key="tp_train_shapes")
+        entry = _attention_bwd_reading(shape, q, k, v, dout)
+        results["attention_bwd"].setdefault("tp_train_shapes", []).append(entry)
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+    for shape in TRAIN_TP_SPLIT3_SHAPES:
+        B, S, H, D = shape
+        q, banks = randn(*shape), [randn(B, 16, H, D) for _ in range(6)]
+        _compare("split3", shape, lambda: split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9),
+                 lambda: split3.split3_reference(q, *banks, 1.0, 0.1, 0.9), results,
+                 (3 * 4.0 * B * H * S * 16 * D, (2 * B * S + 6 * B * 16) * H * D * 2),
+                 judge=split3_judge, key="tp_train_shapes",
+                 note={"device_ms": graph_ms(lambda: split3.split3_fwd(q, *banks, 1.0, 0.1,
+                                                                       0.9))})
+        _check_split3_autograd(randn, shape)
+    torch.cuda.empty_cache()
+
+
+def phase_train_tp(card: str, trained: dict, fault: bool = False) -> dict:
+    """Phase 6e alone (6d runs it after --dp 2's step, in that launch): two
+    ranks on cuda:0 over gloo; with `fault`, the planted faults its module
+    bands were set against run after the sound step, and the checks are
+    printed, not enforced. Then the kernels at the tp training shapes."""
+    import shutil
+
+    work = ROOT / "build" / "psd_tpu_torch" / "train_tp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    per_step = {k: v // TRAIN_STEPS for k, v in trained["counts"].items()}
+    run = _torchrun(work, "tp_gloo", 2, kind="train_tp", backend="gloo",
+                    faults=list(TRAIN_TP_FAULTS) if fault else [])
+    if run["rc"] != 0 or not all(run["ranks"]):
+        _ranks_failed("train_tp", "tp_gloo", run)
+        raise SystemExit(f"chip_smoke.py: train tp did not run to its end (rc {run['rc']})")
+    log(f"[train_tp] torchrun wall {run['wall']:.1f} s")
+    out = _check_train_tp(card, run["ranks"], per_step, strict=not fault)
+    _train_tp_kernels({"attention_bwd": {}})
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def phase_train_ranks(card: str, trained: dict, fault: bool = False,
+                      results: dict = None) -> dict:
     """The train CLI across ranks (phase 6d), one step each: a one-process
     run at a global batch of 32, then torchrun's two ranks on cuda:0 over
     gloo at --dp 2 and at --fsdp 2, then one rank on NCCL at --dp 1; each
     against the one-process run (loss, grad norm, the parameters' update,
     each rank's launches against phase 6's per step), rank 0's checkpoint
-    of --dp 2 read by the infer CLI. `fault` runs the planted fault its
-    bands were set against (every rank skipping the gradient average) and
-    stops there."""
+    of --dp 2 read by the infer CLI. Phase 6e, the tp train step, runs in
+    --dp 2's launch after its step (`_train_tp_rank`); its checks follow
+    --dp 2's, its kernels at the tp training shapes the phase's end (kept
+    in `results`). `fault` runs the planted fault its bands were set
+    against (every rank skipping the gradient average) and stops there."""
     import shutil
 
     import numpy as np
@@ -4377,10 +4890,11 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False) -> dict:
 
     readings = {}
     run = ranks_run("dp2_gloo", 2, base + ["--dp", "2", "--output-dir", str(work / "dp2")],
-                    backend="gloo")
+                    backend="gloo", tp=True)
     readings["dp2_gloo"] = judge("--dp 2, two ranks on cuda:0 over gloo", run)
     counts = run["ranks"][0]["counts"]
     head_dims = run["ranks"][0]["head_dims"]
+    tp = _check_train_tp(card, run["ranks"], per_step)
 
     # rank 0's checkpoint read by the infer CLI, on its EMA
     png = sorted((work / "data" / "val" / "Mayo_2").iterdir())[0]
@@ -4409,9 +4923,10 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False) -> dict:
     run = ranks_run("dp1_nccl", 1, base + ["--dp", "1", "--output-dir", str(work / "dp1")])
     readings["dp1_nccl"] = judge("--dp 1, one rank on NCCL", run)
     _check_rank_shapes()
+    _train_tp_kernels(results if results is not None else {"attention_bwd": {}})
     shutil.rmtree(work, ignore_errors=True)
     return {"counts": counts, "head_dims": head_dims, "readings": readings,
-            "one_process": {"counts": counts0, "wall": wall0, "peak_gib": peak0}}
+            "one_process": {"counts": counts0, "wall": wall0, "peak_gib": peak0}, "tp": tp}
 
 
 def main() -> int:
@@ -4439,7 +4954,8 @@ def main() -> int:
     trained = timed("train", phase_train, card)
     train_cli = timed("train cli", phase_train_cli, card, trained)
     loop = timed("product loop", phase_product_loop, card, train_cli)
-    ranks = timed("train ranks", phase_train_ranks, card, trained)
+    ranks = timed("train ranks", phase_train_ranks, card, trained, False, results)
+    trained_tp = ranks["tp"]
     log(f"[done] seconds per phase {seconds}, {sum(seconds.values()):.1f} s in all")
 
     entries = []
@@ -4450,7 +4966,7 @@ def main() -> int:
                     ("train", trained), ("train_cli", train_cli), ("op", op),
                     ("augment", loop["augment"]), ("evaluate", loop["evaluate"]),
                     ("train_dp", ranks), ("serve_dp", served_dp), ("levers", levers),
-                    ("serve_tp", served_tp))}
+                    ("serve_tp", served_tp), ("train_tp", trained_tp))}
         # serve, turbo and levers count host launches (the eager warm-up and the
         # capture of their program); what each replay launches is apart
         by_replay = {path: run["replay_launches"].get(name, 0)
@@ -4461,7 +4977,7 @@ def main() -> int:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": _bound_by(r),
                  "library_ms": r["library_ms"], "shapes": r["shapes"]}
-        for extra in ("levers_shapes", "tp_shapes"):
+        for extra in ("levers_shapes", "tp_shapes", "tp_train_shapes"):
             if extra in r:
                 entry[extra] = r[extra]
         if "fwd_bwd_ms" in r:
@@ -4480,7 +4996,7 @@ def main() -> int:
                  ("train", trained), ("train_cli", train_cli),
                  ("augment", loop["augment"]), ("evaluate", loop["evaluate"]),
                  ("train_dp", ranks), ("serve_dp", served_dp), ("levers", levers),
-                 ("serve_tp", served_tp))}
+                 ("serve_tp", served_tp), ("train_tp", trained_tp))}
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

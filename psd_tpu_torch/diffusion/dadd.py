@@ -50,7 +50,11 @@ per-step noise is drawn outside the graph like the initial latents.
 rank of torchrun's runs its rows of the batch, and the results are gathered
 (psd_tpu's dp-sharded sampling). On a mesh with a tp axis `sample` cuts the
 UNet's transformer sites over tp at its first call (`shard_tp_`) and runs
-op by op; a cut UNet raises outside `sample(mesh=)` of that mesh.
+op by op; a cut UNet raises outside `sample(mesh=)` of that mesh, or the
+train step's (`train/trainer.py::shard_train_state` cuts a training model
+alike). An int8 model cuts the int8 weights it set from the whole fp32
+weights at init or at load, so a row-parallel int8 site keeps its whole
+K's scales.
 """
 
 from __future__ import annotations
@@ -73,7 +77,7 @@ from ..models.init import flax_init_
 from ..models.layers import quantize_int8_weights_, store_weights_in_
 from ..models.unet import UNet2DCondition, UNetConfig
 from ..models.vae import AutoencoderKL, VAEConfig, VAEDecode, sample_gaussian
-from ..parallel.mesh import (TP_TRAINING, batch_rows, gather_rows, shard_tp_, tp_group,
+from ..parallel.mesh import (batch_rows, gather_rows, shard_tp_, tp_group,
                              tp_scope, tp_size)
 from .graphs import CapturedProgram, program_key
 from .sampler import SamplerConfig, cfg_eps_fn, ddim_sample, dpm_sample
@@ -347,16 +351,23 @@ class DADD:
         mesh's tp axis, in place (`parallel/mesh.py::shard_tp_`): nothing
         where tp is 1, nothing again for the group it was cut for. The
         captured programs go (they hold the whole weights). A serving model
-        only (training under tp: ROADMAP.md Queue 1 item 7b); the int8 UNet
-        raises (item 7c); another tp group raises."""
+        and a training one (its fp32 masters; `shard_train_state` cuts the
+        optimizer's state and the EMA alike) are cut the same way; an int8
+        serving model's int8 weights, set from the whole fp32 weights, are
+        cut with them. Another tp group raises.
+
+        Under gradient checkpointing (`UNetConfig.remat`) the recomputation
+        inside backward runs each cut site's collectives again (g's
+        all-reduce forward, f's in its backward), in the same order on
+        every tp rank, since every rank recomputes the same blocks in the
+        same order; the recomputation re-enters the step's tp scope
+        (`models/unet.py`)."""
         if tp_size(mesh) == 1:
             return self
         if self.tp_group is not None:
             if self.tp_group is not tp_group(mesh):
                 raise RuntimeError("the UNet is cut over another tp group than this mesh's")
             return self
-        if self.for_training:
-            raise NotImplementedError(TP_TRAINING)
         self.drop_programs()
         shard_tp_(self.core.unet, mesh)
         self.tp_group = tp_group(mesh)

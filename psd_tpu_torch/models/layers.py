@@ -26,13 +26,18 @@ The five kernel sites, routed by shape as `psd_tpu` routes them:
 Under ToMe the attention and LayerNorm sites run at the merged length.
 Each wrapper runs its plain version for a CPU tensor.
 
-Under tp (serving, `parallel/mesh.py::shard_tp_`) each attention site and
+Under tp (`parallel/mesh.py::shard_tp_`) each attention site and
 feed-forward holds its rank's heads and columns: the routes take the local
 shapes (H/tp heads, C/tp or 4C/tp columns), and to_out_0 and net_2 are
 row-parallel (`row_parallel_linear`: the product without bias, an
-all-reduce over the tp group in the compute dtype, then the bias, as
-psd_tpu's bf16 dot, psum and bias). A site that was never cut runs as
-before, with no collective.
+all-reduce over the tp group in the compute dtype (Megatron's g), then the
+bias, as psd_tpu's bf16 dot, psum and bias; an int8 site `qdense`'s
+row-parallel form, the whole K's scales and int32 sums). Megatron's f sits
+at the replicated inputs of the column-parallel sites on the unfused paths
+(the only ones training takes): the LayerNorm's output, so the LayerNorm's
+weight and bias get their whole gradient, and the context tokens of the
+cross-attention's K/V banks, so the conditioning modules do. A site that
+was never cut runs as before, with no collective.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.mode import is_training, use_kernel
-from ..parallel.mesh import site_tp_group, tp_all_reduce
+from ..parallel.mesh import copy_to_tp, reduce_from_tp, site_tp_group
 from ..ops.attention import attention_probs, dot_product_attention
 from ..ops.geglu import gelu_exact, ln_geglu_fwd, ln_proj_fwd, ln_reference, ln_shape_error
 from ..ops.gnproj import gn_proj_fwd
@@ -80,11 +85,11 @@ def linear(x, layer: nn.Linear, dtype):
 
 def row_parallel_linear(x, layer: nn.Linear, dtype, group):
     """`linear` of a row-parallel site cut over tp: each rank's product of
-    its input columns without bias, summed over the tp group in dtype, then
-    the whole bias in dtype; plain `linear` where `group` is None."""
+    its input columns without bias, summed over the tp group in dtype (g),
+    then the whole bias in dtype; plain `linear` where `group` is None."""
     if group is None:
         return linear(x, layer, dtype)
-    out = tp_all_reduce(F.linear(x.to(dtype), layer.weight.to(dtype)), group)
+    out = reduce_from_tp(F.linear(x.to(dtype), layer.weight.to(dtype)), group)
     return out + layer.bias.to(dtype)
 
 
@@ -170,6 +175,9 @@ def int8_weights(module: nn.Module, name: str):
     wq = getattr(module, f"{name}_wq")
     if module.int8_ready:
         return wq, getattr(module, f"{name}_sw")
+    if getattr(module, "tp", None) is not None:
+        raise RuntimeError(f"{name}: a site cut over tp has no int8 weights set; they come "
+                           "from the whole fp32 weights (quantize_int8_weights_ before the cut)")
     w = getattr(module, name).weight
     if w.dtype != torch.float32:
         raise ValueError(f"{name}: the int8 weights of {w.dtype} weights were never set; "
@@ -178,16 +186,19 @@ def int8_weights(module: nn.Module, name: str):
     return wq, sw.reshape(-1)
 
 
-def int8_linear(x, module: nn.Module, name: str, dtype):
+def int8_linear(x, module: nn.Module, name: str, dtype, group=None):
     """`qdense` of x with the site `name` of `module` (a Linear or a 1×1
-    Conv2d): its int8 weights from K = 512 on, its own weight below."""
+    Conv2d): its int8 weights from K = 512 on, its own weight below; with
+    `group`, row-parallel over the module's tp cut (the whole K's gate,
+    scales and sums)."""
     layer = getattr(module, name)
     w = layer.weight
     w = w.reshape(w.shape[0], w.shape[1]) if w.ndim == 4 else w
     wq = sw = None
     if name in getattr(module, "int8_sites", ()):
         wq, sw = int8_weights(module, name)
-    return qdense(x, w, wq, sw, layer.bias, out_dtype=dtype)
+    tp = module.tp.size if group is not None else 1
+    return qdense(x, w, wq, sw, layer.bias, out_dtype=dtype, group=group, tp=tp)
 
 
 class ResnetBlock2D(nn.Module):
@@ -269,6 +280,9 @@ def quantize_int8_weights_(module: nn.Module, fp32_weights=None) -> nn.Module:
     quantizes the fp32 parameter tree (`ops/quant.py::quant_cols`, the
     output axis kept)."""
     for prefix, m in module.named_modules():
+        if getattr(m, "int8_sites", ()) and getattr(m, "tp", None) is not None:
+            raise RuntimeError(f"{prefix}: cut over tp; the int8 weights come from the whole "
+                               "fp32 weights, before the cut")
         for name in getattr(m, "int8_sites", ()):
             key = f"{prefix}.{name}.weight" if prefix else f"{name}.weight"
             w = getattr(m, name).weight if fp32_weights is None else fp32_weights[key]
@@ -361,7 +375,7 @@ class Attention(nn.Module):
     projections and to_out_0 run as `qdense` after a plain LayerNorm; the
     16-token cross-attention K/V stay in `dtype`. Cut over tp (`tp`, set by
     `parallel/mesh.py::cut_tp_`) it runs num_heads/tp heads and to_out_0
-    row-parallel."""
+    row-parallel, the int8 gates reading the whole width."""
 
     tp_kind = "attention"
 
@@ -394,7 +408,7 @@ class Attention(nn.Module):
         dt = self.dtype
         B, S, C = x.shape
         hd = C // self.num_heads
-        group = site_tp_group(self.tp, is_training())
+        group = site_tp_group(self.tp)
         H = self.num_heads // (1 if self.tp is None else self.tp.size)  # this rank's heads
         use_q8 = self.quant == "int8" and quant_worthwhile(C) and not is_training()
 
@@ -403,7 +417,8 @@ class Attention(nn.Module):
 
         ws = tuple(getattr(self, n).weight for n in self.proj_sites)
         if ln_scale is None and not use_q8:
-            outs = [F.linear(x.to(dt), w.to(dt)) for w in ws]
+            xt = copy_to_tp(x.to(dt), group)
+            outs = [F.linear(xt, w.to(dt)) for w in ws]
         elif use_q8:
             hn = x.to(dt) if ln_scale is None else ln_reference(x.to(dt), ln_scale, ln_bias)
             outs = [int8_linear(hn, self, n, dt) for n in self.proj_sites]
@@ -412,9 +427,11 @@ class Attention(nn.Module):
                                tuple(w.to(dt) for w in ws))
             outs = [o.reshape(B, S, H * hd) for o in outs]
         else:
-            hn = ln_reference(x.to(dt), ln_scale, ln_bias)
+            hn = copy_to_tp(ln_reference(x.to(dt), ln_scale, ln_bias), group)
             outs = [F.linear(hn, w.to(dt)) for w in ws]
         q = heads(outs[0])
+        if self.is_cross:
+            context = copy_to_tp(context, group)
 
         if not self.is_cross:
             z = dot_product_attention(q, heads(outs[1]), heads(outs[2]))
@@ -446,7 +463,7 @@ class Attention(nn.Module):
                                       heads(linear(ctx, self.to_v, dt)))
         z = z.reshape(B, S, H * hd)
         if use_q8:
-            return int8_linear(z, self, "to_out_0", dt)
+            return int8_linear(z, self, "to_out_0", dt, group)
         return row_parallel_linear(z, self.to_out_0, dt, group)
 
 
@@ -463,7 +480,8 @@ class GEGLUFeedForward(nn.Module):
     depth is at least MIN_QUANT_K (net_0 at dim, net_2 at 4·dim), so at
     dim = 320 net_0 keeps the fused LN → GEGLU kernel and net_2 is int8.
     Cut over tp (`tp`) it holds N/tp of each GEGLU half's N = 4·dim columns,
-    packed [h_r ; g_r], and net_2 runs row-parallel."""
+    packed [h_r ; g_r], and net_2 runs row-parallel; the int8 gates read
+    the whole N."""
 
     tp_kind = "geglu"
 
@@ -482,7 +500,7 @@ class GEGLUFeedForward(nn.Module):
         dt = self.dtype
         B, S, C = x.shape
         use_q8 = self.quant == "int8" and not is_training()
-        group = site_tp_group(self.tp, is_training())
+        group = site_tp_group(self.tp)
         w0, b0 = self.net_0_proj.weight, self.net_0_proj.bias
         if use_q8 and quant_worthwhile(C):
             proj = int8_linear(ln_reference(x.to(dt), ln_scale, ln_bias), self, "net_0_proj",
@@ -493,11 +511,12 @@ class GEGLUFeedForward(nn.Module):
             h = ln_geglu_fwd(x.reshape(B * S, C).to(dt), ln_scale, ln_bias,
                              w0.to(dt), b0).reshape(B, S, -1)
         else:
-            proj = F.linear(ln_reference(x.to(dt), ln_scale, ln_bias), w0.to(dt))
+            hn = copy_to_tp(ln_reference(x.to(dt), ln_scale, ln_bias), group)
+            proj = F.linear(hn, w0.to(dt))
             hh, g = (proj.float() + b0.float()).chunk(2, dim=-1)
             h = (hh * gelu_exact(g)).to(dt)
-        if use_q8 and quant_worthwhile(h.shape[-1]):
-            return int8_linear(h, self, "net_2", dt)
+        if use_q8 and quant_worthwhile(h.shape[-1] * (1 if self.tp is None else self.tp.size)):
+            return int8_linear(h, self, "net_2", dt, group)
         return row_parallel_linear(h, self.net_2, dt, group)
 
 

@@ -15,8 +15,10 @@ tokens, `ops/tome.py`), as psd_tpu's `UNetConfig.quant` / `tome_*`.
 
 `remat` is gradient checkpointing of every ResnetBlock2D and Transformer2D
 (`psd_tpu/models/unet.py:176-178`, `training.gradient_checkpointing`):
-`torch.utils.checkpoint` without re-entry, the kernel-mode flags of the
-forward carried into the recomputation (`core.mode.snapshot`).
+`torch.utils.checkpoint` without re-entry, the kernel-mode flags and the tp
+scope of the forward carried into the recomputation (`core.mode.snapshot`,
+`parallel.mesh.active_tp_group`), which may run on the autograd engine's
+own thread.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import mode
 from ..ops.tome import ToMeSpec
+from ..parallel.mesh import active_tp_group, tp_group_scope
 
 from .layers import (
     CrossAttnMode,
@@ -278,10 +281,15 @@ class UNet2DCondition(nn.Module):
         def run(*args):
             if not torch.is_grad_enabled():
                 return module(*args)
-            snap = mode.snapshot()
+            snap, group = mode.snapshot(), active_tp_group()
+
+            @contextlib.contextmanager
+            def recomputing():
+                with mode.restored(snap), tp_group_scope(group):
+                    yield
+
             return checkpoint(module, *args, use_reentrant=False,
-                              context_fn=lambda: (contextlib.nullcontext(),
-                                                  mode.restored(snap)))
+                              context_fn=lambda: (contextlib.nullcontext(), recomputing()))
 
         return run
 

@@ -8,6 +8,14 @@ symmetric scales `max(amax, 1e-8) · (1/127)` in fp32, round half to even
 activation scales for matmuls, per-sample ones for convs, per-output-channel
 weight scales. XLA math in psd_tpu, plain torch here.
 
+A row-parallel site cut over tp (`parallel/mesh.py::cut_tp_`) holds K/tp
+of each row's K columns on each rank: `qdense(group=, tp=)` computes the
+whole site's function there. Its depth gate reads the whole K; each row's
+scale is the amax over the whole K (the local amax, then an all-reduce MAX
+over the tp group: exact), and the int32 partial products are summed over
+the group in int32 (exact) before the fp32 epilogue, so every rank gets
+the whole site's accumulator and output bit for bit.
+
 `qdense` and `qconv3x3` take their weights already quantized (int8, output
 channel first, and one fp32 scale per output channel): the models compute
 them once from the fp32 weights (`models.layers.quantize_int8_weights_`),
@@ -23,7 +31,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from ..parallel import mesh
 
 EPS = 1e-8
 INV127 = 1.0 / 127.0
@@ -53,11 +64,15 @@ def int_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(xq.contiguous(), wq.t())[:M]  # (K, N), column-major
 
 
-def quant_rows(x: torch.Tensor):
+def quant_rows(x: torch.Tensor, group=None):
     """Per-row int8 quantization of a (..., K) tensor → (q int8, scale fp32
-    (..., 1)) with x ≈ q · scale."""
+    (..., 1)) with x ≈ q · scale. With `group`, x holds this rank's columns
+    of rows whose K the group's ranks split: the amax is the whole row's."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(EPS) * INV127
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if group is not None:
+        mesh.tp_all_reduce(amax, group, dist.ReduceOp.MAX)
+    scale = amax.clamp_min(EPS) * INV127
     return torch.round(xf / scale).to(torch.int8), scale
 
 
@@ -81,21 +96,29 @@ def quant_cols(w: torch.Tensor, axis: int = -1):
 
 def qdense(x: torch.Tensor, w: torch.Tensor, wq: Optional[torch.Tensor] = None,
            sw: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None,
-           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+           out_dtype: Optional[torch.dtype] = None, group=None, tp: int = 1) -> torch.Tensor:
     """x (..., K) times a Linear's weight, psd_tpu's `qdense`: below
     MIN_QUANT_K the `out_dtype` product of x and `w` (N, K), summed in fp32,
     plus b in fp32; from it on, per-row activation scales, the int32 product
     with the int8 weights `wq` (N, K) and their per-N scales `sw` (N,), then
-    `acc · sx · sw + b` in fp32. The result in `out_dtype` (x's by default)."""
+    `acc · sx · sw + b` in fp32. The result in `out_dtype` (x's by default).
+    With `group` (a row-parallel site cut over `tp` ranks: x, w and wq hold
+    this rank's K/tp columns) the same function of the whole K: the gate at
+    K·tp, the whole rows' scales, the int32 accumulators summed over the
+    group (below the gate, the products summed in fp32), then the bias."""
     out_dtype = out_dtype or x.dtype
     K = x.shape[-1]
-    if not quant_worthwhile(K):
+    if not quant_worthwhile(K * (tp if group is not None else 1)):
         out = F.linear(x.to(out_dtype), w.to(out_dtype)).float()
+        if group is not None:
+            mesh.tp_all_reduce(out, group)
     else:
         if wq is None or sw is None:
             raise ValueError(f"qdense at K={K} >= {MIN_QUANT_K} needs the int8 weights")
-        xq, sx = quant_rows(x.reshape(-1, K))
+        xq, sx = quant_rows(x.reshape(-1, K), group)
         acc = int_mm(xq, wq)
+        if group is not None:
+            mesh.tp_all_reduce(acc, group)
         out = (acc.float() * sx * sw.float().reshape(1, -1)).reshape(x.shape[:-1] + (-1,))
     if b is not None:
         out = out + b.float()

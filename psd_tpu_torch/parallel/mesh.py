@@ -21,17 +21,23 @@ train state goes under DDP (fsdp = 1) or FSDP2 (fsdp > 1, HSDP over the
     divides and holds at least two rows a rank); where no dim qualifies
     psd_tpu replicates the parameter, and FSDP2, which shards every
     parameter, takes its default Shard(0), padded.
-  * tp (serving only): `tp_param_dim` is psd_tpu's `tp_param_spec` on the
-    port's names, and `shard_tp_` cuts the UNet's transformer sites in place
-    to the rank's heads and columns, Megatron-style: to_q/k/v/k_dis/v_dis
-    column-parallel, to_out_0 and the feed-forward's net_2 row-parallel
-    (a product without bias, an all-reduce over the tp group, then the
-    whole bias), net_0_proj's two GEGLU halves cut alike (psd_tpu's
+  * tp: `tp_param_dim` is psd_tpu's `tp_param_spec` on the port's names,
+    and `shard_tp_` cuts the UNet's transformer sites in place to the
+    rank's heads and columns, Megatron-style (TP_CUTS): to_q/k/v/k_dis/v_dis
+    column-parallel, to_out_0 and the feed-forward's net_2 row-parallel (a
+    product without bias, an all-reduce over the tp group, then the whole
+    bias), net_0_proj's two GEGLU halves cut alike (psd_tpu's
     `constrain_tp_geglu`), so each rank's packed [h_r ; g_r] keeps the
-    LN → GEGLU kernel's interface. A cut site runs only inside `tp_scope`
-    of the mesh it was cut for (`DADD.sample(mesh=)` enters it) and raises
-    anywhere else; training under tp is ROADMAP.md Queue 1 item 7b, the
-    int8 UNet under tp item 7c.
+    LN → GEGLU kernel's interface; an int8 site's int8 weights and scales,
+    set from the whole fp32 weights, are cut with it. A cut site runs only
+    inside `tp_scope` of the mesh it was cut for (`DADD.sample(mesh=)` and
+    the train step enter it) and raises anywhere else. In training
+    Megatron's f and g (`copy_to_tp`, `reduce_from_tp`) carry the
+    gradients across the cut: the replicated stream's and every replicated
+    parameter's gradient is whole on every tp rank, each cut parameter's
+    is its slice's. `tp_cuts` names the cut parameters, `tp_slice` cuts a
+    whole tensor as `cut_tp_` does and `tp_gather` puts the slices back
+    together (optimizer state, EMA, checkpoints).
 
 A DTensor's values are read and written through `local` (its shard; a plain
 tensor is its own), `local_part` cuts a full tensor to another's shard, and
@@ -61,9 +67,6 @@ from torch.distributed.tensor import DTensor, Shard
 
 # a collective that waits longer fails the run instead of hanging its ranks
 TIMEOUT_S = 600
-# what training under tp and the int8 UNet under tp still need
-TP_TRAINING = "training under tp is not ported (ROADMAP.md Queue 1 item 7b)"
-TP_INT8 = "the int8 UNet under tp is not ported (ROADMAP.md Queue 1 item 7c)"
 
 
 @dataclass(frozen=True)
@@ -287,18 +290,26 @@ def shard_group(t: torch.Tensor):
     return None
 
 
-# ---- tensor parallelism (tp axis), serving only ---------------------------------------
+# ---- tensor parallelism (tp axis) ------------------------------------------------------
 # psd_tpu's `_TP_COL` / `_TP_ROW` (parallel/mesh.py:245-246): the flax (in,
 # out) kernel is the torch (out, in) weight, so column-parallel cuts torch dim
 # 0 and row-parallel dim 1
 TP_COLUMN = ("to_q", "to_k", "to_v", "to_k_dis", "to_v_dis")
 TP_ROW = ("to_out_0", "net_2")
+# what a site of each kind cuts: parameter → (dim, halves). A tensor of
+# `halves` equal parts along dim (net_0_proj's GEGLU [h ; g]) is cut in
+# each part alike and kept packed [h_r ; g_r]
+TP_CUTS = {
+    "attention": {**{f"{n}.weight": (0, 1) for n in TP_COLUMN}, "to_out_0.weight": (1, 1)},
+    "geglu": {"net_0_proj.weight": (0, 2), "net_0_proj.bias": (0, 2), "net_2.weight": (1, 1)},
+}
 
 
 def tp_param_dim(name: str, shape, tp: int) -> Optional[int]:
     """psd_tpu's `tp_param_spec` on a port parameter name ('...attn1.to_q.
     weight'): the torch dim the tp axis cuts, or None where it stays
-    whole."""
+    whole (the weights' dims of TP_CUTS, which the placement tests hold
+    to psd_tpu's spec through it)."""
     parts = name.split(".")
     if tp <= 1 or len(parts) < 2 or parts[-1] != "weight" or len(shape) != 2:
         return None
@@ -318,19 +329,47 @@ class TPCut:
     rank: int
 
 
-def _narrow_(p: torch.Tensor, dim: int, size: int, rank: int) -> None:
-    """Replace `p`'s values by its rank-th of `size` slices along dim."""
-    step = p.shape[dim] // size
-    p.data = p.data.narrow(dim, rank * step, step).contiguous()
+def tp_slice(t: torch.Tensor, dim: int, halves: int, size: int, rank: int) -> torch.Tensor:
+    """The rank-th of `size` slices of whole `t` along dim, taken in each of
+    its `halves` equal parts and packed (a contiguous copy)."""
+    parts = t.unflatten(dim, (halves, -1))
+    k = parts.shape[dim + 1] // size
+    return parts.narrow(dim + 1, rank * k, k).flatten(dim, dim + 1).contiguous()
+
+
+def tp_gather(part: torch.Tensor, dim: int, halves: int, cut: TPCut) -> torch.Tensor:
+    """The whole tensor from every tp rank's `tp_slice` (a collective over
+    the tp group: every rank of it calls it): c10d's all_gather_into_tensor,
+    then each part's slices in rank order ([h_0 h_1 … ; g_0 g_1 …])."""
+    mine = part.movedim(dim, 0).contiguous()
+    rest = tuple(mine.shape[1:])
+    whole = mine.new_empty((cut.size * mine.shape[0],) + rest)
+    dist.all_gather_into_tensor(whole, mine, group=cut.group)
+    whole = whole.view((cut.size, halves, -1) + rest).transpose(0, 1)
+    return whole.reshape((-1,) + rest).movedim(0, dim).contiguous()
+
+
+def _site_cuts(m: nn.Module):
+    """(parameter name in the site, dim, halves) of each tensor the site
+    `m` cuts, for the children it has."""
+    for key, (dim, halves) in TP_CUTS[m.tp_kind].items():
+        child = key.split(".")[0]
+        if hasattr(m, child):
+            yield key, dim, halves
 
 
 @torch.no_grad()
 def cut_tp_(module: nn.Module, cut: TPCut) -> nn.Module:
     """Cut every transformer site under `module` (a module with `tp_kind`
     "attention" or "geglu", `models/layers.py`) in place to the slice of
-    tp rank `cut.rank`: the weights `tp_param_dim` names; net_0_proj's
-    (2N, C) weight and (2N,) bias as two halves, each to its N/tp rows, kept
-    packed [h_r ; g_r]. Row-parallel biases stay whole. An attention site
+    tp rank `cut.rank` (TP_CUTS): the column-parallel weights on dim 0, the
+    row-parallel ones on dim 1, net_0_proj's (2N, C) weight and (2N,) bias
+    as two halves, each to its N/tp rows, kept packed [h_r ; g_r].
+    Row-parallel biases stay whole. An int8 site's buffers are cut with its
+    weight: `<site>_wq` as the weight, `<site>_sw` (one scale an output row)
+    as the weight's rows, whole at a row-parallel site; they were set from
+    the whole fp32 weights before the cut (`quantize_int8_weights_`), so a
+    row-parallel site keeps the scales of its whole K. An attention site
     whose heads the tp size does not divide, or a feed-forward whose N it
     does not, stays whole (psd_tpu's `h_ax = None`, spattn.py:278). A
     site's `tp` is set where it was cut."""
@@ -341,24 +380,35 @@ def cut_tp_(module: nn.Module, cut: TPCut) -> nn.Module:
             continue
         if m.tp is not None:
             raise RuntimeError(f"{prefix}: already cut over tp")
-        if m.quant == "int8":
-            raise NotImplementedError(TP_INT8)
-        if kind == "attention" and m.num_heads % n:
+        if (m.num_heads if kind == "attention" else m.net_2.in_features) % n:
             continue
-        if kind == "geglu":
-            N = m.net_2.in_features
-            if N % n:
+        rules = {}
+        for key, dim, halves in _site_cuts(m):
+            t = m.get_parameter(key)
+            t.data = tp_slice(t.data, dim, halves, n, r)
+            rules[key.split(".")[0]] = dim, halves
+        for name in getattr(m, "int8_sites", ()):
+            if name not in rules:
                 continue
-            w, b = m.net_0_proj.weight, m.net_0_proj.bias
-            k = N // n
-            w.data = w.data.view(2, N, -1)[:, r * k:(r + 1) * k].reshape(2 * k, -1).contiguous()
-            b.data = b.data.view(2, N)[:, r * k:(r + 1) * k].reshape(-1).contiguous()
-        for name, child in m.named_children():
-            dim = tp_param_dim(f"{name}.weight", tuple(child.weight.shape), n)
-            if dim is not None:
-                _narrow_(child.weight, dim, n, r)
+            dim, halves = rules[name]
+            wq, sw = getattr(m, f"{name}_wq"), getattr(m, f"{name}_sw")
+            wq.data = tp_slice(wq.data, dim, halves, n, r)
+            if dim == 0:
+                sw.data = tp_slice(sw.data, 0, halves, n, r)
         m.tp = cut
     return module
+
+
+def tp_cuts(module: nn.Module):
+    """Each parameter of `module` that `cut_tp_` cut: its name under
+    `module` → (dim, halves, TPCut)."""
+    out = {}
+    for prefix, m in module.named_modules():
+        if getattr(m, "tp_kind", None) is None or m.tp is None:
+            continue
+        for key, dim, halves in _site_cuts(m):
+            out[f"{prefix}.{key}" if prefix else key] = dim, halves, m.tp
+    return out
 
 
 def shard_tp_(module: nn.Module, mesh: DeviceMesh) -> nn.Module:
@@ -375,34 +425,92 @@ _TP_GROUP: ContextVar = ContextVar("psd_tpu_torch_tp_group", default=None)
 
 
 @contextlib.contextmanager
-def tp_scope(mesh: Optional[DeviceMesh]):
-    """Run the model's cut sites over the mesh's tp group (none where the
-    mesh has no tp axis, or without a mesh)."""
-    token = _TP_GROUP.set(tp_group(mesh))
+def tp_group_scope(group):
+    """Run the model's cut sites over `group` (None: no tp group)."""
+    token = _TP_GROUP.set(group)
     try:
         yield
     finally:
         _TP_GROUP.reset(token)
 
 
-def site_tp_group(cut: Optional[TPCut], training: bool):
-    """The group a site cut as `cut` all-reduces over (None for a whole
-    site). A cut site raises in training, and outside `tp_scope` of the
-    mesh it was cut for: a rank alone holds a part of its weights."""
+def tp_scope(mesh: Optional[DeviceMesh]):
+    """Run the model's cut sites over the mesh's tp group (none where the
+    mesh has no tp axis, or without a mesh)."""
+    return tp_group_scope(tp_group(mesh))
+
+
+def active_tp_group():
+    """The tp group of the `tp_scope` the caller is in (None outside one):
+    gradient-checkpoint recomputation re-enters it (`models/unet.py`)."""
+    return _TP_GROUP.get()
+
+
+def site_tp_group(cut: Optional[TPCut]):
+    """The group a site cut as `cut` reduces over (None for a whole site).
+    A cut site raises outside `tp_scope` of the mesh it was cut for: a rank
+    alone holds a part of its weights."""
     if cut is None:
         return None
-    if training:
-        raise NotImplementedError(TP_TRAINING)
     active = _TP_GROUP.get()
     if active is not cut.group:
         where = "with no tp mesh" if active is None else "over another tp group"
         raise RuntimeError(f"a UNet cut over tp ({cut.size} ranks) runs {where}: call "
-                           "DADD.sample(mesh=) with the mesh it was cut for")
+                           "DADD.sample(mesh=) or the train step with the mesh it was cut for")
     return cut.group
 
 
-def tp_all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum of every tp rank's `t`, in place, in t's dtype (a
-    collective over the tp group)."""
-    dist.all_reduce(t, group=group)
+def tp_all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Every tp rank's `t` reduced by `op` (the sum by default), in place,
+    in t's dtype (a collective over the tp group). Every tp collective of
+    the model goes through it (g, f's backward, the int8 row-parallel
+    scales and accumulators)."""
+    dist.all_reduce(t, op=op, group=group)
     return t
+
+
+# Megatron's pair (Shoeybi et al. 2019, §3): f at a column-parallel site's
+# replicated input, g at a row-parallel site's output. Not
+# torch.distributed.nn.functional.all_reduce, whose backward all-reduces
+# again: the replicated stream's gradient would come out tp times too large.
+class _CopyToTP(torch.autograd.Function):
+    """f: the identity forward; backward, the sum of every tp rank's
+    gradient (each rank's columns contribute a part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return tp_all_reduce(grad.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """g: the sum of every tp rank's partial product forward (in place);
+    backward, the identity (every rank needs the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.mark_dirty(x)
+        return tp_all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """f over `group` (`x` itself where it is None)."""
+    return x if group is None else _CopyToTP.apply(x, group)
+
+
+def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """g over `group`: `x` summed over the tp ranks, in place (`x` itself
+    where it is None; the plain all-reduce where no gradient is taken)."""
+    if group is None:
+        return x
+    if not torch.is_grad_enabled():
+        return tp_all_reduce(x, group)
+    return _ReduceFromTP.apply(x, group)

@@ -73,7 +73,9 @@ def route_launches(core_cfg: DADDCoreConfig, vae_cfg: VAEConfig, batch: int, ima
     and the LayerNorm kernels only below MIN_QUANT_K channels. On a rank of
     a tp mesh (`tp` > 1; `batch` is then the rank's rows) each site whose
     heads tp divides runs H/tp heads, ln_proj C/tp columns and ln_geglu
-    4C/tp a half (`parallel/mesh.py::cut_tp_`)."""
+    4C/tp a half (`parallel/mesh.py::cut_tp_`); the int8 UNet's gates read
+    the whole C there, so its LayerNorm kernels run where one process's do,
+    at the rank's columns."""
     u = core_cfg.unet
     lat = image_size // 2 ** (len(vae_cfg.block_out_channels) - 1)
     B = batch * (2 if cfg_pass else 1)

@@ -26,9 +26,12 @@ Across ranks (`train/trainer.py::shard_train_state`) rank 0 writes this
 one-card format, whole tensors: under DDP from its own replica; under FSDP2
 every rank takes part in gathering each tensor (`parallel.mesh.full`, one
 at a time, so the card holds one whole tensor beyond its shards) and rank 0
-alone copies it to the host. A restore loads the whole tensors on every
-rank and cuts them to its shards, so a one-card checkpoint resumes on any
-mesh, and any mesh's on one card.
+alone copies it to the host. Under tp each cut tensor (the parameter, its
+EMA, both moments and the accumulated gradient) is then gathered over the
+tp group (`parallel.mesh.tp_gather`; every rank takes part), net_0_proj's
+halves back in the one-card order [h_0 h_1 … ; g_0 g_1 …]. A restore loads
+the whole tensors on every rank and cuts them to its slices and shards, so
+a one-card checkpoint resumes on any mesh, and any mesh's on one card.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch.distributed.tensor import DTensor
 
-from ..parallel.mesh import full, local, local_part, rank
+from ..parallel.mesh import full, local, local_part, rank, tp_cuts, tp_gather, tp_slice
 
 FILES = ("params.pt", "ema.pt", "optimizer.pt", "state.json")
 MAX_TO_KEEP = 3
@@ -57,18 +60,22 @@ def saved_steps(directory: Path) -> List[int]:
 
 def snapshot(state) -> Optional[Dict]:
     """A host copy of the train state: what `save` writes. Across ranks
-    every rank calls it (FSDP2's shards are gathered) and only rank 0 gets
-    the copy; the others get None."""
+    every rank calls it (FSDP2's shards and the tp slices are gathered) and
+    only rank 0 gets the copy; the others get None."""
     from .trainer import is_sharded
 
     keep = rank() == 0
-    if not keep and not is_sharded(state):
+    cuts = tp_cuts(state.model.core)
+    if not keep and not is_sharded(state) and not cuts:
         return None  # DDP: rank 0 holds the whole state itself
 
     def host(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         out = {}
         for k, t in tensors.items():
             whole = full(t.detach())
+            if k in cuts:
+                dim, halves, cut = cuts[k]
+                whole = tp_gather(whole, dim, halves, cut)
             if keep:
                 out[k] = whole.to("cpu", copy=True)
         return out
@@ -118,31 +125,44 @@ def _write(directory: Path, snap: Dict) -> None:
 def restore_into(state, directory: Path):
     """Load the step directory `directory` into `state` in place: the
     parameters, the EMA, AdamW's state, the counts and the generator; each
-    whole tensor cut to this rank's shard where the state is sharded."""
+    whole tensor cut to this rank's tp slice where the UNet is cut over tp,
+    then to its shard where the state is sharded."""
     named = dict(state.model.core.named_parameters())
+    cuts = tp_cuts(state.model.core)
 
     def load(name):
         return torch.load(directory / name, map_location="cpu", weights_only=True, mmap=True)
 
-    def into(dst, whole):
+    def sliced(name, whole):
+        """`whole` cut to this rank's tp slice where `name` is cut."""
+        if name not in cuts:
+            return whole
+        dim, halves, cut = cuts[name]
+        return tp_slice(whole, dim, halves, cut.size, cut.rank)
+
+    def mine(name, whole, like):
+        """`whole` cut to `like`'s tp slice and shard, on its device."""
+        return local_part(sliced(name, whole), like)
+
+    def into(dst, name, whole):
         if isinstance(dst, DTensor):
-            local(dst).copy_(local(local_part(whole, dst)))
+            local(dst).copy_(local(mine(name, whole, dst)))
         else:
-            dst.copy_(whole)
+            dst.copy_(sliced(name, whole))
 
     for name, t in load("params.pt").items():
-        into(named[name], t)
+        into(named[name], name, t)
     for name, t in load("ema.pt").items():
-        into(state.ema.params[name], t)
+        into(state.ema.params[name], name, t)
     opt, saved = state.opt_state, load("optimizer.pt")
     opt.adamw.state.clear()
     for name, step in saved["step"].items():
         p = named[name]
         opt.adamw.state[p] = {"step": torch.tensor(step, dtype=torch.float32),
-                              "exp_avg": local_part(saved["exp_avg"][name], p),
-                              "exp_avg_sq": local_part(saved["exp_avg_sq"][name], p)}
+                              "exp_avg": mine(name, saved["exp_avg"][name], p),
+                              "exp_avg_sq": mine(name, saved["exp_avg_sq"][name], p)}
     opt.count, opt.mini_step = saved["count"], saved["mini_step"]
-    opt.acc = None if saved["acc"] is None else [local_part(saved["acc"][n], p)
+    opt.acc = None if saved["acc"] is None else [mine(n, saved["acc"][n], p)
                                                  for n, p in named.items()]
     meta = json.loads((directory / "state.json").read_text())
     state.step, state.ema.count = meta["step"], meta["ema_count"]

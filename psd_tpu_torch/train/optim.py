@@ -21,17 +21,19 @@ group per LR group; `update` sets each group's LR from its schedule before
 every step. Unlike optax the state is updated in place.
 
 Under FSDP2 (`train/trainer.py::shard_train_state`) the gradients, moments
-and accumulators are DTensors sharded over the fsdp ranks: the global norm
-sums their local shards' squares over that group (`group`), so it is the
-whole gradient's norm, and the clip and the accumulation act on the local
-shards (`parallel.mesh.local`).
+and accumulators are DTensors sharded over the fsdp ranks, and under tp the
+cut parameters' are each tp rank's slice: the global norm (`GradGroups`)
+sums the cut tensors' squares over the tp group, adds the others' once
+(every tp rank holds them whole), then sums over the fsdp shards, so it is
+the whole gradient tree's norm, optax's `global_norm`; the clip and the
+accumulation act on the local shards (`parallel.mesh.local`).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -65,22 +67,42 @@ def group_label(name: str) -> str:
     return "x2" if any(p in DOUBLE_LR_MODULES for p in name.split(".")) else "x1"
 
 
-def global_norm(tensors: Sequence[torch.Tensor], group=None) -> torch.Tensor:
+@dataclass(frozen=True)
+class GradGroups:
+    """Where a list of tensors' squares are summed across ranks: `shard`,
+    the group over which each tensor is a shard (FSDP2's fsdp group);
+    `tp`, the tp group, over which the tensors flagged in `cut` are slices
+    (the others whole on every tp rank)."""
+    shard: object = None
+    tp: object = None
+    cut: Tuple[bool, ...] = ()
+
+
+def global_norm(tensors: Sequence[torch.Tensor],
+                groups: Optional[GradGroups] = None) -> torch.Tensor:
     """sqrt(Σ‖t‖²) over a list of tensors, as a 0-d fp32 tensor; with
-    `group`, of the whole tensors whose shards these are over its ranks."""
+    `groups`, of the whole tensors whose shards and slices these are."""
     norms = torch.stack(torch._foreach_norm([local(t) for t in tensors])).float()
-    if group is None:
+    if groups is None:
         return torch.linalg.vector_norm(norms)
-    sq = norms.square().sum()
-    dist.all_reduce(sq, group=group)
-    return sq.sqrt()
+    sq = norms.square()
+    if groups.tp is not None:
+        cut = torch.tensor(groups.cut, dtype=torch.bool, device=sq.device)
+        part = sq[cut].sum()
+        dist.all_reduce(part, group=groups.tp)
+        total = sq[~cut].sum() + part
+    else:
+        total = sq.sum()
+    if groups.shard is not None:
+        dist.all_reduce(total, group=groups.shard)
+    return total.sqrt()
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
-                         group=None) -> torch.Tensor:
+                         groups: Optional[GradGroups] = None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: unchanged below `max_norm`,
     g / ‖g‖ · max_norm above it. Returns the norm before clipping."""
-    norm = global_norm(grads, group)
+    norm = global_norm(grads, groups)
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_([local(g) for g in grads], factor)
     return norm
@@ -117,10 +139,10 @@ class Optimizer:
         return OptState(adamw)
 
     def update(self, state: OptState, params: Sequence[torch.nn.Parameter],
-               grads: List[torch.Tensor], group=None) -> bool:
-        """Fold `grads` (one per parameter, shards over `group` if given) in;
-        True when an optimizer step was applied (always, unless
-        accumulating)."""
+               grads: List[torch.Tensor], groups: Optional[GradGroups] = None) -> bool:
+        """Fold `grads` (one per parameter, shards and slices over `groups`
+        if given) in; True when an optimizer step was applied (always,
+        unless accumulating)."""
         if self.accumulate > 1:
             if state.acc is None:
                 state.acc = [torch.zeros_like(g) for g in grads]
@@ -136,7 +158,7 @@ class Optimizer:
             torch._foreach_copy_(g_local, acc)  # the mean, in the gradients' place
             torch._foreach_zero_(acc)
         if self.clip and self.clip > 0:
-            clip_by_global_norm_(grads, self.clip, group)
+            clip_by_global_norm_(grads, self.clip, groups)
         for p, g in zip(params, grads):
             p.grad = g
         for group_ in state.adamw.param_groups:

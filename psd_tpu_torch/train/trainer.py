@@ -10,11 +10,20 @@ place and returned.
 
 Across ranks (`parallel/mesh.py`, one process per card under torchrun)
 `shard_train_state` puts the loss (`diffusion.dadd.TrainLoss`) under DDP
-when fsdp = 1, which averages the core's gradients over the ranks, or
+when fsdp = 1, which averages the core's gradients over the dp ranks, or
 under FSDP2 `fully_shard` on the (dp, fsdp) mesh when fsdp > 1 (HSDP:
 replicated over dp, sharded over fsdp; each ResnetBlock2D and Transformer2D
 of the UNet first, then the loss as the root), and shards the AdamW moments
-and the EMA as their parameters. No `MixedPrecisionPolicy`: the fp32
+and the EMA as their parameters. On a (dp, fsdp, tp) mesh the UNet's
+transformer sites are cut over tp first (`DADD.shard_tp_`, as psd_tpu's
+`param_spec` puts tp first), with the moments, the accumulated gradients
+and the EMA cut alike; DDP then runs over the dp group, FSDP2 on the
+(dp, fsdp) sub-mesh, each tp rank's slices with the other ranks of its tp
+index. FSDP2 also shards the cut slices over fsdp, where psd_tpu keeps a
+tp-cut parameter whole over fsdp: the same math, as where FSDP2 shards
+what psd_tpu replicates. The step runs inside the mesh's tp scope: the
+cut sites' f and g (`parallel/mesh.py`) make each replicated parameter's
+gradient whole on every tp rank. No `MixedPrecisionPolicy`: the fp32
 masters are cast to bf16 at use, as on one card. Each rank feeds the step
 its own rows of the global batch (`parallel.mesh.shard_batch`) and draws
 the global batch's draws from the generator every rank seeds alike, then
@@ -36,10 +45,10 @@ from torch import nn
 
 from ..core.mode import training_mode
 from ..diffusion.dadd import DADD, TrainLoss, shard_draws
-from ..parallel.mesh import (TP_TRAINING, batch_rows, local_part, shard_group, shard_placement,
-                             tp_size)
+from ..parallel.mesh import (batch_rows, local_part, shard_group, shard_placement, tp_cuts,
+                             tp_scope, tp_size, tp_slice)
 from .ema import EMAState, ema_init, ema_update
-from .optim import Optimizer, OptState, build_optimizer, global_norm
+from .optim import GradGroups, Optimizer, OptState, build_optimizer, global_norm
 
 
 @dataclass
@@ -76,31 +85,57 @@ def _unet_blocks(dadd: DADD):
 
 
 @torch.no_grad()
+def _cut_state_tp_(state: TrainState, mesh) -> None:
+    """Cut the UNet over the mesh's tp axis, and each cut parameter's
+    moments, accumulated gradient and EMA to the same slice (a state that
+    has taken steps; net_0_proj's packed halves alike)."""
+    dadd, opt = state.model, state.opt_state
+    dadd.shard_tp_(mesh)
+    named = dict(dadd.core.named_parameters())
+    cuts = tp_cuts(dadd.core)
+
+    def cut(name, t):
+        dim, halves, c = cuts[name]
+        return tp_slice(t, dim, halves, c.size, c.rank)
+
+    for name in cuts:
+        s = opt.adamw.state.get(named[name])
+        if s:
+            s["exp_avg"], s["exp_avg_sq"] = cut(name, s["exp_avg"]), cut(name, s["exp_avg_sq"])
+        state.ema.params[name] = cut(name, state.ema.params[name])
+    if opt.acc is not None:
+        opt.acc = [cut(k, a) if k in cuts else a for k, a in zip(named, opt.acc)]
+
+
+@torch.no_grad()
 def shard_train_state(state: TrainState, mesh) -> TrainState:
-    """Place the state on the mesh (psd_tpu's `shard_train_state`): the loss
-    under DDP (fsdp = 1) or FSDP2 (fsdp > 1), the moments, the accumulated
-    gradients and the EMA as their parameters. The state may have taken
-    steps: its full tensors are cut to each rank's shards. A mesh with a tp
-    axis raises: training under tp is ROADMAP.md Queue 1 item 7b."""
-    if tp_size(mesh) > 1:
-        raise NotImplementedError(TP_TRAINING)
+    """Place the state on the mesh (psd_tpu's `shard_train_state`): the UNet
+    cut over tp where the mesh has a tp axis, then the loss under DDP over
+    the dp group (fsdp = 1) or FSDP2 on the (dp, fsdp) sub-mesh (fsdp > 1),
+    the moments, the accumulated gradients and the EMA as their parameters.
+    The state may have taken steps: its full tensors are cut to each rank's
+    slices and shards."""
     from torch.distributed.fsdp import fully_shard
     from torch.nn.parallel import DistributedDataParallel as DDP
 
     dadd, opt = state.model, state.opt_state
+    tp = tp_size(mesh)
+    if tp > 1:
+        _cut_state_tp_(state, mesh)
     old = dict(dadd.core.named_parameters())
     loss = TrainLoss(dadd)
     n = mesh["fsdp"].size()
     if n > 1:
         place = shard_placement(n)
+        data_mesh = mesh if tp == 1 else mesh["dp", "fsdp"]
         for block in _unet_blocks(dadd):
-            fully_shard(block, mesh=mesh, shard_placement_fn=place)
-        state.loss = fully_shard(loss, mesh=mesh, shard_placement_fn=place)
+            fully_shard(block, mesh=data_mesh, shard_placement_fn=place)
+        state.loss = fully_shard(loss, mesh=data_mesh, shard_placement_fn=place)
     else:
         # static_graph: the parameters the loss never reaches (whose
         # gradients stay None, zeros below) are found at the first step
         state.loss = DDP(loss, device_ids=None if dadd.device.type == "cpu" else [dadd.device],
-                         static_graph=True)
+                         process_group=mesh.get_group("dp"), static_graph=True)
     new = dict(dadd.core.named_parameters())
     if any(new[k] is not old[k] for k in old):
         moments = {k: opt.adamw.state.get(p) for k, p in old.items()}
@@ -154,9 +189,19 @@ def _mean_over_ranks(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor
     return dict(zip(keys, stacked.unbind()))
 
 
+def _grad_groups(named: Dict[str, torch.Tensor], cuts: dict) -> GradGroups:
+    """Where the gradients' squares are summed (optax's global norm of the
+    whole tree): FSDP2's fsdp group, the tp group over the cut
+    parameters."""
+    tp = next(iter(cuts.values()))[2].group if cuts else None
+    return GradGroups(shard=shard_group(next(iter(named.values()))), tp=tp,
+                      cut=tuple(k in cuts for k in named))
+
+
 def make_train_step(dadd: DADD, tx: Optimizer, mesh=None):
     """The step. With a `mesh` (after `shard_train_state`) the batch holds
-    this rank's rows and the draws, when given, are the global batch's."""
+    this rank's rows (the same on the tp ranks of a (dp, fsdp) position)
+    and the draws, when given, are the global batch's."""
     tcfg = dadd.cfg.training
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -169,12 +214,12 @@ def make_train_step(dadd: DADD, tx: Optimizer, mesh=None):
             p.grad = None
         if mesh is not None:
             n_local = len(batch["labels"])
-            n = n_local * dist.get_world_size()
+            n = n_local * mesh.size(0) * mesh.size(1)  # the (dp, fsdp) positions' rows
             if draws is None:
                 shape = (n,) + tuple(batch["latents"].shape[1:])
                 draws = dadd.sample_draws(shape, state.generator)
             draws = shard_draws(draws, batch_rows(mesh, n))
-        with training_mode():
+        with training_mode(), tp_scope(mesh):
             if mesh is None:
                 loss, metrics = dadd.train_loss(batch, generator=state.generator, draws=draws)
             else:
@@ -185,9 +230,9 @@ def make_train_step(dadd: DADD, tx: Optimizer, mesh=None):
         # a parameter the loss does not reach gets a zero gradient, as under
         # jax.grad (AdamW then still applies its weight decay)
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-        group = shard_group(params[0]) if mesh is not None else None
-        metrics["grad_norm"] = global_norm(grads, group)
-        applied = tx.update(state.opt_state, params, grads, group)
+        groups = None if mesh is None else _grad_groups(named, tp_cuts(dadd.core))
+        metrics["grad_norm"] = global_norm(grads, groups)
+        applied = tx.update(state.opt_state, params, grads, groups)
         if tx.accumulate > 1:
             # EMA start/every count optimizer steps; micro-steps never update
             ema_step = state.opt_state.count - 1 if applied else -1

@@ -26,7 +26,6 @@ Bands, with their reasons:
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -35,17 +34,14 @@ from psd_tpu.parallel.mesh import create_mesh as jax_create_mesh
 from psd_tpu.parallel.mesh import fsdp_param_spec
 from psd_tpu.parallel.mesh import shard_batch as jax_shard_batch
 from psd_tpu.testing import tiny_dadd as jax_tiny_dadd
-from psd_tpu.train import build_optimizer as jax_build_optimizer
-from psd_tpu.train import ema_init as jax_ema_init
-from psd_tpu.train.trainer import TrainState as JaxTrainState
-from psd_tpu.train.trainer import compile_train_step, shard_train_state
 from psd_tpu_torch.convert.from_jax import to_flax_tree
 from psd_tpu_torch.diffusion.dadd import shard_draws
 from psd_tpu_torch.parallel.mesh import MeshConfig, fsdp_shard_dim, rank_device, shard_rows
 from psd_tpu_torch.testing import tiny_dadd
 from tests.torch_cli_parity import few_threads
 from tests.torch_dist import Ranks, steps_and_round_trip, tiny_runs
-from tests.torch_parity import OVERRIDES, assert_step_parity, configure, jax_draws, record_aoe_noise
+from tests.torch_parity import (OVERRIDES, applied_gradient, assert_step_parity, close_leaves,
+                                configure, jax_draws, jax_sharded_step, record_aoe_noise)
 
 B = 8  # the global batch: 2, 4 or 8 rows a rank
 CONFIGS = [(-1, 1), (-1, 2), (-1, 4), (1, 1), (2, 1), (1, 2), (2, 2), (4, 2), (2, 4), (8, 1),
@@ -157,56 +153,6 @@ MESHES = list(MESH_RUNS)
 LR = OVERRIDES[("optimizer", "lr")]
 
 
-def _gmax(leaves):
-    return max(np.abs(v).max() for v in leaves.values())
-
-
-def _close(got, want, what, rel=1e-5):
-    """Within rel of each value plus rel of the largest over all leaves."""
-    floor = rel * _gmax(want)
-    for name, w in want.items():
-        assert np.all(np.abs(got[name] - w) <= rel * np.abs(w) + floor), f"{what} {name}"
-
-
-def _applied(ref, run):
-    """The gradient the first optimizer step applied: the (mean of the
-    micro-steps') gradient, clipped at norm 1."""
-    grads = ref["grads"][:2] if run == "accumulate" else ref["grads"][:1]
-    g = {n: sum(gs[n] for gs in grads) / len(grads) for n in grads[0]}
-    norm = np.sqrt(sum((v.astype(np.float64) ** 2).sum() for v in g.values()))
-    return {n: v * min(1.0, 1.0 / norm) for n, v in g.items()}
-
-
-def _jax_sharded_step(jm, port, batch, key):
-    """One step of psd_tpu's compile_train_step on a (dp=2, fsdp=2) mesh of
-    conftest's virtual devices, its state fsdp-sharded; its gradients
-    recorded on the way into the optimizer, as tests/torch_parity.py does."""
-    like = jax.eval_shape(lambda k: jm.init_core(k, 32), jax.random.PRNGKey(0))
-    params = jax.tree_util.tree_map(
-        jnp.asarray, {"params": to_flax_tree(dict(port.core.named_parameters()), like)})
-    tx = jax_build_optimizer(jm.cfg, steps_per_epoch=10)
-    seen = []
-
-    def update(grads, opt_state, p=None):
-        jax.debug.callback(lambda g: seen.append(g), grads)
-        return tx.update(grads, opt_state, p)
-
-    tx_rec = optax.GradientTransformation(tx.init, update)
-    mesh = jax_create_mesh(JaxMeshConfig(dp=2, fsdp=2))
-    state = shard_train_state(
-        JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
-                      opt_state=tx.init(params["params"]), ema=jax_ema_init(params["params"])),
-        mesh)
-    new, metrics = compile_train_step(jm, tx_rec, mesh)(
-        state, jax_shard_batch(mesh, {k: jnp.asarray(v) for k, v in batch.items()}), key)
-    jax.block_until_ready(new)
-    assert len(seen) == 1
-    return {"metrics": {k: float(v) for k, v in metrics.items()},
-            "grads": jax.device_get(seen[0]), "params": jax.device_get(new.params["params"]),
-            "ema": jax.device_get(new.ema.params), "ema_count": int(new.ema.count),
-            "step": int(new.step)}, like
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every group of ranks started at once, psd_tpu's sharded step
@@ -227,7 +173,7 @@ def runs(tmp_path_factory):
     four = Ranks(steps_and_round_trip, 4, tmp, 2, 2, OVERRIDES, [batch], 1, False, [draws])
     batches = [_batch(20), _batch(21)]
     pairs = {m: Ranks(tiny_runs, 2, tmp, *m, r, batches, True) for m, r in MESH_RUNS.items()}
-    jax_step, like = _jax_sharded_step(jm, port, batch, key)
+    jax_step, like = jax_sharded_step(jm, port, batch, key, JaxMeshConfig(dp=2, fsdp=2))
     with few_threads():  # beside the ranks still running
         one = tiny_runs(None, None, RUNS, batches, True)
     four = four.join()
@@ -288,18 +234,18 @@ def test_ranks_equal_the_one_process_step(runs, one_process, mesh, run):
         assert set(gm) == set(rm)
         for k in rm:
             np.testing.assert_allclose(gm[k], rm[k], rtol=1e-6, err_msg=k)
-    _close(got["grads"][0], ref["grads"][0], "gradient")
+    close_leaves(got["grads"][0], ref["grads"][0], "gradient")
     i = 1 if run == "accumulate" else 0
-    gs, rs, g = got["states"][i], ref["states"][i], _applied(ref, run)
+    gs, rs, g = got["states"][i], ref["states"][i], applied_gradient(ref, run)
     for what in ("params", "ema"):
         for name, w in rs[what].items():
             band = 1e-6 + 1e-3 * LR + 2 * LR * (np.abs(g[name]) < 1e-6)
             assert np.all(np.abs(gs[what][name] - w) <= band), f"{what} {name}"
     for what in ("exp_avg", "exp_avg_sq"):
-        _close(gs[what], rs[what], what)
+        close_leaves(gs[what], rs[what], what)
     assert (gs["count"], gs["ema_count"]) == (rs["count"], rs["ema_count"]) == (1, 1)
     if run == "accumulate":
-        _close(got["states"][0]["acc"], ref["states"][0]["acc"], "acc")
+        close_leaves(got["states"][0]["acc"], ref["states"][0]["acc"], "acc")
         assert got["states"][0]["count"] == 0
     else:
         d = [got["states"][1]["params"][n] - w for n, w in ref["states"][1]["params"].items()]

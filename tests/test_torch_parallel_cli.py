@@ -31,7 +31,7 @@ from psd_tpu_torch.parallel.mesh import MeshConfig
 from psd_tpu_torch.pipelines import infer, train
 from psd_tpu_torch.pipelines.common import build_model
 from tests.torch_cli_parity import few_threads
-from tests.torch_dist import Ranks, cli_main, run_ranks, tp_train_state_refusal
+from tests.torch_dist import Ranks, cli_main
 
 ROOT = Path(__file__).resolve().parents[1]
 OVERRIDES = ["dataset.num_workers=1", "training.log_every_n_steps=1",
@@ -190,13 +190,14 @@ def test_a_mesh_larger_than_the_world_raises(tmp_path, flags, error, match):
 
 
 def test_tp_raises(tmp_path):
-    """Training under tp is not ported: `shard_train_state` on a (dp 1,
-    tp 2) mesh of two gloo ranks raises NotImplementedError naming ROADMAP.md
-    Queue 1 item 7b on each (the train CLI has no --tp, as psd_tpu's has
-    none); a tp the world does not hold raises ValueError."""
-    with few_threads():
-        got = run_ranks(tp_train_state_refusal, 2, tmp_path)
-    assert got == ["training under tp is not ported (ROADMAP.md Queue 1 item 7b)"] * 2
+    """The train CLI has no --tp, as psd_tpu's has none (`pipelines/train.py:67`
+    builds MeshConfig(dp, fsdp)): the tp train step is reached through the
+    API (tests/test_torch_tp_train.py); a tp the world does not hold raises
+    ValueError."""
+    options = {o for a in train.build_argparser()._actions for o in a.option_strings}
+    assert {"--dp", "--fsdp"} <= options and "--tp" not in options
+    with pytest.raises(SystemExit):
+        train.build_argparser().parse_intermixed_args(["--config", "x.yaml", "--tp", "2"])
     for world in (1, 3):
         with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
             MeshConfig(dp=1, fsdp=1, tp=2).resolve(world)

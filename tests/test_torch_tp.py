@@ -25,9 +25,10 @@ on (dp, fsdp, tp) meshes) against psd_tpu, on the CPU.
     servers on the ranks against the port's one-process server within
     atol 1e-4 (fp32 partial products summed in another order); every
     rank's images equal bit for bit.
-  * What raises under tp, each naming its ROADMAP.md item where one is
-    left to port: training (item 7b), the int8 UNet (item 7c), a cut UNet
-    without its mesh, over another tp group or reloaded.
+  * What raises under tp: a cut UNet without its mesh, over another tp
+    group or reloaded; and what runs there now that training and the int8
+    UNet are ported to tp (tests/test_torch_tp_int8.py and
+    tests/test_torch_tp_train*.py hold them to psd_tpu).
 """
 
 import copy
@@ -40,6 +41,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from psd_tpu.models.unet import UNet2DCondition as JaxUNet
 from psd_tpu.models.unet import UNetConfig as JaxUNetConfig
@@ -54,6 +56,7 @@ from psd_tpu_torch.models.init import flax_init_
 from psd_tpu_torch.models.layers import BasicTransformerBlock, CrossAttnMode
 from psd_tpu_torch.models.unet import UNet2DCondition, UNetConfig, tiny_unet_config
 from psd_tpu_torch.ops.tome import ToMeSpec
+from psd_tpu_torch.parallel import mesh as mesh_mod
 from psd_tpu_torch.parallel.mesh import (MeshConfig, TPCut, cut_tp_, shard_tp_, tp_param_dim,
                                          tp_scope)
 from psd_tpu_torch.pipelines.serve import GenerationServer
@@ -194,31 +197,35 @@ class _Mesh:
 
 
 class _HandSum:
-    """`tp_all_reduce` for thread ranks: each rank's partial summed by hand
-    in rank order, the same sum handed to every rank."""
+    """`tp_all_reduce` for thread ranks: each rank's partial reduced by hand
+    in rank order (the sum, or the max), the same result handed to every
+    rank; `seen` records each rank's results by call, for the int8 sites."""
 
     def __init__(self, n: int):
         self.barrier, self.slots, self.calls = threading.Barrier(n, timeout=60), [None] * n, []
         self.local = threading.local()
 
-    def __call__(self, t, group):
+    def __call__(self, t, group, op=dist.ReduceOp.SUM):
         r = self.local.rank
         self.slots[r] = t.clone()
         self.barrier.wait()
         total = self.slots[0].clone()
         for s in self.slots[1:]:
-            total += s
+            total = torch.maximum(total, s) if op == dist.ReduceOp.MAX else total + s
         self.barrier.wait()
         self.calls.append(r)
+        seen = getattr(self.local, "seen", None)
+        if seen is not None:
+            seen(t, total, op)
         return t.copy_(total)
 
 
-def _on_thread_ranks(monkeypatch, module, n: int, fn):
+def _on_thread_ranks(monkeypatch, module, n: int, fn, hand=None):
     """fn(rank's copy of `module`, cut over tp n as that rank) on n threads,
-    each inside tp_scope of its stand-in mesh, the all-reduce summed by hand
-    → (each rank's result, the all-reduces each rank called)."""
-    group, hand = object(), _HandSum(n)
-    monkeypatch.setattr(layers, "tp_all_reduce", hand)
+    each inside tp_scope of its stand-in mesh, the tp collectives reduced by
+    hand → (each rank's result, the collectives each rank called)."""
+    group, hand = object(), hand or _HandSum(n)
+    monkeypatch.setattr(mesh_mod, "tp_all_reduce", hand)
     outs, errors = [None] * n, []
 
     def rank(r):
@@ -270,7 +277,7 @@ def test_cut_block_on_thread_ranks_equals_the_whole_block(monkeypatch, heads, tp
     x = torch.from_numpy(rng.standard_normal((2, 64, 64)).astype(np.float32))
     ctx = torch.from_numpy(rng.standard_normal((2, 12, 32)).astype(np.float32))
     hand = _HandSum(1)
-    monkeypatch.setattr(layers, "tp_all_reduce", hand)
+    monkeypatch.setattr(mesh_mod, "tp_all_reduce", hand)
     with torch.no_grad():
         whole = block(x, ctx, 0.7, hw=(8, 8))
     assert hand.calls == []
@@ -287,6 +294,31 @@ def test_route_launches_follow_the_cut(monkeypatch, tp):
     kernels (a UNet of 64 and 512 channels, 8 heads, 32² latents, its
     wrappers counted on the CPU, where each runs its plain version), and
     its eps on the thread ranks equals the whole UNet's."""
+    outs, whole, want = _cut_unet_launches(monkeypatch, tp, "none")
+    np.testing.assert_allclose(outs[0], whole, rtol=1e-5, atol=1e-5)
+    assert want["attention"] and want["split3"] and want["ln_proj"] and want["ln_geglu"]
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_route_launches_follow_the_int8_cut(monkeypatch, tp):
+    """The same for the int8 UNet, quantized whole then cut: no gn_proj, the
+    LayerNorm kernels at the 64-channel level only (the int8 projections
+    take the 512 one), at the rank's columns; every rank's eps the same
+    (its int8 codes flip against the whole UNet's fp32 sums, so the eps is
+    held to psd_tpu's in tests/test_torch_tp_int8.py)."""
+    outs, whole, want = _cut_unet_launches(monkeypatch, tp, "int8")
+    for out in outs[1:]:
+        np.testing.assert_array_equal(out, outs[0])
+    assert bool(torch.isfinite(outs[0]).all()) and outs[0].shape == whole.shape
+    assert want["attention"] and want["split3"] and want["ln_proj"] and not want["gn_proj"]
+
+
+def _cut_unet_launches(monkeypatch, tp: int, quant: str):
+    """A UNet of 64 and 512 channels, 8 heads (quantized whole where int8),
+    its eps at 32² latents whole and on tp thread ranks, the wrappers
+    counted on rank 0: → (the ranks' eps, the whole eps, route_launches(tp=)
+    of one evaluation), the counts checked against the routes' and the
+    routes at tp against one process's."""
     from psd_tpu_torch.diffusion.dadd import DADDCoreConfig
     from psd_tpu_torch.models.vae import VAEConfig
     from psd_tpu_torch.ops import attention
@@ -311,8 +343,8 @@ def test_route_launches_follow_the_cut(monkeypatch, tp):
     counted(layers, "ln_proj_fwd", "ln_proj")
     counted(layers, "ln_geglu_fwd", "ln_geglu")
     counted(layers, "gn_proj_fwd", "gn_proj")
-    ucfg = tiny_unet_config(**SPLIT3, block_out_channels=(64, 512), num_heads=8)
-    unet = _seeded_(UNet2DCondition(ucfg), 7)
+    ucfg = tiny_unet_config(**SPLIT3, block_out_channels=(64, 512), num_heads=8, quant=quant)
+    unet = layers.quantize_int8_weights_(_seeded_(UNet2DCondition(ucfg), 7))
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((1, 32, 32, 4)).astype(np.float32))
     ctx = torch.from_numpy(rng.standard_normal((1, 12, 32)).astype(np.float32))
@@ -324,19 +356,19 @@ def test_route_launches_follow_the_cut(monkeypatch, tp):
         return u(x, torch.tensor([300]), ctx, 1.0)
 
     outs, _ = _on_thread_ranks(monkeypatch, unet, tp, eps)
-    np.testing.assert_allclose(outs[0], whole, rtol=1e-5, atol=1e-5)
     core_cfg = DADDCoreConfig(unet=ucfg, num_aoe_tokens=4, num_image_tokens=4)
     want = route_launches(core_cfg, VAEConfig(), 1, 256, 1, decode=False, tp=tp)
     assert dict(seen) == {k: v for k, v in want.items() if v}
-    assert want["attention"] and want["split3"] and want["ln_proj"] and want["ln_geglu"]
     assert want == route_launches(core_cfg, VAEConfig(), 1, 256, 1, decode=False)
+    return outs, whole.numpy(), want
 
 
 def test_an_unscoped_or_training_cut_site_raises():
-    """A cut block outside tp_scope raises RuntimeError; in training mode
-    NotImplementedError naming ROADMAP.md Queue 1 item 7b; the int8 block
-    refuses the cut naming item 7c; a tp that does not divide the world a
-    ValueError."""
+    """A cut block outside tp_scope raises RuntimeError, in training mode
+    too; a cut int8 block whose int8 weights were never set from the whole
+    weights raises at its first int8 site (quantizing the cut weights would
+    give other scales), as does quantizing it after the cut; a tp that does
+    not divide the world a ValueError."""
     from psd_tpu_torch.core.mode import training_mode
 
     block = BasicTransformerBlock(64, 4, 32, dtype=torch.float32)
@@ -346,11 +378,16 @@ def test_an_unscoped_or_training_cut_site_raises():
         cut(x, ctx)
     with tp_scope(_Mesh(2, 0, object())), pytest.raises(RuntimeError, match="another tp group"):
         cut(x, ctx)
-    with training_mode(), pytest.raises(NotImplementedError, match="item 7b"):
+    with training_mode(), pytest.raises(RuntimeError, match="with no tp mesh"):
         cut(x, ctx)
-    int8 = BasicTransformerBlock(512, 8, 32, dtype=torch.float32, quant="int8")
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        cut_tp_(int8, TPCut(object(), 2, 0))
+    group = object()
+    int8 = cut_tp_(BasicTransformerBlock(512, 8, 32, dtype=torch.float32, quant="int8"),
+                   TPCut(group, 2, 0))
+    with tp_scope(_Mesh(2, 0, group)), torch.no_grad(), pytest.raises(
+            RuntimeError, match="no int8 weights set"):
+        int8(torch.zeros(1, 64, 512), ctx)
+    with pytest.raises(RuntimeError, match="before the cut"):
+        layers.quantize_int8_weights_(int8)
     for cfg, world in ((MeshConfig(tp=3), 2), (MeshConfig(dp=1, tp=2), 4),
                        (MeshConfig(dp=2, fsdp=2, tp=2), 4), (MeshConfig(tp=0), 2)):
         with pytest.raises(ValueError):
@@ -469,17 +506,8 @@ RAISES = {
     "sample over another tp group": "RuntimeError: the UNet is cut over another tp group",
     "eps without a mesh": "RuntimeError: a UNet cut over tp (2 ranks) runs with no tp mesh",
     "eps over another tp group": "RuntimeError: a UNet cut over tp (2 ranks) runs over another",
-    "eps in training": "NotImplementedError: training under tp is not ported (ROADMAP.md "
-                       "Queue 1 item 7b)",
     "load_core_state_dict": "RuntimeError: load_core_state_dict: the UNet is cut over tp",
     "load_flax": "RuntimeError: load_flax: the UNet is cut over tp",
-    "a training model": "NotImplementedError: training under tp is not ported (ROADMAP.md "
-                        "Queue 1 item 7b)",
-    "shard_train_state": "NotImplementedError: training under tp is not ported (ROADMAP.md "
-                         "Queue 1 item 7b)",
-    "the int8 UNet": "NotImplementedError: the int8 UNet under tp is not ported (ROADMAP.md "
-                     "Queue 1 item 7c)",
-    "a server of the int8 UNet": "NotImplementedError: the int8 UNet under tp is not ported",
 }
 
 
@@ -487,9 +515,33 @@ RAISES = {
 def test_what_raises_under_tp(runs, case):
     """On every rank at (dp 2, tp 2): a cut UNet outside sample(mesh=) of
     its mesh, over another tp group (a second mesh of the same shape) or
-    reloaded raises RuntimeError; training and the int8 UNet under tp raise
-    NotImplementedError naming their ROADMAP.md items."""
+    reloaded raises RuntimeError."""
     for r in runs["ranks"]["dp2_tp2"]:
         assert r["other_group"]
         got = r["raises"][case]
         assert got is not None and got.startswith(RAISES[case]), got
+
+
+RUNS_NOW = ("eps in training", "a training model", "shard_train_state", "the int8 UNet",
+            "a server of the int8 UNet")
+
+
+@pytest.mark.parametrize("case", RUNS_NOW)
+def test_what_runs_under_tp(runs, case):
+    """On every rank at (dp 2, tp 2), what raised before training and the
+    int8 UNet were ported to tp now runs: the cut model's eps in training
+    mode (no gradient) equals the whole model's; a training model cuts its
+    fp32 masters; `shard_train_state` cuts the UNet and puts the loss under
+    DDP over the dp group with the EMA cut alike; the tiny int8 UNet cuts
+    and its eps in its tp scope equals its whole eps; a server of it starts
+    and closes."""
+    for r in runs["ranks"]["dp2_tp2"]:
+        got = r["runs"][case]
+        if case in ("eps in training", "the int8 UNet"):
+            np.testing.assert_allclose(got["cut"], got["whole"], rtol=1e-5, atol=1e-5)
+        elif case == "a training model":
+            assert got == [16, 32]  # to_q's rows at the 32-channel level: cut, then whole
+        elif case == "shard_train_state":
+            assert got == {"ddp_ranks": 2, "ema_rows": 16, "param_rows": 16}
+        else:
+            assert got == "closed"

@@ -45,7 +45,7 @@ from psd_tpu_torch.ops import quant
 from psd_tpu_torch.testing import tiny_dadd
 
 from tests.torch_cli_parity import few_threads
-from tests.torch_parity import as_flax
+from tests.torch_parity import as_flax, on_psd_tpu_codes, record_psd_tpu
 
 # tiny_dadd's routing (the UNet's split3 with 4-token banks) and gates of
 # tests/test_torch_modules.py
@@ -123,65 +123,6 @@ def test_int_mm_is_exact_at_any_row_count(M):
     out = quant.int_mm(torch.from_numpy(a), torch.from_numpy(b))
     assert out.dtype == torch.int32 and out.shape == (M, 24)
     np.testing.assert_array_equal(out.numpy(), a.astype(np.int64) @ b.astype(np.int64).T)
-
-
-# ---- psd_tpu's activation codes -------------------------------------------------------
-def record_psd_tpu(fn, *args):
-    """Run psd_tpu's `fn(*args)`, jitted, recording every activation
-    quantization (qdense's per-row, qconv3x3's per-sample: int8 codes and
-    fp32 scales, in call order, by ordered debug callbacks) → (its output,
-    the records)."""
-    seen = []
-    rows, conv = jquant.quant_rows, jquant.qconv3x3
-
-    def record(q, s):
-        jax.debug.callback(lambda q, s: seen.append((np.asarray(q), np.asarray(s))), q, s,
-                           ordered=True)
-
-    def recording_rows(x):
-        q, s = rows(x)
-        record(q, s)
-        return q, s
-
-    def recording_conv(x, w, b=None, stride=1, out_dtype=None):
-        xf = x.astype(jnp.float32)  # psd_tpu's per-sample quantization, ops/quant.py:120-123
-        sx = jnp.maximum(jnp.max(jnp.abs(xf), axis=(1, 2, 3), keepdims=True), 1e-8) * (1 / 127)
-        record(jnp.round(xf / sx).astype(jnp.int8), sx)
-        return conv(x, w, b, stride, out_dtype)
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jquant, "quant_rows", recording_rows)
-        mp.setattr(jquant, "qconv3x3", recording_conv)
-        out = np.asarray(jax.jit(fn)(*args))
-        jax.effects_barrier()
-    assert seen
-    return out, seen
-
-
-def on_psd_tpu_codes(seen, port_run):
-    """Run the port with each of its activation quantizations replaced by
-    psd_tpu's record of the same call → (output, count of the port's own
-    codes that differ from psd_tpu's, count of codes)."""
-    calls = iter(seen)
-    count = {"differ": 0, "codes": 0, "calls": 0}
-
-    def handed(own):
-        def quantize(x):
-            q, s = own(x)
-            qj, sj = next(calls)
-            qj = torch.from_numpy(qj.copy()).reshape(q.shape)
-            count["differ"] += int((q != qj).sum())
-            count["codes"] += q.numel()
-            count["calls"] += 1
-            return qj, torch.from_numpy(sj.copy()).reshape(s.shape)
-        return quantize
-
-    with pytest.MonkeyPatch.context() as mp, torch.no_grad():
-        mp.setattr(quant, "quant_rows", handed(quant.quant_rows))
-        mp.setattr(quant, "quant_samples", handed(quant.quant_samples))
-        out = port_run().numpy()
-    assert count["calls"] == len(seen)
-    return out, count["differ"], count["codes"]
 
 
 # ---- the resblock's "unet" gate ------------------------------------------------------

@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 
 from psd_tpu.train import build_optimizer as jax_build_optimizer
@@ -154,6 +155,60 @@ def step_pair(jax_model, port, batch, key=jax.random.PRNGKey(3)):
     }
 
 
+def jax_sharded_step(jm, port, batch, key, mesh_cfg):
+    """One step of psd_tpu's compile_train_step on `create_mesh(mesh_cfg)`
+    of conftest's virtual devices, its state placed by `shard_train_state`
+    (tp-cut transformer kernels first, then fsdp); its gradients recorded
+    on the way into the optimizer, as `step_pair` does. → its results (as
+    `step_pair`'s "jax"), and the tree layout."""
+    from psd_tpu.parallel.mesh import create_mesh as jax_create_mesh
+    from psd_tpu.parallel.mesh import shard_batch as jax_shard_batch
+    from psd_tpu.train.trainer import compile_train_step, shard_train_state
+
+    like = jax.eval_shape(lambda k: jm.init_core(k, 32), jax.random.PRNGKey(0))
+    params = jax.tree_util.tree_map(
+        jnp.asarray, {"params": to_flax_tree(dict(port.core.named_parameters()), like)})
+    tx = jax_build_optimizer(jm.cfg, steps_per_epoch=10)
+    seen = []
+
+    def update(grads, opt_state, p=None):
+        jax.debug.callback(lambda g: seen.append(g), grads)
+        return tx.update(grads, opt_state, p)
+
+    tx_rec = optax.GradientTransformation(tx.init, update)
+    mesh = jax_create_mesh(mesh_cfg)
+    state = shard_train_state(
+        JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
+                      opt_state=tx.init(params["params"]), ema=jax_ema_init(params["params"])),
+        mesh)
+    new, metrics = compile_train_step(jm, tx_rec, mesh)(
+        state, jax_shard_batch(mesh, {k: jnp.asarray(v) for k, v in batch.items()}), key)
+    jax.block_until_ready(new)
+    assert len(seen) == 1
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": jax.device_get(seen[0]), "params": jax.device_get(new.params["params"]),
+            "ema": jax.device_get(new.ema.params), "ema_count": int(new.ema.count),
+            "step": int(new.step)}, like
+
+
+def close_leaves(got, want, what, rel=1e-5):
+    """Each leaf (name → array) within rel of each value plus rel of the
+    largest over all leaves."""
+    floor = rel * max(np.abs(v).max() for v in want.values())
+    for name, w in want.items():
+        assert np.all(np.abs(got[name] - w) <= rel * np.abs(w) + floor), f"{what} {name}"
+
+
+def applied_gradient(ref, run):
+    """The gradient the first optimizer step of a `tests/torch_dist.py::
+    tiny_steps` run applied: the (mean of the micro-steps') gradient,
+    clipped at norm 1 ("accumulate": two micro-steps)."""
+    grads = ref["grads"][:2] if run == "accumulate" else ref["grads"][:1]
+    g = {n: sum(gs[n] for gs in grads) / len(grads) for n in grads[0]}
+    norm = np.sqrt(sum((v.astype(np.float64) ** 2).sum() for v in g.values()))
+    return {n: v * min(1.0, 1.0 / norm) for n, v in g.items()}
+
+
 def leaves(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -206,3 +261,103 @@ def as_flax(module, init_fn, *args):
             shape = leaf.shape if perm is None else tuple(leaf.shape[i] for i in perm)
             tensors[key] = torch.zeros(shape)
     return {"params": to_flax_tree(tensors, like)}
+
+
+# ---- psd_tpu's int8 activation codes ---------------------------------------------------
+def record_psd_tpu(fn, *args):
+    """Run psd_tpu's `fn(*args)`, jitted, recording every activation
+    quantization (qdense's per-row, qconv3x3's per-sample: int8 codes and
+    fp32 scales, in call order, by ordered debug callbacks) → (its output,
+    the records)."""
+    import psd_tpu.ops.quant as jquant
+
+    seen = []
+    rows, conv = jquant.quant_rows, jquant.qconv3x3
+
+    def record(q, s):
+        jax.debug.callback(lambda q, s: seen.append((np.asarray(q), np.asarray(s))), q, s,
+                           ordered=True)
+
+    def recording_rows(x):
+        q, s = rows(x)
+        record(q, s)
+        return q, s
+
+    def recording_conv(x, w, b=None, stride=1, out_dtype=None):
+        xf = x.astype(jnp.float32)  # psd_tpu's per-sample quantization, ops/quant.py:120-123
+        sx = jnp.maximum(jnp.max(jnp.abs(xf), axis=(1, 2, 3), keepdims=True), 1e-8) * (1 / 127)
+        record(jnp.round(xf / sx).astype(jnp.int8), sx)
+        return conv(x, w, b, stride, out_dtype)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jquant, "quant_rows", recording_rows)
+        mp.setattr(jquant, "qconv3x3", recording_conv)
+        out = np.asarray(jax.jit(fn)(*args))
+        jax.effects_barrier()
+    assert seen
+    return out, seen
+
+
+def on_psd_tpu_codes(seen, port_run):
+    """Run the port with each of its activation quantizations replaced by
+    psd_tpu's record of the same call (a row-parallel site under tp takes
+    its rank's columns: tests/torch_dist.py::handed_codes) → (output, count
+    of the port's own codes that differ from psd_tpu's, count of codes)."""
+    from tests.torch_dist import handed_codes
+
+    with handed_codes(seen) as count, torch.no_grad():
+        out = port_run().numpy()
+    assert count["calls"] == len(seen)
+    return out, count["differ"], count["codes"]
+
+
+# ---- the tp train step -------------------------------------------------------------------
+def batch_of(seed: int, B: int = 8):
+    """A global batch of B rows (4 or 8 a rank) for the tiny model's steps."""
+    rng = np.random.default_rng(seed)
+    return {"latents": rng.standard_normal((B, 8, 8, 4)).astype(np.float32),
+            "labels": rng.uniform(0.0, 3.0, B).astype(np.float32),
+            "clip_feats": rng.standard_normal((B, 17, 32)).astype(np.float32)}
+
+
+def psd_tpu_tp_step(tmp, dp: int, fsdp: int):
+    """Four ranks at (dp, fsdp, tp 2) on JAX's draws started first, then one
+    step of psd_tpu's sharded step on the same mesh shape beside them. →
+    (psd_tpu's step and tree layout, the ranks' results, the lr)."""
+    from psd_tpu.parallel.mesh import MeshConfig as JaxMeshConfig
+    from psd_tpu.testing import tiny_dadd as jax_tiny_dadd
+    from psd_tpu_torch.testing import tiny_dadd
+    from tests.torch_dist import Ranks, tiny_steps
+
+    jm = jax_tiny_dadd()
+    port = tiny_dadd(for_training=True, seed=0)
+    configure(jm.cfg, port.cfg)
+    batch, key = batch_of(11), jax.random.PRNGKey(3)
+    like = jax.eval_shape(lambda k: jm.init_core(k, 32), jax.random.PRNGKey(0))
+    params = jax.tree_util.tree_map(
+        jnp.asarray, {"params": to_flax_tree(dict(port.core.named_parameters()), like)})
+    draws, r_embed = jax_draws(jm, key, batch)
+    draws["aoe_noise"] = record_aoe_noise(jm, params, batch, draws["drop_mask"], r_embed, jit=True)
+    four = Ranks(tiny_steps, 4, tmp, dp, fsdp, OVERRIDES, [batch], 1, False, [draws], 2)
+    jax_step, like = jax_sharded_step(jm, port, batch, key, JaxMeshConfig(dp=dp, fsdp=fsdp, tp=2))
+    return jax_step, like, four, jm.cfg.optimizer.lr
+
+
+def assert_tp_step_parity(jax_step, like, ranks, lr):
+    """`assert_step_parity` of rank 0's gathered step against psd_tpu's, the
+    clip active; every rank gathers the same parameters."""
+    p = ranks[0]
+
+    def tree(arrays):
+        return to_flax_tree({k: torch.from_numpy(v) for k, v in arrays.items()}, like)
+
+    r = {"jax": jax_step,
+         "port": {"metrics": p["metrics"][0], "grads": tree(p["grads"][0]),
+                  "params": tree(p["states"][0]["params"]), "ema": tree(p["states"][0]["ema"]),
+                  "ema_count": p["states"][0]["ema_count"], "step": 1},
+         "lr": lr}
+    assert r["jax"]["metrics"]["grad_norm"] > 1.0  # the clip is active
+    assert_step_parity(r)
+    for q in ranks[1:]:
+        for name, v in p["states"][0]["params"].items():
+            np.testing.assert_array_equal(q["states"][0]["params"][name], v, err_msg=name)
