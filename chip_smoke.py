@@ -71,6 +71,30 @@ Phases, in order; any failure exits non-zero:
                wall and enqueue, medians and quartiles); then the eps's
                device time (captured in a CUDA graph, replayed) on the
                kernels, with the LN kernels off and all plain.
+  4b. weights — published checkpoints into the port without JAX: files in
+               the published formats at SD-v1.4 width drawn from a seed (the
+               UNet as fp16 .safetensors, the VAE as fp32 .safetensors, CLIP
+               ViT-L/14 as a torch .bin, torchvision-named resnet50, vgg16 and
+               inception_v3), each converted by scripts/torch_port_weights.py
+               in-process (unet, unet_split3, vae and clip through the
+               meta-device gate), seconds and npz size printed; the converted
+               UNet (plain) and VAE loaded through load_flax_ into bf16
+               modules on the kernels: one eps (t 500, a 64² latent, 48
+               tokens) and one decode against the diffusers-named mirror's
+               fp32 forward on the CPU (tests/torch_ref) by relative L2
+               within WEIGHTS_BANDS, a planted fault (one 3×3 conv's kernel
+               with kh and kw swapped) beyond it, both printed; the held
+               eps and decode launching attention (D = 40, 80, 512),
+               ln_proj, ln_geglu and gn_proj; the same eps and decode with
+               every kernel off, kernels against plain within WEIGHTS_BANDS
+               (printed beside the mirror's readings); then the evaluation sweep
+               (configs/train_ip.yaml at 256², 2 val images a class, 2 DDIM
+               steps) with --inception-params / --vgg-params from the
+               converted files: the weights it loaded equal to the npz key
+               by key, finite metrics, its launches the routes'; then each
+               kernel against its plain version at the held run's batch-1
+               shapes (WEIGHTS_*, not timed). The files are removed at the
+               end.
   5. serve   — a GenerationServer over the SD-scale DADD at 512², 50 DDIM
                steps, max_batch 8, steer 1.0 answers 8 requests by CUDA-graph
                replay (the default: one captured program a batch, sampler
@@ -147,7 +171,8 @@ Phases, in order; any failure exits non-zero:
                max_batch 8 (4 rows a rank): rank 0 answers phase 5's first 12
                requests (a full batch and a padded one), again, and with a
                planted fault (each rank's x0 drawn at its own 4 rows); (b)
-               one rank on NCCL at dp 1. Checks: rank 0's images within
+               one rank on NCCL at dp 1, a world of one in this process (no
+               torchrun: `_nccl_rank_here`). Checks: rank 0's images within
                SERVE_RANKS_BAND of phase 5's one-process server on the same
                requests and seeds (mean), the fault beyond it (both printed);
                equal bit for bit to one process at a rank's rows; the
@@ -240,19 +265,22 @@ Phases, in order; any failure exits non-zero:
                evaluate's generate and metrics phases, each scale's freed
                pool and the eager alternative's time and peak, classify's
                step time, each peak memory. Deletes phase 6b's files.
-  6d. train_ranks — the training CLI across ranks, started by torchrun
-               (`chip_smoke.py --rank-worker`, each rank the CLI's main()
-               in-process) on a tree of its own at configs/train_ip.yaml's
-               full width, 256², a global batch of 32 (16 a rank: two 14.7
-               GB states on one card), one loader thread, one step, each run
-               against a one-process run of the same argv: (a) two ranks
-               on cuda:0 over gloo at --dp 2 (DDP), then at --fsdp 2
-               (FSDP2); (b) one rank on NCCL at --dp 1. A run that fails
-               prints each rank's last collective and a crashed rank's
-               stack.
+  6d. train_ranks — the training CLI across ranks on a tree of its own
+               at configs/train_ip.yaml's full width, 256², a global batch
+               of 32 (16 a rank: two 14.7 GB states on one card), one loader
+               thread, one step, each rank the CLI's main() in-process: the
+               one-process run of the same argv (the reference, its initial
+               parameters kept as the CLI built them); (b) one rank on NCCL
+               at --dp 1, a world of one in this process (no torchrun:
+               `_nccl_rank_here`), equal to the reference bit for bit in
+               loss, grad norm and post-step parameters; (a) two ranks on
+               cuda:0 over gloo at --dp 2 (DDP), then at --fsdp 2 (FSDP2),
+               started by torchrun (`chip_smoke.py --rank-worker`), each
+               against the reference. A run that fails prints each rank's
+               last collective and a crashed rank's stack.
                Checks: each step's loss and grad norm (RANKS_LOSS_RTOL,
                RANKS_NORM_RTOL), the post-step parameters' difference over
-               the one-process update (RANKS_UPDATE_BAND, set against
+               the reference's update (RANKS_UPDATE_BAND, set against
                every rank skipping the gradient average), each rank's
                launches equal to phase 6's per step × its steps + one
                encoder attention a batch, rank 0's checkpoint read by the
@@ -264,8 +292,9 @@ Phases, in order; any failure exits non-zero:
                at the enqueue, so not measured), its
                phases, peak memory and launches, the card.
 The line before the last is a JSON object with one entry per kernel:
-`launches` counts the launches of the main-path runs (phases 3b, 5, 5b, 5c,
-5d, 5e, 5f, 6, 6b, 6c and 6d, each with the counts set to 0 just before it, 5c before each of
+`launches` counts the launches of the main-path runs (phases 3b, 4b, 5, 5b, 5c,
+5d, 5e, 5f, 6, 6b, 6c and 6d, each with the counts set to 0 just before it, 4b
+before its held eps and decode (`weights`) and before its CLI (`weights_cli`), 5c before each of
 its two CLI runs, 5e before its served batch and its CLI run (`levers`), 6b
 before each of its three, 6c before each of its three,
 5d and 6d in each rank before its run, whose rank 0 of dp 2 over gloo is
@@ -551,6 +580,47 @@ VAE_GAIN_LOG2 = 2.0
 # the same integer operands, at the decoder's first resblock shape
 QCONV_CHECK_SHAPE, QCONV_REL_BAND = (1, 64, 64, 512), 1e-5
 
+# phase 4b: published checkpoints into the port without JAX. Files in the
+# published formats and the manifests' full shapes, drawn from a seed
+# (weights N(0, 1/fan_in), biases 0, norms 1): the SD-v1.4 UNet as fp16
+# .safetensors, its VAE as fp32 .safetensors, CLIP ViT-L/14 as a torch .bin,
+# torchvision-named resnet50 / vgg16 / inception_v3 (the mirrors' keys,
+# tests/torch_ref/backbones.py) as .pth; each converted by
+# scripts/torch_port_weights.py in-process (the gated kinds through the
+# meta-device gate).
+WEIGHTS_KINDS = [("unet", "unet.safetensors"), ("unet_split3", "unet.safetensors"),
+                 ("vae", "vae.safetensors"), ("clip", "clip.bin"),
+                 ("resnet50", "resnet50.pth"), ("vgg16", "vgg16.pth"),
+                 ("inception", "inception.pth")]
+# the converted UNet (plain) and VAE in bf16 on the kernels against the
+# diffusers-named mirror's fp32 forward on the CPU over the same state dict:
+# one eps at t = 500 on a (1, L, L, 4) latent with 48 context tokens, and the
+# decode of a (1, L, L, 4) latent, L the served 64. Relative L2, each band
+# between the sound reading and a planted fault's: one 3×3 conv's kernel
+# with kh and kw swapped, the layout slip a converter makes (WEIGHTS_FAULTS,
+# the port's parameter names).
+WEIGHTS_LATENT = 64
+WEIGHTS_BANDS = {"unet": 5e-2, "vae": 5e-2}
+WEIGHTS_FAULTS = {"unet": "down_blocks_1_resnets_0.conv1",
+                  "vae": "decoder.up_blocks_1_resnets_0.conv1"}
+# the held eps and decode run once more with every kernel off, kernels
+# against plain within the same bands; and the kernels' shapes on this path
+# (batch 1 on the 64² latent: the plain UNet's self-attention at 64² and
+# 32², the LN kernels at the sites whose rows the route admits, gn_proj at
+# all 16 sites, the VAE's mid block) held to their plain versions by their
+# judges, not timed
+WEIGHTS_ATTN_SHAPES = [(1, 4096, 8, 40), (1, 1024, 8, 80), (1, 4096, 1, 512)]
+WEIGHTS_LN_SHAPES = [(4096, 320), (1024, 640), (256, 1280)]
+WEIGHTS_GN_SHAPES = [(1, 4096, 320), (1, 1024, 640), (1, 256, 1280), (1, 64, 1280)]
+# then one port CLI reads converted files through its normal flags: the
+# evaluation sweep with --inception-params / --vgg-params (the least costly:
+# 2 val images a class, 24 jobs in two batches of 12 at 256², 2 DDIM steps,
+# one scale, one eval seed)
+WEIGHTS_EVAL_IMAGES = {"val": 8}
+WEIGHTS_EVALUATE = ["--split", "val", "--scales", "1.0", "--batch-images", "4",
+                    "--sampling-steps", "2", "--max-per-class", "2", "--num-eval-seeds", "1",
+                    "--seed", "0"]
+
 # the infer phase: the MES progression CLI as the README runs it (13 levels,
 # steer 1.0) at the served resolution, then baseline mode with CFG, eta and
 # LEACE at configs/train.yaml's 256²
@@ -660,8 +730,8 @@ LOOP_GN_SHAPES = [(12, 1024, 320), (12, 256, 640), (12, 64, 1280)]
 # batch of 32 (16 a rank, so two 14.7 GB training states and their
 # activations fit in 80 GB: the one cut, in batch) of configs/train_ip.yaml
 # at full width, 256², one step each (cut in depth to keep the script in its
-# clock), on the phase's own tree of PNGs; each run against a one-process run
-# of the same argv (no torchrun).
+# clock), on the phase's own tree of PNGs; each run against the one-process
+# run of the same argv (the reference; --dp 1 on NCCL bit for bit).
 # One loader thread: with more, the augment's draws follow the threads'
 # order (data/limuc.py), and two runs of one argv differ by more than the
 # ranks do (two one-process runs read 2.2e-1 of the update apart; PERF.md).
@@ -670,10 +740,10 @@ RANKS_ARGS = ["dataset.batch_size=32", "dataset.num_workers=1",
               "training.update_starting_at_step=0", "training.log_every_n_steps=1",
               "--max-steps", str(RANKS_STEPS)]
 RANKS_TIMEOUT_S = 420
-# against the one-process run: each step's loss and grad norm (relative),
-# and the post-step parameters' difference relative to the one-process
-# run's update (‖p − p₁‖ / ‖p₁ − p₀‖). The ranks' bf16 kernels run at batch
-# 16 where the one process runs 32, so their sums round differently; the
+# against the reference: each step's loss and grad norm (relative), and the
+# post-step parameters' difference relative to the reference's update
+# (‖p − p₁‖ / ‖p₁ − p₀‖). The ranks' bf16 kernels run at batch
+# 16 where the reference runs 32, so their sums round differently; the
 # bands sit between the sound readings and a planted fault (every rank
 # skipping the gradient average, `fault: no_average`; PERF.md §6, read at
 # two steps): losses 1.5e-4 sound (1.1e-3 the fault's second step; the
@@ -1472,6 +1542,325 @@ def _gn_proj_ab(run) -> dict:
             ab[side]["enqueue"].append(enq)
     ab["diff"] = [a - b for a, b in zip(ab["on"]["wall"], ab["off"]["wall"])]
     return ab
+
+
+# ---- published checkpoints (phase 4b) ------------------------------------------
+def _published_state(surface, seed: int, dtype=torch.float32) -> dict:
+    """{key: CPU tensor} over `surface` ({key: (shape, torch dtype)}), drawn
+    on the card from `seed`: weights of rank ≥ 2 N(0, 1/fan_in) in `dtype`,
+    biases and running means 0, other vectors (norms, running variances,
+    CLIP's class embedding) 1, integer counters 0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for key, (shape, kind) in surface.items():
+        if not kind.is_floating_point:
+            out[key] = torch.zeros(shape, dtype=kind)
+        elif key.endswith((".bias", "running_mean")):
+            out[key] = torch.zeros(shape, dtype=dtype)
+        elif len(shape) >= 2:
+            w = torch.randn(shape, generator=g, device="cuda") * math.prod(shape[1:]) ** -0.5
+            out[key] = w.to(dtype).cpu()
+        else:
+            out[key] = torch.ones(shape, dtype=dtype)
+    return out
+
+
+def _write_safetensors(path: Path, tensors: dict) -> None:
+    """The .safetensors format (the `safetensors` package is not needed): a
+    little-endian u64 header length, the JSON header with `__metadata__`,
+    then each tensor's bytes in the header's order."""
+    names = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for key, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[key] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                       "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as fh:
+        fh.write(len(blob).to_bytes(8, "little"))
+        fh.write(blob)
+        for t in tensors.values():
+            fh.write(t.contiguous().view(torch.uint8).numpy().data)
+
+
+def _write_published(work: Path) -> dict:
+    """The phase's checkpoint files under `work`; → seconds and bytes a file."""
+    import importlib
+
+    from psd_tpu_torch.convert import manifest
+
+    bb = importlib.import_module("tests.torch_ref.backbones")
+    f32 = torch.float32
+
+    def of_manifest(m):
+        return {k: (shape, f32) for k, shape in m.items()}
+
+    def of_mirror(ctor, *args):
+        with torch.device("meta"):
+            module = ctor(*args)
+        return {k: (tuple(v.shape), v.dtype) for k, v in module.state_dict().items()}
+
+    files = {
+        "unet.safetensors": (of_manifest(manifest.sd_unet_manifest()), torch.float16),
+        "vae.safetensors": (of_manifest(manifest.sd_vae_manifest()), f32),
+        "clip.bin": (of_manifest(manifest.clip_vision_manifest()), f32),
+        "resnet50.pth": (of_mirror(bb.TorchResNet, bb.Bottleneck, [3, 4, 6, 3]), f32),
+        "vgg16.pth": (of_mirror(bb.TorchVGG16), f32),
+        "inception.pth": (of_mirror(bb.TorchInceptionV3), f32),
+    }
+    written = {}
+    for seed, (name, (surface, dtype)) in enumerate(files.items()):
+        t0 = time.perf_counter()
+        tensors = _published_state(surface, seed, dtype)
+        if name.endswith(".safetensors"):
+            _write_safetensors(work / name, tensors)
+        else:
+            torch.save(tensors, work / name)
+        written[name] = {"s": round(time.perf_counter() - t0, 2),
+                         "GB": round((work / name).stat().st_size / 1e9, 3)}
+        del tensors
+    return written
+
+
+def _swap_kh_kw_(module, name: str) -> None:
+    """The planted fault: the 3×3 conv `name`'s kernel with kh and kw
+    swapped, as a converter's layout slip would write it (its own inverse)."""
+    conv = module.get_submodule(name)
+    with torch.no_grad():
+        conv.weight.copy_(conv.weight.transpose(2, 3).clone())
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float().cpu(), b.float().cpu()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _check_weights_shapes() -> None:
+    """Each kernel of phase 4b's held eps and decode against its plain
+    version by its judge at WEIGHTS_* (batch 1 on the 64² latent; not timed,
+    not counted)."""
+    from psd_tpu_torch.ops import attention
+    from psd_tpu_torch.testing import attention_judge
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    for shape in WEIGHTS_ATTN_SHAPES:
+        q, k, v = randn(*shape), randn(*shape), randn(*shape)
+        ok, text, _ = attention_judge(attention.attention_fwd(q, k, v),
+                                      attention.attention_reference(q, k, v))
+        log(f"[weights] attention {shape}: {text} {'ok' if ok else 'FAIL'} (not timed)")
+        if not ok:
+            raise SystemExit(f"chip_smoke.py: attention {shape} disagrees with its plain version")
+    for M, C in WEIGHTS_LN_SHAPES:
+        _check_ln_edge(randn, M, C, C, 4 * C, 0.0)
+    for B, S, C in WEIGHTS_GN_SHAPES:
+        _check_gn_edge(randn, B, S, C, C, 0.0)
+    torch.cuda.empty_cache()
+
+
+def phase_weights(card: str) -> dict:
+    """Published checkpoints into the port without JAX (phase 4b): files in
+    the published formats at SD-v1.4 width, each converted by
+    scripts/torch_port_weights.py; the converted UNet (plain) and VAE in bf16
+    on the kernels against the diffusers-named mirror's fp32 forward on the
+    CPU, each beside a planted kh/kw fault; then the evaluation sweep reading
+    the converted Inception and VGG through its flags, its loaded weights
+    held to the npz key by key. The launches count from 0 before the held
+    eps and decode, and before the CLI."""
+    import importlib.util
+    import shutil
+    from unittest import mock
+
+    import numpy as np
+
+    from psd_tpu_torch.convert.from_jax import (_leaves, load_flax_, to_flax_variables,
+                                                vae_decode_tree)
+    from psd_tpu_torch.convert.npz import load_params_npz
+    from psd_tpu_torch.core.config import load_config
+    from psd_tpu_torch.core.mode import KERNELS, disable_kernels
+    from psd_tpu_torch.convert.sd import load_torch_state_dict
+    from psd_tpu_torch.models.layers import store_weights_in_
+    from psd_tpu_torch.models.unet import UNet2DCondition, sd14_unet_config
+    from psd_tpu_torch.models.vae import VAEDecode, sd_vae_config
+    from psd_tpu_torch.ops import kernels
+    from psd_tpu_torch.pipelines import evaluate
+    from psd_tpu_torch.testing import route_launches
+    from tests.torch_ref.unet import TorchUNet2DConditionModel
+    from tests.torch_ref.vae import TorchAutoencoderKL
+
+    work = ROOT / "build" / "psd_tpu_torch" / "weights"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    dev = torch.device("cuda")
+    try:
+        written = _write_published(work)
+        log(f"[weights] wrote the published files (seconds, GB): {written}")
+
+        spec = importlib.util.spec_from_file_location(
+            "torch_port_weights", ROOT / "scripts" / "torch_port_weights.py")
+        script = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(script)
+        converted, held = {}, {}
+        for kind, src in WEIGHTS_KINDS:
+            out = work / f"{kind}.npz"
+            t0 = time.perf_counter()
+            tree = script.main(["--kind", kind, "--src", str(work / src), "--out", str(out)])
+            converted[kind] = {"s": round(time.perf_counter() - t0, 2),
+                               "GB": round(out.stat().st_size / 1e9, 3),
+                               "leaves": sum(1 for _ in _leaves(tree)),
+                               "gate": kind in script.GATED_KINDS}
+            if kind in WEIGHTS_BANDS:  # the trees the script wrote, for the hold
+                held[kind] = tree
+            del tree
+        log(f"[weights] scripts/torch_port_weights.py, each kind (seconds, npz GB, leaves, "
+            f"through the meta-device gate): {converted}")
+
+        g = torch.Generator().manual_seed(0)
+        L = WEIGHTS_LATENT
+        x = torch.randn((1, L, L, 4), generator=g)
+        t = torch.tensor([500])
+        ctx = torch.randn((1, 48, 768), generator=g)
+        z = torch.randn((1, L, L, 4), generator=g)
+
+        # the port's modules, bf16 on the card, with the converted weights
+        t0 = time.perf_counter()
+        with dev:
+            unet = UNet2DCondition(sd14_unet_config(attn_mode="plain")).eval()
+            vae = VAEDecode(sd_vae_config()).eval()
+        load_flax_(unet, held.pop("unet"))
+        load_flax_(vae, vae_decode_tree(held.pop("vae")))
+        store_weights_in_(unet, torch.bfloat16)
+        store_weights_in_(vae, torch.bfloat16)
+        load_s = time.perf_counter() - t0
+
+        def eps():
+            return unet(x.to(dev), t.to(dev), ctx.to(dev), 0.0).permute(0, 3, 1, 2).float().cpu()
+
+        def decode():
+            return vae(z.to(dev)).permute(0, 3, 1, 2).float().cpu()
+
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            got = {"unet": eps(), "vae": decode()}
+            torch.cuda.synchronize()
+            counts = dict(kernels.launch_counts)
+            head_dims = dict(kernels.attention_head_dims)
+            with disable_kernels(*KERNELS):
+                plain = {"unet": eps(), "vae": decode()}
+            faulty = {}
+            for kind, module, run in (("unet", unet, eps), ("vae", vae, decode)):
+                _swap_kh_kw_(module, WEIGHTS_FAULTS[kind])
+                faulty[kind] = run()
+                _swap_kh_kw_(module, WEIGHTS_FAULTS[kind])
+        del unet, vae
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the mirrors' fp32 forwards on the CPU, over the files' state dicts
+        cpu_s = {}
+        with torch.no_grad():
+            for kind, ctor, src in (("unet", TorchUNet2DConditionModel, "unet.safetensors"),
+                                    ("vae", TorchAutoencoderKL, "vae.safetensors")):
+                with torch.device("meta"):
+                    mirror = ctor()
+                mirror.load_state_dict({k: torch.from_numpy(v) for k, v in
+                                        load_torch_state_dict(work / src).items()}, assign=True)
+                t0 = time.perf_counter()
+                if kind == "unet":
+                    ref = mirror.eval()(x.permute(0, 3, 1, 2), t, ctx)
+                else:
+                    ref = mirror.eval().decode(z.permute(0, 3, 1, 2))
+                cpu_s[kind] = round(time.perf_counter() - t0, 2)
+                readings = (_rel_l2(got[kind], ref), _rel_l2(faulty[kind], ref),
+                            _rel_l2(plain[kind], ref), _rel_l2(got[kind], plain[kind]))
+                cpu_s[f"{kind}_rel"] = readings
+                if not bool(torch.isfinite(got[kind]).all()) or got[kind].shape != ref.shape:
+                    raise SystemExit(f"chip_smoke.py: the converted {kind} gave "
+                                     f"{tuple(got[kind].shape)}, finite "
+                                     f"{bool(torch.isfinite(got[kind]).all())}")
+                del mirror, ref
+                gc.collect()
+        bands = {k: cpu_s.pop(f"{k}_rel") for k in WEIGHTS_BANDS}
+        log(f"[weights] the converted files on the kernels (bf16, one eps at t 500 and one "
+            f"decode of (1, {L}, {L}, 4)) against the mirror's fp32 forward on the CPU: relative "
+            f"L2 sound / planted kh-kw fault / every kernel off; kernels against plain " + ", ".join(
+                f"{k} {bands[k][0]:.4e} / {bands[k][1]:.4e} / {bands[k][2]:.4e}; {bands[k][3]:.4e} "
+                f"(band {WEIGHTS_BANDS[k]:g}, fault at {WEIGHTS_FAULTS[k]})" for k in bands)
+            + f"; load {load_s:.2f} s; mirror CPU seconds {cpu_s}; launches {counts}, "
+            f"attention by head dim {head_dims}; on {card}")
+
+        # the evaluation sweep from the converted backbones, through its flags
+        _write_tree(work / "data", WEIGHTS_EVAL_IMAGES)
+        loaded, models = {}, []
+        load_variables, model_for = evaluate.load_variables_, evaluate.model_for
+
+        def loading(net, tree):
+            load_variables(net, tree)
+            loaded[type(net).__name__] = to_flax_variables(net)
+            return net
+
+        def building(*a):
+            models.append(model_for(*a))
+            return models[-1]
+
+        with mock.patch.multiple(evaluate, load_variables_=loading, model_for=building):
+            results, counts_e, dims_e, wall_e = _counted(evaluate.main, [
+                "--config", str(ROOT / "configs" / "train_ip.yaml"),
+                "--data-dir", str(work / "data"), "--output-dir", str(work / "eval"),
+                "--inception-params", str(work / "inception.npz"),
+                "--vgg-params", str(work / "vgg16.npz"), *WEIGHTS_EVALUATE])
+        size = load_config(ROOT / "configs" / "train_ip.yaml").dataset.image_size
+        per_batch = route_launches(models[0].core_cfg, models[0].vae_cfg, 12, size, 2)
+        del models
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def same(net, npz):
+            want = dict(_leaves(load_params_npz(work / npz)))
+            have = dict(_leaves(loaded[net]))
+            return sorted(have) == sorted(want) and all(
+                have[k].dtype == want[k].dtype and np.array_equal(have[k], want[k]) for k in want)
+
+        checks = {
+            f"unet within {WEIGHTS_BANDS['unet']:g}, its fault beyond":
+                bands["unet"][0] <= WEIGHTS_BANDS["unet"] < bands["unet"][1],
+            f"vae within {WEIGHTS_BANDS['vae']:g}, its fault beyond":
+                bands["vae"][0] <= WEIGHTS_BANDS["vae"] < bands["vae"][1],
+            "kernels against plain within the bands": all(
+                bands[k][3] <= WEIGHTS_BANDS[k] for k in bands),
+            "WEIGHTS_ATTN_SHAPES cover the head dims launched":
+                sorted(head_dims) == sorted({s[3] for s in WEIGHTS_ATTN_SHAPES}),
+            "the held eps and decode launched attention (D=40, 80, 512), ln_proj, ln_geglu, "
+            "gn_proj": all(counts.get(k, 0) > 0 for k in ("attention", "ln_proj", "ln_geglu",
+                                                            "gn_proj"))
+                and all(head_dims.get(d, 0) > 0 for d in (40, 80, 512)),
+            "evaluate loaded the converted Inception and VGG, key by key":
+                same("InceptionV3Features", "inception.npz") and same("VGG16Features",
+                                                                       "vgg16.npz"),
+            "evaluate's metrics finite": all(np.isfinite(v) for r in results for v in
+                                             r.overall.values()),
+            f"evaluate launches 2 x {per_batch} (warm-up and capture)":
+                counts_e == {k: 2 * per_batch.get(k, 0) for k in counts_e},
+        }
+        log(f"[weights] evaluate --inception-params --vgg-params (the converted npz): wall "
+            f"{wall_e:.2f} s, overall {results[0].overall}; launches {counts_e}, by head dim "
+            f"{dims_e}; on {card}")
+        log(f"[weights] checks {checks}")
+        if not all(checks.values()):
+            raise SystemExit(f"chip_smoke.py: weights checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+        _check_weights_shapes()
+        return {"counts": counts, "head_dims": head_dims, "bands": bands, "written": written,
+                "converted": converted, "cli": {"counts": counts_e, "head_dims": dims_e}}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # ---- phase 5 ---------------------------------------------------------------
@@ -2867,15 +3256,15 @@ def phase_train(card: str) -> dict:
 
 
 # ---- train CLI -----------------------------------------------------------------
-def _write_tree(root: Path) -> None:
+def _write_tree(root: Path, images=TRAIN_CLI_IMAGES) -> None:
     """The seeded synthetic tree: smooth random RGB PNGs of TRAIN_CLI_HW,
-    split evenly over four class directories."""
+    `images[split]` a split, evenly over four class directories."""
     import numpy as np
     from PIL import Image
 
     rng = np.random.default_rng(0)
     H, W = TRAIN_CLI_HW
-    for split, n in TRAIN_CLI_IMAGES.items():
+    for split, n in images.items():
         for c in range(4):
             (root / split / f"Mayo_{c}").mkdir(parents=True)
             for i in range(n // 4):
@@ -3504,8 +3893,10 @@ COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce", 
 
 
 def rank_worker(spec_path: str) -> int:
-    """One rank of phase 5d or 6d, started by torchrun (`chip_smoke.py
-    --rank-worker <spec.json>`): the spec's `kind` ("train": the train CLI,
+    """One rank of phase 5d, 6d or 6e: a gloo rank started by torchrun
+    (`chip_smoke.py --rank-worker <spec.json>`), or the one NCCL rank of a
+    world of one, called in this script's own process with torchrun's
+    environment set (`_nccl_rank_here`): the spec's `kind` ("train": the train CLI,
     `_train_rank`; "serve": the server, `_serve_rank`) in-process on this
     rank's card, with each collective called from Python written to a file
     before it is entered (a crash leaves the last). The spec's `backend:
@@ -3537,8 +3928,9 @@ def rank_worker(spec_path: str) -> int:
         trace.write(f"{_name} {'' if t is None else (tuple(t.shape), str(t.dtype), str(t.device))}\n")
         return _call(*a, **k)
 
+    originals = {name: getattr(dist, name) for name in COLLECTIVES}
     for name in COLLECTIVES:
-        setattr(dist, name, functools.partial(traced, _call=getattr(dist, name), _name=name))
+        setattr(dist, name, functools.partial(traced, _call=originals[name], _name=name))
     run = {"train": _train_rank, "serve": _serve_rank,
            "train_tp": lambda spec_, rank_, _: {"tp": _train_tp_rank(spec_, rank_)}}[
         spec.get("kind", "train")]
@@ -3548,6 +3940,9 @@ def rank_worker(spec_path: str) -> int:
     finally:
         if dist.is_initialized():  # the train CLI ends a group it started itself
             dist.destroy_process_group()
+        for name, call in originals.items():  # the rank's own patches too
+            setattr(dist, name, call)
+        trace.close()
     out.update(rank=rank, world=int(os.environ["WORLD_SIZE"]), backend=backend)
     out.setdefault("peak_gib", torch.cuda.max_memory_allocated() / 2**30)
     (work / f"{spec['tag']}.rank{rank}.json").write_text(json.dumps(out))
@@ -3604,7 +3999,10 @@ def _train_rank(spec: dict, rank: int, work: Path) -> dict:
     train.PhaseTimer = lambda device, sync: timer(device, sync=True)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    r = train.main(spec["argv"])
+    try:
+        r = train.main(spec["argv"])
+    finally:
+        train.shard_train_state, train.make_train_step, train.PhaseTimer = shard, make_step, timer
     wall = time.perf_counter() - t0
     out = {"counts": dict(kernels.launch_counts), "head_dims": dict(kernels.attention_head_dims),
            "laps": r["laps"], "wall": wall, "steps_s": [b - a for a, b in windows],
@@ -3659,6 +4057,41 @@ def _torchrun(work: Path, tag: str, nproc: int, **spec) -> dict:
     crash = [i for i, line in enumerate(text) if line.startswith("Fatal Python error")]
     tail = text[crash[0]:crash[0] + 24] if crash else text[-12:]
     return {"rc": rc, "ranks": ranks, "wall": wall, "tail": tail, "last_collective": last}
+
+
+def _nccl_rank_here(work: Path, tag: str, **spec) -> dict:
+    """One rank on NCCL in this process, as torchrun would start it alone
+    (a world of one: RANK and LOCAL_RANK 0, a free localhost port), running
+    `rank_worker` on `spec` without a new process's start (its imports, the
+    card's context, the kernels' load); → what `_torchrun` gives. The
+    environment is restored after."""
+    import os
+    import socket
+
+    spec_path = work / f"{tag}.spec.json"
+    spec_path.write_text(json.dumps({"work": str(work), "tag": tag, **spec}))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    try:
+        rc = rank_worker(str(spec_path))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        gc.collect()
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    res = work / f"{tag}.rank0.json"
+    return {"rc": rc, "ranks": [json.loads(res.read_text()) if res.exists() else None],
+            "wall": wall, "tail": [], "last_collective": []}
 
 
 def _ranks_failed(phase: str, tag: str, run: dict) -> None:
@@ -4272,7 +4705,7 @@ def phase_serve_tp(card: str, results: dict) -> dict:
 def phase_serve_ranks(card: str, served: dict, results: dict) -> dict:
     """GenerationServer(mesh=) across ranks (phase 5d), started by torchrun:
     two ranks on cuda:0 over gloo at dp 2 (sound, again, the planted
-    fault), then one rank on NCCL at dp 1; rank 0's images against phase
+    fault), then one rank on NCCL at dp 1 in this process; rank 0's images against phase
     5's one-process server on the same requests (SERVE_RANKS_BAND at dp 2,
     bit for bit at dp 1), each rank's launches against the routes' at its
     rows; then the kernels at a rank's rows. Phase 5f runs in the gloo
@@ -4298,7 +4731,10 @@ def phase_serve_ranks(card: str, served: dict, results: dict) -> dict:
         return float(d.max()), float(d.mean())
 
     def run_ranks(tag, dp, rounds, **spec):
-        run = _torchrun(work, tag, dp, kind="serve", dp=dp, rounds=rounds, **spec)
+        if spec.get("backend") == "gloo":
+            run = _torchrun(work, tag, dp, kind="serve", dp=dp, rounds=rounds, **spec)
+        else:  # one rank on NCCL: in this process
+            run = _nccl_rank_here(work, tag, kind="serve", dp=dp, rounds=rounds, **spec)
         if run["rc"] != 0 or not all(run["ranks"]):
             _ranks_failed("serve_ranks", tag, run)
             raise SystemExit(f"chip_smoke.py: serve ranks {tag} did not run to its end "
@@ -4337,7 +4773,8 @@ def phase_serve_ranks(card: str, served: dict, results: dict) -> dict:
                 f"peak {r['peak_gib']:.3f} GiB; host launches {r['counts']}, by head dim "
                 f"{r['head_dims']}; on {card}")
             log(f"[serve_ranks] {tag} rank {r['rank']} checks {r['checks']}")
-        log(f"[serve_ranks] {tag}: torchrun wall {run['wall']:.1f} s, rc {run['rc']}")
+        how = "torchrun" if spec.get("backend") == "gloo" else "in this process"
+        log(f"[serve_ranks] {tag}: wall {run['wall']:.1f} s ({how}), rc {run['rc']}")
         return run
 
     gloo = run_ranks("dp2_gloo", 2, ["sound", "again", "fault"], backend="gloo", tp=True)
@@ -4760,12 +5197,13 @@ def phase_train_tp(card: str, trained: dict, fault: bool = False) -> dict:
 
 def phase_train_ranks(card: str, trained: dict, fault: bool = False,
                       results: dict = None) -> dict:
-    """The train CLI across ranks (phase 6d), one step each: a one-process
-    run at a global batch of 32, then torchrun's two ranks on cuda:0 over
-    gloo at --dp 2 and at --fsdp 2, then one rank on NCCL at --dp 1; each
-    against the one-process run (loss, grad norm, the parameters' update,
-    each rank's launches against phase 6's per step), rank 0's checkpoint
-    of --dp 2 read by the infer CLI. Phase 6e, the tp train step, runs in
+    """The train CLI across ranks (phase 6d), one step each at a global
+    batch of 32: a one-process run, the reference (its launches against
+    phase 6's per step); one rank on NCCL at --dp 1 in this process, equal
+    to it bit for bit; then torchrun's two ranks on cuda:0 over gloo at
+    --dp 2 and at --fsdp 2, each against the reference (loss, grad norm,
+    the parameters' update, each rank's launches), rank 0's checkpoint of
+    --dp 2 read by the infer CLI. Phase 6e, the tp train step, runs in
     --dp 2's launch after its step (`_train_tp_rank`); its checks follow
     --dp 2's, its kernels at the tp training shapes the phase's end (kept
     in `results`). `fault` runs the planted fault its bands were set
@@ -4790,7 +5228,26 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False,
 
     want = launches(RANKS_STEPS)
 
-    # the one-process run, its initial parameters kept on the host
+    def ranks_run(tag, nproc, argv, **spec):
+        run = _torchrun(work, tag, nproc, argv=argv, **spec)
+        run["out"] = Path(argv[argv.index("--output-dir") + 1])
+        return run
+
+    def rank_lines(tag, run):
+        for r in run["ranks"]:
+            step = r["steps_s"][-1]
+            comm = (f"its time in collectives not measured ({r['backend']})"
+                    if r["comm_s"] is None else
+                    f"{r['comm_s'][-1]:.4f} s in {r['backend']} collectives "
+                    f"({r['comm_s'][-1] / step:.3f} of it)")
+            log(f"[train_ranks] {tag} rank {r['rank']}/{r['world']} on {r['device']}: steps "
+                f"{[round(x, 4) for x in r['steps_s']]} s (synced), the last {comm}; phases "
+                f"{ {k: [round(x, 4) for x in v] for k, v in r['laps'].items()} }; main() wall "
+                f"{r['wall']:.3f} s; peak {r['peak_gib']:.2f} GiB; launches {r['counts']}, "
+                f"by head dim {r['head_dims']}; FSDP2 {r['sharded']}; on {card}")
+
+    # the reference: the one-process run, its initial parameters kept on the
+    # host as the CLI built them
     start = {}
     make_state = train.create_train_state
 
@@ -4799,11 +5256,13 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False,
                       for n, p in model.core.named_parameters()})
         return make_state(model, **kw)
 
+    def argv_for(tag):
+        return base + ["--dp", "1", "--output-dir", str(work / tag)]
+
     torch.cuda.reset_peak_memory_stats()
     train.create_train_state = keeping
     try:
-        one_dir = work / "one"
-        r0, counts0, dims0, wall0 = _counted(train.main, base + ["--output-dir", str(one_dir)])
+        r0, counts0, dims0, wall0 = _counted(train.main, argv_for("one"))
     finally:
         train.create_train_state = make_state
     peak0 = torch.cuda.max_memory_allocated() / 2**30
@@ -4811,22 +5270,44 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False,
     del r0
     gc.collect()
     torch.cuda.empty_cache()
-    ref = _logged(one_dir)
-    after = _params(one_dir / "checkpoints" / str(RANKS_STEPS))
-    if counts0 != want:
-        raise SystemExit(f"chip_smoke.py: the one-process run launched {counts0}, not {want}")
-    log(f"[train_ranks] one process, global batch 32: main() wall {wall0:.3f} s; train_step "
-        f"{[round(x, 4) for x in laps0['train_step']]} s (no sync); losses "
+    ref = _logged(work / "one")
+    after = _params(work / "one" / "checkpoints" / str(RANKS_STEPS))
+    log(f"[train_ranks] one process, global batch 32 (the reference): main() wall {wall0:.3f} "
+        f"s; train_step {[round(x, 4) for x in laps0['train_step']]} s (no sync); losses "
         f"{[r['loss'] for r in ref]}, grad norms {[r['grad_norm'] for r in ref]}; launches "
         f"{counts0}; peak {peak0:.2f} GiB; on {card}")
+    if counts0 != want or [r["step"] for r in ref] != list(range(1, RANKS_STEPS + 1)):
+        raise SystemExit(f"chip_smoke.py: the one-process run launched {counts0}, not {want}, "
+                         f"or logged steps {[r['step'] for r in ref]}")
 
-    def ranks_run(tag, nproc, argv, **spec):
-        run = _torchrun(work, tag, nproc, argv=argv, **spec)
-        run["out"] = Path(argv[argv.index("--output-dir") + 1])
-        return run
+    # one rank on NCCL at --dp 1, the production backend: the reference bit
+    # for bit (the same rows; the average over one rank is the identity)
+    run = _nccl_rank_here(work, "dp1_nccl", argv=argv_for("dp1"))
+    if run["rc"] != 0 or not all(run["ranks"]):
+        _ranks_failed("train_ranks", "dp1_nccl", run)
+        raise SystemExit(f"chip_smoke.py: --dp 1 on NCCL did not run to its end (rc {run['rc']})")
+    got = _logged(work / "dp1")
+    post = _params(work / "dp1" / "checkpoints" / str(RANKS_STEPS))
+    reference = run["ranks"][0]
+    rank_lines("--dp 1, one rank on NCCL", run)
+    nccl_checks = {
+        "losses equal the one process's": [r["loss"] for r in got] == [r["loss"] for r in ref],
+        "grad norms equal": [r["grad_norm"] for r in got] == [r["grad_norm"] for r in ref],
+        "post-step parameters equal, bit for bit": sorted(post) == sorted(after) and all(
+            torch.equal(post[k], after[k]) for k in after),
+        f"launches {want}": reference["counts"] == want,
+    }
+    log(f"[train_ranks] --dp 1 on NCCL: wall {run['wall']:.1f} s (in this process); losses "
+        f"{[r['loss'] for r in got]}, grad norms {[r['grad_norm'] for r in got]}; checks "
+        f"{nccl_checks}")
+    if not all(nccl_checks.values()):
+        raise SystemExit(f"chip_smoke.py: --dp 1 on NCCL checks failed: "
+                         f"{[k for k, v in nccl_checks.items() if not v]}")
+    del post
+    shutil.rmtree(work / "dp1", ignore_errors=True)
 
     def judge(tag, run):
-        """The run's checks against the one-process run; → its readings."""
+        """The run's checks against the reference; → its readings."""
         steps = RANKS_STEPS
         if run["rc"] != 0 or not all(run["ranks"]):
             _ranks_failed("train_ranks", tag, run)
@@ -4850,21 +5331,11 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False,
                 p.name for p in (run["out"] / "checkpoints").iterdir()) == [str(steps)],
             f"each rank's launches {want}": all(r["counts"] == want for r in ranks),
         }
-        for r in ranks:
-            step = r["steps_s"][-1]
-            comm = (f"its time in collectives not measured ({r['backend']})"
-                    if r["comm_s"] is None else
-                    f"{r['comm_s'][-1]:.4f} s in {r['backend']} collectives "
-                    f"({r['comm_s'][-1] / step:.3f} of it)")
-            log(f"[train_ranks] {tag} rank {r['rank']}/{r['world']} on {r['device']}: steps "
-                f"{[round(x, 4) for x in r['steps_s']]} s (synced), the last {comm}; phases "
-                f"{ {k: [round(x, 4) for x in v] for k, v in r['laps'].items()} }; main() wall "
-                f"{r['wall']:.3f} s; peak {r['peak_gib']:.2f} GiB; launches {r['counts']}, "
-                f"by head dim {r['head_dims']}; FSDP2 {r['sharded']}; on {card}")
+        rank_lines(tag, run)
         log(f"[train_ranks] {tag}: torchrun wall {run['wall']:.1f} s, rc {run['rc']}; losses "
             f"{[r['loss'] for r in got]} (rel {loss_rel}), grad norms "
             f"{[r['grad_norm'] for r in got]} (rel {norm_rel}); post-step parameters rel L2 "
-            f"{rel_post:.3e}, over the one-process update {rel_upd:.3e}")
+            f"{rel_post:.3e}, over the reference's update {rel_upd:.3e}")
         log(f"[train_ranks] {tag} checks {checks}")
         if not all(checks.values()):
             bad = [k for k, v in checks.items() if not v]
@@ -4884,7 +5355,7 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False,
         log(f"[train_ranks] planted fault (no gradient average), --dp 2 over gloo: losses "
             f"{[r['loss'] for r in got]}, grad norms {[r['grad_norm'] for r in got]} against "
             f"{[r['grad_norm'] for r in ref]}; post-step parameters rel L2 {rel_post:.3e}, over "
-            f"the one-process update {rel_upd:.3e}")
+            f"the reference's update {rel_upd:.3e}")
         shutil.rmtree(work, ignore_errors=True)
         return {}
 
@@ -4920,13 +5391,13 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False,
         raise SystemExit("chip_smoke.py: the --fsdp 2 run was not under FSDP2")
     shutil.rmtree(run["out"], ignore_errors=True)
 
-    run = ranks_run("dp1_nccl", 1, base + ["--dp", "1", "--output-dir", str(work / "dp1")])
-    readings["dp1_nccl"] = judge("--dp 1, one rank on NCCL", run)
     _check_rank_shapes()
     _train_tp_kernels(results if results is not None else {"attention_bwd": {}})
     shutil.rmtree(work, ignore_errors=True)
     return {"counts": counts, "head_dims": head_dims, "readings": readings,
-            "one_process": {"counts": counts0, "wall": wall0, "peak_gib": peak0}, "tp": tp}
+            "one_process": {"counts": counts0, "wall": wall0, "peak_gib": peak0},
+            "nccl": {"counts": reference["counts"], "wall": reference["wall"],
+                     "peak_gib": reference["peak_gib"]}, "tp": tp}
 
 
 def main() -> int:
@@ -4944,6 +5415,7 @@ def main() -> int:
     timed("q8 kernels", phase_q8_kernels, results)
     op = timed("op", phase_op)
     unet = timed("unet", phase_unet)
+    weights = timed("weights", phase_weights, card)
     served = timed("serve", phase_serve, card, unet)
     turbo = timed("turbo", phase_turbo, card, served)
     inferred = timed("infer", phase_infer, card)
@@ -4966,7 +5438,8 @@ def main() -> int:
                     ("train", trained), ("train_cli", train_cli), ("op", op),
                     ("augment", loop["augment"]), ("evaluate", loop["evaluate"]),
                     ("train_dp", ranks), ("serve_dp", served_dp), ("levers", levers),
-                    ("serve_tp", served_tp), ("train_tp", trained_tp))}
+                    ("serve_tp", served_tp), ("train_tp", trained_tp), ("weights", weights),
+                    ("weights_cli", weights["cli"]))}
         # serve, turbo and levers count host launches (the eager warm-up and the
         # capture of their program); what each replay launches is apart
         by_replay = {path: run["replay_launches"].get(name, 0)
@@ -4996,7 +5469,8 @@ def main() -> int:
                  ("train", trained), ("train_cli", train_cli),
                  ("augment", loop["augment"]), ("evaluate", loop["evaluate"]),
                  ("train_dp", ranks), ("serve_dp", served_dp), ("levers", levers),
-                 ("serve_tp", served_tp), ("train_tp", trained_tp))}
+                 ("serve_tp", served_tp), ("train_tp", trained_tp), ("weights", weights),
+                 ("weights_cli", weights["cli"]))}
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,8 +27,10 @@ BatchNorm's running `mean` and `var` keep their names, as the port's
 `models/batchnorm.py` buffers. `to_flax_variables` writes a module back
 into that layout with no tree to follow (the classifier's npz checkpoints,
 which psd_tpu reads). Real checkpoints reach this through the one name map that exists:
-diffusers → `psd_tpu/convert/sd.py` (`scripts/port_weights.py`) → npz
-(`convert/npz.py`) → here.
+diffusers → `psd_tpu/convert/sd.py` (`scripts/port_weights.py`), or its
+copy in `convert/sd.py` (`scripts/torch_port_weights.py`, no JAX) → npz
+(`convert/npz.py`) → here. `check_flax_shapes` is the same walk with no
+tensor made, against a module on the meta device (`convert/gate.py`).
 """
 
 from __future__ import annotations
@@ -70,26 +72,45 @@ def _unwrap(tree: Mapping) -> Mapping:
     return tree["params"] if set(tree) == {"params"} else tree
 
 
-def state_dict_from_flax(tree: Mapping, module: nn.Module) -> Dict[str, torch.Tensor]:
-    """Convert a flax tree into a state_dict for `module`; strict both ways."""
-    target = {k: v.shape for k, v in module.state_dict().items()}
-    out: Dict[str, torch.Tensor] = {}
+def _matched(tree: Mapping, target: Mapping[str, Tuple[int, ...]]):
+    """The bridge's strict walk: each leaf of `tree` → (state_dict key, the
+    leaf, its axis permutation), every key in `target` ({key: shape}) filled
+    once at its shape, or it raises. Touches no leaf's data."""
+    seen = set()
     for path, leaf in _leaves(_unwrap(tree)):
-        arr = np.asarray(leaf)
-        key, perm = torch_key(path, arr.ndim)
+        shape = tuple(np.shape(leaf))
+        key, perm = torch_key(path, len(shape))
         if perm is not None:
-            arr = arr.transpose(perm)
+            shape = tuple(shape[i] for i in perm)
         if key not in target:
             raise KeyError(f"flax leaf {'/'.join(path)} → {key}: no such port parameter")
-        if key in out:
+        if key in seen:
             raise KeyError(f"two flax leaves map to {key}")
-        if tuple(arr.shape) != tuple(target[key]):
-            raise ValueError(f"{key}: flax {arr.shape} vs port {tuple(target[key])}")
-        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
-    missing = sorted(set(target) - set(out))
+        if shape != tuple(target[key]):
+            raise ValueError(f"{key}: flax {shape} vs port {tuple(target[key])}")
+        seen.add(key)
+        yield key, leaf, perm
+    missing = sorted(set(target) - seen)
     if missing:
         raise KeyError(f"port parameters not filled from the flax tree: {missing[:8]}"
                        f"{' ...' if len(missing) > 8 else ''} ({len(missing)} total)")
+
+
+def check_flax_shapes(tree: Mapping, module: nn.Module) -> None:
+    """The strict key and shape walk of `state_dict_from_flax` alone, with
+    no tensor made: `module` may live on the meta device."""
+    for _ in _matched(tree, {k: v.shape for k, v in module.state_dict().items()}):
+        pass
+
+
+def state_dict_from_flax(tree: Mapping, module: nn.Module) -> Dict[str, torch.Tensor]:
+    """Convert a flax tree into a state_dict for `module`; strict both ways."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, leaf, perm in _matched(tree, {k: v.shape for k, v in module.state_dict().items()}):
+        arr = np.asarray(leaf)
+        if perm is not None:
+            arr = arr.transpose(perm)
+        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
     return out
 
 
@@ -99,10 +120,12 @@ def vae_decode_tree(vae_tree: Mapping) -> Dict:
     return {k: t[k] for k in VAE_DECODE_KEYS}
 
 
-def load_flax_(module: nn.Module, tree: Mapping) -> nn.Module:
-    """Copy a flax tree into `module`'s parameters in place (on its device)."""
+def load_flax_(module: nn.Module, tree: Mapping, assign: bool = False) -> nn.Module:
+    """Copy a flax tree into `module`'s parameters in place (on its device);
+    `assign` takes the bridged CPU tensors as the parameters instead (a
+    module built on the meta device)."""
     sd = state_dict_from_flax(tree, module)
-    module.load_state_dict(sd, strict=True)
+    module.load_state_dict(sd, strict=True, assign=assign)
     return module
 
 

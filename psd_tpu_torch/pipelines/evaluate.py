@@ -155,7 +155,7 @@ class FeatureBank:
         if any(t is None for t in self._trees.values()) and not self._allow_random:
             raise RuntimeError(
                 "Metric backbones have no pretrained weights (--inception-params / "
-                "--vgg-params). Port them with scripts/port_weights.py, or pass "
+                "--vgg-params). Port them with scripts/torch_port_weights.py, or pass "
                 "--allow-random-backbones for smoke runs only (random-init values).")
         dev = self.model.device
         with dev:
