@@ -45,7 +45,11 @@ Phases, in order; any failure exits non-zero:
                banks of 1..16 tokens, D = 24, 64, 160, H = 1 and 3, S =
                384, B = 1 and 3, δ = 0 and −1.5; gn_proj: half-full last
                row tiles, N = 200, channel means of std 8 folded into the
-               affine).
+               affine). split3 reads δ from device memory (a 0-d fp32
+               tensor, as the model passes it): a replay probe captures one
+               launch in a CUDA graph and replays it after each of
+               SPLIT3_PROBE_DELTAS is written into its scalar, each replay
+               bit-equal to a direct launch at that δ.
                attention_q8
                (int8 spatial attention, both modes) at the UNet
                self-attention shapes psd_tpu's spatial_attention accepts,
@@ -108,13 +112,32 @@ Phases, in order; any failure exits non-zero:
                bit for bit to the eager run (core.mode.eager()) of the same
                requests; one batch with fused=False (two replays, sample then
                decode_latents) equal to fused=True's; the A/B of graphs
-               against eager in AB_PAIRS alternating pairs (wall, host
+               against eager in AB_PAIRS (2) alternating pairs (wall, host
                dispatch, peak memory); each program's warm-up, capture and
                instantiation seconds; one replay's device time and host
                launch time against 50 × the eps's device time (phase 4) + the
                decode; and, in a child process, a capture that fails (a host
                sync in the VAE) raises, keeps no program and runs nothing
                eagerly in its place.
+  5g. scalars — steer and guidance as device scalars, one captured
+               program a sweep: (a) phase 5's model and its generate
+               program (captured at steer 1.0) on 8 requests whose source
+               and target labels differ, replayed at steer 0.0, 0.3 and 2.0
+               with no new capture (DADD.programs and a capture counter
+               unchanged), each replay bit-equal to an eager generate at
+               that steer, the images at 0.3 and 2.0 apart by more than
+               SCALARS_DIFF_FLOOR, and a planted fault (a replay that skips
+               the steer copy, so it runs at the captured 1.0) caught; (b)
+               baseline mode with CFG (configs/train.yaml at 256², batch 8,
+               a UNet batch of 16, 10 DDIM steps): one capture replayed at
+               guidance 1.5 and 3.0, each bit-equal to eager, the same fault
+               on the guidance caught, its host launches (counts set to 0
+               before the capture) twice route_launches' at a UNet batch of
+               16 and a decode of 8, what a replay launches once that, and
+               each kernel at (b)'s shapes held to its plain version by its
+               judge (SCALARS_*; (a)'s are phase 3's). Prints each replay's
+               wall and device time, each capture's seconds and peak
+               memory, the card.
   5b. turbo  — the same at the turbo point (TURBO: DPM-Solver++(2M), 25
                steps, DeepCache stride 5, int8 VAE) by graph replay: images
                checked and equal to the eager run's, 6 full and 19 shallow
@@ -133,7 +156,10 @@ Phases, in order; any failure exits non-zero:
                (b) baseline mode (configs/train.yaml at 256²: CLIP
                image_embeds → ImageProjection → LEACE → split2, CFG 3.0
                against the negative AOE at a UNet batch of 26, eta 0.5) with
-               a LEACE npz fitted in the phase. Each run: 13 finite images in
+               a LEACE npz fitted in the phase by
+               scripts/torch_compute_leace_projection.py (the baseline model
+               in fp32 on a seeded tree of 32 PNGs in four classes; its four
+               statistics and seconds printed). Each run: 13 finite images in
                [0, 1], the files written, each kernel's launches equal to
                what the routes give the batch (psd_tpu_torch.testing.
                route_launches: at batch 13 the LN kernels skip the 8²
@@ -248,12 +274,14 @@ Phases, in order; any failure exits non-zero:
                over 127 train PNGs, 381 images in 32 replays of one captured
                program (the last padded), with the split copies; the
                evaluation sweep (two scales, the val split, 4 images a
-               class, random Inception and VGG); the classifier
+               class, random Inception and VGG; the two scales replay one
+               captured program, dropped after the last); the classifier
                (configs/train_classifier.yaml: ResNet-18 at 224², batch 32)
                for 2 epochs on the synthetic-only split, judged on the 32
                real val PNGs. Checks: each generate's launches equal to
                route_launches at batch 12 (twice: warm-up and capture; none
-               at replay), the first replayed augment batch equal bit for
+               at replay; evaluate's two scales one program), the first
+               replayed augment batch equal bit for
                bit to an eager generate of its inputs, the generated files'
                layout and counts against MESClassificationDataset's filter
                and balancing, finite metrics, the confusion matrix summing
@@ -262,9 +290,9 @@ Phases, in order; any failure exits non-zero:
                (BACKBONE_REL_BANDS), and planted faults above them; each
                kernel against its plain version at the path's batch-12
                shapes (LOOP_*, not timed). Prints augment's img/s,
-               evaluate's generate and metrics phases, each scale's freed
-               pool and the eager alternative's time and peak, classify's
-               step time, each peak memory. Deletes phase 6b's files.
+               evaluate's generate and metrics phases, the checkpoint's
+               freed pool, classify's step time, each peak memory. Deletes
+               phase 6b's files.
   6d. train_ranks — the training CLI across ranks on a tree of its own
                at configs/train_ip.yaml's full width, 256², a global batch
                of 32 (16 a rank: two 14.7 GB states on one card), one loader
@@ -407,6 +435,9 @@ SPLIT3_SHAPES = [(8, 4096, 8, 40), (8, 1024, 8, 80), (8, 256, 8, 160)]
 # banks of 1..16 tokens, D = 24, 64, 160, H = 1 and 3 (a group of all the
 # heads whose last box runs past H·D), S = 384, B = 1 and 3, δ = 0 and −1.5,
 # and the main path's H = 8 at D = 40 and 80 with short banks
+# phase 3's probe of δ in device memory: the values written into a captured
+# launch's scalar before each replay
+SPLIT3_PROBE_DELTAS = (0.3, -1.5, 2.0)
 SPLIT3_EDGE = [((1, 384, 3, 24), (1, 4, 15), 0.0), ((3, 384, 1, 64), (15, 1, 4), -1.5),
                ((1, 384, 3, 160), (4, 15, 1), -1.5), ((3, 256, 1, 160), (16, 4, 15), 0.0),
                ((3, 384, 3, 64), (4, 16, 1), 0.0), ((1, 384, 8, 40), (4, 16, 7), -1.5),
@@ -473,8 +504,28 @@ SERVE_LAUNCHES = {"attention": 501, "split3": 750, "ln_proj": 1600, "ln_geglu": 
                   "gn_proj": 800}
 TURBO_LAUNCHES = {"attention": 156, "split3": 185, "ln_proj": 382, "ln_geglu": 191,
                   "gn_proj": 191}
-# served batches timed with and without graphs, in alternating pairs
-AB_PAIRS = 4
+# served batches timed with and without graphs, in alternating pairs (the
+# medians of longer runs stay in PERF.md §5)
+AB_PAIRS = 2
+# phase 5g: steer and guidance as device scalars. (a) Phase 5's program
+# replayed at each steer; (b) a CFG program (configs/train.yaml, 256²) at
+# each guidance, SCALARS_CFG_STEPS DDIM steps. The floor on the mean abs
+# difference of (a)'s images at 0.3 and 2.0 (images in [0, 1], random
+# weights) is a tenth of the first reading, 0.1585 on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md §6): a δ that reached no split3 site
+# would read 0
+SCALARS_STEERS = (0.0, 0.3, 2.0)
+SCALARS_GUIDANCES = (1.5, 3.0)
+SCALARS_CFG_STEPS = 10
+SCALARS_DIFF_FLOOR = 1.5e-2
+# (b)'s kernel shapes (route_launches' gates at a UNet batch of 16 on the
+# 32² latent, the decode at batch 8), held to their plain versions by their
+# judges, not timed: self-attention at the five 32² sites (the 16² and 8²
+# levels and the cross-attention take the plain path), the LN kernels at
+# every site, gn_proj where S % 64 == 0, the VAE's mid block
+SCALARS_ATTN_SHAPES = [(16, 1024, 8, 40), (8, 1024, 1, 512)]
+SCALARS_LN_SHAPES = [(16 * 1024, 320), (16 * 256, 640), (16 * 64, 1280), (16 * 16, 1280)]
+SCALARS_GN_SHAPES = [(16, 1024, 320), (16, 256, 640), (16, 64, 1280)]
 # phase 5e: the UNet's inference levers at full width (SD UNet, 512², batch
 # 8). The README's turbo point: TURBO with ToMe at 0.5 in branch mode (the
 # int8 VAE decoder; README.md "turbo serving")
@@ -643,9 +694,10 @@ INFER_TURBO = INFER_RUN_A + ["--sampler", "dpm", "--sampling-steps", str(TOME_TU
 # (image_embeds, run b) on its seeded weights and the synthetic structure
 # image (PERF.md §5, PR 12); the band leaves 2.7x that
 CLIP_REL_BAND = 3e-2
-# LEACE fitted in the phase on seeded image tokens: rows and the 16 × 768
-# tokens the baseline model's ImageProjection gives
-LEACE_FIT_ROWS = 32
+# LEACE fitted in the phase by scripts/torch_compute_leace_projection.py on a
+# seeded tree of this many train PNGs in four class directories (the
+# baseline model's ImageProjection gives 16 × 768 tokens an image)
+LEACE_FIT_IMAGES = 32
 # the kernels' shapes on the infer path that the 512², batch-8 path does not
 # give them (run a: batch 13 at 512²; run b: 26 in the UNet with CFG, 13 in
 # the VAE, at 256²); each kernel is held to its plain version at them,
@@ -942,6 +994,22 @@ def bound(flops: float, nbytes: float, int8_ops: float = 0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _load_script(name: str):
+    """scripts/<name>.py as a module, to call its main() in this process."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _delta(value: float) -> torch.Tensor:
+    """δ as the model hands it to split3: a 0-d fp32 tensor on the card,
+    which the kernel reads from device memory."""
+    return torch.tensor(value, dtype=torch.float32, device="cuda")
+
+
 def _compare(name, shape, fn_kernel, fn_plain, results, work, judge, fn_library=None,
              extra=None, note=None, key="shapes"):
     """`work` = (bf16 FLOPs, bytes[, int8 ops]) of the function at this
@@ -1059,6 +1127,43 @@ def graph_ms(fn, calls: int = 10) -> float:
     return ms
 
 
+def _split3_replay_probe(gen) -> None:
+    """δ read from device memory under a CUDA graph: one split3 launch at
+    SPLIT3_SHAPES[1] captured with its δ scalar at 1.0, then, for each of
+    SPLIT3_PROBE_DELTAS, the new δ written into that scalar and the graph
+    replayed. Each replay must equal a direct launch at that δ bit for bit,
+    and differ from the captured δ's output (so the probe could fail: a
+    kernel that took δ by value would replay 1.0)."""
+    from psd_tpu_torch.ops import split3
+
+    dev = torch.device("cuda")
+    B, S, H, D = SPLIT3_SHAPES[1]
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    banks = [torch.randn((B, 16, H, D), generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(6)]
+    delta = _delta(1.0)
+    captured = split3.split3_fwd(q, *banks, delta, 0.1, 0.9)  # built and warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = split3.split3_fwd(q, *banks, delta, 0.1, 0.9)
+    readings = {}
+    for value in SPLIT3_PROBE_DELTAS:
+        delta.fill_(value)
+        graph.replay()
+        direct = split3.split3_fwd(q, *banks, _delta(value), 0.1, 0.9)
+        torch.cuda.synchronize()
+        readings[value] = (torch.equal(out, direct), not torch.equal(out, captured))
+    ok = all(a and b for a, b in readings.values())
+    log(f"[kernel] split3 replay probe {(B, S, H, D)}: one launch captured at delta 1.0, "
+        f"replayed after a new delta is written into its scalar; (bit-equal to a direct launch "
+        f"at that delta, differs from delta 1.0's output) {readings} {'ok' if ok else 'FAIL'}")
+    del graph
+    if not ok:
+        raise SystemExit("chip_smoke.py: a split3 launch replayed from a CUDA graph does not "
+                         "read the delta written after its capture")
+
+
 def _check_ln_edge(randn, M, C, n_proj, n_geglu, mean_std):
     """ln_proj (3 and 1 outputs of n_proj columns) and ln_geglu (n_geglu
     columns) at an edge input against their plain versions with
@@ -1155,17 +1260,18 @@ def phase_kernels() -> dict:
             raise SystemExit(f"chip_smoke.py: attention {(B, Sq, H, D)}, Sk {Sk} disagrees with "
                              f"its plain version")
         _check_lse(q, k, v, ATTN_LSE_BAND)
+    d1 = _delta(1.0)  # δ as the model passes it, in device memory
     for (B, S, H, D) in SPLIT3_SHAPES:
         q = randn(B, S, H, D)
         banks = [randn(B, 16, H, D) for _ in range(6)]
         _compare("split3", (B, S, H, D),
-                 lambda: split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9),
-                 lambda: split3.split3_reference(q, *banks, 1.0, 0.1, 0.9), results,
-                 (3 * 4.0 * B * H * S * 16 * D, (2 * B * S + 6 * B * 16) * H * D * 2),
+                 lambda: split3.split3_fwd(q, *banks, d1, 0.1, 0.9),
+                 lambda: split3.split3_reference(q, *banks, d1, 0.1, 0.9), results,
+                 (3 * 4.0 * B * H * S * 16 * D, (2 * B * S + 6 * B * 16) * H * D * 2 + 4),
                  judge=split3_judge,
-                 note={"device_ms": graph_ms(lambda: split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9)),
+                 note={"device_ms": graph_ms(lambda: split3.split3_fwd(q, *banks, d1, 0.1, 0.9)),
                        "wrapper_host_ms": host_ms(
-                           lambda: split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9))})
+                           lambda: split3.split3_fwd(q, *banks, d1, 0.1, 0.9))})
     # the edge inputs draw from generators of their own, so the inputs of
     # the shapes after them stay those of earlier runs
     gs = torch.Generator(device=dev).manual_seed(11)
@@ -1173,14 +1279,16 @@ def phase_kernels() -> dict:
         q = torch.randn((B, S, H, D), generator=gs, device=dev).to(bf)
         banks = [torch.randn((B, n, H, D), generator=gs, device=dev).to(bf)
                  for n in lens for _ in range(2)]
-        ok, text, _ = split3_judge(split3.split3_fwd(q, *banks, delta, 0.5, 0.5),
-                                   split3.split3_reference(q, *banks, delta, 0.5, 0.5))
+        dl = _delta(delta)
+        ok, text, _ = split3_judge(split3.split3_fwd(q, *banks, dl, 0.5, 0.5),
+                                   split3.split3_reference(q, *banks, dl, 0.5, 0.5))
         log(f"[kernel] split3 edge {str((B, S, H, D)):20s} banks {lens} delta {delta:g} "
             f"(plan {split3.split3_plan(H, D, B * S, split3._sm_count(dev))}): {text} "
             f"{'ok' if ok else 'FAIL'} (not timed)")
         if not ok:
             raise SystemExit(f"chip_smoke.py: split3 edge {(B, S, H, D)} banks {lens} disagrees "
                              f"with its plain version")
+    _split3_replay_probe(gs)
     for (M, C) in LN_SHAPES:
         x = randn(M, C)
         lw = 1.0 + randn(C, std=0.1, dtype=torch.float32)
@@ -1637,29 +1745,30 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
-def _check_weights_shapes() -> None:
-    """Each kernel of phase 4b's held eps and decode against its plain
-    version by its judge at WEIGHTS_* (batch 1 on the 64² latent; not timed,
-    not counted)."""
+def _judge_shapes(tag: str, attn_shapes, ln_shapes, gn_shapes, seed: int) -> None:
+    """Each kernel of a phase's path against its plain version by its judge
+    at that path's shapes: attention at `attn_shapes` (B, S, H, D), ln_proj
+    and ln_geglu at `ln_shapes` (M, C), gn_proj at `gn_shapes` (B, S, C)
+    (not timed, not counted)."""
     from psd_tpu_torch.ops import attention
     from psd_tpu_torch.testing import attention_judge
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(31)
+    g = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape, std=1.0, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
 
-    for shape in WEIGHTS_ATTN_SHAPES:
+    for shape in attn_shapes:
         q, k, v = randn(*shape), randn(*shape), randn(*shape)
         ok, text, _ = attention_judge(attention.attention_fwd(q, k, v),
                                       attention.attention_reference(q, k, v))
-        log(f"[weights] attention {shape}: {text} {'ok' if ok else 'FAIL'} (not timed)")
+        log(f"[{tag}] attention {shape}: {text} {'ok' if ok else 'FAIL'} (not timed)")
         if not ok:
             raise SystemExit(f"chip_smoke.py: attention {shape} disagrees with its plain version")
-    for M, C in WEIGHTS_LN_SHAPES:
+    for M, C in ln_shapes:
         _check_ln_edge(randn, M, C, C, 4 * C, 0.0)
-    for B, S, C in WEIGHTS_GN_SHAPES:
+    for B, S, C in gn_shapes:
         _check_gn_edge(randn, B, S, C, C, 0.0)
     torch.cuda.empty_cache()
 
@@ -1673,7 +1782,6 @@ def phase_weights(card: str) -> dict:
     the converted Inception and VGG through its flags, its loaded weights
     held to the npz key by key. The launches count from 0 before the held
     eps and decode, and before the CLI."""
-    import importlib.util
     import shutil
     from unittest import mock
 
@@ -1702,10 +1810,7 @@ def phase_weights(card: str) -> dict:
         written = _write_published(work)
         log(f"[weights] wrote the published files (seconds, GB): {written}")
 
-        spec = importlib.util.spec_from_file_location(
-            "torch_port_weights", ROOT / "scripts" / "torch_port_weights.py")
-        script = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(script)
+        script = _load_script("torch_port_weights")
         converted, held = {}, {}
         for kind, src in WEIGHTS_KINDS:
             out = work / f"{kind}.npz"
@@ -1856,7 +1961,7 @@ def phase_weights(card: str) -> dict:
         if not all(checks.values()):
             raise SystemExit(f"chip_smoke.py: weights checks failed: "
                              f"{[k for k, v in checks.items() if not v]}")
-        _check_weights_shapes()
+        _judge_shapes("weights", WEIGHTS_ATTN_SHAPES, WEIGHTS_LN_SHAPES, WEIGHTS_GN_SHAPES, 31)
         return {"counts": counts, "head_dims": head_dims, "bands": bands, "written": written,
                 "converted": converted, "cli": {"counts": counts_e, "head_dims": dims_e}}
     finally:
@@ -1907,18 +2012,22 @@ def _programs(model, kind: str):
 
 
 def _replay_ms(prog, n: int = 3) -> dict:
-    """One replay of a captured program: its device time (CUDA events,
-    median of `n` after one) and the host time until `replay()` returns
-    (the graph's launch, median of `n`)."""
-    device = time_ms(prog.graph.replay, n=n, warmup=1)
-    host = []
+    """One replay of a captured program (replayed before, so warm): its
+    device time (CUDA events around the replay) and the host time until
+    `replay()` returns (the graph's launch), each the median of the same `n`
+    replays."""
+    device, host = [], []
     for _ in range(n):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        start.record()
         prog.graph.replay()
         host.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
-    return {"device_ms": device, "host_launch_ms": statistics.median(host)}
+        stop.record()
+        torch.cuda.synchronize()
+        device.append(start.elapsed_time(stop))
+    return {"device_ms": statistics.median(device), "host_launch_ms": statistics.median(host)}
 
 
 def _close(server, what: str) -> None:
@@ -2198,16 +2307,214 @@ def phase_serve(card: str, unet: dict) -> dict:
     log(f"[serve] checks {checks}")
     if not all(checks.values()):
         raise SystemExit(f"chip_smoke.py: serve checks failed: {checks}")
-    del server, eserver, userver, prog, sprog, dprog, probe, model
+    del server, eserver, userver, prog, sprog, dprog, probe
     gc.collect()  # the probes' wrappers hold their servers in cycles
     torch.cuda.empty_cache()
     failure = _check_capture_failure()
-    return {"counts": counts, "head_dims": dims, "replay_launches": launches,
+    # phase 5g replays this model's generate program (captured at steer 1.0)
+    return {"model": model, "counts": counts, "head_dims": dims, "replay_launches": launches,
             "images12": images12, "wall_s": wall_replay, "img_per_s": batch / wall_replay,
             "ab": ab,
             "replay_ms": replay_ms, "diffs": diffs, "failure": failure,
             "memory_gib": {"first_peak": peak_first, "replay_peak": peak_replay,
                            "eager_peak": peak_eager, **mem_graph}}
+
+
+# ---- scalars -----------------------------------------------------------------
+def _replay_skipping(prog, inputs, skip: int):
+    """A planted fault: replay `prog` after copying in every input but
+    input `skip`, which keeps the value the program last ran with."""
+    with torch.inference_mode():  # the static inputs are inference tensors
+        for i, (static, t) in enumerate(zip(prog.inputs, inputs)):
+            if i != skip:
+                static.copy_(t)
+        prog.graph.replay()
+        return prog.output.clone()
+
+
+class _CaptureCounter:
+    """Counts the programs DADD captures while it is entered (a stand-in for
+    `diffusion.dadd.CapturedProgram` that builds the real one)."""
+
+    def __enter__(self):
+        from psd_tpu_torch.diffusion import dadd
+
+        self.module, self.real, self.n = dadd, dadd.CapturedProgram, 0
+
+        def counting(*a, **k):
+            self.n += 1
+            return self.real(*a, **k)
+
+        dadd.CapturedProgram = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.module.CapturedProgram = self.real
+
+
+def _sweep(model, call: dict, name: str, values, fault: tuple, label: str) -> dict:
+    """`model.generate(**call, name=v)` for each v of `values`, by graph
+    replay, each against an eager generate at v bit for bit; each replay's
+    wall (synced) and device time (CUDA events around the call: the copies
+    in, the replay, the copy out). The planted fault `fault` = (after,
+    value): once `values[:after]` have run, a replay at `value` that skips
+    the copy of `name`'s input, so it runs at the value the program holds.
+    `_sample_program` puts steer and guidance last, in that order. The
+    launch counts are set to 0 after the eager references and read after
+    the sweep: a capture's warm-up and capture count, replays do not."""
+    from psd_tpu_torch.core.mode import eager
+    from psd_tpu_torch.diffusion.graphs import program_key
+    from psd_tpu_torch.ops import kernels
+
+    knobs = model.static_knobs(call["sampling_steps"], 1, "encoder", "ddim")
+    scalars = {"steer_scale": call.get("steer_scale", 0.0),
+               "guidance_scale": call.get("guidance_scale", 1.0)}
+
+    def inputs_at(v):
+        at = {**scalars, name: v}
+        return model._sample_program(call["cond"], call["x0"], call.get("cond_uncond"), None,
+                                     at["steer_scale"], at["guidance_scale"], knobs)[0]
+
+    refs = {}
+    with eager():
+        for v in set(values) | {fault[1]}:
+            refs[v] = model.generate(**call, **{name: v})
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    readings, images, caught = {}, {}, None
+    for i, v in enumerate(values):
+        if i == fault[0]:
+            fin = inputs_at(fault[1])
+            prog = model.programs[program_key("generate", fin, **knobs)]
+            skip = len(fin) - (2 if name == "steer_scale" else 1)
+            caught = not torch.equal(_replay_skipping(prog, fin, skip), refs[fault[1]])
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        out = model.generate(**call, **{name: v})
+        stop.record()
+        torch.cuda.synchronize()
+        readings[v] = {"wall_s": time.perf_counter() - t0,
+                       "device_ms": start.elapsed_time(stop),
+                       "equal_to_eager": bool(torch.equal(out, refs[v]))}
+        images[v] = out.cpu().numpy()
+    counts = {k: n for k, n in kernels.launch_counts.items() if n}
+    head_dims = dict(kernels.attention_head_dims)
+    prog = model.programs[program_key("generate", inputs_at(values[0]), **knobs)]
+    log(f"[scalars] {label}: {name} " + "; ".join(
+        f"{v:g} wall {r['wall_s']:.3f} s, device {r['device_ms']:.2f} ms, bit-equal to eager "
+        f"{r['equal_to_eager']}" for v, r in readings.items())
+        + f"; planted fault (a replay at {fault[1]:g} that skips the {name} copy) caught: "
+        f"{caught}; host launches over the sweep {counts}")
+    return {"values": readings, "images": images, "fault_caught": bool(caught), "program": prog,
+            "counts": counts, "head_dims": head_dims}
+
+
+def phase_scalars(card: str, served: dict) -> dict:
+    """Steer and guidance as device scalars: one captured program serves a
+    sweep. (a) Phase 5's model and its generate program (captured at steer
+    1.0 by the server): 8 requests whose source and target labels differ (the
+    delta tokens are zero where they are equal, and δ would change nothing),
+    replayed at each of SCALARS_STEERS without a new capture, each bit-equal
+    to an eager generate at that δ; the images at 0.3 and 2.0 apart by more
+    than SCALARS_DIFF_FLOOR; the planted fault, a replay at 0.3 that skips
+    the steer copy (so it runs at the captured 1.0), caught. (b) Baseline
+    mode with CFG (configs/train.yaml at 256², batch 8, a UNet batch of 16,
+    SCALARS_CFG_STEPS DDIM steps): one program captured at the first of
+    SCALARS_GUIDANCES and replayed at each, bit-equal to eager, the same
+    fault on the guidance caught, and the kernels' launches those
+    route_launches gives (twice over the sweep: warm-up and capture), each
+    kernel at (b)'s shapes held to its plain version (SCALARS_*)."""
+    import numpy as np
+
+    from psd_tpu_torch.core.config import load_config
+    from psd_tpu_torch.diffusion.dadd import DADD
+    from psd_tpu_torch.testing import route_launches
+
+    model = served.pop("model")
+    rng = np.random.default_rng(5)
+    batch, size = 8, 512
+    feats = rng.standard_normal((batch, 257, 1024)).astype(np.float32)
+    targets = np.linspace(0.5, 3.0, batch).astype(np.float32)
+    sources = np.where(np.arange(batch) % 2 == 0, 0.0, 3.5 - targets).astype(np.float32)
+    if np.any(targets == sources):
+        raise SystemExit("chip_smoke.py: scalars: a request whose source equals its target")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    call = dict(cond=model.prepare_inference_cond(targets, sources, feats),
+                x0=model.initial_noise(batch, size, gen, shared_noise=False), image_size=size,
+                sampling_steps=model.cfg.diffusion.sampling_steps)
+    (prog,) = _programs(model, "generate")
+    n_programs, replays0 = len(model.programs), prog.replays
+    with _CaptureCounter() as captures:
+        a = _sweep(model, call, "steer_scale", SCALARS_STEERS, (0, 0.3),
+                   f"(a) exact path, {size}², batch {batch}, {call['sampling_steps']} DDIM steps")
+    diff = np.abs(a["images"][0.3].astype(np.float64) - a["images"][2.0])
+    apart = {"mean": float(diff.mean()), "max": float(diff.max())}
+    checks_a = {
+        "no new capture": captures.n == 0 and len(model.programs) == n_programs,
+        "phase 5's program replayed, once a value":
+            a["program"] is prog and prog.replays == replays0 + len(SCALARS_STEERS),
+        "each replay bit-equal to eager": all(r["equal_to_eager"] for r in a["values"].values()),
+        f"0.3 and 2.0 apart by more than {SCALARS_DIFF_FLOOR:g} (mean abs)":
+            apart["mean"] > SCALARS_DIFF_FLOOR,
+        "planted fault (steer copy skipped) caught": a["fault_caught"],
+        "no kernel launched on the host (replays only)": a["counts"] == {},
+    }
+    log(f"[scalars] (a) the program's one capture (phase 5, steer 1.0): warm-up "
+        f"{prog.warmup_s:.3f} s + capture {prog.capture_s:.3f} s + instantiation "
+        f"{prog.instantiate_s:.3f} s, peak allocated {served['memory_gib']['first_peak']:.3f} GiB "
+        f"(phase 5's first batch); images at 0.3 and 2.0 apart {apart}; checks {checks_a}")
+    del model, prog, a, call
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _judge_shapes("scalars", SCALARS_ATTN_SHAPES, SCALARS_LN_SHAPES, SCALARS_GN_SHAPES, 41)
+    cfg = load_config(ROOT / "configs" / "train.yaml", ["dataset.image_size=256"])
+    model = DADD(cfg, dtype=torch.bfloat16, device="cuda", seed=1)
+    want = route_launches(model.core_cfg, model.vae_cfg, batch, 256, SCALARS_CFG_STEPS,
+                          cfg_pass=True)
+    feats = rng.standard_normal((batch, model.core_cfg.clip_projection_dim)).astype(np.float32)
+    tgt, src = np.linspace(0.0, 3.0, batch).astype(np.float32), np.zeros(batch, np.float32)
+    call = dict(cond=model.prepare_inference_cond(tgt, src, feats),
+                cond_uncond=model.prepare_inference_cond(tgt, src, feats, zero_aoe=True),
+                x0=model.initial_noise(batch, 256, gen, shared_noise=True), image_size=256,
+                sampling_steps=SCALARS_CFG_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _CaptureCounter() as captures:
+        b = _sweep(model, call, "guidance_scale", SCALARS_GUIDANCES,
+                   (1, SCALARS_GUIDANCES[1]),
+                   f"(b) baseline mode with CFG, 256², batch {batch} (UNet {2 * batch}), "
+                   f"{SCALARS_CFG_STEPS} DDIM steps")
+    peak_b = torch.cuda.max_memory_allocated() / 2**30
+    prog, b_counts, b_dims = b["program"], b["counts"], b["head_dims"]
+    checks_b = {
+        "one capture": captures.n == 1 and len(model.programs) == 1,
+        "each replay bit-equal to eager": all(r["equal_to_eager"] for r in b["values"].values()),
+        "planted fault (guidance copy skipped) caught": b["fault_caught"],
+        f"host launches 2 x route_launches {want} (warm-up and capture)":
+            b["counts"] == {k: 2 * n for k, n in want.items() if n},
+        "a replay launches route_launches": dict(prog.launches) == {
+            k: n for k, n in want.items() if n},
+        "every kernel of the path launched": all(
+            want[k] > 0 for k in ("attention", "ln_proj", "ln_geglu", "gn_proj")),
+    }
+    log(f"[scalars] (b) its one capture (at guidance {SCALARS_GUIDANCES[0]:g}): warm-up "
+        f"{prog.warmup_s:.3f} s + capture {prog.capture_s:.3f} s + instantiation "
+        f"{prog.instantiate_s:.3f} s; peak allocated over (b) {peak_b:.3f} GiB; checks "
+        f"{checks_b}; on {card}")
+    del model, prog, b, call
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = {**{f"a {k}": v for k, v in checks_a.items()},
+              **{f"b {k}": v for k, v in checks_b.items()}}
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke.py: scalars checks failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    # the sweeps' host launches, (a)'s none: (b)'s warm-up and capture
+    return {"apart": apart, "checks": checks, "counts": {k: b_counts.get(k, 0) for k in KERNELS},
+            "head_dims": b_dims}
 
 
 # ---- turbo -------------------------------------------------------------------
@@ -2565,11 +2872,12 @@ def _check_infer_shapes() -> None:
             attention.attention_fwd(q, k, v), attention.attention_reference(q, k, v))))
         del q, k, v
         torch.cuda.empty_cache()
+    d1 = _delta(1.0)  # δ as the model passes it, in device memory
     for (B, S, H, D) in INFER_SPLIT3_SHAPES:
         q, banks = randn(B, S, H, D), [randn(B, 16, H, D) for _ in range(6)]
         checks.append(("split3", (B, S, H, D), split3_judge(
-            split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9),
-            split3.split3_reference(q, *banks, 1.0, 0.1, 0.9))))
+            split3.split3_fwd(q, *banks, d1, 0.1, 0.9),
+            split3.split3_reference(q, *banks, d1, 0.1, 0.9))))
     for name, shape, (ok, text, _) in checks:
         log(f"[infer] {name} {shape}: {text} {'ok' if ok else 'FAIL'} (not timed)")
         if not ok:
@@ -2617,10 +2925,11 @@ def phase_infer(card: str) -> dict:
     steer 1.0) and one batch-13 UNet eps on its conditioning, kernels
     against all plain; run (b) baseline mode at 256² with CFG 3.0, eta 0.5
     and a LEACE npz fitted here."""
+    import shutil
+
     import numpy as np
     from PIL import Image
 
-    from psd_tpu_torch.conditioning.leace import fit_leace, save_leace
     from psd_tpu_torch.core.mode import KERNELS, disable_kernels
 
     work = ROOT / "build" / "psd_tpu_torch" / "infer"
@@ -2657,17 +2966,29 @@ def phase_infer(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # LEACE over the baseline model's projected image tokens (16 x 768)
+    # LEACE fitted by scripts/torch_compute_leace_projection.py through the
+    # baseline model (fp32, as psd_tpu's script) on a seeded tree of PNGs
+    shutil.rmtree(work / "leace_tree", ignore_errors=True)
+    _write_tree(work / "leace_tree", {"train": LEACE_FIT_IMAGES})
+    leace_script = _load_script("torch_compute_leace_projection")
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    labels = np.arange(LEACE_FIT_ROWS) % 4
-    tokens = (rng.standard_normal((LEACE_FIT_ROWS, 16, 768)) + 0.1 * labels[:, None, None])
-    leace = fit_leace(tokens.astype(np.float32), labels)
-    save_leace(leace, work / "leace.npz")
+    leace = leace_script.main(["--config", str(ROOT / "configs" / "train.yaml"), "--data-dir",
+                               str(work / "leace_tree"), "--output", str(work / "leace.npz"),
+                               "--seed", "0"])
     fit_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
     b = _infer_run("b", INFER_RUN_B + ["--leace", str(work / "leace.npz")], work / "b", card,
                    structure)
-    log(f"[infer] run b: LEACE fitted and saved in {fit_s:.3f} s (rows {LEACE_FIT_ROWS}, "
-        f"stats {leace['stats']}); CFG batch in the UNet "
+    fit_ok = (leace["P_null"].shape == (16 * 768, 16 * 768)
+              and all(math.isfinite(v) for v in leace["stats"].values())
+              and leace["stats"]["dist_after"] < leace["stats"]["dist_before"])
+    b["checks"][f"LEACE fitted by the script on {LEACE_FIT_IMAGES} PNGs, finite, the class "
+                f"means closer after"] = fit_ok
+    log(f"[infer] run b: LEACE fitted by scripts/torch_compute_leace_projection.py "
+        f"(configs/train.yaml, fp32, {LEACE_FIT_IMAGES} PNGs in four classes) in {fit_s:.3f} s "
+        f"with the model's build; stats {leace['stats']}; CFG batch in the UNet "
         f"{2 * INFER_LEVELS if b['out']['uncond'] is not None else INFER_LEVELS}")
     b.pop("out")
     gc.collect()
@@ -2711,12 +3032,13 @@ def _lever_kernels(results: dict) -> None:
                  key="levers_shapes")
         del q, k, v
         torch.cuda.empty_cache()
+    d1 = _delta(1.0)  # δ as the model passes it, in device memory
     for (B, S, H, D) in LEVER_SPLIT3_SHAPES:
         q = randn(B, S, H, D)
         banks = [randn(B, 16, H, D) for _ in range(6)]
         _compare("split3", (B, S, H, D),
-                 lambda: split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9),
-                 lambda: split3.split3_reference(q, *banks, 1.0, 0.1, 0.9), results,
+                 lambda: split3.split3_fwd(q, *banks, d1, 0.1, 0.9),
+                 lambda: split3.split3_reference(q, *banks, d1, 0.1, 0.9), results,
                  (3 * 4.0 * B * H * S * 16 * D, (2 * B * S + 6 * B * 16) * H * D * 2),
                  judge=split3_judge, key="levers_shapes")
     for (M, C, n_out) in LEVER_LN_PROJ_SHAPES:
@@ -3059,10 +3381,11 @@ def _check_split3_autograd(randn, shape, timed: bool = True) -> None:
     B, S, H, D = shape
     ins = [randn(B, S, H, D)] + [randn(B, 16, H, D) for _ in range(6)]
     dout = randn(B, S, H, D)
+    d1 = _delta(1.0)
 
     def grads(fn):
         xs = [t.clone().requires_grad_(True) for t in ins]
-        out = fn(*xs, 1.0, 0.1, 0.9, None)
+        out = fn(*xs, d1, 0.1, 0.9, None)
         return (out.detach(),) + torch.autograd.grad(out, xs, dout)
 
     got = grads(split3.Split3Attention.apply)
@@ -3321,11 +3644,12 @@ def _check_train_cli_shapes() -> None:
         checks.append(("attention", shape, attention_judge(
             attention.attention_fwd(q, k, v), attention.attention_reference(q, k, v))))
         del q, k, v
+    d0 = _delta(0.0)  # δ as the model passes it, in device memory
     for (B, S, H, D) in TRAIN_CLI_SPLIT3_SHAPES:
         q, banks = randn(B, S, H, D), [randn(B, 16, H, D) for _ in range(6)]
         checks.append(("split3", (B, S, H, D), split3_judge(
-            split3.split3_fwd(q, *banks, 0.0, 0.1, 0.9),
-            split3.split3_reference(q, *banks, 0.0, 0.1, 0.9))))
+            split3.split3_fwd(q, *banks, d0, 0.1, 0.9),
+            split3.split3_reference(q, *banks, d0, 0.1, 0.9))))
     for name, shape, (ok, text, _) in checks:
         log(f"[train_cli] {name} {shape}: {text} {'ok' if ok else 'FAIL'} (not timed)")
         if not ok:
@@ -3563,11 +3887,12 @@ def _check_loop_shapes() -> None:
         q, k, v = randn(*shape), randn(*shape), randn(*shape)
         checks.append(("attention", shape, attention_judge(
             attention.attention_fwd(q, k, v), attention.attention_reference(q, k, v))))
+    d1 = _delta(1.0)  # δ as the model passes it, in device memory
     for (B, S, H, D) in LOOP_SPLIT3_SHAPES:
         q, banks = randn(B, S, H, D), [randn(B, 16, H, D) for _ in range(6)]
         checks.append(("split3", (B, S, H, D), split3_judge(
-            split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9),
-            split3.split3_reference(q, *banks, 1.0, 0.1, 0.9))))
+            split3.split3_fwd(q, *banks, d1, 0.1, 0.9),
+            split3.split3_reference(q, *banks, d1, 0.1, 0.9))))
     for name, shape, (ok, text, _) in checks:
         log(f"[loop] {name} {shape}: {text} {'ok' if ok else 'FAIL'} (not timed)")
         if not ok:
@@ -3723,7 +4048,7 @@ def phase_product_loop(card: str, cli: dict) -> dict:
                     for c in idx_to_cls}
     got_per_cls = {c: len(list((synth / "train" / c).glob("generated_*.bmp"))) for c in idx_to_cls}
 
-    # evaluate: the timer's phases, the model, and each scale's pool when dropped
+    # evaluate: the timer's phases, the model, and each checkpoint's pool when dropped
     timers, models, pools = [], [], []
     make_timer, model_for, drop = evaluate.PhaseTimer, evaluate.model_for, DADD.drop_programs
 
@@ -3751,18 +4076,10 @@ def phase_product_loop(card: str, cli: dict) -> dict:
     metrics_ok = all(np.isfinite(v) for r in results for v in
                      [*r.overall.values(), *(x for c in r.per_class.values() for x in c.values())])
 
-    # the scale-sweep memory rule's alternative: scale 1's images eagerly
     model = models[0]
     ds = evaluate.LIMUCDataset(data / "val", image_size=size, return_clip=True,
                                clip_size=model.clip_cfg.image_size, seed=0)
     jobs = evaluate.collect_jobs(ds, 4, 4)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    with eager():
-        evaluate.generate_all(model, ds, jobs, LOOP_SCALES[0], size, LOOP_STEPS, 4, 4, 0)
-    eager_s = time.perf_counter() - t0
-    peak_eager = torch.cuda.max_memory_allocated() / 2**30
 
     # the backbones' bf16 features on the card against fp32 on the CPU
     bank = evaluate.FeatureBank(model, allow_random_backbones=True)
@@ -3819,8 +4136,10 @@ def phase_product_loop(card: str, cli: dict) -> dict:
             counts_a == {k: 2 * per_batch.get(k, 0) for k in counts_a},
         "augment: one program, its capture launching one batch's": prog_info is not None
             and prog_info["launches"] == {k: v for k, v in per_batch.items() if v},
-        f"evaluate launches {len(LOOP_SCALES)} scales x 2 x the batch's":
-            counts_e == {k: 2 * len(LOOP_SCALES) * per_batch.get(k, 0) for k in counts_e},
+        f"evaluate: {len(LOOP_SCALES)} scales replay one program, launching 2 x the batch's "
+        f"(warm-up and capture; replays none)":
+            counts_e == {k: 2 * per_batch.get(k, 0) for k in counts_e},
+        "evaluate: the programs dropped once, after the checkpoint's last scale": len(pools) == 1,
         "classify launches none": sum(counts_c.values()) == 0,
         "first replayed augment batch equal to eager, bit for bit": replay_eq,
         f"generated {sum(want_per_cls.values())} BMPs under train/<class>/generated_*":
@@ -3860,11 +4179,10 @@ def phase_product_loop(card: str, cli: dict) -> dict:
         f"included), end to end {n_aug / sum(laps):.2f} img/s; peak allocated {peak_a:.2f} "
         f"GiB; on {card}")
     log(f"[loop] evaluate ({len(LOOP_SCALES)} scales, {len(jobs)} jobs a scale, val split): "
-        f"main() wall {wall_e:.3f} s; phases (synced) {laps_e}; each scale's pool freed on "
-        f"its drop {[round(x, 3) for x in pools]} GiB; peak allocated {peak_e:.2f} GiB; scale "
-        f"{LOOP_SCALES[0]} again eagerly: {eager_s:.3f} s, peak {peak_eager:.2f} GiB; "
-        f"results {[(r.scale, round(r.throughput_img_s, 2), r.overall) for r in results]}; on "
-        f"{card}")
+        f"main() wall {wall_e:.3f} s; phases (synced) {laps_e}; the checkpoint's pool freed on "
+        f"its drop after the last scale {[round(x, 3) for x in pools]} GiB; peak allocated "
+        f"{peak_e:.2f} GiB; results "
+        f"{[(r.scale, round(r.throughput_img_s, 2), r.overall) for r in results]}; on {card}")
     log(f"[loop] backbones bf16 (card) vs fp32 (CPU) rel L2 {bands}; planted faults "
         f"(Inception pools counting the padding, VGG's shrink without antialias, CLIP on BGR) "
         f"{faults}; CLIP on rounded processor bytes {rounded_rel:.4e}; bands "
@@ -4483,11 +4801,12 @@ def _check_serve_rank_shapes() -> None:
         q, k, v = randn(*shape), randn(*shape), randn(*shape)
         checks.append(("attention", shape, attention_judge(
             attention.attention_fwd(q, k, v), attention.attention_reference(q, k, v))))
+    d1 = _delta(1.0)  # δ as the model passes it, in device memory
     for (B, S, H, D) in SERVE_RANK_SPLIT3_SHAPES:
         q, banks = randn(B, S, H, D), [randn(B, 16, H, D) for _ in range(6)]
         checks.append(("split3", (B, S, H, D), split3_judge(
-            split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9),
-            split3.split3_reference(q, *banks, 1.0, 0.1, 0.9))))
+            split3.split3_fwd(q, *banks, d1, 0.1, 0.9),
+            split3.split3_reference(q, *banks, d1, 0.1, 0.9))))
     for name, shape, (ok, text, _) in checks:
         log(f"[serve_ranks] {name} {shape}: {text} {'ok' if ok else 'FAIL'} (not timed)")
         if not ok:
@@ -4526,16 +4845,17 @@ def _tp_kernels(results: dict) -> None:
                  key="tp_shapes")
         del q, k, v
         torch.cuda.empty_cache()
+    d1 = _delta(1.0)  # δ as the model passes it, in device memory
     for (B, S, H, D) in TP_SPLIT3_SHAPES:
         q = randn(B, S, H, D)
         banks = [randn(B, 16, H, D) for _ in range(6)]
         _compare("split3", (B, S, H, D),
-                 lambda: split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9),
-                 lambda: split3.split3_reference(q, *banks, 1.0, 0.1, 0.9), results,
+                 lambda: split3.split3_fwd(q, *banks, d1, 0.1, 0.9),
+                 lambda: split3.split3_reference(q, *banks, d1, 0.1, 0.9), results,
                  (3 * 4.0 * B * H * S * 16 * D, (2 * B * S + 6 * B * 16) * H * D * 2),
                  judge=split3_judge, key="tp_shapes",
                  note={"device_ms": graph_ms(
-                     lambda: split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9))})
+                     lambda: split3.split3_fwd(q, *banks, d1, 0.1, 0.9))})
     for (M, C) in TP_LN_SHAPES:
         N = C // TP
         x = randn(M, C)
@@ -4568,11 +4888,12 @@ def _tp_kernels(results: dict) -> None:
         q, k, v = randn(*shape), randn(*shape), randn(*shape)
         checks.append(("attention", shape, attention_judge(
             attention.attention_fwd(q, k, v), attention.attention_reference(q, k, v))))
+    d1 = _delta(1.0)  # δ as the model passes it, in device memory
     for (B, S, H, D) in TP4_SPLIT3_EDGE:
         q, banks = randn(B, S, H, D), [randn(B, 16, H, D) for _ in range(6)]
         checks.append(("split3", (B, S, H, D), split3_judge(
-            split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9),
-            split3.split3_reference(q, *banks, 1.0, 0.1, 0.9))))
+            split3.split3_fwd(q, *banks, d1, 0.1, 0.9),
+            split3.split3_reference(q, *banks, d1, 0.1, 0.9))))
     for name, shape, (ok, text, _) in checks:
         log(f"[serve_tp] tp 4: {name} {shape}: {text} {'ok' if ok else 'FAIL'} (not timed)")
         if not ok:
@@ -4863,10 +5184,11 @@ def _check_rank_shapes() -> None:
         if shape[-1] == 40:
             _check_attention_bwd(q, k, v, randn(*shape), f"{shape} (not timed)")
         del q, k, v
+    d0 = _delta(0.0)  # δ as the model passes it, in device memory
     for (B, S, H, D) in RANKS_SPLIT3_SHAPES:
         q, banks = randn(B, S, H, D), [randn(B, 16, H, D) for _ in range(6)]
-        ok, text, _ = split3_judge(split3.split3_fwd(q, *banks, 0.0, 0.1, 0.9),
-                                   split3.split3_reference(q, *banks, 0.0, 0.1, 0.9))
+        ok, text, _ = split3_judge(split3.split3_fwd(q, *banks, d0, 0.1, 0.9),
+                                   split3.split3_reference(q, *banks, d0, 0.1, 0.9))
         log(f"[train_ranks] split3 {(B, S, H, D)}: {text} {'ok' if ok else 'FAIL'} (not timed)")
         if not ok:
             raise SystemExit(f"chip_smoke.py: split3 {(B, S, H, D)} disagrees with its plain "
@@ -5159,14 +5481,15 @@ def _train_tp_kernels(results: dict) -> None:
         results["attention_bwd"].setdefault("tp_train_shapes", []).append(entry)
         del q, k, v, dout
         torch.cuda.empty_cache()
+    d1 = _delta(1.0)  # δ as the model passes it, in device memory
     for shape in TRAIN_TP_SPLIT3_SHAPES:
         B, S, H, D = shape
         q, banks = randn(*shape), [randn(B, 16, H, D) for _ in range(6)]
-        _compare("split3", shape, lambda: split3.split3_fwd(q, *banks, 1.0, 0.1, 0.9),
-                 lambda: split3.split3_reference(q, *banks, 1.0, 0.1, 0.9), results,
+        _compare("split3", shape, lambda: split3.split3_fwd(q, *banks, d1, 0.1, 0.9),
+                 lambda: split3.split3_reference(q, *banks, d1, 0.1, 0.9), results,
                  (3 * 4.0 * B * H * S * 16 * D, (2 * B * S + 6 * B * 16) * H * D * 2),
                  judge=split3_judge, key="tp_train_shapes",
-                 note={"device_ms": graph_ms(lambda: split3.split3_fwd(q, *banks, 1.0, 0.1,
+                 note={"device_ms": graph_ms(lambda: split3.split3_fwd(q, *banks, d1, 0.1,
                                                                        0.9))})
         _check_split3_autograd(randn, shape)
     torch.cuda.empty_cache()
@@ -5417,6 +5740,7 @@ def main() -> int:
     unet = timed("unet", phase_unet)
     weights = timed("weights", phase_weights, card)
     served = timed("serve", phase_serve, card, unet)
+    scalars = timed("scalars", phase_scalars, card, served)
     turbo = timed("turbo", phase_turbo, card, served)
     inferred = timed("infer", phase_infer, card)
     levers = timed("unet levers", phase_unet_levers, card, turbo, results)
@@ -5434,8 +5758,8 @@ def main() -> int:
     for name, (replaces, source) in KERNELS.items():
         r = results[name]
         by_path = {path: run["counts"][name] for path, run in
-                   (("serve", served), ("turbo", turbo), ("infer", inferred),
-                    ("train", trained), ("train_cli", train_cli), ("op", op),
+                   (("serve", served), ("scalars", scalars), ("turbo", turbo),
+                    ("infer", inferred), ("train", trained), ("train_cli", train_cli), ("op", op),
                     ("augment", loop["augment"]), ("evaluate", loop["evaluate"]),
                     ("train_dp", ranks), ("serve_dp", served_dp), ("levers", levers),
                     ("serve_tp", served_tp), ("train_tp", trained_tp), ("weights", weights),
@@ -5465,8 +5789,8 @@ def main() -> int:
                 entry["ptxas"] = ptxas
             entry["launches_by_head_dim"] = {
                 path: run["head_dims"] for path, run in
-                (("serve", served), ("turbo", turbo), ("infer", inferred),
-                 ("train", trained), ("train_cli", train_cli),
+                (("serve", served), ("scalars", scalars), ("turbo", turbo),
+                 ("infer", inferred), ("train", trained), ("train_cli", train_cli),
                  ("augment", loop["augment"]), ("evaluate", loop["evaluate"]),
                  ("train_dp", ranks), ("serve_dp", served_dp), ("levers", levers),
                  ("serve_tp", served_tp), ("train_tp", trained_tp), ("weights", weights),

@@ -49,16 +49,24 @@ def _set(tree: Dict, path, value):
     node[path[-1]] = value
 
 
-# the tensor dtypes the .safetensors reader takes (numpy has no bf16: those
-# go through torch)
-SAFETENSORS_DTYPES = {"F32": np.dtype("<f4"), "F16": np.dtype("<f2"), "BF16": np.dtype("<u2")}
+# the tensor dtypes the .safetensors reader takes, as numpy reads their
+# bytes (numpy has no bf16: those go through torch); the floating ones are
+# widened to float32, the others kept as they are
+SAFETENSORS_DTYPES = {"F64": np.dtype("<f8"), "F32": np.dtype("<f4"), "F16": np.dtype("<f2"),
+                      "BF16": np.dtype("<u2"), "BOOL": np.dtype("?"), "U8": np.dtype("u1"),
+                      "I8": np.dtype("i1"), "I16": np.dtype("<i2"), "U16": np.dtype("<u2"),
+                      "I32": np.dtype("<i4"), "U32": np.dtype("<u4"), "I64": np.dtype("<i8"),
+                      "U64": np.dtype("<u8")}
+FLOATING = ("F64", "F32", "F16", "BF16")
 
 
 def read_safetensors(path: str | Path) -> Dict[str, np.ndarray]:
-    """A .safetensors file → {name: float32 array}, in the order of the
-    tensors' bytes in the file (`safetensors.numpy.load_file`'s). The file is
-    mapped, not read: F32 tensors are views of the mapping; F16 and BF16 are
-    widened to float32. Any other dtype, or a header that does not describe
+    """A .safetensors file → {name: array}, in the order of the tensors'
+    bytes in the file (`safetensors.numpy.load_file`'s). The file is mapped,
+    not read: F32 tensors are views of the mapping; F64, F16 and BF16 become
+    float32 (as a `.bin`'s floating tensors do); BOOL and the integer dtypes
+    keep their own numpy dtype, as `load_file` gives them. A dtype numpy
+    cannot hold (F8_*, an unknown name), or a header that does not describe
     the file, raises."""
     path = Path(path)
     mapped = np.memmap(path, dtype=np.uint8, mode="c")  # copy-on-write: torch.frombuffer needs it writable
@@ -82,12 +90,13 @@ def read_safetensors(path: str | Path) -> Dict[str, np.ndarray]:
             raise ValueError(f"{path}: tensor {name!r} ({dtype}, {shape}) has bytes "
                              f"[{begin}, {end}) of {data.size}")
         raw = data[begin:end]
+        kept = np.float32 if dtype in FLOATING else SAFETENSORS_DTYPES[dtype]
         if count == 0:
-            arr = np.zeros(shape, np.float32)
+            arr = np.zeros(shape, kept)
         elif dtype == "BF16":
             arr = torch.frombuffer(raw, dtype=torch.bfloat16).float().numpy().reshape(shape)
         else:
-            arr = raw.view(SAFETENSORS_DTYPES[dtype]).astype(np.float32, copy=False).reshape(shape)
+            arr = raw.view(SAFETENSORS_DTYPES[dtype]).astype(kept, copy=False).reshape(shape)
         out[name] = arr
     return out
 

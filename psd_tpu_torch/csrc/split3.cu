@@ -55,9 +55,12 @@
 //    run under the next item's loads and products.
 // mma.sync suffices at 48 keys: a 16-row unit is the natural grain of the
 // per-bank softmax, and wgmma's 64-row tiles would buy no bytes.
-// The gates and δ are plain arguments: changing the steering scale rebuilds
-// nothing. Requires bank lengths 1..16, D % 8 == 0, 24 ≤ D ≤ 160, S % R ==
-// 0 and a plan that fits (the wrapper checks).
+// The gates are plain arguments (per-site constants); δ, the steering
+// scale, is read from device memory, one fp32 a launch that each block
+// loads once before its first item, as psd_tpu's kernel reads it from SMEM:
+// a captured launch replays at whatever δ was last written there, so a
+// sweep over δ replays one CUDA graph. Requires bank lengths 1..16, D % 8
+// == 0, 24 ≤ D ≤ 160, S % R == 0 and a plan that fits (the wrapper checks).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -83,7 +86,7 @@ struct Maps {
 
 struct Split3Args {
   int len[3];
-  float gate[3];
+  float gate[2];  // g_anat, g_dis
 };
 
 // A ring stage: the item's q, ceil(G·D / 64) boxes of R rows × 128 bytes.
@@ -110,8 +113,9 @@ __device__ __forceinline__ uint32_t swz(int c, int x, int rows) {
 
 template <int DP, int NB>
 __global__ void __launch_bounds__(32 * kernel_warps(DP, NB), NB)
-split3_kernel(const __grid_constant__ Maps maps, const Split3Args a, int B, int S, int H, int D,
-              int R, int G, int ST, float scale_log2) {
+split3_kernel(const __grid_constant__ Maps maps, const Split3Args a,
+              const float* __restrict__ delta, int B, int S, int H, int D, int R, int G, int ST,
+              float scale_log2) {
   constexpr int NO = DP / 8, KS = DP / 16, kWarps = kernel_warps(DP, NB);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -123,6 +127,8 @@ split3_kernel(const __grid_constant__ Maps maps, const Split3Args a, int B, int 
   uint64_t* full = reinterpret_cast<uint64_t*>(banks + bank_bytes(G, D));
   uint64_t* bank_full = full + ST;  // a run's banks have arrived
   const int len[3] = {a.len[0], a.len[1], a.len[2]};
+  // the three pathways' factors: the gates, then δ, read once a block
+  const float gate[3] = {a.gate[0], a.gate[1], __ldg(delta)};
   const int n_items = B * n_g * n_rb;
   // this block's run of items, (b, group) outermost, then the row block
   const int i0 = static_cast<int>(static_cast<long long>(blockIdx.x) * n_items / gridDim.x);
@@ -248,7 +254,7 @@ split3_kernel(const __grid_constant__ Maps maps, const Split3Args a, int B, int 
           sum0 += __shfl_xor_sync(0xffffffffu, sum0, o_);
           sum1 += __shfl_xor_sync(0xffffffffu, sum1, o_);
         }
-        const float f0 = __fdividef(a.gate[i], sum0), f1 = __fdividef(a.gate[i], sum1);
+        const float f0 = __fdividef(gate[i], sum0), f1 = __fdividef(gate[i], sum1);
         pa[i][0] = pack_bf16x2(sc[2 * i][0] * f0, sc[2 * i][1] * f0);
         pa[i][1] = pack_bf16x2(sc[2 * i][2] * f1, sc[2 * i][3] * f1);
         pa[i][2] = pack_bf16x2(sc[2 * i + 1][0] * f0, sc[2 * i + 1][1] * f0);
@@ -304,11 +310,11 @@ split3_kernel(const __grid_constant__ Maps maps, const Split3Args a, int B, int 
 
 template <int DP, int NB>
 cudaError_t launch(const bf16* q, const bf16* const (&bank)[6], bf16* out, const Split3Args& a,
-                   int B, int S, int H, int D, int R, int G, int ST, float scale,
-                   cudaStream_t st) {
-  if (B <= 0 || (R != 16 && R != 32 && R != 64) || S <= 0 || S % R != 0 || G <= 0 ||
-      H % G != 0 || (G != H && (G * D) % 64 != 0) || ST < 2 || ST > kMaxStages ||
-      sm_count() == 0)
+                   const float* delta, int B, int S, int H, int D, int R, int G, int ST,
+                   float scale, cudaStream_t st) {
+  if (delta == nullptr || B <= 0 || (R != 16 && R != 32 && R != 64) || S <= 0 ||
+      S % R != 0 || G <= 0 || H % G != 0 || (G != H && (G * D) % 64 != 0) || ST < 2 ||
+      ST > kMaxStages || sm_count() == 0)
     return cudaErrorInvalidValue;
   const size_t bytes = smem_bytes(R, G, ST, D);
   if (bytes > kSmemMax[NB - 1]) return cudaErrorInvalidValue;
@@ -323,17 +329,17 @@ cudaError_t launch(const bf16* q, const bf16* const (&bank)[6], bf16* out, const
   if (err != cudaSuccess) return err;
   const int n_items = B * (H / G) * (S / R);
   split3_kernel<DP, NB><<<std::min(n_items, NB * sm_count()), 32 * kernel_warps(DP, NB), bytes,
-                          st>>>(maps, a, B, S, H, D, R, G, ST, scale * kLog2e);
+                          st>>>(maps, a, delta, B, S, H, D, R, G, ST, scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <int DP>
 cudaError_t launch_nb(const bf16* q, const bf16* const (&bank)[6], bf16* out,
-                      const Split3Args& a, int B, int S, int H, int D, int R, int G, int ST,
-                      int NB, float scale, cudaStream_t st) {
-  if (NB == 1) return launch<DP, 1>(q, bank, out, a, B, S, H, D, R, G, ST, scale, st);
+                      const Split3Args& a, const float* delta, int B, int S, int H, int D,
+                      int R, int G, int ST, int NB, float scale, cudaStream_t st) {
+  if (NB == 1) return launch<DP, 1>(q, bank, out, a, delta, B, S, H, D, R, G, ST, scale, st);
   if constexpr (DP <= 80) {
-    if (NB == 2) return launch<DP, 2>(q, bank, out, a, B, S, H, D, R, G, ST, scale, st);
+    if (NB == 2) return launch<DP, 2>(q, bank, out, a, delta, B, S, H, D, R, G, ST, scale, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -345,10 +351,11 @@ extern "C" int psd_split3_fwd(const void* q, const void* ka, const void* va,
                               const void* kd, const void* vd, const void* kl,
                               const void* vl, void* out, int B, int S, int H, int D,
                               int Ka, int Kd, int Kl, float g_anat, float g_dis,
-                              float delta, float scale, int R, int G, int ST, int NB,
+                              const void* delta, float scale, int R, int G, int ST, int NB,
                               void* stream) {
   using namespace psd;
-  const Split3Args a{{Ka, Kd, Kl}, {g_anat, g_dis, delta}};
+  const Split3Args a{{Ka, Kd, Kl}, {g_anat, g_dis}};
+  const float* dp = static_cast<const float*>(delta);
   const bf16* const banks[6] = {static_cast<const bf16*>(ka), static_cast<const bf16*>(va),
                                 static_cast<const bf16*>(kd), static_cast<const bf16*>(vd),
                                 static_cast<const bf16*>(kl), static_cast<const bf16*>(vl)};
@@ -358,31 +365,31 @@ extern "C" int psd_split3_fwd(const void* q, const void* ka, const void* va,
   switch ((D + 15) / 16 * 16) {
     case 32:
       return static_cast<int>(
-          launch_nb<32>(qp, banks, op, a, B, S, H, D, R, G, ST, NB, scale, st));
+          launch_nb<32>(qp, banks, op, a, dp, B, S, H, D, R, G, ST, NB, scale, st));
     case 48:
       return static_cast<int>(
-          launch_nb<48>(qp, banks, op, a, B, S, H, D, R, G, ST, NB, scale, st));
+          launch_nb<48>(qp, banks, op, a, dp, B, S, H, D, R, G, ST, NB, scale, st));
     case 64:
       return static_cast<int>(
-          launch_nb<64>(qp, banks, op, a, B, S, H, D, R, G, ST, NB, scale, st));
+          launch_nb<64>(qp, banks, op, a, dp, B, S, H, D, R, G, ST, NB, scale, st));
     case 80:
       return static_cast<int>(
-          launch_nb<80>(qp, banks, op, a, B, S, H, D, R, G, ST, NB, scale, st));
+          launch_nb<80>(qp, banks, op, a, dp, B, S, H, D, R, G, ST, NB, scale, st));
     case 96:
       return static_cast<int>(
-          launch_nb<96>(qp, banks, op, a, B, S, H, D, R, G, ST, NB, scale, st));
+          launch_nb<96>(qp, banks, op, a, dp, B, S, H, D, R, G, ST, NB, scale, st));
     case 112:
       return static_cast<int>(
-          launch_nb<112>(qp, banks, op, a, B, S, H, D, R, G, ST, NB, scale, st));
+          launch_nb<112>(qp, banks, op, a, dp, B, S, H, D, R, G, ST, NB, scale, st));
     case 128:
       return static_cast<int>(
-          launch_nb<128>(qp, banks, op, a, B, S, H, D, R, G, ST, NB, scale, st));
+          launch_nb<128>(qp, banks, op, a, dp, B, S, H, D, R, G, ST, NB, scale, st));
     case 144:
       return static_cast<int>(
-          launch_nb<144>(qp, banks, op, a, B, S, H, D, R, G, ST, NB, scale, st));
+          launch_nb<144>(qp, banks, op, a, dp, B, S, H, D, R, G, ST, NB, scale, st));
     case 160:
       return static_cast<int>(
-          launch_nb<160>(qp, banks, op, a, B, S, H, D, R, G, ST, NB, scale, st));
+          launch_nb<160>(qp, banks, op, a, dp, B, S, H, D, R, G, ST, NB, scale, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -77,6 +77,7 @@ from ..models.init import flax_init_
 from ..models.layers import quantize_int8_weights_, store_weights_in_
 from ..models.unet import UNet2DCondition, UNetConfig
 from ..models.vae import AutoencoderKL, VAEConfig, VAEDecode, sample_gaussian
+from ..ops.kernels import device_scalar
 from ..parallel.mesh import (batch_rows, gather_rows, shard_tp_, tp_group,
                              tp_scope, tp_size)
 from .graphs import CapturedProgram, program_key
@@ -178,23 +179,23 @@ class DADDCore(nn.Module):
             return torch.cat([source_aoe, image_embeds, delta], dim=1)
         return torch.cat([target_aoe, image_embeds], dim=1)
 
-    def eps(self, latents, t, cond, delta_scale: float = 0.0):
+    def eps(self, latents, t, cond, delta_scale=0.0):
         return self.unet(latents, t, cond, delta_scale)
 
-    def eps_encode(self, latents, t, cond, delta_scale: float = 0.0):
+    def eps_encode(self, latents, t, cond, delta_scale=0.0):
         """UNet down + mid only → (h_mid, skips) (encoder propagation)."""
         return self.unet(latents, t, cond, delta_scale, phase="encode")
 
-    def eps_decode(self, t, cond, cached, delta_scale: float = 0.0):
+    def eps_decode(self, t, cond, cached, delta_scale=0.0):
         """UNet up + out from cached encoder features, fresh t embedding."""
         return self.unet(None, t, cond, delta_scale, phase="decode", cached=cached)
 
-    def eps_deep(self, latents, t, cond, delta_scale: float = 0.0):
+    def eps_deep(self, latents, t, cond, delta_scale=0.0):
         """Full forward that also returns the DeepCache branch feature →
         (eps, deep)."""
         return self.unet(latents, t, cond, delta_scale, phase="deep")
 
-    def eps_shallow(self, latents, t, cond, cached, delta_scale: float = 0.0):
+    def eps_shallow(self, latents, t, cond, cached, delta_scale=0.0):
         """Shallow path (conv_in → down block 0 → last up block ← cached) → eps."""
         return self.unet(latents, t, cond, delta_scale, phase="shallow", cached=cached)
 
@@ -296,7 +297,8 @@ class DADD:
         self.latent_scale = cfg.diffusion.latent_scale
         self.spatial_factor = 2 ** (len(self.vae_cfg.block_out_channels) - 1)
         # captured programs by key (graphs.program_key), on the card only.
-        # Unbounded: each new key (a steer or guidance value, a batch size)
+        # Unbounded: each new key (a batch size, an image size, a sampler
+        # or mode; not a steer or guidance value, which are program inputs)
         # adds a program whose graph pool holds its activations, and a first
         # call that warms up and captures; `drop_programs` frees the pools.
         self.programs: Dict[tuple, CapturedProgram] = {}
@@ -577,27 +579,35 @@ class DADD:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
-    def static_knobs(self, sampling_steps, steer_scale, guidance_scale, encoder_stride,
-                     cache_mode, sampler, eta: float = 0.0) -> dict:
+    def static_knobs(self, sampling_steps, encoder_stride, cache_mode, sampler,
+                     eta: float = 0.0) -> dict:
         """The sampler's static knobs, as `_sample` takes them and graph keys
-        hold them. steer and guidance are among them: split3's kernel takes δ
-        as a launch argument and the CFG mix a Python float. eta is DDIM's;
-        DPM-Solver++ ignores it, as in psd_tpu, so it reads 0 there."""
+        hold them (psd_tpu's jit statics, `dadd.py:547-629`). Steer and
+        guidance are not among them: they are program inputs (`_sample_program`),
+        as psd_tpu traces them. eta is DDIM's; DPM-Solver++ ignores it, as
+        in psd_tpu, so it reads 0 there."""
         if sampler not in SAMPLERS:
             raise ValueError(f"sampler must be one of {tuple(SAMPLERS)}, got {sampler!r}")
         return dict(steps=int(sampling_steps or self.cfg.diffusion.sampling_steps),
-                    steer=float(steer_scale), guidance=float(guidance_scale),
                     encoder_stride=int(encoder_stride), cache_mode=cache_mode,
                     sampler=sampler, eta=float(eta) if sampler == "ddim" else 0.0)
 
-    def _sample_program(self, cond, x0, cond_uncond, eta_noise, knobs):
-        """A program's inputs, (cond, x0[, cond_uncond][, eta_noise]), each
-        optional one there when given (eta_noise when eta > 0), and `_sample`
-        on inputs of that layout."""
+    def _sample_program(self, cond, x0, cond_uncond, eta_noise, steer, guidance, knobs):
+        """A program's inputs, (cond, x0[, cond_uncond][, eta_noise], steer,
+        guidance), each optional one there when given (eta_noise when eta >
+        0), and `_sample` on inputs of that layout. Steer (δ) and the
+        guidance are 0-d fp32 tensors on the model's device
+        (`ops.kernels.device_scalar`: a number is filled in there, so a call
+        never waits on the host for the batch in flight), copied into a
+        captured program at each call as x0 is (psd_tpu passes them as
+        `jnp.asarray(..., float32)` arguments, `dadd.py:602-603`): the key
+        holds neither value, so a sweep over either replays one program."""
         if knobs["eta"] > 0 and eta_noise is None:
             raise ValueError("eta > 0 needs eta_noise (steps, B, h, w, C)")
         named = dict(cond=cond, x0=x0.to(self.device), cond_uncond=cond_uncond,
-                     eta_noise=eta_noise.to(self.device) if knobs["eta"] > 0 else None)
+                     eta_noise=eta_noise.to(self.device) if knobs["eta"] > 0 else None,
+                     steer=device_scalar(steer, self.device),
+                     guidance=device_scalar(guidance, self.device))
         names = tuple(k for k, v in named.items() if v is not None)
 
         def run(*inputs):
@@ -605,7 +615,7 @@ class DADD:
 
         return tuple(named[k] for k in names), run
 
-    def _sample(self, cond, x0, cond_uncond=None, eta_noise=None, *, steps, steer, guidance,
+    def _sample(self, cond, x0, steer, guidance, cond_uncond=None, eta_noise=None, *, steps,
                 eta, encoder_stride, cache_mode, sampler) -> torch.Tensor:
         core = self.core
 
@@ -662,8 +672,7 @@ class DADD:
         (`shard_tp_`), and the loop runs op by op on every backend: its
         all-reduces are not captured (gloo's cannot be; NCCL's could, but
         no run here can hold a captured NCCL tp program to a reference)."""
-        knobs = self.static_knobs(sampling_steps, steer_scale, guidance_scale,
-                                  encoder_stride, cache_mode, sampler, eta)
+        knobs = self.static_knobs(sampling_steps, encoder_stride, cache_mode, sampler, eta)
         self.shard_tp_(mesh)
         if self.tp_group is not None and self.tp_group is not tp_group(mesh):
             raise RuntimeError("sample: the UNet is cut over tp; pass the mesh it was cut for")
@@ -679,7 +688,8 @@ class DADD:
             cond, x0 = cond[rows], x0[rows]
             cond_uncond = None if cond_uncond is None else cond_uncond[rows]
             eta_noise = None if eta_noise is None else eta_noise[:, rows]
-        inputs, run = self._sample_program(cond, x0, cond_uncond, eta_noise, knobs)
+        inputs, run = self._sample_program(cond, x0, cond_uncond, eta_noise, steer_scale,
+                                           guidance_scale, knobs)
         with tp_scope(mesh):
             if self.tp_group is not None:
                 return gather_rows(mesh, run(*inputs))
@@ -705,8 +715,10 @@ class DADD:
         """Sample + VAE decode → (B, H, W, 3) images in [0, 1]; on the card,
         one replay of one captured program (psd_tpu's one jitted program,
         `_get_jitted_generate`), whose key holds the batch, image size,
-        steps, sampler, encoder stride, cache mode, CFG, steer, guidance,
-        eta and the mode flags.
+        steps, sampler, encoder stride, cache mode, CFG, eta and the mode
+        flags. `steer_scale` and `guidance_scale` (numbers or 0-d tensors)
+        are program inputs, copied in at each call: a sweep over either
+        replays one program.
 
         The initial latents are `x0` when given (tests pass the noise JAX
         drew), else drawn from `generator` (one latent shared across the
@@ -716,8 +728,7 @@ class DADD:
         `cache_mode` as in `sample`; the turbo serving point is
         sampler="dpm", 25 steps, stride 5, "deep", with an int8 VAE
         (`VAEConfig(quant="int8")`)."""
-        knobs = self.static_knobs(sampling_steps, steer_scale, guidance_scale,
-                                  encoder_stride, cache_mode, sampler, eta)
+        knobs = self.static_knobs(sampling_steps, encoder_stride, cache_mode, sampler, eta)
         if self.tp_group is not None:
             raise RuntimeError("generate: the UNet is cut over tp; call sample(mesh=) and "
                                "decode_latents(mesh=) with the mesh it was cut for")
@@ -731,7 +742,8 @@ class DADD:
                 eta_noise = torch.randn((knobs["steps"],) + tuple(x0.shape), generator=generator,
                                         dtype=torch.float32, device=self.device)
 
-        inputs, run = self._sample_program(cond, x0, cond_uncond, eta_noise, knobs)
+        inputs, run = self._sample_program(cond, x0, cond_uncond, eta_noise, steer_scale,
+                                           guidance_scale, knobs)
         return self._replay_or_run("generate", lambda *a: self._decode(run(*a)), inputs, **knobs)
 
 

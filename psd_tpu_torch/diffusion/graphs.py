@@ -9,7 +9,10 @@ into a `torch.cuda.CUDAGraph` and replays the graph, one launch a batch.
   * A program is captured once a key (`program_key`: its kind, the input
     shapes and dtypes, the static knobs, and `core.mode.snapshot()`, since
     the graph bakes in the kill switches and the training flag it was
-    captured under) and replayed after.
+    captured under) and replayed after. Runtime scalars are inputs, not
+    knobs: the sampler's steer (δ) and guidance enter as 0-d fp32 tensors,
+    copied in like x0, and the kernels read them from device memory, so a
+    sweep over either replays one program (psd_tpu traces both).
   * Before capture the body runs once eagerly on a side stream. That builds
     the kernel library (`ops/kernels.py`), cuBLAS/cuDNN plans and
     `split3_plan`'s cache, so nothing compiles or autotunes under capture.

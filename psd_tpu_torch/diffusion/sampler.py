@@ -190,10 +190,14 @@ def cfg_eps_fn(
     raw_eps_fn: Callable[[torch.Tensor, torch.Tensor, int, torch.Tensor], torch.Tensor],
     embed_cond: torch.Tensor,
     embed_uncond: Optional[torch.Tensor],
-    guidance_scale: float,
+    guidance_scale,
 ) -> EpsFn:
     """EpsFn with optional classifier-free guidance: the cond and uncond
-    passes run as ONE UNet call at twice the batch."""
+    passes run as ONE UNet call at twice the batch, mixed as eps_u +
+    guidance·(eps_c − eps_u) in fp32. The guidance is a 0-d fp32 tensor on
+    the eps's device (psd_tpu traces it as an fp32 scalar), so a captured
+    program replays at the guidance last copied into it; a number works too
+    (the same fp32 product)."""
     if embed_uncond is None:
         def eps_plain(x, t, i):
             return raw_eps_fn(x, t, i, embed_cond)

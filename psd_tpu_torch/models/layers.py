@@ -55,9 +55,10 @@ from ..parallel.mesh import copy_to_tp, reduce_from_tp, site_tp_group
 from ..ops.attention import attention_probs, dot_product_attention
 from ..ops.geglu import gelu_exact, ln_geglu_fwd, ln_proj_fwd, ln_reference, ln_shape_error
 from ..ops.gnproj import gn_proj_fwd
+from ..ops.kernels import device_scalar
 from ..ops.norms import group_norm, group_norm_fold
 from ..ops.quant import qconv3x3, qdense, quant_cols, quant_worthwhile
-from ..ops.split3 import split3_attention, split3_shape_error
+from ..ops.split3 import gated_sum, split3_attention, split3_shape_error
 from ..ops.tome import ToMeSpec, build_merge, merge, unmerge
 from ..ops.upconv import conv2d_nhwc, upsample2x_conv3x3
 
@@ -403,8 +404,7 @@ class Attention(nn.Module):
         if quant == "int8" and quant_worthwhile(dim):
             _int8_buffers_(self, self.proj_sites + ("to_out_0",))
 
-    def forward(self, x, context=None, delta_scale: Optional[float] = None,
-                ln_scale=None, ln_bias=None):
+    def forward(self, x, context=None, delta_scale=None, ln_scale=None, ln_bias=None):
         dt = self.dtype
         B, S, C = x.shape
         hd = C // self.num_heads
@@ -445,15 +445,17 @@ class Attention(nn.Module):
                 (anat_tok, self.to_k), (anat_tok, self.to_v),
                 (dis_tok, self.to_k_dis), (dis_tok, self.to_v_dis),
                 (delta_tok, self.to_k_dis), (delta_tok, self.to_v_dis)))
-            ds = 0.0 if delta_scale is None else float(delta_scale)
+            # δ as split3 takes it (the UNet passes it so already); never
+            # float(): it may be captured
+            delta = device_scalar(delta_scale, q.device)
             lens = [b.shape[1] for b in banks[0::2]]
             if split3_kernel_ok(B, S, H, hd, lens) and use_kernel("split3"):
-                z = split3_attention(q.contiguous(), *banks, ds, m.anat_gate, m.dis_gate)
+                z = split3_attention(q.contiguous(), *banks, delta, m.anat_gate, m.dis_gate)
             else:
-                z_anat = dot_product_attention(q, banks[0], banks[1])
-                z_dis = dot_product_attention(q, banks[2], banks[3])
-                z_delta = dot_product_attention(q, banks[4], banks[5])
-                z = m.anat_gate * z_anat + m.dis_gate * z_dis + ds * z_delta
+                z = gated_sum(dot_product_attention(q, banks[0], banks[1]),
+                              dot_product_attention(q, banks[2], banks[3]),
+                              dot_product_attention(q, banks[4], banks[5]),
+                              delta, m.anat_gate, m.dis_gate)
         elif self.mode.kind == "split2":
             z = split2_attention(q, heads(linear(context, self.to_k, dt)),
                                  heads(linear(context, self.to_v, dt)))

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 import contextlib
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core import mode
+from ..ops.kernels import device_scalar
 from ..ops.tome import ToMeSpec
 from ..parallel.mesh import active_tp_group, tp_group_scope
 
@@ -206,8 +207,13 @@ class UNet2DCondition(nn.Module):
         self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
     def forward(self, sample, timesteps, encoder_hidden_states,
-                delta_scale: Optional[float] = None, phase: str = "full", cached=None):
+                delta_scale=None, phase: str = "full", cached=None):
         """(B, H, W, C_in) latents, (B,) timesteps, (B, N, ctx) → fp32 eps.
+
+        `delta_scale`, the steering scale δ of the split3 sites, is a 0-d
+        fp32 tensor on the model's device (a number or None is made one
+        here, `ops.kernels.device_scalar`): every site reads it from device
+        memory, so a captured program replays at the δ last copied into it.
 
         `phase` splits the forward as `psd_tpu/models/unet.py:137-155` does:
           "full"    — eps;
@@ -229,6 +235,8 @@ class UNet2DCondition(nn.Module):
         temb = self.time_embedding(
             timestep_embedding(timesteps, cfg.block_out_channels[0]).to(dt))
         ctx = encoder_hidden_states.to(dt)
+        if cfg.attn_mode == "split3":
+            delta_scale = device_scalar(delta_scale, ctx.device)
 
         if phase == "decode":
             h, skips = cached

@@ -68,9 +68,9 @@ _SIGNATURES = {
     # x, gn_w, gn_b, w, bias, out, B, S, C, N, stream
     "psd_gn_proj_fwd": [_P] * 6 + [_I] * 4 + [_P],
     # q, ka, va, kd, vd, kl, vl, out, B, S, H, D, Ka, Kd, Kl,
-    # g_anat, g_dis, delta, scale, rows, heads, stages, blocks an SM
-    # (split3_plan), stream
-    "psd_split3_fwd": [_P] * 8 + [_I] * 7 + [_F] * 4 + [_I] * 4 + [_P],
+    # g_anat, g_dis, delta (a device pointer to one fp32), scale, rows,
+    # heads, stages, blocks an SM (split3_plan), stream
+    "psd_split3_fwd": [_P] * 8 + [_I] * 7 + [_F] * 2 + [_P, _F] + [_I] * 4 + [_P],
     # x, ln_w, ln_b, w0, w1, w2, o0, o1, o2, stats, n_out, M, C, N, eps, stream
     "psd_ln_proj_fwd": [_P] * 10 + [_I] * 4 + [_F, _P],
     # x, ln_w, ln_b, w, b, out, stats, M, C, N, eps, stream
@@ -178,6 +178,28 @@ def stream_ptr(t: torch.Tensor) -> int:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def device_scalar(value, device) -> torch.Tensor:
+    """A runtime scalar as a kernel or a captured program reads it, from
+    device memory: a 0-d fp32 tensor on `device`. A tensor passes as it is
+    (moved or cast only where it is not one already), None is 0, and a
+    number is filled in on the device: a fill, which neither copies from
+    pageable host memory nor waits for the stream's work in flight."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.float32)
+    return torch.full((), 0.0 if value is None else value, dtype=torch.float32, device=device)
+
+
+def require_device_scalar(name: str, value, like: torch.Tensor) -> None:
+    """`value` is a 0-d fp32 tensor on `like`'s device (`device_scalar`).
+    Its value is never read: that would sync, and under capture fail."""
+    if not (isinstance(value, torch.Tensor) and value.dim() == 0
+            and value.dtype == torch.float32 and value.device == like.device):
+        got = (f"a tensor of shape {tuple(value.shape)}, {value.dtype} on {value.device}"
+               if isinstance(value, torch.Tensor) else type(value).__name__)
+        raise ValueError(f"{name}: δ must be a 0-d fp32 tensor on {like.device} "
+                         f"(ops.kernels.device_scalar), got {got}")
 
 
 def require_no_grad(name: str, *tensors: torch.Tensor) -> None:

@@ -5,9 +5,18 @@ Counterpart of `psd_tpu/ops/split3.py`:
     out = g_anat·softmax(qKaᵀ·s)Va + g_dis·softmax(qKdᵀ·s)Vd + δ·softmax(qKδᵀ·s)Vδ
 
 The banks hold 16 tokens each (the AOE, image and delta segments of the
-conditioning). The gates are per-site constants and δ (the steering scale)
-a runtime scalar; both are plain kernel arguments, so changing either never
-rebuilds anything. The kernel is `csrc/split3.cu`: persistent, q streamed
+conditioning). The gates are per-site constants, plain kernel arguments.
+δ (the steering scale) is a runtime scalar, a 0-d fp32 tensor on q's
+device (`kernels.device_scalar`, made once at the UNet's boundary) that the
+kernel reads from device memory (psd_tpu's kernel reads it from SMEM,
+`psd_tpu/ops/split3.py:116,128`): a captured program replays at whatever δ
+was last written into it, and nothing on the way calls `float()` on it.
+Every entry here takes that tensor and checks it. The plain version
+multiplies each pathway by its factor rounded to the compute dtype, the two
+gates and δ alike, as psd_tpu's `_xla_split3` does (a Python gate times a
+bf16 array is a bf16 product in JAX; `delta_scale.astype(z.dtype)`); the
+kernel keeps all three fp32 against its fp32 accumulators, as psd_tpu's
+Pallas kernel does. The kernel is `csrc/split3.cu`: persistent, q streamed
 through a TMA ring in items of R rows × G heads of one batch element, each
 block's run of items sharing the group's banks in shared memory;
 `split3_plan` picks (R, G, ring depth, blocks an SM).
@@ -31,14 +40,32 @@ from . import kernels
 from .attention import attention_reference
 
 
+def rounded_gate(gate: float, dtype: torch.dtype) -> float:
+    """A Python gate rounded to `dtype`, the factor JAX multiplies a `dtype`
+    array by (a weak-typed Python float takes the array's dtype)."""
+    return torch.tensor(gate, dtype=dtype).item()
+
+
+def gated_sum(z_anat, z_dis, z_delta, delta, anat_gate: float, dis_gate: float):
+    """g_anat·z_anat + g_dis·z_dis + δ·z_delta in the pathways' dtype, each
+    factor rounded to it first, as psd_tpu's plain route does
+    (`psd_tpu/ops/split3.py:62-66`, `psd_tpu/models/layers.py:469-474`)."""
+    dt = z_anat.dtype
+    z = rounded_gate(anat_gate, dt) * z_anat + rounded_gate(dis_gate, dt) * z_dis
+    return z + delta.to(dt) * z_delta
+
+
 def split3_reference(q, k_anat, v_anat, k_dis, v_dis, k_delta, v_delta,
-                     delta_scale: float, anat_gate: float, dis_gate: float,
+                     delta_scale, anat_gate: float, dis_gate: float,
                      scale: Optional[float] = None):
     """Plain version (psd_tpu/ops/split3.py::_xla_split3): three plain
-    attentions, combined in q.dtype."""
-    z = anat_gate * attention_reference(q, k_anat, v_anat, scale)
-    z = z + dis_gate * attention_reference(q, k_dis, v_dis, scale)
-    return z + float(delta_scale) * attention_reference(q, k_delta, v_delta, scale)
+    attentions, combined in q.dtype by `gated_sum`; δ a 0-d fp32 tensor on
+    q's device."""
+    kernels.require_device_scalar("split3_reference", delta_scale, q)
+    return gated_sum(attention_reference(q, k_anat, v_anat, scale),
+                     attention_reference(q, k_dis, v_dis, scale),
+                     attention_reference(q, k_delta, v_delta, scale),
+                     delta_scale, anat_gate, dis_gate)
 
 
 # csrc/split3.cu's shared memory: a ring stage holds an item's q as
@@ -116,11 +143,13 @@ def split3_shape_error(B: int, S: int, H: int, D: int, lens: Sequence[int]) -> O
 
 
 def split3_fwd(q, k_anat, v_anat, k_dis, v_dis, k_delta, v_delta,
-               delta_scale: float, anat_gate: float, dis_gate: float,
+               delta_scale, anat_gate: float, dis_gate: float,
                scale: Optional[float] = None):
-    """q (B,S,H,D), banks (B,K,H,D) → (B,S,H,D); kernel on CUDA, plain on CPU."""
+    """q (B,S,H,D), banks (B,K,H,D), δ (a 0-d fp32 tensor on q's device,
+    `kernels.device_scalar`) → (B,S,H,D); kernel on CUDA, plain on CPU."""
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
     banks = (k_anat, v_anat, k_dis, v_dis, k_delta, v_delta)
+    kernels.require_device_scalar("split3_fwd", delta_scale, q)
     if not q.is_cuda:
         return split3_reference(q, *banks, delta_scale, anat_gate, dis_gate, scale)
     B, S, H, D = q.shape
@@ -137,7 +166,7 @@ def split3_fwd(q, k_anat, v_anat, k_dis, v_dis, k_delta, v_delta,
     lib = kernels.library()
     code = lib.psd_split3_fwd(q.data_ptr(), *[t.data_ptr() for t in banks],
                               out.data_ptr(), B, S, H, D, *lens,
-                              float(anat_gate), float(dis_gate), float(delta_scale),
+                              float(anat_gate), float(dis_gate), delta_scale.data_ptr(),
                               scale, *split3_plan(H, D, B * S, _sm_count(q.device)),
                               kernels.stream_ptr(q))
     kernels.check(code, "split3_fwd")
@@ -166,11 +195,12 @@ class Split3Attention(torch.autograd.Function):
 
 
 def split3_attention(q, k_anat, v_anat, k_dis, v_dis, k_delta, v_delta,
-                     delta_scale: float, anat_gate: float, dis_gate: float,
+                     delta_scale, anat_gate: float, dis_gate: float,
                      scale: Optional[float] = None):
     """The model's split3 entry: the autograd.Function when gradients are
-    wanted, else the forward wrapper alone."""
+    wanted, else the forward wrapper alone. δ is a 0-d fp32 tensor on q's
+    device (`kernels.device_scalar`)."""
     args = (q, k_anat, v_anat, k_dis, v_dis, k_delta, v_delta)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return Split3Attention.apply(*args, float(delta_scale), anat_gate, dis_gate, scale)
+        return Split3Attention.apply(*args, delta_scale, anat_gate, dis_gate, scale)
     return split3_fwd(*args, delta_scale, anat_gate, dis_gate, scale)

@@ -118,6 +118,11 @@ def initial_draws(model: DADD, generator: torch.Generator, batch: int,
     return model.initial_noise(batch, image_size, generator, shared_noise=False)
 
 
+def runs_cfg(use_routing_gates: bool, guidance_scale: float) -> bool:
+    """Whether a scale runs CFG: baseline mode at a guidance other than 1."""
+    return not use_routing_gates and guidance_scale != 1.0
+
+
 def conditioning(model: DADD, ds: LIMUCDataset, chunk, full: int, guidance_scale: float):
     """A chunk of (sample index, source, target, ...) jobs, padded to `full`
     → (cond, uncond or None, the guidance, the real count). Baseline mode
@@ -128,7 +133,7 @@ def conditioning(model: DADD, ds: LIMUCDataset, chunk, full: int, guidance_scale
     (srcs, tgts, clip_imgs), n_real = pad_batch([srcs, tgts, clip_imgs], full)
     feats = model.encode_image_clip(clip_imgs)
     cond = model.prepare_inference_cond(tgts, srcs, feats)
-    if model.core_cfg.use_routing_gates or guidance_scale == 1.0:
+    if not runs_cfg(model.core_cfg.use_routing_gates, guidance_scale):
         return cond, None, 1.0, n_real
     uncond = model.prepare_inference_cond(tgts, srcs, feats, zero_aoe=True)
     return cond, uncond, guidance_scale, n_real

@@ -25,10 +25,14 @@ comparison table and each run's img/s.
     `--allow-random-backbones` (smoke runs: the values mean nothing).
   * CLIP sees the images as `CLIPImageProcessor` does when handed floats in
     [0, 1] (`data/preprocess.py::clip_preprocess_float`).
-  * Generation replays one captured program a scale (`DADD.generate`, the
-    ragged last batch padded); a scale's programs are dropped when its
-    images are done, so the sweep holds one program's pool beside the
-    backbones at a time (`DADD.drop_programs`). Each checkpoint after the first
+  * Generation replays one captured program a checkpoint (`DADD.generate`,
+    the ragged last batch padded): the scale is the steer (or the guidance)
+    of every batch, a program input, so every scale replays the program the
+    first captured. In baseline mode a scale of 1 runs without CFG, which is
+    another program. A checkpoint's programs are dropped after its last
+    scale and before a scale that needs another program (`drops_after`), so
+    the sweep holds one program's pool beside the backbones at a time
+    (`DADD.drop_programs`). Each checkpoint after the first
     gets a model built anew from `--seed`, as psd_tpu draws every
     checkpoint's VAE and CLIP anew before loading it, so nothing of the
     previous checkpoint (its frozen weights, the int8 decoder weights
@@ -282,6 +286,16 @@ def generate_all(model: DADD, ds: LIMUCDataset, jobs, scale: float, image_size: 
             total / dt if dt > 0 else 0.0)
 
 
+def drops_after(scales, use_routing_gates: bool) -> List[bool]:
+    """For each scale of a checkpoint's sweep, whether its programs are
+    dropped after it: after the last scale, and where the next scale runs
+    another program (CFG on where it was off, or off where it was on;
+    `augment.runs_cfg`). The steer and the guidance are program inputs, so
+    scales that differ only in value share one program."""
+    cfg = [augment.runs_cfg(use_routing_gates, s) for s in scales]
+    return [i + 1 == len(cfg) or cfg[i + 1] != cfg[i] for i in range(len(cfg))]
+
+
 def model_for(args, cfg, device, checkpoint: Optional[str]) -> DADD:
     """The model a checkpoint runs on: built from `--seed`, then the
     checkpoint's weights (its EMA with `--ema`) loaded."""
@@ -333,7 +347,8 @@ def main(argv=None) -> List[EvalResult]:
                 bank.model = model = None
                 gc.collect()
                 bank.model = model = model_for(args, cfg, device, ckpt)
-            for scale in args.scales:
+            for scale, drop in zip(args.scales, drops_after(
+                    args.scales, model.core_cfg.use_routing_gates)):
                 run_name = f"{Path(ckpt).stem if ckpt else 'random'}_scale{scale}"
                 run_dir = out_root / run_name
                 run_dir.mkdir(parents=True, exist_ok=True)
@@ -349,7 +364,6 @@ def main(argv=None) -> List[EvalResult]:
                 finally:
                     if writer:
                         writer.close()
-                model.drop_programs()  # this scale's programs and pools
                 with timer.phase("metrics"):
                     per_class, overall = evaluate_one_run(real_np, fake_np, bank,
                                                           args.num_eval_seeds, args.seed)
@@ -360,6 +374,8 @@ def main(argv=None) -> List[EvalResult]:
                 with open(run_dir / "metrics.json", "w") as f:
                     json.dump(res.to_json(), f, indent=2)
                 print(f"[{run_name}] {tput:.2f} img/s overall={overall}")
+                if drop:
+                    model.drop_programs()  # this program and its pool
 
     with open(out_root / "comparison.json", "w") as f:
         json.dump([r.to_json() for r in results], f, indent=2)

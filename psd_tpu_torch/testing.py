@@ -271,10 +271,12 @@ def gn_proj_judge(out: torch.Tensor, ref: torch.Tensor):
 # split3 (csrc/split3.cu) against split3_reference, bf16: over the whole
 # (B, S, H, D) output and on its worst row (one query row's D outputs of one
 # head). The kernel scales each bank's probabilities by its gate before
-# rounding them to bf16 and sums the three products in fp32; the plain
-# version rounds each attention's output, each gated term and their sums
-# to bf16. On an H100 the sound kernel reads ≤ 4.10e-3 / ≤ 9.19e-3 at
-# chip_smoke.py's SPLIT3_SHAPES and edge inputs; faults planted in it
+# rounding them to bf16 and sums the three products in fp32 (fp32 gates
+# and δ); the plain version rounds the gates and δ to bf16, as psd_tpu's
+# does, then each attention's output, each gated term and their sums. On an
+# H100 the sound kernel reads ≤ 4.10e-3 / ≤ 9.87e-3 at chip_smoke.py's
+# SPLIT3_SHAPES and edge inputs (≤ 4.10e-3 / ≤ 9.19e-3 against fp32 gates
+# in the plain version); faults planted in it
 # (scripts/torch_split3_variants.py: a bank's last valid key masked, one
 # padded key let in, δ on the anatomy bank, the neighbour head's q, a
 # 16-row unit skipped) read ≥ 8.59e-2 / ≥ 0.246 wherever they change the

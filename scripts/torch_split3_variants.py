@@ -107,7 +107,7 @@ VARIANTS = {
                                       "const Split3Args a,"),
                             _rep("    fence_async_shared();\n    __syncthreads();\n"
                                  "    if (threadIdx.x == 0) {\n", _DIRECT),
-                            _rep("st>>>(maps, a, B,", "st>>>(maps, out, a, B,"))),
+                            _rep("st>>>(maps, a, delta, B,", "st>>>(maps, out, a, delta, B,"))),
     # diagnostics: each removes one piece of work; the outputs are wrong on purpose
     "d_no_launch": ("diagnostic: the wrapper alone (no tensor map encoded, no launch)",
                     _edits(SRC, _rep("  Maps maps;\n", "  if (true) return cudaSuccess;\n  Maps maps;\n"))),
@@ -136,7 +136,8 @@ VARIANTS = {
                          _edits(SRC, _rep(_MASK, _MASK.replace(">= L)",
                                                                ">= L + (i == 2 && L < 16))")))),
     "fault_delta_on_anat": ("fault: δ gates the anatomy bank",
-                            _edits(SRC, _rep("{g_anat, g_dis, delta}", "{delta, g_dis, delta}"))),
+                            _edits(SRC, _rep("{a.gate[0], a.gate[1], __ldg(delta)}",
+                                             "{__ldg(delta), a.gate[1], __ldg(delta)}"))),
     "fault_neighbour_head_q": ("fault: a unit takes the next head's q",
                                _edits(SRC, _rep(_QLOAD, _QLOAD.replace(
                                    "swz(c8 + 2 * ks", "swz(((hl + 1) % G) * D / 8 + 2 * ks")))),
@@ -229,8 +230,9 @@ res = []
 for (B, S, H, D), lens, delta in cases:
     q = torch.randn((B, S, H, D), generator=g, device=dev).to(bf)
     banks = [torch.randn((B, n, H, D), generator=g, device=dev).to(bf) for n in lens for _ in range(2)]
-    fn = lambda: split3.split3_fwd(q, *banks, delta, 0.1, 0.9)
-    out, ref = fn().float(), split3.split3_reference(q, *banks, delta, 0.1, 0.9).float()
+    dl = torch.tensor(delta, device=dev)  # δ in device memory, as the kernel reads it
+    fn = lambda: split3.split3_fwd(q, *banks, dl, 0.1, 0.9)
+    out, ref = fn().float(), split3.split3_reference(q, *banks, dl, 0.1, 0.9).float()
     d = out - ref
     rel = (d.norm() / ref.norm()).item()
     row = (d.norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)).max().item()

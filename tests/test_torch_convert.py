@@ -18,10 +18,12 @@ backbones,manifest,gate}.py`) against psd_tpu's, on the CPU.
     shapes): the converters consume every key of the published manifests
     and their trees pass the meta-device gate (`convert/gate.py`); a
     dropped key or a changed shape raises. The manifests equal psd_tpu's.
-  * The `.safetensors` reader against `safetensors` (F32, F16, BF16), its
-    refusals, and the `.bin` round trip.
+  * The `.safetensors` reader against `safetensors` (F32, F16, BF16; the
+    integer dtypes, BOOL and F64 beside them), its refusals, and the `.bin`
+    round trip.
 """
 
+import json
 import os
 
 import numpy as np
@@ -270,8 +272,6 @@ def test_the_safetensors_reader_reads_as_safetensors(tmp_path, dtype):
 def test_the_safetensors_reader_keeps_the_files_byte_order(tmp_path):
     """Tensors laid out neither by name nor by dtype come out in the order
     of their bytes, as `load_file` gives them (the npz's entry order)."""
-    import json
-
     from safetensors.numpy import load_file
 
     tensors = {k: v for k, v in _tensors(3).items() if v.size}
@@ -305,12 +305,36 @@ def test_the_safetensors_reader_widens_bf16_as_torch(tmp_path):
 
 
 def test_the_safetensors_reader_refuses_what_it_cannot_read(tmp_path):
-    from safetensors.numpy import save_file
+    """Integer, bool and F64 entries are read as `load_file` reads them (the
+    integer ones in their own dtype, F64 as float32, as a `.bin`'s floating
+    tensors; psd_tpu's reader is `load_file`); a dtype numpy cannot hold and
+    a header that promises more bytes than follow raise."""
+    from safetensors.numpy import load_file, save_file
 
     path = tmp_path / "w.safetensors"
-    save_file({"w.weight": np.zeros((2, 2), np.float32), "n.weight": np.arange(3)}, str(path))
-    with pytest.raises(ValueError, match="'n.weight' is I64"):
-        sd.load_torch_state_dict(path)
+    rng = np.random.default_rng(4)
+    tensors = {"vision_model.embeddings.class_embedding": rng.random(8, np.float32),
+               "vision_model.embeddings.position_ids": np.arange(5, dtype=np.int64)[None],
+               "w.weight": rng.random((2, 3), np.float32), "d.weight": rng.random(3),
+               "mask": np.array([True, False]), "u8": np.arange(4, dtype=np.uint8),
+               "i8": np.arange(-2, 2, dtype=np.int8), "i16": np.arange(3, dtype=np.int16),
+               "u16": np.arange(3, dtype=np.uint16), "i32": np.arange(3, dtype=np.int32),
+               "u32": np.arange(3, dtype=np.uint32), "u64": np.arange(3, dtype=np.uint64)}
+    save_file(tensors, str(path))
+    got, want = sd.load_torch_state_dict(path), load_file(str(path))
+    assert list(got) == list(want)
+    for k, w in want.items():
+        expect = w.astype(np.float32) if w.dtype.kind == "f" else w
+        assert got[k].dtype == expect.dtype, k
+        np.testing.assert_array_equal(got[k], expect)
+    assert got["vision_model.embeddings.position_ids"].dtype == np.int64
+
+    header = json.dumps({"w.weight": {"dtype": "F8_E4M3", "shape": [2],
+                                      "data_offsets": [0, 2]}}).encode()
+    made_up = tmp_path / "f8.safetensors"
+    made_up.write_bytes(len(header).to_bytes(8, "little") + header + bytes(2))
+    with pytest.raises(ValueError, match="'w.weight' is F8_E4M3"):
+        sd.load_torch_state_dict(made_up)
     save_file({"w.weight": np.zeros((2, 2), np.float32)}, str(path))
     blob = path.read_bytes()
     n = int.from_bytes(blob[:8], "little")

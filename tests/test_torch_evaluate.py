@@ -108,6 +108,20 @@ def test_clip_input_matches_clip_image_processor(kind, real_images):
         assert (u8 != np.rint(img.astype(np.float64) * 255)).any()
 
 
+@pytest.mark.parametrize("scales,routing_gates,drops", [
+    ((1.0, 2.0, 3.0), False, [True, False, True]),   # CFG off at 1, on at 2 and 3
+    ((2.0, 1.0, 3.0), False, [True, True, True]),
+    ((2.0, 3.0), False, [False, True]),
+    ((1.0, 2.0, 3.0), True, [False, False, True]),   # steer: one program
+])
+def test_the_sweep_drops_a_program_where_the_next_scale_needs_another(scales, routing_gates,
+                                                                     drops):
+    """Steer and guidance are program inputs, so a checkpoint's scales share
+    a program; baseline mode runs scale 1 without CFG, another program, so
+    the one before is dropped there and the sweep holds one pool at a time."""
+    assert evaluate.drops_after(scales, routing_gates) == drops
+
+
 def test_random_backbones_are_refused():
     bank = evaluate.FeatureBank(tiny_dadd())
     with pytest.raises(RuntimeError, match="random"):

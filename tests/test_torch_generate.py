@@ -37,10 +37,15 @@ def pair():
     return model, core, vae, tiny_dadd(seed=None).load_flax(core, vae)
 
 
-@pytest.mark.parametrize("steer,guidance", [(0.0, None), (1.0, None), (1.0, 2.5)])
+@pytest.mark.parametrize("steer,guidance", [(0.0, None), (1.0, None), (1.0, 2.5), (0.3, None),
+                                            (0.0, 7.3), (2.0, None)])
 def test_generate_matches_psd_tpu(pair, steer, guidance):
     """guidance: classifier-free guidance against the zero-AOE, zero-image
-    conditioning, as one UNet call at twice the batch on both sides."""
+    conditioning, as one UNet call at twice the batch on both sides. Steer
+    0.3 and guidance 7.3 are exact in neither bf16 nor binary: both reach the
+    port as 0-d fp32 program inputs, as psd_tpu traces them. Every case runs
+    the one module-scoped port model, one value after another, so each also
+    shows that nothing of an earlier call's steer or guidance stays behind."""
     model, core, vae, port = pair
     rng = np.random.default_rng(8)
     feats = rng.standard_normal((2, 17, 32)).astype(np.float32)
@@ -192,13 +197,19 @@ def test_server_unfused_matches_fused(turbo):
         np.testing.assert_array_equal(a, b)
 
 
-KNOBS = dict(sampling_steps=4, steer_scale=1.0, guidance_scale=1.0, encoder_stride=1,
-             cache_mode="encoder", sampler="ddim")
+KNOBS = dict(sampling_steps=4, encoder_stride=1, cache_mode="encoder", sampler="ddim")
 COND, X0 = torch.zeros((2, 12, 32)), torch.zeros((2, 16, 16, 4))
 
 
-def _key(port, kind="generate", inputs=(COND, X0), **change):
-    return program_key(kind, inputs, **port.static_knobs(**{**KNOBS, **change}))
+def _key(port, kind="generate", inputs=(COND, X0), steer_scale=1.0, guidance_scale=1.0,
+         **change):
+    """The key DADD gives a call: its program's inputs as `_sample_program`
+    lays them out (steer and guidance among them) and its static knobs."""
+    knobs = port.static_knobs(**{**KNOBS, **change})
+    cond, x0, *uncond = inputs
+    ins, _ = port._sample_program(cond, x0, uncond[0] if uncond else None, None, steer_scale,
+                                  guidance_scale, knobs)
+    return program_key(kind, ins, **knobs)
 
 
 def test_graph_key_is_a_pure_function_of_the_knobs():
@@ -213,12 +224,38 @@ def test_graph_key_is_a_pure_function_of_the_knobs():
 
 
 @pytest.mark.parametrize("change", [
-    dict(steer_scale=0.5), dict(guidance_scale=2.5), dict(sampler="dpm"),
-    dict(encoder_stride=2), dict(cache_mode="deep"), dict(sampling_steps=5),
-], ids=["steer", "guidance", "sampler", "stride", "cache_mode", "steps"])
+    dict(sampler="dpm"), dict(encoder_stride=2), dict(cache_mode="deep"), dict(sampling_steps=5),
+], ids=["sampler", "stride", "cache_mode", "steps"])
 def test_graph_key_changes_with_each_knob(change):
     port = tiny_dadd(seed=0)
     assert _key(port, **change) != _key(port)
+
+
+@pytest.mark.parametrize("change", [dict(steer_scale=0.5), dict(guidance_scale=2.5)],
+                         ids=["steer", "guidance"])
+def test_graph_key_holds_neither_steer_nor_guidance(change):
+    """Steer and guidance are program inputs (0-d fp32 tensors copied in at
+    each call), not knobs: a sweep over either keeps one key, so one
+    captured program serves it, as psd_tpu's one compiled program does."""
+    port = tiny_dadd(seed=0)
+    assert _key(port, **change) == _key(port)
+    assert "steer" not in port.static_knobs(**KNOBS) and "guidance" not in port.static_knobs(**KNOBS)
+
+
+def test_bf16_sample_scales_the_delta_pathway_by_bf16_delta():
+    """The serving dtype on the CPU: the plain split3 route multiplies the
+    delta pathway by δ rounded to bf16, as psd_tpu's `dscale.astype(
+    z_anat.dtype)` (psd_tpu/models/layers.py:473). A bf16 tiny sample at δ
+    = 0.3 equals the one at bf16(0.3) = 0.30078125 bit for bit, and differs
+    from the one at the next bf16 value, 0.302734375."""
+    port = tiny_dadd(seed=4, dtype=torch.bfloat16)
+    feats = np.random.default_rng(16).standard_normal((2, 17, 32)).astype(np.float32)
+    cond = port.prepare_inference_cond([0.0, 3.0], [2.0, 1.0], feats)
+    x0 = torch.from_numpy(np.random.default_rng(17).standard_normal((2, 16, 16, 4))
+                          .astype(np.float32))
+    a, b, c = (port.sample(cond, x0, 3, steer) for steer in (0.3, 0.30078125, 0.302734375))
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c)
 
 
 @pytest.mark.parametrize("inputs,kind", [

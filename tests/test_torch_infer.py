@@ -291,8 +291,7 @@ def test_generate_eta_draws_and_graph_key():
     x0 = torch.zeros((2, 16, 16, 4))
     with pytest.raises(ValueError, match="eta_noise"):
         port.generate(cond, x0=x0, image_size=32, sampling_steps=3, eta=0.5)
-    knobs = dict(sampling_steps=4, steer_scale=0.0, guidance_scale=1.0, encoder_stride=1,
-                 cache_mode="encoder")
+    knobs = dict(sampling_steps=4, encoder_stride=1, cache_mode="encoder")
     assert port.static_knobs(sampler="ddim", eta=0.5, **knobs) != \
         port.static_knobs(sampler="ddim", **knobs)
     assert port.static_knobs(sampler="dpm", eta=0.5, **knobs) == \

@@ -84,8 +84,95 @@ def test_split3_matches_pallas_interpret(delta, lens, S):
     banks = [rng.standard_normal((B, n, H, D)).astype(np.float32) for n in lens for _ in range(2)]
     ref = np.asarray(split3_attention(jnp.asarray(q), *map(jnp.asarray, banks),
                                       jnp.float32(delta), 0.9, 0.2, None, 128, True))
-    out = split3.split3_fwd(_t(q), *map(_t, banks), delta, 0.9, 0.2).numpy()
+    out = split3.split3_fwd(_t(q), *map(_t, banks), torch.tensor(delta), 0.9, 0.2).numpy()
     np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("value,ok", [
+    (lambda: torch.tensor(0.3), True),
+    (lambda: 0.3, False),
+    (lambda: torch.tensor([0.3]), False),
+    (lambda: torch.tensor(0.3, dtype=torch.float64), False),
+])
+def test_split3_takes_delta_as_a_device_scalar_and_never_reads_it(monkeypatch, value, ok):
+    """split3's entries take δ as a 0-d fp32 tensor on q's device
+    (`kernels.device_scalar`) and refuse anything else. The check reads
+    neither the value nor the tensor's repr: on the card either would sync,
+    and under CUDA graph capture fail."""
+    from psd_tpu_torch.ops import kernels
+
+    def read(*_):
+        raise AssertionError("δ's value was read")
+
+    delta, q = value(), torch.zeros(1)
+    monkeypatch.setattr(torch.Tensor, "__repr__", read)
+    monkeypatch.setattr(torch.Tensor, "__format__", read)
+    monkeypatch.setattr(torch.Tensor, "item", read)
+    monkeypatch.setattr(torch.Tensor, "__float__", read)
+    if ok:
+        kernels.require_device_scalar("split3_fwd", delta, q)
+    else:
+        with pytest.raises(ValueError, match="0-d fp32 tensor"):
+            kernels.require_device_scalar("split3_fwd", delta, q)
+    monkeypatch.undo()
+    made = kernels.device_scalar(2.5, "cpu")
+    assert made.shape == () and made.dtype == torch.float32 and made.item() == 2.5
+    assert kernels.device_scalar(None, "cpu").item() == 0.0
+
+
+@pytest.mark.parametrize("gates", [(0.5, 0.5), (0.1, 0.9)], ids=["gates_half", "gates_0.1_0.9"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_split3_plain_route_rounds_delta_to_the_compute_dtype(dtype, gates):
+    """The plain route multiplies each pathway by its factor rounded to the
+    compute dtype, δ and the two gates alike, as psd_tpu's `_xla_split3`
+    (`delta_scale.astype(z.dtype)`, and a Python gate times a bf16 array is a
+    bf16 product; psd_tpu/ops/split3.py:62-66). Gates 0.5/0.5 are exact in
+    bf16; 0.1/0.9 are the UNet's own and are not. In bf16 at δ = 0.3 the
+    forward, and the backward that recomputes through it, equal the port's
+    own at bf16(0.3) = 0.30078125 and the gates rounded to bf16 bit for bit,
+    and the forward equals `_xla_split3` bit for bit wherever the three
+    pathway attentions do (the product by fp32 0.3 read 9377 of 40960
+    elements apart, at most 7.8e-3; at gates 0.1/0.9 the products by fp32
+    gates read 10462 of 40960 apart, at most 1.6e-2, where the pathways
+    differ at 1 element by one bf16 step); fp32 keeps δ as it is (0.3 and
+    0.30078125 differ) and agrees with `_xla_split3` to 1e-5."""
+    from psd_tpu.ops.attention import dot_product_attention as jax_attention
+    from psd_tpu.ops.split3 import _xla_split3
+
+    rng = _rng(21)
+    B, S, H, D = 2, 256, 2, 40
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    banks = [rng.standard_normal((B, 16, H, D)).astype(np.float32) for _ in range(6)]
+    td, jd = getattr(torch, dtype), getattr(jnp, dtype)
+    ins = [_t(a).to(td) for a in [q] + banks]
+    ref = np.asarray(_xla_split3(*(jnp.asarray(a).astype(jd) for a in [q] + banks),
+                                 jnp.float32(0.3), *gates, None).astype(jnp.float32))
+
+    def run(delta, gates):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        out = split3.split3_attention(*leaves, torch.tensor(delta), *gates)
+        grads = torch.autograd.grad(out, leaves, torch.ones_like(out))
+        return out.detach(), grads
+
+    bf16_gates = tuple(torch.tensor(g, dtype=torch.bfloat16).item() for g in gates)
+    (out, grads), (out_r, grads_r) = run(0.3, gates), run(0.30078125, bf16_gates)
+    if dtype == "bfloat16":
+        assert torch.equal(out, out_r)
+        assert all(torch.equal(a, b) for a, b in zip(grads, grads_r))
+        # where the port's plain attention and psd_tpu's round a pathway apart
+        pathways_apart = np.zeros(ref.shape, bool)
+        for i in range(3):
+            k, v = banks[2 * i], banks[2 * i + 1]
+            want = np.asarray(jax_attention(*(jnp.asarray(a).astype(jd) for a in (q, k, v)))
+                              .astype(jnp.float32))
+            got = attention.attention_reference(ins[0], ins[1 + 2 * i], ins[2 + 2 * i])
+            pathways_apart |= got.float().numpy() != want
+        assert pathways_apart.sum() <= 1
+        np.testing.assert_array_equal(out.float().numpy()[~pathways_apart],
+                                      ref[~pathways_apart])
+    else:
+        assert not torch.equal(out, out_r)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=RTOL, atol=ATOL)
 
 
 def _ln_inputs(seed, M=512, C=64):
@@ -872,8 +959,9 @@ def test_split3_judge_sees_planted_faults(fault, shape, lens, delta):
     """chip_smoke.py holds split3 to its plain version with `split3_judge`
     (relative L2 ≤ SPLIT3_REL_L2_BAND over the output, ≤ SPLIT3_ROW_BAND on
     its worst query row). With N(0,1) bf16 inputs and gates 0.1 (anatomy)
-    and 0.9 (disease), the kernel's arithmetic emulated in plain torch reads
-    ≤ 4.24e-3 / ≤ 8.21e-3 sound; every fault that changes the output reads ≥
+    and 0.9 (disease), the kernel's arithmetic emulated in plain torch (fp32
+    gates) reads ≤ 4.39e-3 / ≤ 8.91e-3 sound against the plain version
+    (gates rounded to bf16; 4.24e-3 / 8.21e-3 before they were); every fault that changes the output reads ≥
     8.7e-2 / ≥ 0.256 (a padded key let in changes only a short delta bank
     gated by δ ≠ 0). (PERF.md §6 gives the readings of the same faults planted in the
     kernel, on the card.)"""
@@ -884,7 +972,7 @@ def test_split3_judge_sees_planted_faults(fault, shape, lens, delta):
     q = _t(rng.standard_normal(shape).astype(np.float32)).bfloat16()
     banks = [_t(rng.standard_normal((B, n, H, D)).astype(np.float32)).bfloat16()
              for n in lens for _ in range(2)]
-    ref = split3.split3_reference(q, *banks, delta, 0.1, 0.9)
+    ref = split3.split3_reference(q, *banks, torch.tensor(delta), 0.1, 0.9)
     out = _split3_kernel_emulation(q, banks, delta, 0.1, 0.9, fault)
     ok, text, _ = split3_judge(out, ref)
     changes = not (fault == "pad_key_in" and (lens[2] == 16 or delta == 0.0))

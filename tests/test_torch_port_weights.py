@@ -5,7 +5,8 @@ without JAX) against `scripts/port_weights.py`, and the port's
   * At SD-VAE scale (84 M parameters, the diffusers-named mirror's surface
     drawn from a seed) as .safetensors, and at a tiny width as a torch .bin:
     the npz the port's script writes with `--no-verify` equals psd_tpu's
-    byte for byte (one clock for both zip files' timestamps).
+    byte for byte (one clock for both zip files' timestamps); so does a
+    tiny CLIP `model.safetensors` that carries the int64 `position_ids`.
   * A tiny VAE file converts; psd_tpu's `load_params_npz` reads what the
     port wrote as the tree the port's converter gives.
   * A wrong surface (a dropped tensor, a mis-shaped one) raises at the
@@ -106,6 +107,28 @@ def test_the_npz_is_psd_tpus_byte_for_byte(tmp_path, monkeypatch, port, sd_vae, 
     got, want = (tmp_path / "port.npz").read_bytes(), (tmp_path / "jax.npz").read_bytes()
     assert len(got) > sum(v.nbytes for v in state.values())
     assert got == want
+
+
+def test_a_clip_safetensors_with_position_ids_is_psd_tpus_byte_for_byte(tmp_path, monkeypatch,
+                                                                        port):
+    """A CLIP `model.safetensors` that carries the int64
+    `vision_model.embeddings.position_ids` buffer (older transformers saved
+    it) converts by `--kind clip` to the npz `scripts/port_weights.py`
+    writes, byte for byte: both readers pass the I64 entry on and the
+    converters leave it out."""
+    from transformers import CLIPVisionConfig, CLIPVisionModelWithProjection
+
+    state = _seeded(_on_meta(lambda: CLIPVisionModelWithProjection(
+        CLIPVisionConfig(**TINY_CLIP))), seed=3)
+    n_pos = (TINY_CLIP["image_size"] // TINY_CLIP["patch_size"]) ** 2 + 1
+    state["vision_model.embeddings.position_ids"] = np.arange(n_pos, dtype=np.int64)[None]
+    src = _save(state, tmp_path / "model.safetensors")
+    monkeypatch.setattr(zipfile, "time", SimpleNamespace(time=lambda: 1.7e9,
+                                                         localtime=__import__("time").localtime))
+    argv = ["--kind", "clip", "--src", str(src), "--no-verify", "--out"]
+    port.main(argv + [str(tmp_path / "port.npz")])
+    _script("port_weights").main(argv + [str(tmp_path / "jax.npz")])
+    assert (tmp_path / "port.npz").read_bytes() == (tmp_path / "jax.npz").read_bytes()
 
 
 def test_a_tiny_file_converts(tmp_path, port, capsys):

@@ -169,7 +169,7 @@ def test_split3_grads_match_pallas_vjp(delta):
     out, vjp = jax.vjp(f, jnp.asarray(q), *map(jnp.asarray, banks))
     ref = vjp(jnp.asarray(g))
     ins = [_t(a).requires_grad_(True) for a in [q] + banks]
-    o = split3.split3_attention(*ins, delta, 0.9, 0.2)
+    o = split3.split3_attention(*ins, torch.tensor(delta), 0.9, 0.2)
     np.testing.assert_allclose(o.detach().numpy(), np.asarray(out), rtol=1e-5, atol=1e-5)
     for a, b in zip(torch.autograd.grad(o, ins, _t(g)), ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5)
