@@ -293,6 +293,7 @@ class DADD:
             beta_start=cfg.diffusion.beta_start,
             beta_end=cfg.diffusion.beta_end,
             kind=cfg.diffusion.noise_schedule,
+            device=self.device,
         )
         self.latent_scale = cfg.diffusion.latent_scale
         self.spatial_factor = 2 ** (len(self.vae_cfg.block_out_channels) - 1)
@@ -548,26 +549,41 @@ class DADD:
                          device=self.device)
         return x0.expand(batch, -1, -1, -1).contiguous() if shared_noise else x0
 
-    def _replay_or_run(self, kind: str, body, inputs, **knobs) -> torch.Tensor:
+    def captures(self) -> bool:
+        """Whether `_replay_or_run` replays captured programs: on the card,
+        outside `core.mode.eager()`."""
+        return self.device.type == "cuda" and not is_eager()
+
+    def _replay_or_run(self, kind: str, body, inputs, *, stateful: bool = False, pool=None,
+                       programs: Optional[Dict[tuple, CapturedProgram]] = None, **knobs):
         """`body(*inputs)` op by op on the CPU and under `core.mode.eager()`;
         on the card, a replay of its captured program (`graphs.py`), captured
-        at the first call of its key (`program_key(kind, inputs, **knobs)`).
-        A key whose capture failed raises again, without capturing again."""
-        if self.device.type != "cuda" or is_eager():
+        at the first call of its key (`program_key(kind, inputs, **knobs)`)
+        and held in `programs` (the model's own by default; a train state
+        holds its step's). A `stateful` body's first call is its warm-up,
+        whose output it returns (`CapturedProgram.first_output`); `pool` is
+        the graph pool it shares. A key whose capture failed raises again,
+        without capturing again."""
+        if not self.captures():
             return body(*inputs)
+        store = self.programs if programs is None else programs
         key = program_key(kind, inputs, **knobs)
         with self._programs_lock:
-            prog = self.programs.get(key)
+            prog = store.get(key)
             if prog is None:
                 failed = self.failed_captures.get(key)
                 if failed is not None:
                     raise RuntimeError(f"the {kind} program of this key failed to capture "
                                        f"before: {failed}")
                 try:
-                    prog = self.programs[key] = CapturedProgram(body, inputs)
+                    extra = dict(stateful=True, pool=pool) if stateful else {}
+                    prog = store[key] = CapturedProgram(body, inputs, **extra)
                 except Exception as e:
                     self.failed_captures[key] = f"{type(e).__name__}: {e}"
                     raise
+                if stateful:
+                    out, prog.first_output = prog.first_output, None
+                    return out
         return prog(*inputs)
 
     def drop_programs(self) -> None:

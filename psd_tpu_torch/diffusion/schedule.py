@@ -2,9 +2,11 @@
 
 Counterpart of `psd_tpu/diffusion/schedule.py`: the same fp32 numpy buffers,
 built on the host. The sampler reads them as numpy fp32 scalars, so the
-per-step coefficients are bit-identical to the JAX package's; the train-time
-`q_sample` and `min_snr_weight` gather them per sample on the tensor's
-device.
+per-step coefficients are bit-identical to the JAX package's. The train-time
+`q_sample` and `min_snr_weight` gather them per sample from copies made once
+on the schedule's `device` (the model's): a gather there copies nothing from
+the host, so the train step neither waits on the host nor breaks a CUDA
+graph's capture.
 """
 
 from __future__ import annotations
@@ -21,9 +23,12 @@ class NoiseSchedule:
     beta_start: float = 0.00085
     beta_end: float = 0.012
     kind: str = "linear"
+    device: torch.device = field(default=torch.device("cpu"), compare=False)
 
     alphas_cumprod: np.ndarray = field(init=False, repr=False, compare=False)
     snr: np.ndarray = field(init=False, repr=False, compare=False)
+    # the two tables as fp32 tensors on `device`, by name
+    tables: dict = field(init=False, repr=False, compare=False)
 
     def __post_init__(self):
         if self.kind != "linear":
@@ -34,19 +39,27 @@ class NoiseSchedule:
         acp = np.cumprod((1.0 - betas).astype(np.float64), axis=0).astype(np.float32)
         object.__setattr__(self, "alphas_cumprod", acp)
         object.__setattr__(self, "snr", acp / (1.0 - acp + 1e-8))
+        object.__setattr__(self, "device", torch.device(self.device))
+        object.__setattr__(self, "tables", {
+            name: torch.from_numpy(getattr(self, name)).to(self.device)
+            for name in ("alphas_cumprod", "snr")})
 
-    def _gather(self, table: np.ndarray, t: torch.Tensor) -> torch.Tensor:
-        return torch.from_numpy(table).to(t.device)[t.long()]
+    def _gather(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        table = self.tables[name]
+        if t.device != table.device:
+            raise ValueError(f"NoiseSchedule: t on {t.device}, the tables on {table.device}; "
+                             f"build the schedule with device={t.device}")
+        return table[t.long()]
 
     def q_sample(self, x0, t, noise):
         """x_t = sqrt(acp_t)·x0 + sqrt(1−acp_t)·noise, t: (B,) int."""
-        acp = self._gather(self.alphas_cumprod, t).to(x0.dtype)
+        acp = self._gather("alphas_cumprod", t).to(x0.dtype)
         shape = (-1,) + (1,) * (x0.ndim - 1)
         return torch.sqrt(acp).reshape(shape) * x0 + torch.sqrt(1.0 - acp).reshape(shape) * noise
 
     def min_snr_weight(self, t, gamma: float = 1.0):
         """min(SNR_t, γ) / (SNR_t + 1e-8); per-sample loss weight."""
-        snr = self._gather(self.snr, t)
+        snr = self._gather("snr", t)
         return torch.clamp(snr, max=gamma) / (snr + 1e-8)
 
 

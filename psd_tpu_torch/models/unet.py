@@ -296,7 +296,11 @@ class UNet2DCondition(nn.Module):
                 with mode.restored(snap), tp_group_scope(group):
                     yield
 
-            return checkpoint(module, *args, use_reentrant=False,
+            # preserve_rng_state=False: the UNet draws no random numbers (no
+            # dropout; the loss's randomness comes in as draws), so there is
+            # no RNG state to replay, and reading the CUDA generator's state
+            # at each block would fail under a CUDA graph's capture
+            return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False,
                               context_fn=lambda: (contextlib.nullcontext(), recomputing()))
 
         return run

@@ -38,10 +38,15 @@ grid of `val_progression_levels` levels → resume from a path or "last".
     (`encode_noise`, psd_tpu's keys); the val loss's from 1234 and the
     batch (`val_draws`); the grid's initial latent from 99
     (`grid_noise`). Tests patch these to hand JAX's draws.
-  * The train step runs eagerly. Validation runs eagerly too
-    (`core.mode.eager()`): once an epoch, where a captured program would
-    keep its pool beside the training state. The val loss runs outside
-    training mode, on the serving kernels, as psd_tpu's jitted one does.
+  * The train step is `compile_train_step(model, tx, mesh)`, as psd_tpu's
+    CLI compiles its step: on the card with no mesh, one replay of a
+    captured CUDA graph a step, captured at the first step (an eager
+    warm-up, which is that step); op by op with a mesh, on the CPU and
+    under `core.mode.eager()` (`train/trainer.py`). Validation runs
+    eagerly (`core.mode.eager()`): once an epoch, where a captured program
+    would keep its pool beside the training state. The val loss runs
+    outside training mode, on the serving kernels, as psd_tpu's jitted one
+    does.
   * The phases (data, encode, train_step, checkpoint, validation) are
     timed. Only `--profile` ends each with a synchronize of the card (as
     psd_tpu syncs only then), so a plain run keeps the host enqueueing
@@ -68,7 +73,7 @@ from ..data.limuc import AugmentConfig, DataLoader, LIMUCDataset
 from ..diffusion.dadd import DADD, shard_draws
 from ..parallel.mesh import (MeshConfig, batch_rows, create_mesh, launched, rank, rank_device,
                              shard_batch, world_size)
-from ..train import (CheckpointManager, build_optimizer, create_train_state, make_train_step,
+from ..train import (CheckpointManager, build_optimizer, compile_train_step, create_train_state,
                      resolve_resume_path, swapped_in)
 from ..train.checkpoint import restore_into, step_dir
 from ..train.trainer import full_parameters, shard_train_state
@@ -188,7 +193,7 @@ def run(args, device: torch.device, mesh) -> dict:
     if resume is not None:
         state = restore_into(state, step_dir(resume))
         say(f"Resumed from {resume} at step {state.step}")
-    step_fn = make_train_step(model, tx, mesh)
+    step_fn = compile_train_step(model, tx, mesh)
 
     total_steps = args.max_steps or steps_per_epoch * cfg.training.max_epochs
     log_every = cfg.training.log_every_n_steps

@@ -124,9 +124,10 @@ def _write(directory: Path, snap: Dict) -> None:
 @torch.no_grad()
 def restore_into(state, directory: Path):
     """Load the step directory `directory` into `state` in place: the
-    parameters, the EMA, AdamW's state, the counts and the generator; each
-    whole tensor cut to this rank's tp slice where the UNet is cut over tp,
-    then to its shard where the state is sharded."""
+    parameters, the EMA, AdamW's state, the counts and the generator, each
+    tensor copied into the one the state holds; each whole tensor cut to
+    this rank's tp slice where the UNet is cut over tp, then to its shard
+    where the state is sharded."""
     named = dict(state.model.core.named_parameters())
     cuts = tp_cuts(state.model.core)
 
@@ -154,16 +155,45 @@ def restore_into(state, directory: Path):
         into(named[name], name, t)
     for name, t in load("ema.pt").items():
         into(state.ema.params[name], name, t)
+    # AdamW's moments, step counts and the accumulated gradients go into the
+    # tensors the state holds, where it holds them: a captured train step
+    # (trainer.compile_train_step) reads them at their addresses. A state
+    # that has not stepped yet gets new ones, on the parameters' device
+    # (the step count there too where AdamW is capturable).
     opt, saved = state.opt_state, load("optimizer.pt")
-    opt.adamw.state.clear()
+    on_device = opt.adamw.defaults["capturable"]
+    replaced = any(p not in saved["step"] and opt.adamw.state.get(named[p])
+                   for p in named)
+    for name in named:
+        if name not in saved["step"]:
+            opt.adamw.state.pop(named[name], None)
     for name, step in saved["step"].items():
         p = named[name]
-        opt.adamw.state[p] = {"step": torch.tensor(step, dtype=torch.float32),
-                              "exp_avg": mine(name, saved["exp_avg"][name], p),
-                              "exp_avg_sq": mine(name, saved["exp_avg_sq"][name], p)}
+        s = opt.adamw.state.get(p)
+        if s:
+            s["step"].fill_(step)
+            into(s["exp_avg"], name, saved["exp_avg"][name])
+            into(s["exp_avg_sq"], name, saved["exp_avg_sq"][name])
+        else:
+            replaced = True
+            opt.adamw.state[p] = {
+                "step": torch.tensor(step, dtype=torch.float32,
+                                     device=local(p).device if on_device else "cpu"),
+                "exp_avg": mine(name, saved["exp_avg"][name], p).clone(),
+                "exp_avg_sq": mine(name, saved["exp_avg_sq"][name], p).clone()}
     opt.count, opt.mini_step = saved["count"], saved["mini_step"]
-    opt.acc = None if saved["acc"] is None else [mine(n, saved["acc"][n], p)
-                                                 for n, p in named.items()]
+    if saved["acc"] is None:
+        if opt.acc is not None:
+            torch._foreach_zero_([local(a) for a in opt.acc])
+    elif opt.acc is None:
+        replaced = True
+        opt.acc = [mine(n, saved["acc"][n], p).clone() for n, p in named.items()]
+    else:
+        for a, n in zip(opt.acc, named):
+            into(a, n, saved["acc"][n])
+    if replaced:
+        # a program captured before would write the tensors that were replaced
+        state.drop_programs()
     meta = json.loads((directory / "state.json").read_text())
     state.step, state.ema.count = meta["step"], meta["ema_count"]
     state.generator.set_state(torch.tensor(meta["generator"], dtype=torch.uint8))

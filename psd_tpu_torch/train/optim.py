@@ -17,8 +17,21 @@ clip / (‖g‖ + 1e-6) at every norm): the reference and its tests use optax's.
 
 The AdamW itself is `torch.optim.AdamW` (the same update as optax.adamw:
 eps 1e-8 outside the square root, decoupled decay lr·wd·p), one parameter
-group per LR group; `update` sets each group's LR from its schedule before
-every step. Unlike optax the state is updated in place.
+group per LR group. Unlike optax the state is updated in place.
+
+A step's work is split so that one captured CUDA graph serves every step
+(`train/trainer.py::compile_train_step`, as psd_tpu's one jitted step takes
+the LR and the counts as traced values): what changes from step to step is
+a device tensor, filled on the host before the step, never a number baked
+into the step. `set_lr` fills each group's LR, a 0-d fp32 tensor on the
+parameters' device, from its schedule at the optimizer-step count;
+`accumulation_scalars` gives the micro-step count n and n + 1 as 0-d fp32
+tensors; `apply_` is the device work (the running mean, the clip, AdamW);
+`advance` moves the host counts once the step has run. On the card AdamW is
+`capturable=True` (its step counts on the device, no host read), in the
+eager step as in its replay, so the two agree bit for bit; torch refuses
+`capturable` on the CPU, which keeps the tensor LRs without it (and reads
+the step count on the host there). `update` is the four in order.
 
 Under FSDP2 (`train/trainer.py::shard_train_state`) the gradients, moments
 and accumulators are DTensors sharded over the fsdp ranks, and under tp the
@@ -132,40 +145,86 @@ class Optimizer:
         groups: Dict[str, list] = {"x1": [], "x2": []}
         for name, p in module.named_parameters():
             groups[group_label(name)].append(p)
+        dev = next(module.parameters()).device
+        # on the card capturable (step counts on the device, the tensor LRs
+        # read there) and foreach; on the CPU, where torch refuses
+        # capturable, the per-tensor loop, which takes a tensor LR without it
+        on_card = dev.type == "cuda"
         adamw = torch.optim.AdamW(
-            [{"params": ps, "label": lab, "lr": self.schedules[lab](0)}
+            [{"params": ps, "label": lab,
+              "lr": torch.full((), self.schedules[lab](0), dtype=torch.float32, device=dev)}
              for lab, ps in groups.items() if ps],
-            betas=self.betas, eps=1e-8, weight_decay=self.weight_decay)
+            betas=self.betas, eps=1e-8, weight_decay=self.weight_decay,
+            capturable=on_card, foreach=on_card)
         return OptState(adamw)
 
-    def update(self, state: OptState, params: Sequence[torch.nn.Parameter],
-               grads: List[torch.Tensor], groups: Optional[GradGroups] = None) -> bool:
-        """Fold `grads` (one per parameter, shards and slices over `groups`
-        if given) in; True when an optimizer step was applied (always,
-        unless accumulating)."""
+    def applies(self, state: OptState) -> bool:
+        """True when the next step applies an optimizer step (always, unless
+        accumulating: then at the last of `accumulate` micro-steps)."""
+        return state.mini_step + 1 >= self.accumulate
+
+    @torch.no_grad()
+    def set_lr(self, state: OptState) -> None:
+        """Fill each group's LR tensor from its schedule at the optimizer-step
+        count (a fill on the device: no copy from the host, no wait)."""
+        for group_ in state.adamw.param_groups:
+            group_["lr"].fill_(self.schedules[group_["label"]](state.count))
+
+    def accumulation_scalars(self, state: OptState, device) -> Tuple[torch.Tensor, ...]:
+        """(n, n + 1) as 0-d fp32 tensors on `device`, n the micro-steps
+        accumulated so far; () without accumulation."""
+        if self.accumulate == 1:
+            return ()
+        n = state.mini_step
+        return tuple(torch.full((), float(v), dtype=torch.float32, device=device)
+                     for v in (n, n + 1))
+
+    @torch.no_grad()
+    def apply_(self, state: OptState, params: Sequence[torch.nn.Parameter],
+               grads: List[torch.Tensor], groups: Optional[GradGroups], applies: bool,
+               scalars: Tuple[torch.Tensor, ...] = ()) -> None:
+        """The step's device work: fold `grads` (one per parameter, shards
+        and slices over `groups` if given) into the running mean with
+        `scalars` = (n, n + 1) when accumulating; where `applies`, the clip
+        and AdamW at the LRs `set_lr` filled in. Reads no host value."""
         if self.accumulate > 1:
             if state.acc is None:
                 state.acc = [torch.zeros_like(g) for g in grads]
             acc, g_local = [local(a) for a in state.acc], [local(g) for g in grads]
-            n = state.mini_step
-            torch._foreach_mul_(acc, float(n))
+            n, n1 = scalars
+            torch._foreach_mul_(acc, n)
             torch._foreach_add_(acc, g_local)
-            torch._foreach_div_(acc, float(n + 1))
-            if n + 1 < self.accumulate:
-                state.mini_step = n + 1
-                return False
-            state.mini_step = 0
+            torch._foreach_div_(acc, n1)
+            if not applies:
+                return
             torch._foreach_copy_(g_local, acc)  # the mean, in the gradients' place
             torch._foreach_zero_(acc)
         if self.clip and self.clip > 0:
             clip_by_global_norm_(grads, self.clip, groups)
         for p, g in zip(params, grads):
             p.grad = g
-        for group_ in state.adamw.param_groups:
-            group_["lr"] = self.schedules[group_["label"]](state.count)
         state.adamw.step()
-        state.count += 1
-        return True
+
+    def advance(self, state: OptState, applies: bool) -> None:
+        """The host counts after a step has run (`applies` as `applies()`
+        said before it)."""
+        if self.accumulate > 1:
+            state.mini_step = 0 if applies else state.mini_step + 1
+        if applies:
+            state.count += 1
+
+    def update(self, state: OptState, params: Sequence[torch.nn.Parameter],
+               grads: List[torch.Tensor], groups: Optional[GradGroups] = None) -> bool:
+        """Fold `grads` in, op by op; True when an optimizer step was
+        applied (always, unless accumulating). psd_tpu's `tx.update`, for
+        callers stepping by hand: the train step calls the four parts itself."""
+        applies = self.applies(state)
+        if applies:
+            self.set_lr(state)
+        self.apply_(state, params, grads, groups, applies,
+                    self.accumulation_scalars(state, grads[0].device))
+        self.advance(state, applies)
+        return applies
 
 
 def build_optimizer(cfg: Config, steps_per_epoch: int = 1000) -> Optimizer:

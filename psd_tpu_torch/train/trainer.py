@@ -31,12 +31,36 @@ takes its rows (`shard_draws`): the local mean loss's averaged gradient is
 the gradient of the global mean, and the step is the one-card step on the
 global batch up to the order of the reductions, as psd_tpu's sharded step
 is. The logged metrics are averaged over the ranks.
+
+`compile_train_step` is psd_tpu's `compile_train_step` (a `jax.jit` of the
+step with the state donated): on the card, with no mesh, a step is one
+replay of a CUDA graph (`diffusion/graphs.py`) that holds the loss forward,
+the backward (with the gradient checkpointing's recomputation), the global
+norm, the clip, AdamW in its two LR groups and the EMA. Everything that
+changes from step to step is a device input, so one program serves every
+step: the batch and the draws (drawn from `state.generator` outside the
+graph, in `sample_draws`' order, and copied into the program's inputs, as
+generate takes its x0), the LRs (`Optimizer.set_lr`), the EMA's gate
+(`ema.ema_flags`) and, when accumulating, the micro-step count. The host
+counts (`state.step`, the optimizer's count and micro-step, the EMA's
+count) advance once a step has run, never at a capture. The first call of
+a program's key is its warm-up: an eager step on a side stream, which is
+that call's step; the capture after it records without running. When
+accumulating, the micro-step and the applying step are two programs on one
+graph pool. The programs and their pool belong to the train state they
+write (`TrainState.programs`), so a new state on the same model captures
+its own and a dropped state's go with it. On the CPU, under
+`core.mode.eager()` and with a mesh (gloo's collectives cannot be
+captured, and NCCL takes no two ranks on one card) the same body runs op
+by op, as `make_train_step` runs it always. A failed warm-up, capture or
+replay raises; no path gives way to another.
 """
 
 from __future__ import annotations
 
 import contextlib
-from dataclasses import dataclass
+import gc
+from dataclasses import dataclass, field
 from typing import Dict, Iterator, Optional, Tuple
 
 import torch
@@ -45,9 +69,10 @@ from torch import nn
 
 from ..core.mode import training_mode
 from ..diffusion.dadd import DADD, TrainLoss, shard_draws
+from ..diffusion.graphs import CapturedProgram
 from ..parallel.mesh import (batch_rows, local_part, shard_group, shard_placement, tp_cuts,
                              tp_scope, tp_size, tp_slice)
-from .ema import EMAState, ema_init, ema_update
+from .ema import EMAState, ema_apply_, ema_flags, ema_gate, ema_init
 from .optim import GradGroups, Optimizer, OptState, build_optimizer, global_norm
 
 
@@ -60,6 +85,21 @@ class TrainState:
     generator: torch.Generator
     # across ranks (shard_train_state): the loss under DDP or FSDP2
     loss: Optional[nn.Module] = None
+    # compile_train_step's captured programs by key, and the graph pool they
+    # share: the state's own, since a program writes the tensors of the
+    # state it was captured for (its moments, EMA and LRs), and they go
+    # with the state
+    programs: Dict[tuple, CapturedProgram] = field(default_factory=dict, repr=False)
+    pool: Optional[tuple] = field(default=None, repr=False)
+
+    def drop_programs(self) -> None:
+        """Free the state's captured programs and their pool; the next step
+        captures again."""
+        self.programs.clear()
+        self.pool = None
+        gc.collect()
+        if self.model.device.type == "cuda":
+            torch.cuda.empty_cache()
 
 
 def create_train_state(dadd: DADD, tx: Optional[Optimizer] = None, steps_per_epoch: int = 1000,
@@ -143,7 +183,8 @@ def shard_train_state(state: TrainState, mesh) -> TrainState:
         groups = [dict(g, params=[new[name[id(p)]] for p in g["params"]])
                   for g in opt.adamw.param_groups]
         opt.adamw = torch.optim.AdamW(groups, **{k: opt.adamw.defaults[k] for k in
-                                                 ("betas", "eps", "weight_decay")})
+                                                 ("betas", "eps", "weight_decay", "capturable",
+                                                  "foreach")})
         for k, s in moments.items():
             if s:
                 opt.adamw.state[new[k]] = {
@@ -199,19 +240,40 @@ def _grad_groups(named: Dict[str, torch.Tensor], cuts: dict) -> GradGroups:
 
 
 def make_train_step(dadd: DADD, tx: Optimizer, mesh=None):
-    """The step. With a `mesh` (after `shard_train_state`) the batch holds
-    this rank's rows (the same on the tp ranks of a (dp, fsdp) position)
-    and the draws, when given, are the global batch's."""
-    tcfg = dadd.cfg.training
+    """The step, op by op. With a `mesh` (after `shard_train_state`) the
+    batch holds this rank's rows (the same on the tp ranks of a (dp, fsdp)
+    position) and the draws, when given, are the global batch's."""
+    return TrainStep(dadd, tx, mesh, capture=False)
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-                   draws: Optional[Dict[str, torch.Tensor]] = None):
-        """One step on `batch` (pre-encoded latents, labels, clip_feats);
-        `draws` overrides the generator's random numbers (tests)."""
-        named = dict(dadd.core.named_parameters())
-        params = list(named.values())
-        for p in params:
-            p.grad = None
+
+def compile_train_step(dadd: DADD, tx: Optimizer, mesh=None):
+    """The step as `make_train_step` takes it and returns its results; on
+    the card with no mesh, outside `core.mode.eager()`, one replay of a
+    captured program a step (psd_tpu's `compile_train_step`)."""
+    return TrainStep(dadd, tx, mesh, capture=True)
+
+
+class TrainStep:
+    """`step(state, batch, draws=None) -> (state, metrics)`: one step on
+    `batch` (pre-encoded latents, labels, clip_feats); `draws` overrides
+    the generator's random numbers (tests, the CLI). The host part (the
+    draws, the LRs, the EMA's gate, the counts) runs here; `_body` is the
+    device part, run op by op or replayed. With `capture` its programs live
+    in the state's `programs`, on the state's `pool`, under the kind
+    "train_step", keyed by the inputs' names and shapes, whether the step
+    applies the optimizer and the mode flags."""
+
+    def __init__(self, dadd: DADD, tx: Optimizer, mesh, capture: bool):
+        self.dadd, self.tx, self.mesh, self.capture = dadd, tx, mesh, capture
+
+    def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                 draws: Optional[Dict[str, torch.Tensor]] = None):
+        dadd, tx, mesh, tcfg = self.dadd, self.tx, self.mesh, self.dadd.cfg.training
+        opt = state.opt_state
+        if state.ema.swapped:
+            raise RuntimeError("train step inside ema.swapped_in: the EMA's tensors are the "
+                               "module's parameters there")
+        batch = {k: dadd._t(v) for k, v in batch.items() if v is not None}
         if mesh is not None:
             n_local = len(batch["labels"])
             n = n_local * mesh.size(0) * mesh.size(1)  # the (dp, fsdp) positions' rows
@@ -219,9 +281,53 @@ def make_train_step(dadd: DADD, tx: Optimizer, mesh=None):
                 shape = (n,) + tuple(batch["latents"].shape[1:])
                 draws = dadd.sample_draws(shape, state.generator)
             draws = shard_draws(draws, batch_rows(mesh, n))
+        elif draws is None:
+            draws = dadd.sample_draws(tuple(batch["latents"].shape), state.generator)
+        draws = {k: v.to(dadd.device) for k, v in draws.items()}
+        # the host's decisions, then the device inputs that carry them
+        applies = tx.applies(opt)
+        do_ema = applies and ema_gate(state.step if tx.accumulate == 1 else opt.count,
+                                      tcfg.update_starting_at_step, tcfg.update_every_n_steps)
+        if applies:
+            tx.set_lr(opt)
+        scalars = ema_flags(state.ema, do_ema, dadd.device) + tx.accumulation_scalars(
+            opt, dadd.device)
+        parts = {"batch": batch, "draws": draws}
+        names = tuple((part, k) for part in parts for k in sorted(parts[part]))
+        inputs = tuple(parts[part][k] for part, k in names) + scalars
+
+        def body(*flat):
+            got = {"batch": {}, "draws": {}}
+            for (part, k), t in zip(names, flat):
+                got[part][k] = t
+            return self._body(state, got["batch"], got["draws"], applies, flat[len(names):])
+
+        if not self.capture or mesh is not None:
+            metrics = body(*inputs)
+        else:
+            if state.pool is None and dadd.captures():
+                state.pool = torch.cuda.graph_pool_handle()
+            metrics = dadd._replay_or_run("train_step", body, inputs, stateful=True,
+                                          pool=state.pool, programs=state.programs,
+                                          names=names, applies=applies)
+        tx.advance(opt, applies)
+        state.ema.count += int(do_ema)
+        state.step += 1
+        return state, metrics
+
+    def _body(self, state: TrainState, batch, draws, applies: bool, scalars):
+        """The step's device work: loss, backward, norm, the optimizer's
+        `apply_`, and the EMA where the step applies the optimizer; the
+        scalars are (EMA do, EMA first[, n, n + 1]). Reads no host value and
+        moves no host count."""
+        dadd, tx, mesh = self.dadd, self.tx, self.mesh
+        named = dict(dadd.core.named_parameters())
+        params = list(named.values())
+        for p in params:
+            p.grad = None
         with training_mode(), tp_scope(mesh):
             if mesh is None:
-                loss, metrics = dadd.train_loss(batch, generator=state.generator, draws=draws)
+                loss, metrics = dadd.train_loss(batch, draws=draws)
             else:
                 loss, metrics = state.loss(batch, draws)
             loss.backward()
@@ -232,15 +338,9 @@ def make_train_step(dadd: DADD, tx: Optimizer, mesh=None):
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         groups = None if mesh is None else _grad_groups(named, tp_cuts(dadd.core))
         metrics["grad_norm"] = global_norm(grads, groups)
-        applied = tx.update(state.opt_state, params, grads, groups)
-        if tx.accumulate > 1:
+        do, first, *acc = scalars
+        tx.apply_(state.opt_state, params, grads, groups, applies, tuple(acc))
+        if applies:
             # EMA start/every count optimizer steps; micro-steps never update
-            ema_step = state.opt_state.count - 1 if applied else -1
-        else:
-            ema_step = state.step
-        ema_update(state.ema, named, ema_step, decay=tcfg.ema_decay,
-                   start_step=tcfg.update_starting_at_step, every=tcfg.update_every_n_steps)
-        state.step += 1
-        return state, metrics
-
-    return train_step
+            ema_apply_(state.ema, named, do, first, decay=dadd.cfg.training.ema_decay)
+        return metrics

@@ -95,6 +95,32 @@ def test_save_restore_round_trip_is_bit_exact(tmp_path, accumulate, steps):
     _assert_states_equal(state, other)
 
 
+@pytest.mark.parametrize("accumulate,steps", [(1, 2), (2, 3)], ids=["plain", "accumulating"])
+def test_resume_copies_into_the_states_own_tensors(tmp_path, accumulate, steps):
+    """A restore into a state that has stepped copies AdamW's moments, its
+    step counts and the accumulated gradients into the tensors the state
+    holds, where a captured train step reads them: every data_ptr stays,
+    and the state still resumes bit for bit."""
+    state, step = _trained(0, steps, accumulate)
+    mgr = CheckpointManager(tmp_path / "ckpt")
+    assert mgr.save(steps, state)
+    mgr.wait()
+    other, other_step = _trained(7, steps, accumulate)
+    opt = other.opt_state
+    tensors = [t for s in opt.adamw.state.values() for t in s.values()] + list(opt.acc or [])
+    assert len(tensors) == 3 * len(opt.adamw.state) + (len(opt.acc) if opt.acc else 0) > 0
+    ptrs = [t.data_ptr() for t in tensors]
+    restore_into(other, step_dir(tmp_path / "ckpt"))
+    assert [t.data_ptr() for t in tensors] == ptrs
+    assert all(a is b for a, b in zip(
+        tensors, [t for s in opt.adamw.state.values() for t in s.values()] + list(opt.acc or [])))
+    _assert_states_equal(state, other)
+    batch = _tbatch(_batch(9))
+    (_, ma), (_, mb) = step(state, batch), other_step(other, batch)
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
+    _assert_states_equal(state, other)
+
+
 def test_max_to_keep_and_latest_step(tmp_path):
     """The newest MAX_TO_KEEP steps stay; a step is saved once; a step
     being written (`<step>.tmp`) is not one; `step_dir` takes a root to its

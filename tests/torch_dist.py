@@ -228,13 +228,13 @@ def tiny_steps(dp: int, fsdp: int, overrides: dict, batches: list, steps: int,
     named = list(dict(model.core.named_parameters()))
     cuts = tp_cuts(model.core)
     seen = []
-    update = tx.update
+    apply_ = tx.apply_
 
-    def recording(opt_state, params, grads, groups=None):
+    def recording(opt_state, params, grads, groups, applies, scalars=()):
         seen.append(_numpy(dict(zip(named, grads)), cuts))
-        return update(opt_state, params, grads, groups)
+        return apply_(opt_state, params, grads, groups, applies, scalars)
 
-    tx.update = recording
+    tx.apply_ = recording
     metrics, states = [], []
     with TP_FAULTS[fault]() if fault else contextlib.nullcontext():
         for i in range(steps):
