@@ -319,14 +319,17 @@ Phases, in order; any failure exits non-zero:
                of 32 (16 a rank: two 14.7 GB states on one card), one loader
                thread, one step, each rank the CLI's main() in-process: the
                one-process run of the same argv (the reference, its initial
-               parameters kept as the CLI built them); (b) one rank on NCCL
-               at --dp 1, a world of one in this process (no torchrun:
-               `_nccl_rank_here`), equal to the reference bit for bit in
-               loss, grad norm and post-step parameters; (a) two ranks on
-               cuda:0 over gloo at --dp 2 (DDP), then at --fsdp 2 (FSDP2),
-               started by torchrun (`chip_smoke.py --rank-worker`), each
-               against the reference. A run that fails prints each rank's
-               last collective and a crashed rank's stack.
+               parameters kept as the CLI built them, its post-step ones
+               read from the state it returns; it writes no checkpoint:
+               the CLI's checkpoint without a process group is 6b's); (b)
+               one rank on NCCL at --dp 1, a world of one in this process
+               (no torchrun: `_nccl_rank_here`), equal to the reference bit
+               for bit in loss, grad norm and post-step parameters; (a) two
+               ranks on cuda:0 over gloo at --dp 2 (DDP), then at --fsdp 2
+               (FSDP2, its checkpoint the parameters alone), one launch of
+               torchrun (`chip_smoke.py --rank-worker`, 6e between them),
+               each against the reference. A run that fails prints each
+               rank's last collective and a crashed rank's stack.
                Checks: each step's loss and grad norm (RANKS_LOSS_RTOL,
                RANKS_NORM_RTOL), the post-step parameters' difference over
                the reference's update (RANKS_UPDATE_BAND, set against
@@ -340,9 +343,29 @@ Phases, in order; any failure exits non-zero:
                to its completion, DDP's own reducer's too; NCCL's complete
                at the enqueue, so not measured), its
                phases, peak memory and launches, the card.
+  7. gates   — the port's turbo quality gates (scripts/torch_check_*.py)
+               through their main() at configs' width (`Config()`): the
+               stride gate (GATES_STRIDE: 20 synth-train steps by replay of
+               compile_train_step's program, then the exact and
+               converged-DPM baselines, deep5, tome0.5 and dpm5+deep5 at
+               512², 10 steps), the distribution gate (GATES_DIST: 20
+               synth steps, three exact sets, deep5 and int8 at 256², FID
+               and CMMD on the random backbones) and the int8 gate (its
+               defaults, then --vae at 512²); synth-train runs once, the
+               distribution gate and the int8 gate's core taking its
+               weights. Checks: every number finite, each variant apart
+               from exact (the distribution gate's int8 set on the exact
+               latents bit for bit, its images apart), the signal check
+               above the noise floor, the synth-train losses finite, the
+               exact program's latents equal to an eager run bit for bit,
+               each variant's host launches, from 0, 2 × route_launches of
+               its knobs, each kernel at the gates' shapes against its
+               plain version (GATES_*). Prints the tables, each program's
+               warm-up and capture seconds, the walls and the peak memory.
 The line before the last is a JSON object with one entry per kernel:
 `launches` counts the launches of the main-path runs (phases 3b, 4b, 5, 5b, 5c,
-5d, 5e, 5f, 6, 6b, 6c and 6d, each with the counts set to 0 just before it, 4b
+5d, 5e, 5f, 6, 6b, 6c, 6d and 7 (`gates`, its three gates' runs after its
+judges), each with the counts set to 0 just before it, 4b
 before its held eps and decode (`weights`) and before its CLI (`weights_cli`), 5c before each of
 its two CLI runs, 5e before its served batch and its CLI run (`levers`), 6b
 before each of its three, 6c before each of its three,
@@ -382,6 +405,8 @@ if not (ROOT / "psd_tpu_torch" / "csrc").is_dir():
 sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
+
+from psd_tpu_torch.diffusion.sampler import key_step_count  # noqa: E402
 
 # bf16 band for phase 6's gradients against autograd through the plain
 # versions (_grad_compare; split3's autograd.Function): both round their
@@ -522,9 +547,8 @@ Q8_PROBE_MIN_TIES = 32
 TURBO = dict(tome_ratio=0.0, tome_mode="branch",
              encoder_stride=5, cache_mode="deep",
              sampler="dpm", steps=25, vae_quant="int8")
-# DPM steps i with i % stride == 0 or i == steps - 1 run the full UNet
-TURBO_FULL = sum(1 for i in range(TURBO["steps"])
-                 if i % TURBO["encoder_stride"] == 0 or i == TURBO["steps"] - 1)
+# DPM steps that are key steps (`sampler.key_step_count`) run the full UNet
+TURBO_FULL = key_step_count(TURBO["steps"], TURBO["encoder_stride"])
 TURBO_SHALLOW = TURBO["steps"] - TURBO_FULL
 # what one served batch of 8 at 512² launches (PERF.md §6): the exact path
 # (50 DDIM steps) and the turbo point; a captured program must launch these
@@ -878,6 +902,29 @@ TRAIN_TP_CONTEXT_TOKENS = 48
 # "tp_train_shapes" outside the entries' sums
 TRAIN_TP_ATTN_SHAPES = [(16, 1024, 4, 40)]
 TRAIN_TP_SPLIT3_SHAPES = [(16, 1024, 4, 40), (16, 256, 4, 80)]
+
+# phase 7: the port's quality gates (scripts/torch_check_*.py) at
+# configs' width, cut in size only: the stride gate at 512² (ToMe merges
+# only at the 64² sites), the distribution gate at 256², the int8 gate at
+# its defaults and its decode mode at 512²; the stride gate synth-trains
+# the model GATES_TRAIN_STEPS steps, and the distribution gate, which asks
+# for the same run, and the int8 gate's core take those weights
+GATES_TRAIN_STEPS = 20
+GATES_STRIDE = ["--size", "512", "--batch", "8", "--steps", "10",
+                "--train-steps", str(GATES_TRAIN_STEPS), "--variants", "deep5,tome0.5,dpm5+deep5"]
+GATES_DIST = ["--size", "256", "--batch", "8", "--images", "16", "--repeats", "2",
+              "--train-steps", str(GATES_TRAIN_STEPS), "--variants", "deep5,int8"]
+GATES_INT8 = [[], ["--vae", "--size", "512", "--batch", "8"]]
+# the kernels at the gates' shapes beyond phases 3 and 5e's: batch 8 and 4
+# at 256² (the distribution and int8 gates; synth-train's batch-8 training
+# shapes are phase 6's accumulation check's)
+GATES_ATTN_SHAPES = [(8, 1024, 8, 40), (8, 256, 8, 80), (8, 1024, 1, 512),
+                     (4, 1024, 8, 40), (4, 256, 8, 80), (4, 1024, 1, 512)]
+GATES_SPLIT3_SHAPES = [(8, 1024, 8, 40), (8, 256, 8, 80), (4, 1024, 8, 40), (4, 256, 8, 80)]
+GATES_LN_SHAPES = [(8 * 1024, 320), (8 * 256, 640), (8 * 64, 1280), (4 * 1024, 320),
+                   (4 * 256, 640), (4 * 64, 1280)]
+GATES_GN_SHAPES = [(8, 1024, 320), (8, 256, 640), (8, 64, 1280), (4, 1024, 320),
+                   (4, 256, 640), (4, 64, 1280)]
 
 # ln_gemm_kernel<Kind> in ln_gemm_sm90.cuh, by the enum's value (gn: gn_proj)
 LN_KINDS = ("proj1", "proj3", "geglu", "gn")
@@ -2862,11 +2909,9 @@ def _infer_run(name: str, argv, out_dir: Path, card: str, structure: Path) -> di
     do_cfg = out["uncond"] is not None
     args = infer.build_argparser().parse_args(argv)
     steps = args.sampling_steps or model.cfg.diffusion.sampling_steps
-    full = sum(1 for i in range(steps) if i % args.encoder_stride == 0 or i == steps - 1)
-    if full < steps and args.cache_mode != "deep":
-        raise SystemExit("chip_smoke.py: _infer_run counts DeepCache's shallow steps only")
-    expected = route_launches(model.core_cfg, model.vae_cfg, INFER_LEVELS, size, full,
-                              steps - full, cfg_pass=do_cfg)
+    expected = route_launches(model.core_cfg, model.vae_cfg, INFER_LEVELS, size,
+                              *_full_shallow(steps, args.encoder_stride, args.cache_mode),
+                              cfg_pass=do_cfg)
     clip_img, _ = infer.load_structure_image(structure, size, model.clip_cfg.image_size)
     feats = model.encode_image_clip(clip_img)
     clip_rel = _clip_rel_l2(model, clip_img, feats)
@@ -3927,6 +3972,18 @@ def _check_train_cli_shapes() -> None:
     torch.cuda.empty_cache()
 
 
+def _full_shallow(steps: int, stride: int, cache_mode: str = "deep") -> tuple:
+    """(full, shallow) UNet evaluations of `steps` sampler steps under
+    feature propagation at `stride`: DeepCache's key steps
+    (`sampler.key_step_count`) full, the rest shallow. route_launches
+    models DeepCache's shallow steps alone, not encoder propagation's."""
+    full = key_step_count(steps, stride)
+    if full < steps and cache_mode != "deep":
+        raise SystemExit(f"chip_smoke.py: route_launches counts DeepCache's shallow steps only, "
+                         f"not {cache_mode!r}'s")
+    return full, steps - full
+
+
 def _counted(fn, *args):
     """fn(*args) with the launch counts set to 0 just before it; → (its
     result, the counts, attention's counts by head dim, wall seconds)."""
@@ -4504,6 +4561,7 @@ def rank_worker(spec_path: str) -> int:
 
     from psd_tpu_torch.parallel.mesh import TIMEOUT_S
 
+    t_entry = time.time()  # the epoch clock: the launcher reads it too
     faulthandler.enable()  # a crashing rank prints its Python stack into the log
     spec = json.loads(Path(spec_path).read_text())
     rank = int(os.environ["RANK"])
@@ -4530,13 +4588,20 @@ def rank_worker(spec_path: str) -> int:
     torch.cuda.reset_peak_memory_stats()
     try:
         out = run(spec, rank, work)
+        if spec.get("then"):  # a second run in this launch (6d's --fsdp 2 after --dp 2)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            out["then"] = run({**spec, **spec["then"], "tp": False, "then": None}, rank, work)
+            out["then"].update(rank=rank, world=int(os.environ["WORLD_SIZE"]), backend=backend)
     finally:
         if dist.is_initialized():  # the train CLI ends a group it started itself
             dist.destroy_process_group()
         for name, call in originals.items():  # the rank's own patches too
             setattr(dist, name, call)
         trace.close()
-    out.update(rank=rank, world=int(os.environ["WORLD_SIZE"]), backend=backend)
+    out.update(rank=rank, world=int(os.environ["WORLD_SIZE"]), backend=backend,
+               t_worker=(t_entry, time.time()))
     out.setdefault("peak_gib", torch.cuda.max_memory_allocated() / 2**30)
     (work / f"{spec['tag']}.rank{rank}.json").write_text(json.dumps(out))
     return 0
@@ -4552,8 +4617,9 @@ def _train_rank(spec: dict, rank: int, work: Path) -> dict:
 
     from psd_tpu_torch.ops import kernels
     from psd_tpu_torch.pipelines import train
-    from psd_tpu_torch.train import trainer
+    from psd_tpu_torch.train import checkpoint, trainer
 
+    snapshot = checkpoint.snapshot
     windows, comm = [], []
     shard, make_step, timer = train.shard_train_state, train.compile_train_step, train.PhaseTimer
 
@@ -4582,23 +4648,26 @@ def _train_rank(spec: dict, rank: int, work: Path) -> dict:
             # ring over loopback), each span from its call to its work's
             # completion, DDP's reducer's too; NCCL's complete at the
             # enqueue, so their spans say nothing of the device's time
-            comm.append(_union((e.time_range.start / 1e6, e.time_range.end / 1e6)
-                               for e in prof.events() if e.name.startswith("gloo:")))
+            comm.append(_gloo_s(prof))
             return out
 
         return timed
 
     train.shard_train_state, train.compile_train_step = sharding, stepping
     train.PhaseTimer = lambda device, sync: timer(device, sync=True)
+    if spec.get("params_only"):
+        checkpoint.snapshot = _params_snapshot
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
+    t0, t_main = time.perf_counter(), time.time()
     try:
         r = train.main(spec["argv"])
     finally:
         train.shard_train_state, train.compile_train_step, train.PhaseTimer = shard, make_step, timer
+        checkpoint.snapshot = snapshot
     wall = time.perf_counter() - t0
     out = {"counts": dict(kernels.launch_counts), "head_dims": dict(kernels.attention_head_dims),
-           "laps": r["laps"], "wall": wall, "steps_s": [b - a for a, b in windows],
+           "laps": r["laps"], "wall": wall, "t_main": (t_main, time.time()),
+           "steps_s": [b - a for a, b in windows],
            "comm_s": comm if spec.get("backend") == "gloo" else None,
            "sharded": trainer.is_sharded(r["state"]), "device": str(r["state"].model.device),
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
@@ -4606,8 +4675,24 @@ def _train_rank(spec: dict, rank: int, work: Path) -> dict:
         del r
         gc.collect()
         torch.cuda.empty_cache()
+        t_tp = time.time()
         out["tp"] = _train_tp_rank(spec, rank)
+        out["t_tp"] = (t_tp, time.time())
     return out
+
+
+def _params_snapshot(state):
+    """`checkpoint.snapshot` of the parameters alone (rank 0's params.pt,
+    FSDP2's shards gathered as the checkpoint gathers them): 6d's --fsdp 2
+    run, whose gathers of the EMA and the moments over gloo (three quarters
+    of its checkpoint) are held bit for bit on the CPU by
+    tests/test_torch_train_fsdp.py."""
+    from psd_tpu_torch.parallel.mesh import full, rank
+
+    whole = {k: full(p.detach()) for k, p in state.model.core.named_parameters()}
+    if rank() != 0:
+        return None
+    return {"params.pt": {k: w.to("cpu", copy=True) for k, w in whole.items()}}
 
 
 def _torchrun(work: Path, tag: str, nproc: int, **spec) -> dict:
@@ -4622,7 +4707,7 @@ def _torchrun(work: Path, tag: str, nproc: int, **spec) -> dict:
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
            str(nproc), str(ROOT / "chip_smoke.py"), "--rank-worker", str(spec_path)]
     log_path = work / f"{tag}.log"
-    t0 = time.perf_counter()
+    t0, t_spawn = time.perf_counter(), time.time()
     with open(log_path, "w") as fh:
         proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT,
                                 env=dict(os.environ, OMP_NUM_THREADS="4"),
@@ -4637,7 +4722,7 @@ def _torchrun(work: Path, tag: str, nproc: int, **spec) -> dict:
             except ProcessLookupError:
                 pass
             proc.wait()
-    wall = time.perf_counter() - t0
+    wall, t_exit = time.perf_counter() - t0, time.time()
     ranks, last = [], []
     for r in range(nproc):
         res = work / f"{tag}.rank{r}.json"
@@ -4649,7 +4734,8 @@ def _torchrun(work: Path, tag: str, nproc: int, **spec) -> dict:
     # a crashed rank's stack (faulthandler), else the log's end
     crash = [i for i, line in enumerate(text) if line.startswith("Fatal Python error")]
     tail = text[crash[0]:crash[0] + 24] if crash else text[-12:]
-    return {"rc": rc, "ranks": ranks, "wall": wall, "tail": tail, "last_collective": last}
+    return {"rc": rc, "ranks": ranks, "wall": wall, "tail": tail, "last_collective": last,
+            "t_spawn": t_spawn, "t_exit": t_exit}
 
 
 def _nccl_rank_here(work: Path, tag: str, **spec) -> dict:
@@ -5528,6 +5614,14 @@ def _union(spans) -> float:
     return total
 
 
+def _gloo_s(prof) -> float:
+    """The seconds of a profiled window in gloo's collectives: the union of
+    its "gloo:" spans, from the raw events (torch's FunctionEvents take
+    seconds to build for a training step's 100k host ops)."""
+    return _union((e.start_ns() / 1e9, e.end_ns() / 1e9)
+                  for e in prof.profiler.kineto_results.events() if e.name().startswith("gloo:"))
+
+
 def _train_tp_rank(spec: dict, rank: int) -> dict:
     """Phase 6e's rank, on 6d's ranks (two on cuda:0 over gloo): a (dp 1,
     tp 2) mesh over them; rank 0 first takes the one-process step on the
@@ -5606,10 +5700,7 @@ def _train_tp_rank(spec: dict, rank: int) -> dict:
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
         run = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "step_s": wall,
-               "shard_s": shard_s, "comm_s": _union((e.time_range.start / 1e6,
-                                                     e.time_range.end / 1e6)
-                                                    for e in prof.events()
-                                                    if e.name.startswith("gloo:")),
+               "shard_s": shard_s, "comm_s": _gloo_s(prof),
                "counts": dict(kernels.launch_counts),
                "head_dims": dict(kernels.attention_head_dims),
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -5645,8 +5736,7 @@ def _train_tp_rank(spec: dict, rank: int) -> dict:
                 step(state, mine, draws=draws)
                 torch.cuda.synchronize()
                 run["steady_step_s"] = time.perf_counter() - t0
-            run["steady_comm_s"] = _union((e.time_range.start / 1e6, e.time_range.end / 1e6)
-                                          for e in prof.events() if e.name.startswith("gloo:"))
+            run["steady_comm_s"] = _gloo_s(prof)
             run["steady_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
             del prof
         if rank == 0:
@@ -5797,20 +5887,25 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False,
                       results: dict = None) -> dict:
     """The train CLI across ranks (phase 6d), one step each at a global
     batch of 32: a one-process run, the reference (its launches against
-    phase 6's per step); one rank on NCCL at --dp 1 in this process, equal
-    to it bit for bit; then torchrun's two ranks on cuda:0 over gloo at
-    --dp 2 and at --fsdp 2, each against the reference (loss, grad norm,
+    phase 6's per step, its post-step parameters from the state it returns,
+    no checkpoint written); one rank on NCCL at --dp 1 in this process,
+    equal to it bit for bit; then torchrun's two ranks on cuda:0 over gloo
+    at --dp 2 and at --fsdp 2, each against the reference (loss, grad norm,
     the parameters' update, each rank's launches), rank 0's checkpoint of
-    --dp 2 read by the infer CLI. Phase 6e, the tp train step, runs in
-    --dp 2's launch after its step (`_train_tp_rank`); its checks follow
-    --dp 2's, its kernels at the tp training shapes the phase's end (kept
-    in `results`). `fault` runs the planted fault its bands were set
-    against (every rank skipping the gradient average) and stops there."""
+    --dp 2 read by the infer CLI, --fsdp 2's checkpoint its parameters
+    alone (`_params_snapshot`). One launch runs --dp 2, then phase 6e, the
+    tp train step (`_train_tp_rank`), then --fsdp 2 (the spec's `then`),
+    each rank's state freed between them; 6e's checks follow --dp 2's, its
+    kernels at the tp training shapes the phase's end (kept in `results`).
+    `fault` runs the planted fault its bands were set against (every rank
+    skipping the gradient average) and stops there."""
     import shutil
+    from unittest import mock
 
     import numpy as np
 
     from psd_tpu_torch.pipelines import infer, train
+    from psd_tpu_torch.train.checkpoint import CheckpointManager
 
     work = ROOT / "build" / "psd_tpu_torch" / "train_ranks"
     shutil.rmtree(work, ignore_errors=True)
@@ -5849,7 +5944,9 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False,
                 f"by head dim {r['head_dims']}; FSDP2 {r['sharded']}; on {card}")
 
     # the reference: the one-process run, its initial parameters kept on the
-    # host as the CLI built them
+    # host as the CLI built them and its post-step parameters copied from
+    # the state it returns (its checkpoint is not written: the CLI's
+    # checkpoint without a process group is phase 6b's)
     start = {}
     make_state = train.create_train_state
 
@@ -5864,23 +5961,26 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False,
     torch.cuda.reset_peak_memory_stats()
     train.create_train_state = keeping
     try:
-        r0, counts0, dims0, wall0 = _counted(train.main, argv_for("one"))
+        with mock.patch.object(CheckpointManager, "save", lambda self, step, state: False):
+            r0, counts0, dims0, wall0 = _counted(train.main, argv_for("one"))
     finally:
         train.create_train_state = make_state
     peak0 = torch.cuda.max_memory_allocated() / 2**30
     laps0 = r0["laps"]
+    after = {n: p.detach().to("cpu", copy=True)
+             for n, p in r0["state"].model.core.named_parameters()}
     del r0
     gc.collect()
     torch.cuda.empty_cache()
     ref = _logged(work / "one")
-    after = _params(work / "one" / "checkpoints" / str(RANKS_STEPS))
     log(f"[train_ranks] one process, global batch 32 (the reference): main() wall {wall0:.3f} "
         f"s; train_step {[round(x, 4) for x in laps0['train_step']]} s (no sync); losses "
         f"{[r['loss'] for r in ref]}, grad norms {[r['grad_norm'] for r in ref]}; launches "
         f"{counts0}; peak {peak0:.2f} GiB; on {card}")
-    if counts0 != want0 or [r["step"] for r in ref] != list(range(1, RANKS_STEPS + 1)):
+    if counts0 != want0 or [r["step"] for r in ref] != list(range(1, RANKS_STEPS + 1)) \
+            or (work / "one" / "checkpoints" / str(RANKS_STEPS)).exists():
         raise SystemExit(f"chip_smoke.py: the one-process run launched {counts0}, not {want0}, "
-                         f"or logged steps {[r['step'] for r in ref]}")
+                         f"logged steps {[r['step'] for r in ref]} or wrote a checkpoint")
 
     # one rank on NCCL at --dp 1, the production backend: the reference bit
     # for bit (the same rows; the average over one rank is the identity)
@@ -5895,8 +5995,8 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False,
     nccl_checks = {
         "losses equal the one process's": [r["loss"] for r in got] == [r["loss"] for r in ref],
         "grad norms equal": [r["grad_norm"] for r in got] == [r["grad_norm"] for r in ref],
-        "post-step parameters equal, bit for bit": sorted(post) == sorted(after) and all(
-            torch.equal(post[k], after[k]) for k in after),
+        "post-step parameters equal, bit for bit": sorted(post) == sorted(after) == sorted(
+            start) and all(torch.equal(post[k], after[k]) for k in after),
         f"launches {want}": reference["counts"] == want,
     }
     log(f"[train_ranks] --dp 1 on NCCL: wall {run['wall']:.1f} s (in this process); losses "
@@ -5962,10 +6062,22 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False,
         return {}
 
     readings = {}
+    fsdp_out = work / "fsdp2"
     run = ranks_run("dp2_gloo", 2, base + ["--dp", "2", "--output-dir", str(work / "dp2")],
-                    backend="gloo", tp=True)
+                    backend="gloo", tp=True,
+                    then={"argv": base + ["--fsdp", "2", "--output-dir", str(fsdp_out)],
+                          "params_only": True})
     readings["dp2_gloo"] = judge("--dp 2, two ranks on cuda:0 over gloo", run)
-    counts = run["ranks"][0]["counts"]
+    r0 = run["ranks"][0]
+    if "t_worker" in r0 and "then" in r0:
+        (w0, w1), (m0, m1), (p0, p1) = r0["t_worker"], r0["t_main"], r0["t_tp"]
+        f0, f1 = r0["then"]["t_main"]
+        log(f"[train_ranks] the launch, rank 0 (s): torchrun's start to its worker "
+            f"{w0 - run['t_spawn']:.1f}, to --dp 2's main() {m0 - w0:.1f}, main() {m1 - m0:.1f}, "
+            f"to 6e {p0 - m1:.1f}, 6e {p1 - p0:.1f}, to --fsdp 2's main() {f0 - p1:.1f}, main() "
+            f"{f1 - f0:.1f}, to its worker's end {w1 - f1:.1f}, to torchrun's exit "
+            f"{run['t_exit'] - w1:.1f}; {run['wall']:.1f} in all")
+    counts = r0["counts"]
     head_dims = run["ranks"][0]["head_dims"]
     tp = _check_train_tp(card, run["ranks"], per_step)
 
@@ -5986,9 +6098,10 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False,
         raise SystemExit("chip_smoke.py: the infer CLI did not read rank 0's checkpoint")
     shutil.rmtree(work / "dp2", ignore_errors=True)
 
-    run = ranks_run("fsdp2_gloo", 2, base + ["--fsdp", "2", "--output-dir", str(work / "fsdp2")],
-                    backend="gloo")
-    readings["fsdp2_gloo"] = judge("--fsdp 2, two ranks on cuda:0 over gloo", run)
+    # --fsdp 2 ran in --dp 2's launch, after 6e (one process start a launch)
+    run = dict(run, ranks=[r and r["then"] for r in run["ranks"]], out=fsdp_out)
+    readings["fsdp2_gloo"] = judge("--fsdp 2, two ranks on cuda:0 over gloo (in --dp 2's launch)",
+                                   run)
     if not all(r["sharded"] for r in run["ranks"]):
         raise SystemExit("chip_smoke.py: the --fsdp 2 run was not under FSDP2")
     shutil.rmtree(run["out"], ignore_errors=True)
@@ -6000,6 +6113,214 @@ def phase_train_ranks(card: str, trained: dict, fault: bool = False,
             "one_process": {"counts": counts0, "wall": wall0, "peak_gib": peak0},
             "nccl": {"counts": reference["counts"], "wall": reference["wall"],
                      "peak_gib": reference["peak_gib"]}, "tp": tp}
+
+
+# ---- quality gates ------------------------------------------------------------------
+def _check_gates_shapes() -> None:
+    """Each serving kernel of the gates' path against its plain version by
+    its judge at GATES_* (batch 8 and 4 at 256²); not timed, not counted.
+    Synth-train's batch-8 training shapes are phase 6's accumulation
+    check's, judged there."""
+    from psd_tpu_torch.ops import split3
+    from psd_tpu_torch.testing import split3_judge
+
+    _judge_shapes("gates", GATES_ATTN_SHAPES, GATES_LN_SHAPES, GATES_GN_SHAPES, seed=29)
+    g = torch.Generator(device="cuda").manual_seed(29)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    d1 = _delta(1.0)
+    for (B, S, H, D) in GATES_SPLIT3_SHAPES:
+        q, banks = randn(B, S, H, D), [randn(B, 16, H, D) for _ in range(6)]
+        ok, text, _ = split3_judge(split3.split3_fwd(q, *banks, d1, 0.1, 0.9),
+                                   split3.split3_reference(q, *banks, d1, 0.1, 0.9))
+        log(f"[gates] split3 {(B, S, H, D)}: {text} {'ok' if ok else 'FAIL'} (not timed)")
+        if not ok:
+            raise SystemExit(f"chip_smoke.py: split3 {(B, S, H, D)} disagrees with its plain "
+                             "version")
+    torch.cuda.empty_cache()
+
+
+def _finite_numbers(obj, path="") -> list:
+    """The paths of the numbers in a gate's JSON that are not finite."""
+    if isinstance(obj, dict):
+        return [p for k, v in obj.items() for p in _finite_numbers(v, f"{path}/{k}")]
+    if isinstance(obj, list):
+        return [p for i, v in enumerate(obj) for p in _finite_numbers(v, f"{path}[{i}]")]
+    if isinstance(obj, float) and not math.isfinite(obj):
+        return [path]
+    return []
+
+
+def _gate_launches(rec: dict, batch: int, size: int, decode: bool) -> tuple:
+    """(the host launches of a variant's first calls, counted from 0, and 2
+    × route_launches of its knobs: warm-up and capture of each program)."""
+    from psd_tpu_torch.testing import route_launches
+
+    m, v = rec["model"], rec["variant"]
+    want = route_launches(m.core_cfg, m.vae_cfg, batch, size,
+                          *_full_shallow(v["steps"], v["stride"], v["cache_mode"]), decode=decode)
+    got = {k: rec["launches"].get(k, 0) for k in SERVE_KERNELS}
+    return got, {k: 2 * n for k, n in want.items()}
+
+
+def phase_gates(card: str) -> dict:
+    """The port's quality gates on the card (phase 7), each through its
+    script's main() in this process at configs' width (`Config()`, the
+    SD-v1.4 UNet): (a) the stride gate (GATES_STRIDE: synth-train, then the
+    exact and converged-DPM baselines and three variants at 512²), (b) the
+    distribution gate (GATES_DIST: R + 1 exact sets, the variants' sets,
+    FID and CMMD on the random backbones), (c) the int8 gate at its
+    defaults, then its decode mode at 512². Synth-train runs once: (b) asks
+    for the same run as (a) (Config(), GATES_TRAIN_STEPS steps at batch 8,
+    the same seeds) and takes its weights, and (c) takes them in place of
+    `fast_init`'s host fill of the core (held bit for bit against psd_tpu's
+    on the CPU; its fill of the whole AutoencoderKL runs). Checks: every
+    number in every row finite; every stride variant's latent_rel_error
+    above 0; the distribution gate's int8 set on the exact set's latents
+    bit for bit with its images apart; the int8 gate's images apart; the
+    signal check above the noise floor; synth-train's loss finite at every
+    printed step; the exact program's latents equal to an eager run of the
+    same inputs bit for bit; each variant's host launches, from 0, 2 ×
+    route_launches of its knobs (its programs' warm-up and capture) and
+    each int8 run's its models'; the kernels at the gates' shapes against
+    their plain versions (GATES_*). Prints the three tables, each
+    program's warm-up and capture seconds, the phase's peak memory and each
+    gate's wall time. The counts of the gates' runs (each from 0, the
+    judges apart) are the path "gates"."""
+    from unittest import mock
+
+    import numpy as np
+
+    from psd_tpu_torch.core.mode import eager
+    from psd_tpu_torch.ops import kernels
+    from psd_tpu_torch.testing import route_launches
+
+    _check_gates_shapes()
+    stride, dist, int8 = (_load_script(f"torch_check_{n}") for n in (
+        "stride_quality", "turbo_distribution", "int8_quality"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    walls, traces, train_logs, tables, counts, built = {}, {}, {}, {}, {}, {}
+    total = Counter()
+    trained = {"calls": 0}
+    synth_train = stride.synth_train
+
+    def synth_once(cfg, steps, **kw):
+        """(a)'s synth-train, and its result again for the same request."""
+        request = (cfg, steps, {k: str(v) for k, v in kw.items() if k != "log"})
+        trained["calls"] += 1
+        if "out" not in trained:
+            trained["request"], trained["out"] = request, synth_train(cfg, steps, **kw)
+        elif request != trained["request"]:
+            raise SystemExit(f"chip_smoke.py: the gates asked for two synth-train runs: "
+                             f"{trained['request']} and {request}")
+        return trained["out"]
+
+    def run(name, fn, *args):
+        """A gate's main(), its launches from 0: the scripts' records set
+        the counts to 0 again before each variant and keep what they held
+        (`earlier`), so the run's are theirs plus the last read."""
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        walls[name] = round(time.perf_counter() - t0, 1)
+        counts[name] = dict(kernels.launch_counts)
+        total.update(counts[name])
+        return out
+
+    with mock.patch.object(stride, "synth_train", synth_once), \
+            mock.patch.object(dist, "synth_train", synth_once), \
+            mock.patch.object(int8, "fast_init_core", lambda core_cfg: trained["out"][0]):
+        for name, main, argv in (("stride", stride.main, GATES_STRIDE),
+                                 ("distribution", dist.main, GATES_DIST)):
+            traces[name], train_logs[name] = [], []
+            tables[name] = run(name, main, argv, traces[name], train_logs[name])
+            for rec in traces[name]:
+                total.update(rec["earlier"])
+        for name, argv in zip(("int8", "int8_vae"), GATES_INT8):
+            built[name] = []
+            tables[name] = run(name, int8.main, argv, built[name])
+    synth_calls = trained.pop("calls")
+    trained.clear()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    path_kernels = SERVE_KERNELS + ("attention_bwd",)
+
+    for name in ("stride", "distribution", "int8", "int8_vae"):
+        log(f"[gates] {name} table: {json.dumps(tables[name])}")
+    for name in ("stride", "distribution"):
+        for rec in traces[name]:
+            progs = ", ".join(f"{k} warm-up {w:.3f} s capture {c:.3f} s instantiation {i:.3f} s"
+                              for k, w, c, i in rec["programs"])
+            log(f"[gates] {name} {rec['name']}: {progs}")
+    log(f"[gates] synth-train (the stride gate's; the distribution gate and the int8 gate's "
+        f"core take its weights): {train_logs['stride']}")
+    log(f"[gates] walls {walls} s; peak allocated {peak:.3f} GiB; launches {dict(total)}; on "
+        f"{card}")
+
+    a, b = tables["stride"], tables["distribution"]
+    sets = {rec["name"]: rec["first"] for rec in traces["distribution"]}
+    int8_gap = float(np.abs(sets["int8"]["images"] - sets["exact"]["images"]).max())
+    log(f"[gates] the distribution gate's int8 set against the exact set, batch 0: latents "
+        f"equal {np.array_equal(sets['int8']['latents'], sets['exact']['latents'])}, images max "
+        f"|Δ| {int8_gap:.4e}")
+    checks = {"every number finite": not any(_finite_numbers(t) for t in tables.values()),
+              "every stride variant apart from exact":
+                  all(r["latent_rel_error"] > 0 for r in a["rows"]),
+              "the distribution gate's int8 set: the exact latents bit for bit, the images "
+              "apart": np.array_equal(sets["int8"]["latents"], sets["exact"]["latents"])
+                  and int8_gap > 0,
+              "the int8 gate's images apart": tables["int8"]["max_abs_diff"] > 0
+                  and tables["int8_vae"]["max_abs_diff"] > 0,
+              "signal above the noise floor":
+                  b["signal_check_vs_uniform_noise"]["fid"] > b["noise_floor_fresh_seeds"]["fid"]
+                  and b["signal_check_vs_uniform_noise"]["cmmd"]
+                  > b["noise_floor_fresh_seeds"]["cmmd"],
+              "synth-train once, its losses finite": synth_calls == 2
+                  and not train_logs["distribution"] and len(train_logs["stride"]) >= 2
+                  and all(math.isfinite(loss) for _, loss, _ in train_logs["stride"]),
+              f"every kernel of the path launched {path_kernels}":
+                  all(total.get(k, 0) > 0 for k in path_kernels)}
+    log(f"[gates] signal {b['signal_check_vs_uniform_noise']} against the floor "
+        f"{b['noise_floor_fresh_seeds']}")
+    batch_a, size_a = int(GATES_STRIDE[3]), int(GATES_STRIDE[1])
+    batch_b, size_b = int(GATES_DIST[3]), int(GATES_DIST[1])
+    for name, batch, size, decode in (("stride", batch_a, size_a, False),
+                                      ("distribution", batch_b, size_b, True)):
+        for rec in traces[name]:
+            got, want = _gate_launches(rec, batch, size, decode)
+            checks[f"{name} {rec['name']} launches 2 x route_launches {want}"] = got == want
+            if got != want:
+                log(f"[gates] {name} {rec['name']}: launches {got} against {want}")
+    # the int8 gate: each model's generate program (warm-up + capture); the
+    # decode mode's two eager decoders
+    steps_c, size_c, batch_c = 10, 256, 4
+    want_c = Counter()
+    for m in built["int8"]:
+        want_c.update({k: 2 * n for k, n in route_launches(m.core_cfg, m.vae_cfg, batch_c, size_c,
+                                                           steps_c).items()})
+    want_d = Counter(attention=len(built["int8_vae"]))  # each decoder's mid-block attention
+    for name, want in (("int8", want_c), ("int8_vae", want_d)):
+        got = {k: counts[name].get(k, 0) for k in SERVE_KERNELS}
+        checks[f"{name} launches {dict(want)}"] = got == {k: want[k] for k in SERVE_KERNELS}
+    # the exact program's latents against an eager run of the same inputs
+    exact = traces["stride"][0]
+    with eager():
+        again = exact["rerun"]()
+    checks["the exact program's latents equal to eager, bit for bit"] = torch.equal(
+        exact["output"], again)
+    log(f"[gates] checks {checks}")
+    del traces, exact, again, built, sets
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke.py: gates checks failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return {"counts": {k: total.get(k, 0) for k in KERNELS}, "walls": walls, "peak_gib": peak,
+            "checks": checks}
 
 
 def main() -> int:
@@ -6031,6 +6352,7 @@ def main() -> int:
     loop = timed("product loop", phase_product_loop, card, train_cli)
     ranks = timed("train ranks", phase_train_ranks, card, trained, False, results)
     trained_tp = ranks["tp"]
+    gates = timed("gates", phase_gates, card)
     log(f"[done] seconds per phase {seconds}, {sum(seconds.values()):.1f} s in all")
 
     entries = []
@@ -6044,7 +6366,7 @@ def main() -> int:
                     ("augment", loop["augment"]), ("evaluate", loop["evaluate"]),
                     ("train_dp", ranks), ("serve_dp", served_dp), ("levers", levers),
                     ("serve_tp", served_tp), ("train_tp", trained_tp), ("weights", weights),
-                    ("weights_cli", weights["cli"]))}
+                    ("weights_cli", weights["cli"]), ("gates", gates))}
         # serve, turbo and levers count host launches (the eager warm-up and the
         # capture of their program); what each replay launches is apart
         by_replay = {path: run["replay_launches"].get(name, 0)

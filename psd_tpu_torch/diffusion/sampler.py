@@ -57,6 +57,18 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
+def is_key_step(i: int, stride: int, steps: int) -> bool:
+    """Whether step `i` of `steps` is a key step under feature propagation
+    at `stride` (every step at stride 1)."""
+    return stride <= 1 or i % stride == 0 or i == steps - 1
+
+
+def key_step_count(steps: int, stride: int) -> int:
+    """The key steps among `steps` at `stride`: DeepCache's full UNet
+    evaluations, the rest its shallow ones."""
+    return sum(is_key_step(i, stride, steps) for i in range(steps))
+
+
 def _propagating_eps(eps_fn, cfg: SamplerConfig, encode_fn, decode_fn):
     """step(x, t_b, i) → fp32 eps, running key and non-key steps as the
     sampler config says (psd_tpu/diffusion/sampler.py:108-128)."""
@@ -70,7 +82,7 @@ def _propagating_eps(eps_fn, cfg: SamplerConfig, encode_fn, decode_fn):
     state = {}
 
     def step(x, t_b, i):
-        is_key = i % stride == 0 or i == steps - 1
+        is_key = is_key_step(i, stride, steps)
         if cfg.cache_mode == "deep":
             if is_key:
                 eps, state["cache"] = encode_fn(x, t_b, i)
